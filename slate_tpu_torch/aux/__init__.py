@@ -1,0 +1,1 @@
+"""aux layer of slate_tpu_torch."""

@@ -1,0 +1,1 @@
+"""drivers layer of slate_tpu_torch."""

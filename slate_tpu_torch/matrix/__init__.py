@@ -1,0 +1,1 @@
+"""matrix layer of slate_tpu_torch."""
