@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of slate_tpu_torch on one NVIDIA GPU (the H100 it targets).
 
-    python3 chip_smoke.py                 # all phases (exit 0 = passed)
-    python3 chip_smoke.py --kernels-only  # build + phase 2 only
-    python3 chip_smoke.py --profile       # build + a profile of one warm posv
+    python3 chip_smoke.py            # all phases (exit 0 = passed)
+    python3 chip_smoke.py --profile  # build + a profile of one warm posv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (timed), print
@@ -71,9 +70,19 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def tol(dtype, n: int, ref) -> float:
-    """50 n eps max|ref|, the tolerance of the JAX package's kernel tests."""
-    return 50 * n * torch.finfo(dtype).eps * float(ref.abs().max())
+TOL_C = 10.0
+
+
+def elementwise_err(got, ref, scale, k: int):
+    """(max |got - ref|, max |got - ref| / tol) with an elementwise
+    tol = TOL_C sqrt(k) eps scale: the probabilistic rounding bound of a
+    length-k sum (Higham and Mary, 2019), where ``scale`` is the sum of
+    the magnitudes of the summands of each result (|A||B|^T + |C| for a
+    product update, |T||X| + |B| for a triangular solve).  The ratio is
+    NaN, and so fails, where either result is not finite."""
+    diff = (got - ref).abs()
+    limit = TOL_C * k**0.5 * torch.finfo(got.dtype).eps * scale
+    return float(diff.max()), float((diff / limit).max())
 
 
 def scaled_residual(A, X, B) -> float:
@@ -95,15 +104,15 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     esz = torch.finfo(dt).bits // 8
     out = {}
 
-    def record(name, err, limit, ms, plain_ms, flops, nbytes, lib_ms, replaces):
-        check(err <= limit, f"{name} {dtype}: max_abs_err {err:.3e} > {limit:.3e}")
+    def record(name, err, ratio, ms, plain_ms, flops, nbytes, lib_ms, replaces):
+        check(ratio <= 1, f"{name} {dtype}: max err/tol {ratio:.3e} > 1 (max_abs_err {err:.3e})")
         b_ms, b_by = bound(flops, nbytes)
         out[name] = {
-            "max_abs_err": err, "tol": limit, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "err_over_tol": ratio, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "replaces": replaces,
         }
-        print(f"  {name:11s} {dtype}: err {err:.3e} (tol {limit:.3e})  kernel "
+        print(f"  {name:11s} {dtype}: err {err:.3e} (max err/tol {ratio:.3e})  kernel "
               f"{ms:.3f} ms  plain {plain_ms:.3f} ms  library {lib_ms:.3f} ms  "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
 
@@ -116,8 +125,13 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(torch.triu(got, 1), torch.triu(G, 1)),
           f"chol_base {dtype}: the upper triangle changed")
-    err = float((torch.tril(got) - torch.tril(ref)).abs().max())
-    record("chol_base", err, tol(dt, b, ref), cuda_ms(lambda: pk.chol_base(G)),
+    # L_ij = (G_ij - sum_k L_ik L_jk) / L_jj: the summands' scale is
+    # (|L||L|^T)_ij / L_jj; the lower triangle only
+    Lr = torch.tril(ref)
+    low = torch.ones(b, b, dtype=torch.bool, device=dev).tril()
+    scale = torch.where(low, (Lr.abs() @ Lr.abs().T) / Lr.diagonal().abs(), 1.0)
+    err, ratio = elementwise_err(torch.tril(got), Lr, scale, b)
+    record("chol_base", err, ratio, cuda_ms(lambda: pk.chol_base(G)),
            cuda_ms(lambda: pk.chol_base_plain(G), reps=3),
            b**3 / 3.0, 2.0 * b * b * esz,
            cuda_ms(lambda: torch.linalg.cholesky(G)),
@@ -130,8 +144,8 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(torch.triu(got, 1), torch.triu(C, 1)),
           f"syrk_diag {dtype}: the upper triangle changed")
-    err = float((got - ref).abs().max())
-    record("syrk_diag", err, tol(dt, h, ref), cuda_ms(lambda: pk.syrk_diag(C, A)),
+    err, ratio = elementwise_err(got, ref, A.abs() @ A.abs().T + C.abs(), h)
+    record("syrk_diag", err, ratio, cuda_ms(lambda: pk.syrk_diag(C, A)),
            cuda_ms(lambda: pk.syrk_diag_plain(C, A)),
            float(t) * t * h, (t * h + 2.0 * t * t) * esz,
            cuda_ms(lambda: torch.addmm(C, A, A.T, alpha=-1)),
@@ -141,57 +155,63 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     M, N, K = 4096, 4096, 8192
     C, A, B = rnd(M, N), rnd(M, K), rnd(N, K)
     got, ref = pk.gemm_sub(C, A, B), pk.gemm_sub_plain(C, A, B)
-    err = float((got - ref).abs().max())
+    err, ratio = elementwise_err(got, ref, A.abs() @ B.abs().T + C.abs(), K)
     del got
-    record("gemm_sub", err, tol(dt, K, ref), cuda_ms(lambda: pk.gemm_sub(C, A, B)),
+    record("gemm_sub", err, ratio, cuda_ms(lambda: pk.gemm_sub(C, A, B)),
            cuda_ms(lambda: pk.gemm_sub_plain(C, A, B)),
            2.0 * M * N * K, (M * K + N * K + 2.0 * M * N) * esz,
            cuda_ms(lambda: torch.addmm(C, A, B.T, alpha=-1)),
            "slate_tpu/ops/pallas/panel_kernels.py:403")
     del C, A, B, ref
 
-    # trsm pair at n = 16384, nrhs = 512: diagonally dominant by rows and
-    # columns, so the solves are well conditioned in both directions
+    # trsm pair at n = 16384, nrhs = 512.  The strict triangle is randn /
+    # sqrt(n), so the update from the solved rows moves X by O(1), and the
+    # powers of the strict triangle fall off factorially, so the solves
+    # stay well conditioned (condition number ~3 with diagonal 2)
     n, nrhs = N_MAIN, NRHS_MAIN
-    off = torch.tril(rnd(n, n), -1) / n
+    off = torch.tril(rnd(n, n), -1) / n**0.5
     eye = torch.eye(n, device=dev, dtype=dt)
     Lnu, Lu = off + 2 * eye, off + eye
+    del off, eye
     Bm = rnd(n, nrhs)
     flops, nbytes = float(n) * n * nrhs, (n * n / 2.0 + 2.0 * n * nrhs) * esz
+    # (name, case, kernel, plain, T as stored, op(T) as solved, unread triangle)
     cases = [
         ("trsm_lower", "nonunit", lambda T: pk.trsm_lower(T, Bm),
-         lambda T: pk.trsm_plain(T, Bm, True), Lnu, "upper"),
+         lambda T: pk.trsm_plain(T, Bm, True), Lnu, Lnu, "upper"),
         ("trsm_lower", "unit", lambda T: pk.trsm_lower(T, Bm, unit=True),
-         lambda T: pk.trsm_plain(T, Bm, True, unit=True), Lu, "upper"),
+         lambda T: pk.trsm_plain(T, Bm, True, unit=True), Lu, Lu, "upper"),
         ("trsm_upper", "upper", lambda T: pk.trsm_upper(T, Bm),
-         lambda T: pk.trsm_plain(T, Bm, False), Lnu.T.contiguous(), "lower"),
+         lambda T: pk.trsm_plain(T, Bm, False), Lnu.T.contiguous(), Lnu.T, "lower"),
         ("trsm_upper", "transposed", lambda T: pk.trsm_upper(T, Bm, transposed=True),
-         lambda T: pk.trsm_plain(T, Bm, False, transposed=True), Lnu, "upper"),
+         lambda T: pk.trsm_plain(T, Bm, False, transposed=True), Lnu, Lnu.T, "upper"),
     ]
-    del off
-    for name, case, kern, plain, T, other in cases:
+    for name, case, kern, plain, T, Top, other in cases:
         ref = plain(T)
         got = kern(T)
-        err = float((got - ref).abs().max())
-        limit = tol(dt, n, ref)
-        check(err <= limit, f"{name}/{case} {dtype}: err {err:.3e} > {limit:.3e}")
+        err, ratio = elementwise_err(got, ref, Top.abs() @ ref.abs() + Bm.abs(), n)
+        check(ratio <= 1, f"{name}/{case} {dtype}: max err/tol {ratio:.3e} > 1")
+        # the update must carry weight: X is far from B / diag(T)
+        moved = float((ref - Bm / Top.diagonal()[:, None]).abs().max())
+        check(moved > 0.1, f"{name}/{case} {dtype}: the update moves X by {moved:.3e} only")
         # packed storage: NaN in the other triangle must not enter
         mask = torch.ones(n, n, dtype=torch.bool, device=dev)
         mask = torch.triu(mask, 1) if other == "upper" else torch.tril(mask, -1)
         if case == "unit":
             mask |= torch.eye(n, dtype=torch.bool, device=dev)  # unit: diagonal unread
         packed = torch.where(mask, torch.full_like(T, float("nan")), T)
+        del mask
         gp = kern(packed)
         check(bool(torch.isfinite(gp).all()) and torch.equal(gp, got),
               f"{name}/{case} {dtype}: the other triangle leaked into the solve")
         del packed, gp
-        print(f"  {name}/{case} {dtype}: err {err:.3e} (tol {limit:.3e}), packed storage ok",
-              flush=True)
+        print(f"  {name}/{case} {dtype}: err {err:.3e} (max err/tol {ratio:.3e}), "
+              f"update moves X by {moved:.3e}, packed storage ok", flush=True)
         if case in ("nonunit", "transposed"):
             lib = (lambda T=T: torch.linalg.solve_triangular(T, Bm, upper=False)) \
                 if name == "trsm_lower" else \
                 (lambda T=T: torch.linalg.solve_triangular(T.T, Bm, upper=True))
-            record(name, err, limit, cuda_ms(lambda: kern(T)),
+            record(name, err, ratio, cuda_ms(lambda: kern(T)),
                    cuda_ms(lambda: plain(T)), flops, nbytes, cuda_ms(lib),
                    "slate_tpu/ops/pallas/panel_kernels.py:"
                    + ("507" if name == "trsm_lower" else "516"))
@@ -289,9 +309,10 @@ def non_spd(stt, gen, dev) -> None:
 
 def profile(stt, gen, dev) -> None:
     """Wall time of one warm ``posv`` (n = 16384, nrhs = 512, float64,
-    default options) and torch.profiler's device time by kernel over a
-    second one, then profiler's operator table (host ops with the device
-    time of the kernels they launch)."""
+    default options); then torch.profiler's device time by kernel over a
+    third call and the host wall time of that same call, and profiler's
+    operator table (host ops with the device time of the kernels they
+    launch)."""
     n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -309,8 +330,11 @@ def profile(stt, gen, dev) -> None:
     print(f"  warm potrf {t_potrf:.4f} s, posv {t_posv:.4f} s (host clock, float64 n={n})")
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         stt.posv(Am, Bm)
         torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
     ka = prof.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
     # device activity only (kernels, copies, sets): host ops would count
@@ -318,8 +342,9 @@ def profile(stt, gen, dev) -> None:
     rows = sorted((e for e in ka if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
-    print(f"  profiled posv: device busy {busy:.4f} s of {t_posv:.4f} s wall "
-          f"(idle share {max(0.0, 1 - busy / t_posv):.3f}, from the warm wall time)")
+    print(f"  profiled posv: device busy {busy:.4f} s of {t_prof:.4f} s wall of the same "
+          f"call (idle share {max(0.0, 1 - busy / t_prof):.3f}; the wall time includes "
+          f"the profiler's own host cost)")
     for e in rows[:15]:
         print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} x  {e.key[:90]}")
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
@@ -337,7 +362,6 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: slate_tpu_torch is not importable here: {e}", file=sys.stderr)
         return 2
-    kernels_only = "--kernels-only" in sys.argv[1:]
     profile_only = "--profile" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -372,9 +396,6 @@ def main() -> int:
         return 0
     print("phase 2: kernels against their plain versions", flush=True)
     kres = {d: kernel_phase(pk, d, gen, dev) for d in DTYPES}
-    if kernels_only:
-        print(smi)
-        return 0
 
     metrics.on()
     print("phase 3: posv + potrs_from_global, the main path", flush=True)

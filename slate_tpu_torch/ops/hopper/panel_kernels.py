@@ -128,8 +128,8 @@ def _launch(name: str, fn, *args) -> None:
 
 def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (plain version); False when
-    every one is a CUDA float32/float64 tensor with inner stride 1 on
-    one device (kernel).  Raises otherwise."""
+    every one is a CUDA float32/float64 tensor on one device with inner
+    stride 1 and rows that do not overlap (kernel).  Raises otherwise."""
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return True
@@ -145,11 +145,14 @@ def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
             raise ValueError(f"{name}: expected 2-D tensors")
         if t.shape[1] > 1 and t.stride(1) != 1:
             raise ValueError(f"{name}: inner stride {t.stride(1)} != 1")
+        if t.shape[0] > 1 and t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name}: row stride {t.stride(0)} < row length {t.shape[1]}")
     return False
 
 
 def _ld(t: torch.Tensor) -> int:
-    return max(t.stride(0), t.shape[1], 1)
+    """Leading dimension: the row stride (any value >= 1 for one row)."""
+    return t.stride(0) if t.shape[0] > 1 else max(t.shape[1], 1)
 
 
 def _stream(t: torch.Tensor) -> int:

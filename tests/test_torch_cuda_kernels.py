@@ -126,6 +126,8 @@ def test_wrappers_raise_on_unsupported(dev):
     with pytest.raises(ValueError):
         pk.trsm_lower(x, x.T)  # inner stride != 1
     with pytest.raises(ValueError):
+        pk.gemm_sub(x, x[:1].expand(8, 8), x)  # row stride 0: rows overlap
+    with pytest.raises(ValueError):
         pk.gemm_sub(x, x, x.cpu())  # mixed devices
     assert all(v == 0 for v in pk.LAUNCHES.values())
 
