@@ -1,11 +1,13 @@
 """slate_tpu_torch — the PyTorch / CUDA port of slate_tpu for NVIDIA Hopper.
 
 The JAX package ``slate_tpu`` stays beside it as the reference; this
-package imports neither JAX nor anything of it.  This slice carries the
-single-device Cholesky solve path: the tile layout and matrix classes,
-the recursive-schedule factorization (``potrf``/``posv``) and the
-solve phase (``potrs``, ``potrs_from_global``), with the JAX package's
-Pallas kernels rewritten by hand in CUDA C++ for Hopper
+package imports neither JAX nor anything of it.  It carries the
+single-device Cholesky and LU solve paths: the tile layout and matrix
+classes, the recursive-schedule factorizations (``potrf``/``posv``,
+``getrf``/``gesv`` with partial pivoting, no pivoting or the random
+butterfly transform, ``getri``) and the solve phases (``potrs``,
+``getrs``, ``potrs_from_global``, ``getrs_from_global``), with the JAX
+package's Pallas kernels rewritten by hand in CUDA C++ for Hopper
 (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for another
@@ -55,7 +57,20 @@ from .matrix.matrix import (
 )
 from .drivers.blas3 import trsm
 from .drivers.chol import posv, potrf, potrs, potrs_from_global
-from .convert import matrix_from_reference
+from .drivers.lu import (
+    gerbt,
+    gesv,
+    gesv_nopiv,
+    gesv_rbt,
+    getrf,
+    getrf_nopiv,
+    getri,
+    getrs,
+    getrs_from_global,
+    getrs_nopiv,
+)
+from .types import Pivots
+from .convert import getrf_from_reference, matrix_from_reference, pivots_from_reference
 
 __version__ = "0.1.0"
 

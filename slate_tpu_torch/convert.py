@@ -1,4 +1,4 @@
-"""Carry a matrix across from the JAX package.
+"""Carry matrices and factors across from the JAX package.
 
 ``matrix_from_reference`` takes the JAX package's storage-order tile
 array (as a numpy array) and the plain fields of its layout and view,
@@ -11,6 +11,12 @@ nothing of the JAX package itself:
         nb=A.layout.nb, p=A.layout.p, q=A.layout.q,
         kind=type(A).__name__, uplo=A.uplo.name, op=A.op.name,
         diag=A.diag.name, device="cpu")
+
+``pivots_from_reference`` takes its pivots' forward permutation, and
+``getrf_from_reference`` a whole ``getrf`` result (the LU's tile array
+and the permutation), so this package's ``getrs`` and
+``getrs_from_global`` can solve with a factorization the JAX package
+made.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .matrix.base import BaseMatrix
 from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
 from .parallel.grid import ProcessGrid
 from .parallel.layout import TileLayout
+from .types import Pivots
 
 _KINDS = {
     "Matrix": Matrix,
@@ -66,3 +73,21 @@ def matrix_from_reference(
         return Matrix(T, layout, grid=grid, op=_enum(Op, op))
     return cls(T, layout, grid=grid, op=_enum(Op, op), uplo=_enum(Uplo, uplo),
                diag=_enum(Diag, diag))
+
+
+def pivots_from_reference(perm: np.ndarray,
+                          device: Union[str, torch.device] = "cuda:0") -> Pivots:
+    """This package's Pivots for the JAX package's ``Pivots.perm`` (a
+    forward row permutation over the padded rows), as int32 on
+    ``device``."""
+    return Pivots(torch.tensor(np.asarray(perm), dtype=torch.int32, device=device))
+
+
+def getrf_from_reference(lu_data: np.ndarray, perm: np.ndarray, *, m: int, n: int,
+                         mb: int, nb: int, p: int = 1, q: int = 1,
+                         device: Union[str, torch.device] = "cuda:0"):
+    """(LU, pivots) of this package for a JAX package ``getrf`` result:
+    ``lu_data`` the LU's storage-order tile array, ``perm`` its pivots'
+    permutation."""
+    LU = matrix_from_reference(lu_data, m=m, n=n, mb=mb, nb=nb, p=p, q=q, device=device)
+    return LU, pivots_from_reference(perm, device)

@@ -142,6 +142,19 @@ def split_point(n: int) -> int:
     return h
 
 
+def _lat_height(M: int) -> int:
+    """Round M up to the nearest 2^k or 3*2^(k-1) (two values per
+    octave): the canonical heights of the tall LU recursion's operands,
+    at most 33% zero rows; halving-lattice sizes map to themselves."""
+    if M <= 0:
+        return 0
+    k = M.bit_length() - 1
+    if M == 1 << k:
+        return M
+    c15 = 3 << (k - 1)  # 1.5 * 2^k
+    return c15 if M <= c15 else 1 << (k + 1)
+
+
 def _trsm_right_lh(L: torch.Tensor, A: torch.Tensor, nb: int) -> torch.Tensor:
     """X L^H = A with L lower triangular, by recursive 2x2 splitting:
     library solves only at <= nb diagonal blocks, the bulk in products.

@@ -1,11 +1,12 @@
-"""Hand-written Hopper kernels of the Cholesky solve path, their plain
-PyTorch versions, and their launch counters.
+"""Hand-written Hopper kernels of the Cholesky and LU solve paths, their
+plain PyTorch versions, and their launch counters.
 
-The CUDA C++ sources are in ``slate_tpu_torch/csrc/panel_kernels.cu``.
-They are compiled with ``nvcc`` at first use into
-``build/slate_tpu_torch/`` beside the package (a shared library with a
-plain C interface, loaded with ctypes) and rebuilt when the source's
-hash changes.
+The CUDA C++ sources are in ``slate_tpu_torch/csrc/``: ``panel_kernels.cu``
+(chol_base, syrk_diag, gemm_sub, the trsm pair) and ``lu_kernels.cu``
+(panel_lu, butterfly_level).  Each is compiled with its own ``nvcc``, all
+at once, at first use into ``build/slate_tpu_torch/`` beside the package
+(a shared library with a plain C interface each, loaded with ctypes) and
+rebuilt when the source's hash changes.
 
 Every wrapper dispatches on the device of its tensors: on the CPU it
 runs the plain version; on a CUDA device it launches the kernel for
@@ -19,11 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,6 +37,8 @@ LAUNCHES: Dict[str, int] = {
     "gemm_sub": 0,
     "trsm_lower": 0,
     "trsm_upper": 0,
+    "panel_lu": 0,
+    "butterfly_level": 0,
 }
 
 
@@ -48,13 +52,13 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PKG_DIR / "csrc" / "panel_kernels.cu"
+SOURCES = (_PKG_DIR / "csrc" / "panel_kernels.cu", _PKG_DIR / "csrc" / "lu_kernels.cu")
 BUILD_DIR = _PKG_DIR.parent / "build" / "slate_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-_lib: Optional[ctypes.CDLL] = None
+_libs: Optional[List[ctypes.CDLL]] = None
 
 
 def _nvcc() -> str:
@@ -67,51 +71,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels cannot be built")
 
 
-def build(verbose: bool = False) -> tuple:
-    """Compile the kernels unless a library for this source exists.
-    Returns (path of the .so, compiler log or "" when it was cached).
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libpanel_kernels_{tag}.so"
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, res.stdout + res.stderr
+def _library(src: Path) -> Path:
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
-    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    sigs = {
-        "chol_base": [P, I, L, P],
-        "gemm_sub": [P, L, P, L, P, L, P, L, P, I, I, I, I, I, P],
-        "syrk_diag": [P, L, P, L, P, I, I, I, P],
-        "trsm": [P, L, P, L, P, L, I, I, I, I, I, P],
-    }
-    for name, args in sigs.items():
+def build(verbose: bool = False) -> Tuple[List[Path], str]:
+    """Compile every source that has no library for its hash yet, one
+    ``nvcc`` each, all started together.  Returns (the libraries, the
+    compilers' output; "" when all were cached).  ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory, spills)."""
+    sos = [_library(src) for src in SOURCES]
+    jobs = []
+    try:
+        for src, so in zip(SOURCES, sos):
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", str(tmp), str(src)]
+            jobs.append((so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = []
+        for so, tmp, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {so.name} ({proc.returncode}):\n{err}")
+            os.replace(tmp, so)
+            logs.append(f"{so.name}:\n{out}{err}")
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return sos, "\n".join(logs)
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "chol_base": [_P, _I, _L, _P],
+    "gemm_sub": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
+    "syrk_diag": [_P, _L, _P, _L, _P, _I, _I, _I, _P],
+    "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P],
+    "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
+}
+
+
+def _load() -> List[ctypes.CDLL]:
+    global _libs
+    if _libs is not None:
+        return _libs
+    sos, _ = build()
+    libs = [ctypes.CDLL(str(so)) for so in sos]
+    for name, args in _SIGNATURES.items():
         for suf in ("f32", "f64"):
-            fn = getattr(lib, f"slate_{name}_{suf}")
+            sym = f"slate_{name}_{suf}"
+            fn = next(getattr(lib, sym) for lib in libs if hasattr(lib, sym))
             fn.argtypes = args
             fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _libs = libs
+    return libs
 
 
 def _entry(name: str, dtype: torch.dtype):
-    suf = "f64" if dtype == torch.float64 else "f32"
-    return getattr(_load(), f"slate_{name}_{suf}")
+    sym = f"slate_{name}_{'f64' if dtype == torch.float64 else 'f32'}"
+    return next(getattr(lib, sym) for lib in _load() if hasattr(lib, sym))
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -368,3 +394,135 @@ def trsm_upper(U: torch.Tensor, B: torch.Tensor, transposed: bool = False) -> to
 
 trsm_lower.__doc__ += _TRSM_NOTE.format(fn="trsm_lower_pallas")
 trsm_upper.__doc__ += _TRSM_NOTE.format(fn="trsm_upper_pallas")
+
+
+# ---------------------------------------------------------------------------
+# panel_lu
+# ---------------------------------------------------------------------------
+
+
+def panel_lu_plain(panel: torch.Tensor, pivot: bool = True,
+                   act: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version, op for op as the JAX package's ``lu_kernels.panel_lu``:
+    unblocked LU of an (M, nb) panel, partial pivoting by default.
+
+    Returns (lu, perm): lu holds unit-lower L below the diagonal and U
+    on/above, lu's rows are panel[perm] (perm int32, forward).  The pivot
+    of column j is the first row of largest magnitude among rows
+    j <= r < act (NaN counts as largest); a zero pivot gives a zero L
+    column, not NaN.  ``pivot=False`` eliminates without exchanges.
+    No host synchronisation: the pivot index stays on the device."""
+    a = panel.clone()
+    M, nb = a.shape
+    rows = torch.arange(M, device=a.device)
+    cols = torch.arange(nb, device=a.device)
+    perm = torch.arange(M, dtype=torch.int32, device=a.device)
+    for j in range(min(M, nb)):
+        if pivot:
+            elig = rows >= j if act is None else (rows >= j) & (rows < act)
+            mag = torch.where(elig, a[:, j].abs(), -math.inf)
+            sw = torch.cat((rows[j:j + 1], torch.argmax(mag).view(1)))
+            a[sw] = a[sw.flip(0)]  # rows j <-> piv
+            perm[sw] = perm[sw.flip(0)]
+        pv = a[j, j]
+        safe = torch.where(pv == 0, torch.ones_like(pv), pv)
+        l = torch.where((rows > j) & (pv != 0), a[:, j] / safe, torch.zeros_like(pv))
+        a[:, j] = torch.where(rows > j, l, a[:, j])
+        urow = torch.where(cols > j, a[j], torch.zeros_like(pv))
+        a = a - torch.outer(l, urow)
+    return a, perm
+
+
+def panel_lu(panel: torch.Tensor, pivot: bool = True,
+             act: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial-pivot unblocked LU of an (M, nb) panel -> (lu, perm int32),
+    the contract of ``panel_lu_plain``.  Rows at or past ``act`` are
+    never pivots (the recursion's canonical zero pad); ``act`` must cover
+    the eliminated columns.
+
+    Replaces ``slate_tpu/ops/pallas/panel_kernels.py:panel_lu_pallas``.
+    Bound on the H100: neither bytes (one read and one write of the
+    panel) nor FLOPs (M nb^2) — min(M, nb) dependent column steps, each
+    needing the whole column, so grid-wide synchronisation and the
+    L2 traffic of the trailing update (M nb^2 reads and writes) set its
+    time.  Design: one cooperative launch over the card, a slab of rows
+    a block, one grid barrier a column; rows stay in place and their
+    positions in the swap order are tracked, so the column step needs no
+    second barrier for the row exchange.  Explicitly rounded
+    multiplies, subtracts and IEEE divisions (no FMA contraction) make
+    lu and perm bit-identical to the plain version."""
+    if panel.dim() != 2:
+        raise ValueError(f"panel_lu: expected a 2-D panel, got {tuple(panel.shape)}")
+    M, nb = panel.shape
+    if act is not None and act >= M:
+        act = None
+    if act is not None and act < min(M, nb):
+        raise ValueError(f"panel_lu: act = {act} leaves columns without an eligible pivot")
+    if _on_cpu("panel_lu", panel):
+        return panel_lu_plain(panel, pivot, act)
+    dev = panel.device
+    if M == 0 or nb == 0:
+        return panel.clone(), torch.arange(M, dtype=torch.int32, device=dev)
+    out = torch.empty((M, nb), dtype=panel.dtype, device=dev)
+    work = torch.empty((M, nb), dtype=panel.dtype, device=dev)
+    perm = torch.empty(M, dtype=torch.int32, device=dev)
+    max_grid = 2 * _sms(dev)
+    cmag = torch.empty(2 * max_grid, dtype=panel.dtype, device=dev)
+    cidx = torch.empty(4 * max_grid, dtype=torch.int32, device=dev)
+    _launch("panel_lu", _entry("panel_lu", panel.dtype),
+            panel.data_ptr(), _ld(panel), work.data_ptr(), out.data_ptr(), perm.data_ptr(),
+            cmag.data_ptr(), cidx.data_ptr(), M, nb, M if act is None else act,
+            int(pivot), max_grid, _stream(panel))
+    return out, perm
+
+
+# ---------------------------------------------------------------------------
+# butterfly_level
+# ---------------------------------------------------------------------------
+
+
+def butterfly_level_plain(X: torch.Tensor, D: torch.Tensor, h: int,
+                          transpose: bool) -> torch.Tensor:
+    """Plain version: one butterfly level over the blocks of 2h rows of
+    X (n2, w) at once, D (n2,) the level's diagonals; for each block,
+    rows x1 (first h) and x2 (last h) with d1, d2 the matching parts of
+    D, and s = sqrt(1/2):
+    transpose: [s (d1 x1 + d2 x2); s (d1 x1 - d2 x2)], else
+    [s d1 (x1 + x2); s d2 (x1 - x2)] (the JAX kernel's operation order)."""
+    n2, w = X.shape
+    blocks = n2 // (2 * h)
+    Xr = X.reshape(blocks, 2 * h, w)
+    Dr = D[: blocks * 2 * h].reshape(blocks, 2 * h, 1)
+    x1, x2, d1, d2 = Xr[:, :h], Xr[:, h:], Dr[:, :h], Dr[:, h:]
+    s = math.sqrt(0.5)
+    if transpose:
+        top, bot = s * (d1 * x1 + d2 * x2), s * (d1 * x1 - d2 * x2)
+    else:
+        top, bot = s * (d1 * (x1 + x2)), s * (d2 * (x1 - x2))
+    return torch.cat([top, bot], dim=1).reshape(n2, w)
+
+
+def butterfly_level(X: torch.Tensor, D: torch.Tensor, h: int, transpose: bool) -> torch.Tensor:
+    """One level of the recursive butterfly transform, the contract of
+    ``butterfly_level_plain``.
+
+    Replaces ``slate_tpu/ops/pallas/kernels.py:butterfly_level_pallas``,
+    which the JAX package vmaps over the blocks of a level; here one
+    launch covers every block of the level.  Bound on the H100: bytes
+    (each element of X read once and written once, a few FLOPs each).
+    Design: a thread per (row pair, column), neighbouring threads on
+    neighbouring columns, the JAX kernel's operation order with
+    explicitly rounded operations (bit-identical to the plain version)."""
+    if X.dim() != 2 or D.dim() != 1 or D.shape[0] != X.shape[0] or h < 1 \
+            or X.shape[0] % (2 * h) != 0:
+        raise ValueError(f"butterfly_level: X {tuple(X.shape)}, D {tuple(D.shape)}, h = {h}")
+    D2 = D.reshape(1, -1)
+    if _on_cpu("butterfly_level", X, D2):
+        return butterfly_level_plain(X, D, h, transpose)
+    n2, w = X.shape
+    Y = torch.empty((n2, w), dtype=X.dtype, device=X.device)
+    if w:
+        _launch("butterfly_level", _entry("butterfly_level", X.dtype),
+                X.data_ptr(), _ld(X), D2.data_ptr(), Y.data_ptr(), _ld(Y), n2, h, w,
+                int(transpose), _stream(X))
+    return Y

@@ -1,6 +1,7 @@
 """The Hopper kernels of slate_tpu_torch against their plain PyTorch
 versions on the card, at ragged shapes and strided views that the main
-path of chip_smoke.py does not reach.
+path of chip_smoke.py does not reach, and the posv / gesv drivers on the
+card at a small size.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is
 present.  This file imports neither JAX nor the JAX package, so it runs
@@ -8,7 +9,9 @@ on a machine without them; there, skip the JAX conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance: ``50 n eps max|ref|``, as in tests/test_pallas_panels.py."""
+Tolerance: ``50 n eps max|ref|``, as in tests/test_pallas_panels.py;
+panel_lu and butterfly_level are bit-identical to their plain versions
+on the same device."""
 
 import numpy as np
 import pytest
@@ -169,3 +172,120 @@ def test_gemm_sub_large_tiles_ragged(dev, dtype):
     got = pk.gemm_sub(c[3:, 5:], a[:, 7:], b[:, 1:]).cpu().numpy()
     ref = pk.gemm_sub(c_cpu[3:, 5:], a_cpu[:, 7:], b_cpu[:, 1:]).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(dtype, K, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb,act,pivot", [
+    (1000, 77, None, True), (1000, 77, 900, True), (300, 64, None, False), (40, 90, None, True),
+])
+def test_panel_lu_matches_plain(dev, dtype, m, nb, act, pivot):
+    """The kernel is bit-identical to its plain version on the card (no
+    FMA contraction, IEEE division); the panel is a strided view."""
+    rng = np.random.default_rng(m + nb)
+    big = rng.standard_normal((m, nb + 9))
+    if not pivot:
+        big[:, 5:5 + nb] += m * np.eye(m, nb)
+    if act is not None:
+        big[act:] = 0.0  # the recursion's canonical pad: exact zero rows
+    _, big_dev = _both(big.astype(dtype), dev)
+    view = big_dev[:, 5:5 + nb]
+    lu, perm = pk.panel_lu(view, pivot=pivot, act=act)
+    assert pk.LAUNCHES["panel_lu"] == 1 and perm.dtype == torch.int32
+    ref_lu, ref_perm = pk.panel_lu_plain(view, pivot, act)
+    assert torch.equal(perm, ref_perm)
+    assert torch.equal(lu, ref_lu)
+    cpu_lu, cpu_perm = pk.panel_lu_plain(view.cpu(), pivot, act)
+    np.testing.assert_array_equal(perm.cpu().numpy(), cpu_perm.numpy())
+    np.testing.assert_allclose(lu.cpu().numpy(), cpu_lu.numpy(), rtol=0,
+                               atol=_tol(dtype, nb, cpu_lu.numpy()))
+    if act is not None:
+        np.testing.assert_array_equal(perm[act:].cpu().numpy(), np.arange(act, m))
+
+
+@pytest.mark.cuda
+def test_panel_lu_ties_and_zero_column(dev):
+    rng = np.random.default_rng(5)
+    P = rng.standard_normal((500, 32))
+    P[:, 0] = np.where(P[:, 0] > 0, 1.0, -1.0)  # ties: the first row wins
+    P[:, 7] = 0.0  # a zero pivot column: zero multipliers, no NaN
+    _, Pd = _both(P, dev)
+    lu, perm = pk.panel_lu(Pd)
+    ref_lu, ref_perm = pk.panel_lu_plain(Pd)
+    assert int(perm[0]) == 0 and torch.equal(perm, ref_perm) and torch.equal(lu, ref_lu)
+    assert bool(torch.isfinite(lu).all()) and not bool(lu[8:, 7].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("n2,w,h", [(256, 7, 128), (256, 7, 32), (64, 1, 2)])
+def test_butterfly_level_matches_plain(dev, dtype, transpose, n2, w, h):
+    rng = np.random.default_rng(n2 + w + h)
+    _, big = _both(rng.standard_normal((n2, w + 3)).astype(dtype), dev)
+    _, D = _both(np.exp(rng.uniform(-0.1, 0.1, n2)).astype(dtype), dev)
+    X = big[:, 3:]  # a strided view
+    got = pk.butterfly_level(X, D, h, transpose)
+    assert pk.LAUNCHES["butterfly_level"] == 1
+    assert torch.equal(got, pk.butterfly_level_plain(X, D, h, transpose))
+
+
+@pytest.mark.cuda
+def test_lu_wrappers_raise_on_unsupported(dev):
+    z = torch.zeros(8, 8, dtype=torch.complex128, device=dev)
+    with pytest.raises(TypeError):
+        pk.panel_lu(z)
+    x = torch.zeros(8, 8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        pk.butterfly_level(x.T, x[0], 4, True)  # inner stride != 1
+    with pytest.raises(ValueError):
+        pk.panel_lu(x.T)
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_gesv_on_the_card_takes_the_kernels(dev):
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    n, nrhs = 2100, 3  # Schedule.Auto takes the kernels at n >= 2048; 2100 pads to 2304
+    rng = np.random.default_rng(4)
+    a, b = rng.standard_normal((n, n)), rng.standard_normal((n, nrhs))
+    grid = stt.ProcessGrid.single()
+    A, B = stt.Matrix.from_global(a, 256, grid=grid), stt.Matrix.from_global(b, 256, grid=grid)
+    X, LU, piv, info = stt.gesv(A, B)
+    assert int(info) == 0
+    assert pk.LAUNCHES["panel_lu"] == lk.getrf_kernel_launches(2304)
+    x = X.to_global().cpu().numpy()
+    res = np.abs(a @ x - b).max() / (np.abs(a).max() * np.abs(x).max() * n)
+    assert res <= 3 * np.finfo(np.float64).eps
+    pk.reset_launches()
+    Y = stt.getrs_from_global(LU.to_global(), piv.apply(torch.from_numpy(b).to(dev)))
+    assert pk.LAUNCHES["trsm_lower"] == 1 and pk.LAUNCHES["trsm_upper"] == 1
+    np.testing.assert_allclose(Y.cpu().numpy(), x, rtol=0, atol=_tol(np.float64, n, x) * 10)
+    pk.reset_launches()
+    Xr, _, _, info = stt.gesv(A, B, {stt.Option.MethodLU: stt.MethodLU.RBT})
+    assert int(info) == 0 and pk.LAUNCHES["butterfly_level"] == 16
+    xr = Xr.to_global().cpu().numpy()
+    res = np.abs(a @ xr - b).max() / (np.abs(a).max() * np.abs(xr).max() * n)
+    assert res <= 1000 * np.finfo(np.float64).eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,lookahead,pivot", [(1200, 700, 2, True), (640, 640, 1, False)])
+def test_getrf_recursive_families_agree_on_the_card(dev, m, n, lookahead, pivot):
+    """Tall, with a peeled panel, and without pivoting: the kernel family
+    and the plain family run the same arithmetic, so LU and perm agree
+    bit for bit on the card."""
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    rng = np.random.default_rng(m + n)
+    a = rng.standard_normal((m, n)) + (0 if pivot else m * np.eye(m, n))
+    _, A = _both(a, dev)
+    lu_k, p_k = lk.getrf_recursive(A, 128, lookahead, "pallas", pivot=pivot)
+    assert pk.LAUNCHES["panel_lu"] == lk.getrf_kernel_launches(n, 128, lookahead)
+    lu_r, p_r = lk.getrf_recursive(A, 128, lookahead, "recursive", pivot=pivot)
+    assert torch.equal(p_k, p_r) and torch.equal(lu_k, lu_r)
+    lu = lu_k.cpu().numpy()
+    L, U = np.tril(lu, -1)[:, :n] + np.eye(m, n), np.triu(lu[:n])
+    np.testing.assert_allclose(L @ U, a[p_k.cpu().numpy()], rtol=0, atol=_tol(np.float64, n, a))

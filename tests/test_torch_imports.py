@@ -24,6 +24,11 @@ import sys
 import slate_tpu_torch
 import slate_tpu_torch.ops.hopper.panel_kernels
 import slate_tpu_torch.convert
+import slate_tpu_torch.types
+import slate_tpu_torch.ops.lu_kernels
+import slate_tpu_torch.ops.lu_fast
+import slate_tpu_torch.matgen.philox
+import slate_tpu_torch.drivers.lu
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -50,6 +55,9 @@ def _imports(path: Path):
 def test_no_source_file_imports_jax_or_slate_tpu():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PKG)) for f in files if f.is_relative_to(PKG)}
+    assert {"types.py", "ops/lu_kernels.py", "ops/lu_fast.py", "matgen/philox.py",
+            "drivers/lu.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
