@@ -2,7 +2,7 @@
 """Smoke test of slate_tpu_torch on one NVIDIA GPU (the H100 it targets).
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
-    python3 chip_smoke.py --profile  # build + profiles of one warm posv and gesv
+    python3 chip_smoke.py --profile  # build + profiles of one warm posv, gesv and gels
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -24,7 +24,26 @@ Phases, each for float64 and float32 unless stated:
      butterfly_level launches, residual within the JAX package's bound;
   6. small cases: ``posv`` and ``gesv`` at n = 1000 with Schedule.Pallas
      (pad and splice), float64; a non-SPD matrix and a singular one give
-     info > 0 and no exception.
+     info > 0 and no exception;
+  7. the QR main path: ``gels`` at (m, n) = (32768, 16384), nrhs = 512,
+     tiles of 512, default options (Schedule.Auto must take the larft
+     kernel's family: 64 launches), normal-equations residual, geqrf rate
+     against ``torch.geqrf`` and ``torch.linalg.lstsq``; then
+     ``gels_solve_from_global`` on the serve tier's pack of the factor
+     against ``torch.ormqr`` + a library solve;
+  8. small QR cases, float64: ``geqrf`` + ``ungqr`` at n = 4096 (factor
+     and orthogonality residuals), ``gels`` with MethodGels.CholQR at
+     (32768, 16384) through the Cholesky kernels, and an underdetermined
+     ``gels`` at (2000, 6000) with Schedule.Pallas (the LQ dual);
+  9. norms of a 16384^2 matrix in tiles of 512: One, Inf, Max (bitwise
+     equal to the library's), Fro and colNorms, one tile_norms launch
+     each (two for Fro); Hermitian and triangular norms on the JAX
+     package's plain route (no launch).
+
+Phase 2 also holds larft (T^-1 of a factored (32768, 256) panel: the
+diagonal bitwise, the lower triangle exactly zero), tile_norms, and the
+unrouted tile_geadd and tile_transpose (bitwise) against their plain
+versions on the (1024, 512, 512) tile stack of a 16384^2 matrix.
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -568,6 +587,360 @@ def small_lu(stt, pk, lk, gen, dev) -> None:
         check(pk.LAUNCHES["panel_lu"] == lk.getrf_kernel_launches(n), "singular: launches")
 
 
+# ---------------------------------------------------------------------------
+# the QR and norm slices: kernels, main path, small cases, norms
+# ---------------------------------------------------------------------------
+
+M_QR, N_QR = 32768, 16384
+NB_SWITCH = 256
+
+
+def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
+    """larft on two factored (32768, 256) panels; tile_norms, tile_geadd
+    and tile_transpose on the (1024, 512, 512) tile stack of a 16384^2
+    matrix."""
+    from slate_tpu_torch.ops.householder import materialize_v
+
+    dt = getattr(torch, dtype)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
+    esz = torch.finfo(dt).bits // 8
+    out = {}
+    record = _recorder(out, dtype)
+
+    # larft: V and tau of a real factored panel (the leftmost leaf of the
+    # main path's recursion), then the same V with one column exactly zero
+    # below its diagonal (tau = 0) and a short taus vector (6 absent)
+    M, w = M_QR, NB_SWITCH
+    fac, taus = torch.geqrf(rnd(M, w))
+    V = materialize_v(fac.contiguous())
+    del fac
+    V0, t0 = V.clone(), taus.clone()
+    V0[101:, 100] = 0
+    t0[100] = 0
+    t0 = t0[: w - 6]
+    absent = torch.cat([(t0 == 0).nonzero().flatten(),
+                        torch.arange(w - 6, w, device=dev)])
+    for case, Vc, tc in (("panel", V, taus), ("zero column, short taus", V0, t0)):
+        got, ref = pk.larft_tinv(Vc, tc), pk.larft_tinv_plain(Vc, tc)
+        torch.cuda.synchronize()
+        check(torch.equal(got.diagonal(), ref.diagonal()),
+              f"larft {dtype} {case}: the diagonal differs from the plain version's")
+        check(not bool(torch.tril(got, -1).any()),
+              f"larft {dtype} {case}: the lower triangle is not zero")
+        scale = Vc.abs().T @ Vc.abs()
+        scale = torch.where(scale == 0, torch.finfo(dt).tiny, scale)
+        err, ratio = elementwise_err(got, ref, scale, M)
+        T = pk.larft(Vc, tc)
+        check(bool(torch.isfinite(T).all()), f"larft {dtype} {case}: T is not finite")
+        if case != "panel":
+            check(not bool(T[absent].any()) and not bool(T[:, absent].any()),
+                  f"larft {dtype}: T is not zero in the rows and columns of tau = 0")
+        print(f"  larft {dtype} ({M}, {w}) {case}: diagonal bitwise, lower zero, strict upper "
+              f"err {err:.3e} (max err/tol {ratio:.3e}), T finite", flush=True)
+        check(ratio <= 1, f"larft {dtype} {case}: max err/tol {ratio:.3e} > 1")
+    record("larft", err, ratio, cuda_ms(lambda: pk.larft_tinv(V, taus)),
+           cuda_ms(lambda: pk.larft_tinv_plain(V, taus)),
+           float(M) * w * (w - 1), (M * w + w + w * w) * esz,
+           cuda_ms(lambda: V.mT @ V), "slate_tpu/ops/pallas/panel_kernels.py:312")
+    del V, V0, taus, t0, got, ref, scale, T
+
+    # the tile stack of a 16384^2 matrix in tiles of 512
+    n, t = N_MAIN, 512
+    S = rnd(n, n).reshape(n // t, t, n // t, t).transpose(1, 2).reshape(-1, t, t).contiguous()
+    N = S.shape[0]
+    kinds = {}
+    for kind, k, lib in (
+        ("max", 1, lambda: torch.linalg.vector_norm(S, float("inf"), dim=(1, 2))),
+        ("fro_sumsq", t * t, lambda: torch.linalg.vector_norm(S, 2, dim=(1, 2))),
+        ("one", t, lambda: torch.linalg.vector_norm(S, 1, dim=1)),
+        ("inf", t, lambda: torch.linalg.vector_norm(S, 1, dim=2)),
+    ):
+        got, ref = pk.tile_norms(S, kind), pk.tile_norms_plain(S, kind)
+        torch.cuda.synchronize()
+        if kind == "max":
+            check(torch.equal(got, ref), f"tile_norms max {dtype}: not bitwise equal")
+            err, ratio = 0.0, 0.0
+        else:  # nonnegative summands: the sum of magnitudes is the result
+            err, ratio = elementwise_err(got, ref, ref, k)
+        check(ratio <= 1, f"tile_norms {kind} {dtype}: max err/tol {ratio:.3e} > 1")
+        ms, plain_ms, lib_ms = cuda_ms(lambda: pk.tile_norms(S, kind)), \
+            cuda_ms(lambda: pk.tile_norms_plain(S, kind)), cuda_ms(lib)
+        out_elems = got.numel()
+        b_ms, b_by = bound(float(S.numel()) * (2 if kind == "fro_sumsq" else 1),
+                           (S.numel() + out_elems) * esz)
+        kinds[kind] = {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms}
+        print(f"  tile_norms {kind:9s} {dtype} ({N}, {t}, {t}): err {err:.3e} (max err/tol "
+              f"{ratio:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library "
+              f"{lib_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    # one NaN: that tile's statistics are NaN in every kind, the others not
+    bad = N // 2
+    keep = S[bad, 3, 5].clone()
+    S[bad, 3, 5] = float("nan")
+    for kind in kinds:
+        o = pk.tile_norms(S, kind).reshape(N, -1)
+        check(bool(torch.isnan(o[bad]).any()) and bool(torch.isfinite(o[:bad]).all())
+              and bool(torch.isfinite(o[bad + 1:]).all()),
+              f"tile_norms {kind} {dtype}: NaN does not stay in its tile")
+    S[bad, 3, 5] = keep
+    print(f"  tile_norms {dtype}: a NaN stays in its tile in every kind", flush=True)
+    # the entry of the kernels line: 'one', the statistic of Norm.One
+    k1 = kinds["one"]
+    record("tile_norms", k1["max_abs_err"], k1["err_over_tol"], k1["ms"], k1["plain_ms"],
+           float(S.numel()), (S.numel() + N * t) * esz, k1["library_ms"],
+           "slate_tpu/ops/pallas/kernels.py:83")
+    out["tile_norms"]["kinds"] = kinds
+
+    S2 = rnd(N, t, t)
+    got = pk.tile_geadd(0.75, S, -1.25, S2)
+    check(torch.equal(got, pk.tile_geadd_plain(0.75, S, -1.25, S2)),
+          f"tile_geadd {dtype}: not bitwise equal")
+    del got
+    record("tile_geadd", 0.0, 0.0, cuda_ms(lambda: pk.tile_geadd(0.75, S, -1.25, S2)),
+           cuda_ms(lambda: pk.tile_geadd_plain(0.75, S, -1.25, S2)),
+           3.0 * S.numel(), 3.0 * S.numel() * esz, None, "slate_tpu/ops/pallas/kernels.py:258")
+    del S2
+    got = pk.tile_transpose(S)
+    check(torch.equal(got, pk.tile_transpose_plain(S)), f"tile_transpose {dtype}: not bitwise")
+    del got
+    record("tile_transpose", 0.0, 0.0, cuda_ms(lambda: pk.tile_transpose(S)),
+           cuda_ms(lambda: pk.tile_transpose_plain(S)), 0.0, 2.0 * S.numel() * esz,
+           cuda_ms(lambda: S.transpose(1, 2).contiguous()),
+           "slate_tpu/ops/pallas/kernels.py:155")
+    print(f"  tile_geadd and tile_transpose {dtype}: bitwise equal to their plain versions",
+          flush=True)
+    del S
+    return out
+
+
+def ls_residual(A, X, B) -> float:
+    """||A^T (A X - B)||_1 / (||A||_1 (||A||_1 ||X||_1 + ||B||_1) m eps):
+    the normal-equations residual of a least-squares solution, computed
+    in float64."""
+    A64, X64, B64 = A.double(), X.double(), B.double()
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    na = n1(A64)
+    r = n1(A64.T @ (A64 @ X64 - B64)) / (na * (na * n1(X64) + n1(B64)) * A.shape[0])
+    return r / torch.finfo(A.dtype).eps
+
+
+def serve_pack(fac, T, m: int, nb: int) -> torch.Tensor:
+    """The serve tier's gels pack: V/R in rows [0, m), panel k's T in rows
+    [m + k nb, m + k nb + w), columns [0, w)."""
+    G = fac.to_global()
+    n = G.shape[1]
+    kt = T.T.shape[0]
+    F = torch.zeros((m + kt * nb, n), dtype=G.dtype, device=G.device)
+    F[:m] = G
+    for k in range(kt):
+        w = min(nb, n - k * nb)
+        F[m + k * nb:m + k * nb + w, :w] = T.T[k][:w, :w]
+    return F
+
+
+def qr_main_path(stt, pk, qf, metrics, dtype, gen, dev) -> dict:
+    """gels at (32768, 16384), nrhs = 512, default options; then
+    gels_solve_from_global on the serve pack of the factor."""
+    dt = getattr(torch, dtype)
+    m, n, nrhs, nb = M_QR, N_QR, NRHS_MAIN, 512
+    check(qf.resolve_qr_schedule(m, n, "auto", dev) == "pallas",
+          "Schedule.Auto does not resolve to the larft kernel's family for geqrf")
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt)
+    Am, Bm = stt.Matrix.from_global(A, nb), stt.Matrix.from_global(B, nb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    metrics.reset()
+    pk.reset_launches()  # counts of the main path only
+    X = stt.gels(Am, Bm)
+    torch.cuda.synchronize()
+    counts = dict(pk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t_gels = metrics.timers()["gels"]["total_s"]
+    t_geqrf = metrics.timers()["geqrf"]["total_s"]
+    model = 2.0 * n * n * (m - n / 3.0)
+    r = ls_residual(A, X.to_global(), B)
+    expect = qf.geqrf_kernel_launches(n, NB_SWITCH)
+    print(f"  gels {dtype} ({m}, {n}) nrhs={nrhs}: residual {r:.3e}, gels {t_gels:.3f} s, "
+          f"geqrf {t_geqrf:.3f} s = {model / t_geqrf / 1e9:.1f} GFLOP/s (model "
+          f"2n^2(m - n/3)), larft launches {counts['larft']} (expected {expect}), peak "
+          f"{peak:.2f} GiB allocated", flush=True)
+    check(r <= 3, f"gels {dtype}: residual {r:.3f} > 3")
+    check(counts["larft"] == expect, f"gels {dtype}: larft launches {counts['larft']} != {expect}")
+    del X, Bm
+
+    fac, T = stt.geqrf(Am)
+    del Am
+    F = serve_pack(fac, T, m, nb)
+    del fac, T
+    pk.reset_launches()
+    Y = stt.gels_solve_from_global(F, B, m, nb)
+    torch.cuda.synchronize()
+    r_solve = ls_residual(A, Y, B)
+    del Y
+    t_solve = cuda_ms(lambda: stt.gels_solve_from_global(F, B, m, nb), reps=3)
+    del F
+    fq, tau = torch.geqrf(A)
+    lib_solve = lambda: torch.linalg.solve_triangular(  # noqa: E731
+        fq[:n, :n], torch.ormqr(fq, tau, B, left=True, transpose=True)[:n], upper=True)
+    t_solve_lib = cuda_ms(lib_solve, reps=3)
+    del fq, tau
+    t_lib_geqrf = cuda_ms(lambda: torch.geqrf(A), reps=1)
+    t_lstsq = cuda_ms(lambda: torch.linalg.lstsq(A, B), reps=1)
+    print(f"  gels_solve_from_global {dtype}: residual {r_solve:.3e}, {t_solve:.3f} ms; "
+          f"torch.ormqr + solve_triangular {t_solve_lib:.3f} ms", flush=True)
+    print(f"  yardsticks {dtype}: torch.geqrf {t_lib_geqrf:.3f} ms "
+          f"({model / t_lib_geqrf / 1e6:.1f} GFLOP/s), torch.linalg.lstsq {t_lstsq:.3f} ms",
+          flush=True)
+    check(r_solve <= 3, f"gels_solve_from_global {dtype}: residual {r_solve:.3f} > 3")
+    return {"launches": counts, "residual": r, "solve_residual": r_solve, "gels_s": t_gels,
+            "geqrf_s": t_geqrf, "geqrf_gflops": model / t_geqrf / 1e9, "peak_gib": peak,
+            "gels_solve_from_global_ms": t_solve, "ormqr_solve_lib_ms": t_solve_lib,
+            "torch_geqrf_ms": t_lib_geqrf, "torch_lstsq_ms": t_lstsq}
+
+
+def small_qr(stt, pk, qf, ck, gen, dev) -> None:
+    """geqrf + ungqr at n = 4096; CholQR gels at (32768, 16384); the
+    underdetermined gels at (2000, 6000) with Schedule.Pallas; float64."""
+    dt = torch.float64
+    eps = torch.finfo(dt).eps
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    n = 4096
+    A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    pk.reset_launches()
+    fac, T = stt.geqrf(stt.Matrix.from_global(A, 512))
+    torch.cuda.synchronize()
+    launches = pk.LAUNCHES["larft"]
+    Q = stt.ungqr(fac, T).to_global()
+    R = torch.triu(fac.to_global())
+    fres = n1(A - Q @ R) / (n1(A) * n) / eps
+    orth = n1(Q.T @ Q - torch.eye(n, device=dev, dtype=dt)) / n / eps
+    print(f"  geqrf + ungqr float64 n={n}: factor residual {fres:.3e} eps, orthogonality "
+          f"{orth:.3e} eps, larft launches {launches}", flush=True)
+    check(fres <= 3 and orth <= 3, f"geqrf n={n}: residuals {fres:.3f}, {orth:.3f} > 3")
+    check(launches == qf.geqrf_kernel_launches(n, NB_SWITCH), f"geqrf n={n}: larft launches")
+    del A, fac, T, Q, R
+
+    m, n, nrhs = M_QR, N_QR, NRHS_MAIN
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    X = stt.gels(stt.Matrix.from_global(A, 512), stt.Matrix.from_global(B, 512),
+                 {stt.Option.MethodGels: stt.MethodGels.CholQR})
+    torch.cuda.synchronize()
+    t_cholqr = time.perf_counter() - t0
+    got = {k: pk.LAUNCHES[k] for k in ("chol_base", "syrk_diag", "gemm_sub", "larft")}
+    expect = {**ck.chol_kernel_launches(n), "larft": 0}
+    r = ls_residual(A, X.to_global(), B)
+    print(f"  gels CholQR float64 ({m}, {n}): residual {r:.3e} (bound 30), {t_cholqr:.3f} s, "
+          f"launches {got} (expected {expect})", flush=True)
+    check(r <= 30, f"gels CholQR: residual {r:.3f} > 30")
+    check(got == expect, f"gels CholQR: launches {got} != {expect}")
+    del A, B, X
+
+    m, n = 2000, 6000
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(m, 7, generator=gen, device=dev, dtype=dt)
+    pk.reset_launches()
+    X = stt.gels(stt.Matrix.from_global(A, 512), stt.Matrix.from_global(B, 512),
+                 {stt.Option.Schedule: "pallas"}).to_global()
+    torch.cuda.synchronize()
+    launches = pk.LAUNCHES["larft"]
+    r = n1(A @ X - B) / (n1(A) * n1(X) * n) / eps
+    ref = A.T @ torch.linalg.solve(A @ A.T, B)
+    diff = float((X - ref).abs().max())
+    expect = qf.geqrf_kernel_launches(2048, NB_SWITCH)  # A^H padded to (6144, 2048)
+    print(f"  gels underdetermined float64 ({m}, {n}) schedule=pallas: residual {r:.3e}, "
+          f"max |X - A^T (A A^T)^-1 B| {diff:.3e}, larft launches {launches} "
+          f"(expected {expect})", flush=True)
+    check(r <= 3 and diff <= 1e-8, f"underdetermined gels: residual {r:.3f}, diff {diff:.3e}")
+    check(launches == expect, f"underdetermined gels: larft launches {launches} != {expect}")
+
+
+def norm_phase(stt, pk, dtype, gen, dev) -> dict:
+    """norm One/Inf/Max/Fro and colNorms of a 16384^2 Matrix in tiles of
+    512 (tile_norms launches: 1 each, 2 for Fro); ``add`` and the norm of
+    the transposed view (no tile_geadd or tile_transpose launch, as in the
+    JAX package); Hermitian and triangular norms on the plain route."""
+    dt = getattr(torch, dtype)
+    n = N_MAIN
+    eps = torch.finfo(dt).eps
+    A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    Am = stt.Matrix.from_global(A, 512)
+    tol = TOL_C * n**0.5 * eps
+    A64 = A.double()  # the sums' references in float64: the library's own rounding aside
+    ords = {"One": 1, "Inf": float("inf"), "Fro": "fro"}
+    refs = {"One": lambda: torch.linalg.matrix_norm(A, 1),
+            "Inf": lambda: torch.linalg.matrix_norm(A, float("inf")),
+            "Max": lambda: A.abs().amax(),
+            "Fro": lambda: torch.linalg.matrix_norm(A, "fro")}
+    out = {}
+    counted = dict.fromkeys(("tile_norms", "tile_geadd", "tile_transpose"), 0)
+    for name, lib in refs.items():
+        pk.reset_launches()
+        got = stt.norm(stt.Norm[name], Am)
+        torch.cuda.synchronize()
+        launches = pk.LAUNCHES["tile_norms"]
+        counted = {k: v + pk.LAUNCHES[k] for k, v in counted.items()}
+        if name == "Max":
+            check(torch.equal(got, lib()), f"norm Max {dtype}: not bitwise equal to amax")
+            rel = 0.0
+        else:
+            ref = torch.linalg.matrix_norm(A64, ords[name])
+            rel = float((got.double() - ref).abs() / ref)
+        ms, lib_ms = cuda_ms(lambda: stt.norm(stt.Norm[name], Am), reps=3), cuda_ms(lib, reps=3)
+        out[name] = {"rel_err": rel, "launches": launches, "ms": ms, "library_ms": lib_ms}
+        print(f"  norm {name} {dtype}: rel err {rel:.3e} (tol {tol:.3e}), tile_norms "
+              f"launches {launches}, {ms:.3f} ms, library {lib_ms:.3f} ms", flush=True)
+        check(rel <= tol, f"norm {name} {dtype}: rel err {rel:.3e} > {tol:.3e}")
+        check(launches == (2 if name == "Fro" else 1), f"norm {name} {dtype}: launches")
+    pk.reset_launches()
+    cn = stt.colNorms(stt.Norm.One, Am)
+    torch.cuda.synchronize()
+    launches = pk.LAUNCHES["tile_norms"]
+    counted = {k: v + pk.LAUNCHES[k] for k, v in counted.items()}
+    ref = A64.abs().sum(0)
+    err, ratio = elementwise_err(cn, ref, ref, n)
+    print(f"  colNorms {dtype}: err {err:.3e} (max err/tol {ratio:.3e}), tile_norms launches "
+          f"{launches}", flush=True)
+    check(ratio <= 1 and launches == 1, f"colNorms {dtype}: err/tol {ratio:.3e}, {launches}")
+    pk.reset_launches()
+    S = stt.add(0.5, Am, -2.0, Am).to_global()
+    nt = stt.norm(stt.Norm.One, stt.conj_transpose(Am))
+    torch.cuda.synchronize()
+    counted = {k: v + pk.LAUNCHES[k] for k, v in counted.items()}
+    same = torch.equal(S, 0.5 * A + -2.0 * A)
+    ref = torch.linalg.matrix_norm(A64, float("inf"))
+    rel = float((nt.double() - ref).abs() / ref)
+    print(f"  add {dtype}: bitwise equal to 0.5 A - 2 A: {same}; norm One of the transposed "
+          f"view: rel err {rel:.3e}; launches {dict(pk.LAUNCHES)}", flush=True)
+    check(same, f"add {dtype}: not bitwise equal to 0.5 A - 2 A")
+    check(rel <= tol, f"norm One of the transposed view {dtype}: rel err {rel:.3e}")
+    check(pk.LAUNCHES["tile_norms"] == 1, f"norm One of the transposed view {dtype}: launches")
+    del Am, cn, ref, A64, S
+    # the other kinds, on the JAX package's plain route
+    low = torch.tril(A).double()
+    cases = (("HermitianMatrix", low + torch.tril(A, -1).T.double(),
+              stt.HermitianMatrix.from_global(A, 512, uplo=stt.Uplo.Lower)),
+             ("TriangularMatrix", torch.triu(A).double(),
+              stt.TriangularMatrix.from_global(A, 512, uplo=stt.Uplo.Upper)))
+    for kind, full, M in cases:
+        pk.reset_launches()
+        got = {nm: float(stt.norm(stt.Norm[nm], M)) for nm in ("One", "Max", "Fro")}
+        launches = pk.LAUNCHES["tile_norms"]
+        want = {"One": float(torch.linalg.matrix_norm(full, 1)),
+                "Max": float(full.abs().amax()),
+                "Fro": float(torch.linalg.matrix_norm(full, "fro"))}
+        worst = max(abs(got[k] - want[k]) / want[k] for k in want)
+        print(f"  norm of a {kind} {dtype}: worst rel err {worst:.3e}, tile_norms launches "
+              f"{launches} (the plain route)", flush=True)
+        check(worst <= tol, f"norm of a {kind} {dtype}: rel err {worst:.3e}")
+    out["launches"] = counted
+    return out
+
+
 def _profile_call(label, fn) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table."""
@@ -596,7 +969,7 @@ def _profile_call(label, fn) -> None:
 def profile(stt, gen, dev) -> None:
     """Wall time of one warm ``posv`` and one warm ``gesv`` (n = 16384,
     nrhs = 512, float64, default options), then a profile of a third call
-    of each."""
+    of each; then the same for ``gels`` at (32768, 16384)."""
     n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -628,6 +1001,19 @@ def profile(stt, gen, dev) -> None:
         t_gesv = time.perf_counter() - t0
     print(f"  warm getrf {t_getrf:.4f} s, gesv {t_gesv:.4f} s (host clock, float64 n={n})")
     _profile_call("gesv", lambda: stt.gesv(Am, Bm))
+    del A, Am, Bm, B
+    m = M_QR
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt)
+    Am, Bm = stt.Matrix.from_global(A, 512), stt.Matrix.from_global(B, 512)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stt.gels(Am, Bm)
+        torch.cuda.synchronize()
+        t_gels = time.perf_counter() - t0
+    print(f"  warm gels {t_gels:.4f} s (host clock, float64 ({m}, {n}), nrhs={nrhs})")
+    _profile_call("gels", lambda: stt.gels(Am, Bm))
 
 
 def main() -> int:
@@ -639,6 +1025,7 @@ def main() -> int:
         from slate_tpu_torch.aux import metrics
         from slate_tpu_torch.ops import chol_kernels as ck
         from slate_tpu_torch.ops import lu_kernels as lk
+        from slate_tpu_torch.ops import qr_fast as qf
         from slate_tpu_torch.ops.hopper import panel_kernels as pk
     except ImportError as e:
         print(f"chip_smoke: slate_tpu_torch is not importable here: {e}", file=sys.stderr)
@@ -675,7 +1062,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
     if profile_only:
-        print("profile: posv and gesv, float64", flush=True)
+        print("profile: posv, gesv and gels, float64", flush=True)
         profile(stt, gen, dev)
         print(smi)
         return 0
@@ -684,6 +1071,8 @@ def main() -> int:
     kres = {d: kernel_phase(pk, d, gen, dev) for d in DTYPES}
     for d in DTYPES:
         kres[d].update(lu_kernel_phase(pk, lk, d, gen, dev))
+        torch.cuda.empty_cache()
+        kres[d].update(qr_kernel_phase(pk, d, gen, dev))
     torch.cuda.empty_cache()
 
     metrics.on()
@@ -700,16 +1089,42 @@ def main() -> int:
     small_pallas(stt, pk, ck, gen, dev)
     small_lu(stt, pk, lk, gen, dev)
     non_spd(stt, gen, dev)
-    print(f"  phases 2-6: {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print("phase 7: gels + gels_solve_from_global, the QR main path", flush=True)
+    qres = {}
+    for d in DTYPES:
+        qres[d] = qr_main_path(stt, pk, qf, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+    print("phase 8: small QR cases", flush=True)
+    small_qr(stt, pk, qf, ck, gen, dev)
+    torch.cuda.empty_cache()
+    print("phase 9: norms", flush=True)
+    nres = {}
+    for d in DTYPES:
+        nres[d] = norm_phase(stt, pk, d, gen, dev)
+        torch.cuda.empty_cache()
+    print(f"  phases 2-9: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
-    # panel_lu, gesv with MethodLU.RBT for butterfly_level)
-    sources = {"panel_lu": ("lu_kernels.cu", lres), "butterfly_level": ("lu_kernels.cu", rres)}
+    # panel_lu, gesv with MethodLU.RBT for butterfly_level, gels for
+    # larft, the general-matrix norms and colNorms for tile_norms);
+    # tile_geadd and tile_transpose have no route: their counts are those
+    # of the gels run and the norm phase's runs, and must stay 0
+    unrouted = {d: {"launches": {k: qres[d]["launches"][k] + nres[d]["launches"][k]
+                                 for k in ("tile_geadd", "tile_transpose")}} for d in DTYPES}
+    for d in DTYPES:
+        check(unrouted[d]["launches"] == {"tile_geadd": 0, "tile_transpose": 0},
+              f"{d}: a main path launched an unrouted kernel: {unrouted[d]['launches']}")
+    sources = {"panel_lu": ("lu_kernels.cu", lres), "butterfly_level": ("lu_kernels.cu", rres),
+               "larft": ("qr_kernels.cu", qres), "tile_norms": ("tile_kernels.cu", nres),
+               "tile_geadd": ("tile_kernels.cu", unrouted),
+               "tile_transpose": ("tile_kernels.cu", unrouted)}
     entries = []
     for d, suf in (("float64", "f64"), ("float32", "f32")):
         for name in ("chol_base", "syrk_diag", "gemm_sub", "trsm_lower", "trsm_upper",
-                     "panel_lu", "butterfly_level"):
+                     "panel_lu", "butterfly_level", "larft", "tile_norms", "tile_geadd",
+                     "tile_transpose"):
             k = kres[d][name]
             src, runs = sources.get(name, ("panel_kernels.cu", mres))
             entries.append({
@@ -725,7 +1140,10 @@ def main() -> int:
     strip = lambda r: {d: {k: v for k, v in r[d].items() if k != "launches"}  # noqa: E731
                        for d in DTYPES}
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
-                                      "gesv_rbt": strip(rres), "trsm_lu_modes": lu_modes}))
+                                      "gesv_rbt": strip(rres), "gels": strip(qres),
+                                      "norm": strip(nres), "trsm_lu_modes": lu_modes,
+                                      "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
+                                                           for d in DTYPES}}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

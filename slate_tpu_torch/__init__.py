@@ -2,12 +2,17 @@
 
 The JAX package ``slate_tpu`` stays beside it as the reference; this
 package imports neither JAX nor anything of it.  It carries the
-single-device Cholesky and LU solve paths: the tile layout and matrix
-classes, the recursive-schedule factorizations (``potrf``/``posv``,
-``getrf``/``gesv`` with partial pivoting, no pivoting or the random
-butterfly transform, ``getri``) and the solve phases (``potrs``,
-``getrs``, ``potrs_from_global``, ``getrs_from_global``), with the JAX
-package's Pallas kernels rewritten by hand in CUDA C++ for Hopper
+single-device Cholesky, LU and QR / least-squares solve paths: the tile
+layout and matrix classes, the recursive-schedule factorizations
+(``potrf``/``posv``, ``getrf``/``gesv`` with partial pivoting, no
+pivoting or the random butterfly transform, ``getri``, ``geqrf``,
+``gelqf``, ``cholqr``, ``gels``), the solve phases (``potrs``,
+``getrs``, ``unmqr``/``unmlq``, ``potrs_from_global``,
+``getrs_from_global``, ``gels_solve_from_global``), the BLAS3 routines
+they use (``gemm``, ``herk``, ``syrk``, ``trsm``), and the norm and
+elementwise drivers (``norm``, ``colNorms``, ``add``, ``copy``,
+``scale``, ``scale_row_col``, ``set``, ``set_lambdas``).  Every Pallas
+kernel of the JAX package is rewritten by hand in CUDA C++ for Hopper
 (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for another
@@ -53,9 +58,11 @@ from .matrix.matrix import (
     HermitianMatrix,
     Matrix,
     SymmetricMatrix,
+    TrapezoidMatrix,
     TriangularMatrix,
 )
-from .drivers.blas3 import trsm
+from .drivers.aux import add, colNorms, copy, norm, scale, scale_row_col, set, set_lambdas
+from .drivers.blas3 import gemm, herk, syrk, trsm
 from .drivers.chol import posv, potrf, potrs, potrs_from_global
 from .drivers.lu import (
     gerbt,
@@ -69,8 +76,23 @@ from .drivers.lu import (
     getrs_from_global,
     getrs_nopiv,
 )
-from .types import Pivots
-from .convert import getrf_from_reference, matrix_from_reference, pivots_from_reference
+from .drivers.qr import (
+    cholqr,
+    gelqf,
+    gels,
+    gels_solve_from_global,
+    geqrf,
+    ungqr,
+    unmlq,
+    unmqr,
+)
+from .types import Pivots, TriangularFactors
+from .convert import (
+    geqrf_from_reference,
+    getrf_from_reference,
+    matrix_from_reference,
+    pivots_from_reference,
+)
 
 __version__ = "0.1.0"
 

@@ -16,7 +16,9 @@ nothing of the JAX package itself:
 ``getrf_from_reference`` a whole ``getrf`` result (the LU's tile array
 and the permutation), so this package's ``getrs`` and
 ``getrs_from_global`` can solve with a factorization the JAX package
-made.
+made.  ``geqrf_from_reference`` does the same for a ``geqrf`` result (the
+factor's tile array and the T stack), for ``unmqr``, ``gels_solve_from_global``
+and the LQ drivers.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from .matrix.base import BaseMatrix
 from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
 from .parallel.grid import ProcessGrid
 from .parallel.layout import TileLayout
-from .types import Pivots
+from .types import Pivots, TriangularFactors
 
 _KINDS = {
     "Matrix": Matrix,
@@ -91,3 +93,14 @@ def getrf_from_reference(lu_data: np.ndarray, perm: np.ndarray, *, m: int, n: in
     permutation."""
     LU = matrix_from_reference(lu_data, m=m, n=n, mb=mb, nb=nb, p=p, q=q, device=device)
     return LU, pivots_from_reference(perm, device)
+
+
+def geqrf_from_reference(fac_data: np.ndarray, T: np.ndarray, *, m: int, n: int, mb: int,
+                         nb: int, p: int = 1, q: int = 1,
+                         device: Union[str, torch.device] = "cuda:0"):
+    """(factored Matrix, TriangularFactors) of this package for a JAX
+    package ``geqrf`` result: ``fac_data`` the factor's storage-order tile
+    array (V below the diagonal, R on and above), ``T`` its
+    TriangularFactors' (num_panels, nb, nb) stack."""
+    fac = matrix_from_reference(fac_data, m=m, n=n, mb=mb, nb=nb, p=p, q=q, device=device)
+    return fac, TriangularFactors(torch.tensor(np.asarray(T), device=fac.device))

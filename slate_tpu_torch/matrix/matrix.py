@@ -16,6 +16,7 @@ import torch
 
 from ..enums import Diag, Op, Uplo
 from ..exceptions import slate_assert
+from ..internal import tile_ops
 from ..parallel.grid import ProcessGrid, default_grid
 from ..parallel.layout import TileLayout, tiles_from_global
 from .base import BaseMatrix, conj_transpose, transpose  # noqa: F401 (re-export)
@@ -45,6 +46,16 @@ class Matrix(BaseMatrix):
         layout = _make_layout(m, n, mb, nb, grid)
         return Matrix(tiles_from_global(A, layout), layout, grid=grid)
 
+    @staticmethod
+    def zeros(m: int, n: int, mb: int, nb: Optional[int] = None, dtype=torch.float32,
+              grid: Optional[ProcessGrid] = None) -> "Matrix":
+        """An m x n zero matrix on the grid's device."""
+        nb = nb if nb is not None else mb
+        grid = grid if grid is not None else default_grid()
+        layout = _make_layout(m, n, mb, nb, grid)
+        return Matrix(torch.zeros(layout.storage_shape, dtype=dtype, device=grid.device),
+                      layout, grid=grid)
+
 
 class BaseTrapezoidMatrix(BaseMatrix):
     """Upper/lower trapezoid storage semantics (reference:
@@ -65,6 +76,15 @@ class BaseTrapezoidMatrix(BaseMatrix):
         layout = _make_layout(m, n, mb, nb, grid)
         return cls(tiles_from_global(A, layout), layout, grid=grid,
                    uplo=uplo, diag=diag)
+
+    def tri_mask(self) -> torch.Tensor:
+        """(P, Q, mb, nb) bool mask of the referenced triangle's elements
+        (valid region only), the diagonal left out for Diag.Unit."""
+        return tile_ops.tri_mask(self.layout, self.uplo, self.diag, device=self.data.device)
+
+
+class TrapezoidMatrix(BaseTrapezoidMatrix):
+    """m x n trapezoid (reference: TrapezoidMatrix.hh)."""
 
 
 class TriangularMatrix(BaseTrapezoidMatrix):

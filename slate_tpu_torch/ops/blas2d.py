@@ -28,6 +28,16 @@ def gemm2d(alpha, A, B, beta, C):
     return (alpha * hdot(A, B) + beta * C).to(C.dtype)
 
 
+def syrk2d(alpha, A, beta, C):
+    """C = alpha A A^T + beta C (reference: tile::syrk, Tile_blas.hh:523)."""
+    return gemm2d(alpha, A, A.T, beta, C)
+
+
+def herk2d(alpha, A, beta, C):
+    """C = alpha A A^H + beta C (reference: tile::herk)."""
+    return gemm2d(alpha, A, A.mH, beta, C)
+
+
 def _tri_take(A, uplo: Uplo, diag: Diag):
     """Materialize the referenced triangle of A (unit diag -> ones)."""
     T = torch.tril(A) if uplo == Uplo.Lower else torch.triu(A)

@@ -1,12 +1,15 @@
-"""Hand-written Hopper kernels of the Cholesky and LU solve paths, their
-plain PyTorch versions, and their launch counters.
+"""Hand-written Hopper kernels of slate_tpu_torch, their plain PyTorch
+versions, and their launch counters: every Pallas kernel of the JAX
+package has its counterpart here.
 
 The CUDA C++ sources are in ``slate_tpu_torch/csrc/``: ``panel_kernels.cu``
-(chol_base, syrk_diag, gemm_sub, the trsm pair) and ``lu_kernels.cu``
-(panel_lu, butterfly_level).  Each is compiled with its own ``nvcc``, all
-at once, at first use into ``build/slate_tpu_torch/`` beside the package
-(a shared library with a plain C interface each, loaded with ctypes) and
-rebuilt when the source's hash changes.
+(chol_base, syrk_diag, gemm_sub, the trsm pair), ``lu_kernels.cu``
+(panel_lu, butterfly_level), ``qr_kernels.cu`` (larft) and
+``tile_kernels.cu`` (tile_norms, tile_geadd, tile_transpose).  Each is
+compiled with its own ``nvcc``, all at once, at first use into
+``build/slate_tpu_torch/`` beside the package (a shared library with a
+plain C interface each, loaded with ctypes) and rebuilt when the
+source's hash changes.
 
 Every wrapper dispatches on the device of its tensors: on the CPU it
 runs the plain version; on a CUDA device it launches the kernel for
@@ -39,6 +42,10 @@ LAUNCHES: Dict[str, int] = {
     "trsm_upper": 0,
     "panel_lu": 0,
     "butterfly_level": 0,
+    "larft": 0,
+    "tile_norms": 0,
+    "tile_geadd": 0,
+    "tile_transpose": 0,
 }
 
 
@@ -52,7 +59,8 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG_DIR / "csrc" / "panel_kernels.cu", _PKG_DIR / "csrc" / "lu_kernels.cu")
+SOURCES = tuple(_PKG_DIR / "csrc" / f"{stem}.cu"
+                for stem in ("panel_kernels", "lu_kernels", "qr_kernels", "tile_kernels"))
 BUILD_DIR = _PKG_DIR.parent / "build" / "slate_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,7 +116,7 @@ def build(verbose: bool = False) -> Tuple[List[Path], str]:
     return sos, "\n".join(logs)
 
 
-_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _L, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "chol_base": [_P, _I, _L, _P],
     "gemm_sub": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
@@ -116,6 +124,10 @@ _SIGNATURES = {
     "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P],
     "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
+    "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tile_norms": [_P, _L, _L, _I, _I, _I, _I, _P, _P],
+    "tile_geadd": [_D, _P, _L, _L, _D, _P, _L, _L, _P, _I, _I, _I, _P],
+    "tile_transpose": [_P, _L, _L, _P, _I, _I, _I, _P],
 }
 
 
@@ -152,10 +164,11 @@ def _launch(name: str, fn, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
+def _on_cpu(name: str, *ts: torch.Tensor, dim: int = 2) -> bool:
     """True when every tensor lies on the CPU (plain version); False when
-    every one is a CUDA float32/float64 tensor on one device with inner
-    stride 1 and rows that do not overlap (kernel).  Raises otherwise."""
+    every one is a ``dim``-D (2: a matrix, 3: a stack of tiles) CUDA
+    float32/float64 tensor on one device with inner stride 1 and rows
+    (and tiles) that do not overlap (kernel).  Raises otherwise."""
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return True
@@ -167,18 +180,28 @@ def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
     for t in ts:
         if t.dtype != dt:
             raise TypeError(f"{name}: mixed dtypes {[x.dtype for x in ts]}")
-        if t.dim() != 2:
-            raise ValueError(f"{name}: expected 2-D tensors")
-        if t.shape[1] > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name}: inner stride {t.stride(1)} != 1")
-        if t.shape[0] > 1 and t.stride(0) < t.shape[1]:
-            raise ValueError(f"{name}: row stride {t.stride(0)} < row length {t.shape[1]}")
+        if t.dim() != dim:
+            raise ValueError(f"{name}: expected {dim}-D tensors")
+        rows, cols = t.shape[-2:]
+        if cols > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: inner stride {t.stride(-1)} != 1")
+        if rows > 1 and t.stride(-2) < cols:
+            raise ValueError(f"{name}: row stride {t.stride(-2)} < row length {cols}")
+        if dim == 3 and t.shape[0] > 1 and t.stride(0) < _ld(t[0]) * (rows - 1) + cols:
+            raise ValueError(f"{name}: tile stride {t.stride(0)} overlaps the tiles")
     return False
 
 
 def _ld(t: torch.Tensor) -> int:
-    """Leading dimension: the row stride (any value >= 1 for one row)."""
-    return t.stride(0) if t.shape[0] > 1 else max(t.shape[1], 1)
+    """Leading dimension of a matrix, or of each tile of a stack: the
+    row stride (any value >= 1 for one row)."""
+    return t.stride(-2) if t.shape[-2] > 1 else max(t.shape[-1], 1)
+
+
+def _tile_stride(t: torch.Tensor) -> int:
+    """Stride between the tiles of an (N, mb, nb) stack (any value for
+    one tile)."""
+    return t.stride(0) if t.shape[0] > 1 else _ld(t) * t.shape[1]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -526,3 +549,202 @@ def butterfly_level(X: torch.Tensor, D: torch.Tensor, h: int, transpose: bool) -
                 X.data_ptr(), _ld(X), D2.data_ptr(), Y.data_ptr(), _ld(Y), n2, h, w,
                 int(transpose), _stream(X))
     return Y
+
+
+# ---------------------------------------------------------------------------
+# larft
+# ---------------------------------------------------------------------------
+
+#: the diagonal that stands for an absent reflector (tau == 0)
+LARFT_BIG = 1e30
+_LARFT_TILE = 64  # csrc: LT, the output tile edge
+
+
+def _pad_taus(taus: torch.Tensor, w: int) -> torch.Tensor:
+    """taus as a contiguous (w,) vector: a short one (fewer rows than
+    columns) padded with zeros, i.e. absent reflectors."""
+    if taus.shape[0] < w:
+        taus = torch.cat([taus, taus.new_zeros(w - taus.shape[0])])
+    return taus.contiguous()
+
+
+def larft_tinv_plain(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Plain version: T^-1 = strict_upper(V^H V) + diag(d), d_j = 1/tau_j
+    (an IEEE division) for tau_j != 0, 1e30 for tau_j == 0."""
+    taus = _pad_taus(taus, V.shape[1])
+    U = torch.triu(hdot(V.mH, V), 1)
+    d = torch.where(taus != 0, torch.ones_like(taus) / torch.where(taus == 0, 1, taus),
+                    LARFT_BIG)
+    return U + torch.diag(d)
+
+
+def larft_tinv(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """The compact-WY assembly stage, the contract of ``larft_tinv_plain``:
+    V (M, w) unit-lower with its unit diagonal materialized (zeros above
+    it), taus (<= w,).
+
+    Replaces ``slate_tpu/ops/pallas/panel_kernels.py:larft_pallas`` (body
+    ``_larft_tinv_body``).  Bound on the H100: operations (M w (w - 1)
+    FLOPs for the strict upper Gram against M w elements read: 2.1 GFLOP
+    on 64 MiB at (32768, 256) in float64).  Design: only the 64 x 64
+    tiles on or above the diagonal are computed; the rows are split into
+    chunks so that enough blocks fill the card, each (tile, chunk) block
+    writing a partial tile, and a second kernel sums the partials in a
+    fixed order (the result does not change from run to run), writes the
+    diagonal by IEEE division and the exact zeros below it."""
+    if V.dim() != 2 or taus.dim() != 1 or taus.shape[0] > V.shape[1]:
+        raise ValueError(f"larft: V {tuple(V.shape)}, taus {tuple(taus.shape)}")
+    M, w = V.shape
+    taus = _pad_taus(taus, w)
+    if _on_cpu("larft", V, taus.reshape(1, w)):
+        return larft_tinv_plain(V, taus)
+    if w > 1024:
+        raise ValueError(f"larft: w = {w} > 1024")
+    out = torch.empty((w, w), dtype=V.dtype, device=V.device)
+    if w == 0:
+        return out
+    nt = -(-w // _LARFT_TILE)
+    tiles = nt * (nt + 1) // 2
+    # about four blocks an SM, chunks of at least 256 rows
+    nchunk = max(1, min(-(-4 * _sms(V.device) // tiles), -(-M // 256)))
+    rpc = max(1, -(-M // nchunk))
+    work = torch.empty((nchunk, tiles, _LARFT_TILE, _LARFT_TILE), dtype=V.dtype, device=V.device)
+    _launch("larft", _entry("larft", V.dtype),
+            V.data_ptr(), _ld(V), taus.data_ptr(), out.data_ptr(), work.data_ptr(),
+            M, w, nchunk, rpc, _stream(V))
+    return out
+
+
+def _larft_finish(Tinv: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """T from T^-1 by the library's triangular solve (<= nb, as in the
+    JAX package), with exact zeros in the rows and columns of absent
+    reflectors."""
+    w = Tinv.shape[0]
+    eye = torch.eye(w, dtype=Tinv.dtype, device=Tinv.device)
+    T = torch.linalg.solve_triangular(Tinv, eye, upper=True)
+    live = (taus != 0)[None, :] & (taus != 0)[:, None]
+    return torch.where(live, T, 0).contiguous()
+
+
+def larft_plain(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``larft``: the compact-WY T factor (w, w) of
+    unit-lower V (M, w) and taus, Q = I - V T V^H, from the identity
+    T^-1 = diag(1/tau) + strict_upper(V^H V)."""
+    taus = _pad_taus(taus, V.shape[1])
+    return _larft_finish(larft_tinv_plain(V, taus), taus)
+
+
+def larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Compact-WY T factor of the QR base panel: the ``larft`` kernel for
+    T^-1 (see ``larft_tinv``), then the library solve and the tau == 0
+    masking."""
+    taus = _pad_taus(taus, V.shape[1])
+    return _larft_finish(larft_tinv(V, taus), taus)
+
+
+# ---------------------------------------------------------------------------
+# tile_norms / tile_geadd / tile_transpose
+# ---------------------------------------------------------------------------
+
+_NORM_KINDS = {"max": 0, "fro_sumsq": 1, "one": 2, "inf": 3}
+
+
+def tile_norms_plain(T: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain version: per-tile statistics of |T| over an (N, mb, nb)
+    stack: 'max' and 'fro_sumsq' (sum of squares) -> (N,), 'one' (column
+    sums) -> (N, nb), 'inf' (row sums) -> (N, mb)."""
+    a = T.abs()
+    if kind == "max":
+        return a.amax(dim=(1, 2))
+    if kind == "fro_sumsq":
+        return (a * a).sum(dim=(1, 2))
+    if kind == "one":
+        return a.sum(dim=1)
+    if kind == "inf":
+        return a.sum(dim=2)
+    raise ValueError(f"tile_norms: unknown kind {kind!r}")
+
+
+def tile_norms(T: torch.Tensor, kind: str) -> torch.Tensor:
+    """Per-tile norm statistics, the contract of ``tile_norms_plain``.
+
+    Replaces ``slate_tpu/ops/pallas/kernels.py:tile_norms_pallas``.  Bound
+    on the H100: bytes (each element read once; 2.15 GB at (1024, 512,
+    512) in float64).  Design: a block a tile; 'max' propagates NaN as
+    ``torch.amax`` does (bit-identical to the plain version), the sums
+    are fixed-order reductions in the operand's type.  The JAX package's
+    gate (float32 and (8, 128)-aligned tiles) is a Mosaic limit: this
+    kernel takes float32/float64 and any tile shape."""
+    if kind not in _NORM_KINDS:
+        raise ValueError(f"tile_norms: unknown kind {kind!r}")
+    if T.dim() != 3:
+        raise ValueError(f"tile_norms: expected an (N, mb, nb) stack, got {tuple(T.shape)}")
+    if _on_cpu("tile_norms", T, dim=3):
+        return tile_norms_plain(T, kind)
+    N, mb, nb = T.shape
+    shape = {"max": (N,), "fro_sumsq": (N,), "one": (N, nb), "inf": (N, mb)}[kind]
+    out = torch.empty(shape, dtype=T.dtype, device=T.device)
+    if N and mb and nb:
+        _launch("tile_norms", _entry("tile_norms", T.dtype),
+                T.data_ptr(), _tile_stride(T), _ld(T), N, mb, nb, _NORM_KINDS[kind],
+                out.data_ptr(), _stream(T))
+    elif out.numel():
+        out.zero_()
+    return out
+
+
+def tile_geadd_plain(alpha, A: torch.Tensor, beta, B: torch.Tensor) -> torch.Tensor:
+    """Plain version: alpha A + beta B over a tile stack."""
+    return alpha * A + beta * B
+
+
+def tile_geadd(alpha: float, A: torch.Tensor, beta: float, B: torch.Tensor) -> torch.Tensor:
+    """B = alpha A + beta B over an (N, mb, nb) stack (a new tensor),
+    alpha and beta host scalars rounded to the operands' type.
+
+    Replaces ``slate_tpu/ops/pallas/kernels.py:tile_geadd_pallas``, which
+    nothing in the JAX package calls (``tile_ops.geadd`` is a plain
+    expression), so nothing here calls it either.  Bound on the H100:
+    bytes (two reads and one write).  Design: a grid-stride elementwise
+    pass with explicitly rounded products and sum, bit-identical to the
+    plain version."""
+    if A.dim() != 3 or A.shape != B.shape:
+        raise ValueError(f"tile_geadd: shapes {tuple(A.shape)}, {tuple(B.shape)}")
+    if _on_cpu("tile_geadd", A, B, dim=3):
+        return tile_geadd_plain(alpha, A, beta, B)
+    N, mb, nb = A.shape
+    out = torch.empty((N, mb, nb), dtype=A.dtype, device=A.device)
+    if out.numel():
+        _launch("tile_geadd", _entry("tile_geadd", A.dtype),
+                float(alpha), A.data_ptr(), _tile_stride(A), _ld(A), float(beta), B.data_ptr(),
+                _tile_stride(B), _ld(B), out.data_ptr(), N, mb, nb, _stream(A))
+    return out
+
+
+def tile_transpose_plain(T: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """Plain version: (N, mb, nb) -> (N, nb, mb), each tile transposed
+    (conjugated too for a complex stack with ``conj``)."""
+    out = T.transpose(1, 2)
+    if conj and T.is_complex():
+        out = out.conj()
+    return out.contiguous()
+
+
+def tile_transpose(T: torch.Tensor) -> torch.Tensor:
+    """Per-tile transpose (N, mb, nb) -> (N, nb, mb), contiguous.
+
+    Replaces ``slate_tpu/ops/pallas/kernels.py:tile_transpose_pallas``,
+    which the JAX package disables (``_PALLAS_TRANSPOSE_ENABLED``), so
+    nothing here calls it either.  Bound on the H100: bytes (one read,
+    one write).  Design: 32 x 32 blocks through a padded 32 x 33 shared
+    tile, coalesced reads and writes; bit-identical by construction."""
+    if T.dim() != 3:
+        raise ValueError(f"tile_transpose: expected an (N, mb, nb) stack, got {tuple(T.shape)}")
+    if _on_cpu("tile_transpose", T, dim=3):
+        return tile_transpose_plain(T)
+    N, mb, nb = T.shape
+    out = torch.empty((N, nb, mb), dtype=T.dtype, device=T.device)
+    if out.numel():
+        _launch("tile_transpose", _entry("tile_transpose", T.dtype),
+                T.data_ptr(), _tile_stride(T), _ld(T), out.data_ptr(), N, mb, nb, _stream(T))
+    return out

@@ -40,3 +40,15 @@ class Pivots:
         """The net permutation (not a LAPACK swap sequence); for shims
         where only the permutation matters."""
         return self.perm
+
+
+@dataclass
+class TriangularFactors:
+    """Householder panel factors of QR/LQ (reference: slate.hh
+    TriangularFactors = vector<Matrix>: Tlocal + Treduce).
+
+    V lives in the factored matrix's lower (upper for LQ) triangle; ``T``
+    stacks the nb x nb compact-WY block factors, one per tile panel:
+    (num_panels, nb, nb)."""
+
+    T: torch.Tensor  # (num_panels, nb, nb)

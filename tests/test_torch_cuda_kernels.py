@@ -10,8 +10,9 @@ on a machine without them; there, skip the JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerance: ``50 n eps max|ref|``, as in tests/test_pallas_panels.py;
-panel_lu and butterfly_level are bit-identical to their plain versions
-on the same device."""
+panel_lu, butterfly_level, tile_geadd, tile_transpose, the max of
+tile_norms and the diagonal of larft's T^-1 are bit-identical to their
+plain versions on the same device."""
 
 import numpy as np
 import pytest
@@ -289,3 +290,142 @@ def test_getrf_recursive_families_agree_on_the_card(dev, m, n, lookahead, pivot)
     lu = lu_k.cpu().numpy()
     L, U = np.tril(lu, -1)[:, :n] + np.eye(m, n), np.triu(lu[:n])
     np.testing.assert_allclose(L @ U, a[p_k.cpu().numpy()], rtol=0, atol=_tol(np.float64, n, a))
+
+
+def _consistent_v(rng, m, w, dtype):
+    """Unit-lower V with a small strict lower part and tau = 2 / ||v||^2
+    (exact reflectors), so T^-1 stays well conditioned."""
+    V = np.tril(rng.standard_normal((m, w)), -1) * 0.1 + np.eye(m, w)
+    sq = (V * V).sum(0)  # 0 for the columns past a short V's rows: no reflector
+    return V.astype(dtype), np.where(sq > 0, 2.0 / np.where(sq > 0, sq, 1), 0).astype(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,w,strided", [(1, 1, False), (5, 1, False), (700, 200, True),
+                                         (3000, 256, False), (40, 64, True)])
+def test_larft_matches_plain(dev, dtype, m, w, strided):
+    """T^-1: diagonal bitwise, lower triangle exactly zero, the strict
+    upper Gram within tolerance; T through the library solve agrees."""
+    rng = np.random.default_rng(m + w)
+    V, taus = _consistent_v(rng, m, w, dtype)
+    if w > 2:
+        taus[w // 2] = 0.0  # an absent reflector
+    big = np.zeros((m, w + 5), dtype)
+    big[:, 5:] = V
+    _, big_dev = _both(big, dev)
+    Vd = big_dev[:, 5:] if strided else big_dev[:, 5:].contiguous()
+    short = w - 1 if w > 1 else w  # a short taus vector: the last reflector absent
+    _, td = _both(taus[:short], dev)
+    got = pk.larft_tinv(Vd, td)
+    assert pk.LAUNCHES["larft"] == 1
+    ref = pk.larft_tinv_plain(Vd, td)
+    assert torch.equal(got.diagonal(), ref.diagonal())
+    assert not bool(torch.tril(got, -1).any())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=_tol(dtype, m, ref.cpu().numpy()))
+    T = pk.larft(Vd, td).cpu().numpy()
+    Tp = pk.larft_plain(Vd, td).cpu().numpy()
+    dead = np.flatnonzero(np.r_[taus[:short], np.zeros(w - short)] == 0)
+    assert np.isfinite(T).all() and not T[dead].any() and not T[:, dead].any()
+    np.testing.assert_allclose(T, Tp, rtol=0, atol=_tol(dtype, m, Tp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,mb,nb", [(1, 1, 1), (1, 37, 29), (7, 33, 100), (3, 512, 40)])
+def test_tile_norms_matches_plain(dev, dtype, N, mb, nb):
+    rng = np.random.default_rng(N + mb + nb)
+    _, big = _both(rng.standard_normal((N, mb, nb + 3)).astype(dtype), dev)
+    T = big[:, :, 3:]  # a strided stack
+    for kind in ("max", "fro_sumsq", "one", "inf"):
+        got = pk.tile_norms(T, kind)
+        ref = pk.tile_norms_plain(T, kind)
+        assert got.shape == ref.shape
+        if kind == "max":
+            assert torch.equal(got, ref)
+        else:
+            k = {"fro_sumsq": mb * nb, "one": mb, "inf": nb}[kind]
+            r = ref.cpu().numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), r, rtol=0, atol=_tol(dtype, k, r))
+    assert pk.LAUNCHES["tile_norms"] == 4
+    T2 = T.clone()
+    T2[N - 1, mb // 2, nb // 2] = float("nan")
+    for kind in ("max", "fro_sumsq", "one", "inf"):
+        out = pk.tile_norms(T2, kind).reshape(N, -1)
+        assert bool(torch.isnan(out[N - 1]).any())
+        assert bool(torch.isfinite(out[: N - 1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,mb,nb", [(1, 1, 1), (5, 33, 70), (2, 64, 64)])
+def test_tile_geadd_and_transpose_bitwise(dev, dtype, N, mb, nb):
+    rng = np.random.default_rng(N * mb + nb)
+    _, big = _both(rng.standard_normal((N, mb + 2, nb + 1)).astype(dtype), dev)
+    _, B = _both(rng.standard_normal((N, mb, nb)).astype(dtype), dev)
+    A = big[:, 2:, 1:]
+    for alpha, beta in ((0.3, -1.7), (1.0, 0.0), (-2.5, 1.0)):
+        assert torch.equal(pk.tile_geadd(alpha, A, beta, B), pk.tile_geadd_plain(alpha, A, beta, B))
+    got = pk.tile_transpose(A)
+    assert got.shape == (N, nb, mb) and got.is_contiguous()
+    assert torch.equal(got, pk.tile_transpose_plain(A))
+    assert pk.LAUNCHES["tile_geadd"] == 3 and pk.LAUNCHES["tile_transpose"] == 1
+
+
+@pytest.mark.cuda
+def test_qr_and_tile_wrappers_raise_on_unsupported(dev):
+    z = torch.zeros(8, 8, dtype=torch.complex128, device=dev)
+    with pytest.raises(TypeError):
+        pk.larft_tinv(z, z[0])
+    with pytest.raises(TypeError):
+        pk.tile_norms(z.reshape(1, 8, 8), "max")
+    x = torch.zeros(8, 8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        pk.larft_tinv(x.T, x[0])  # inner stride != 1
+    s = torch.zeros(2, 8, 8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        pk.tile_norms(s.transpose(1, 2), "one")
+    with pytest.raises(ValueError):
+        pk.tile_transpose(s.transpose(1, 2))
+    with pytest.raises(ValueError):
+        pk.tile_geadd(1.0, s, 1.0, s[:, :, :1].expand(2, 8, 8))  # overlapping rows
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["auto", "pallas"])
+def test_gels_on_the_card(dev, schedule):
+    """(2100, 1500) pads to (2304, 1536): auto takes the flat schedule,
+    explicit pallas the recursion with the larft kernel."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import qr_fast
+
+    m, n, nrhs = 2100, 1500, 3
+    rng = np.random.default_rng(6)
+    a, b = rng.standard_normal((m, n)), rng.standard_normal((m, nrhs))
+    grid = stt.ProcessGrid.single()
+    X = stt.gels(stt.Matrix.from_global(a, 256, grid=grid),
+                 stt.Matrix.from_global(b, 256, grid=grid), {stt.Option.Schedule: schedule})
+    expect = qr_fast.geqrf_kernel_launches(1536, 256) if schedule == "pallas" else 0
+    assert pk.LAUNCHES["larft"] == expect
+    x = X.to_global().cpu().numpy()
+    ref = torch.linalg.lstsq(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+                             ).solution.cpu().numpy()
+    np.testing.assert_allclose(x, ref, rtol=0, atol=1e-10 * max(np.abs(ref).max(), 1.0))
+
+
+@pytest.mark.cuda
+def test_norm_on_the_card_launches_tile_norms(dev):
+    import slate_tpu_torch as stt
+
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((1000, 700))
+    A = stt.Matrix.from_global(a, 128, grid=stt.ProcessGrid.single())
+    refs = {"One": np.abs(a).sum(0).max(), "Inf": np.abs(a).sum(1).max(),
+            "Max": np.abs(a).max(), "Fro": np.sqrt((a * a).sum())}
+    for name, ref in refs.items():
+        pk.reset_launches()
+        got = float(stt.norm(stt.Norm[name], A))
+        assert pk.LAUNCHES["tile_norms"] == (2 if name == "Fro" else 1)
+        assert abs(got - ref) <= 1e-12 * ref

@@ -29,6 +29,13 @@ import slate_tpu_torch.ops.lu_kernels
 import slate_tpu_torch.ops.lu_fast
 import slate_tpu_torch.matgen.philox
 import slate_tpu_torch.drivers.lu
+import slate_tpu_torch.ops.householder
+import slate_tpu_torch.ops.qr_fast
+import slate_tpu_torch.drivers.qr
+import slate_tpu_torch.drivers.aux
+import slate_tpu_torch.drivers.blas3
+import slate_tpu_torch.internal.norms
+import slate_tpu_torch.internal.tile_ops
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -57,7 +64,8 @@ def test_no_source_file_imports_jax_or_slate_tpu():
     assert len(files) > 10
     names = {str(f.relative_to(PKG)) for f in files if f.is_relative_to(PKG)}
     assert {"types.py", "ops/lu_kernels.py", "ops/lu_fast.py", "matgen/philox.py",
-            "drivers/lu.py"} <= names
+            "drivers/lu.py", "ops/householder.py", "ops/qr_fast.py", "drivers/qr.py",
+            "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
