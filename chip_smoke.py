@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv, gesv and gels
+                                     # and of one warm solve phase of posv and gesv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -10,16 +11,20 @@ Phases, each for float64 and float32 unless stated:
      torch/CUDA versions and TF32 switches;
   2. hold every kernel against its plain PyTorch version at the shapes of
      the main paths (panel_lu with bitwise-equal perm, butterfly_level,
-     the trsm pair in its Cholesky and packed-LU modes), and time kernel,
-     plain version and one library call;
+     the trsm pair in its six modes: lower, unit lower, upper,
+     transposed and the two packed-LU modes, each timed against
+     ``solve_triangular``, plus nrhs = 1, and at the seams of its
+     schedule on strided views), and time kernel, plain version and one
+     library call;
   3. the Cholesky main path: ``posv`` at n = 16384, nrhs = 512 with
      default options (Schedule.Auto must take the Hopper kernel family),
      scaled residual, info, launch counts against the schedule's mirror;
-     then ``potrs_from_global`` on the factor through the trsm kernels;
+     then ``potrs_from_global`` on the factor through the trsm kernels
+     (``trsm_kernel_launches`` each), timed against two library solves;
   4. the LU main path: ``gesv`` at n = 16384, nrhs = 512 with default
      options (panel_lu launches against the mirror, getrf time against
      ``torch.linalg.lu_factor``); then ``getrs_from_global`` on the
-     packed factor with P B through the trsm pair;
+     packed factor with P B through the trsm pair, timed likewise;
   5. ``gesv`` with MethodLU.RBT at n = 16384, nrhs = 512: 16
      butterfly_level launches, residual within the JAX package's bound;
   6. small cases: ``posv`` and ``gesv`` at n = 1000 with Schedule.Pallas
@@ -223,7 +228,11 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     ]
     for name, case, kern, plain, T, Top, other in cases:
         ref = plain(T)
+        pk.reset_launches()
         got = kern(T)
+        check(pk.LAUNCHES[name] == pk.trsm_kernel_launches(n, nrhs),
+              f"{name}/{case} {dtype}: {pk.LAUNCHES[name]} launches, expected "
+              f"{pk.trsm_kernel_launches(n, nrhs)}")
         err, ratio = elementwise_err(got, ref, Top.abs() @ ref.abs() + Bm.abs(), n)
         check(ratio <= 1, f"{name}/{case} {dtype}: max err/tol {ratio:.3e} > 1")
         # the update must carry weight: X is far from B / diag(T)
@@ -240,16 +249,26 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
         check(bool(torch.isfinite(gp).all()) and torch.equal(gp, got),
               f"{name}/{case} {dtype}: the other triangle leaked into the solve")
         del packed, gp
+        lib = lambda T=T, Top=Top, case=case: torch.linalg.solve_triangular(  # noqa: E731
+            Top, Bm, upper=name == "trsm_upper", unitriangular=case == "unit")
+        ms, lib_ms = cuda_ms(lambda: kern(T)), cuda_ms(lib)
         print(f"  {name}/{case} {dtype}: err {err:.3e} (max err/tol {ratio:.3e}), "
-              f"update moves X by {moved:.3e}, packed storage ok", flush=True)
+              f"update moves X by {moved:.3e}, packed storage ok; kernel {ms:.3f} ms  "
+              f"library {lib_ms:.3f} ms", flush=True)
+        out.setdefault("trsm_modes", {})[f"{name}/{case}"] = {"ms": ms, "library_ms": lib_ms}
         if case in ("nonunit", "transposed"):
-            lib = (lambda T=T: torch.linalg.solve_triangular(T, Bm, upper=False)) \
-                if name == "trsm_lower" else \
-                (lambda T=T: torch.linalg.solve_triangular(T.T, Bm, upper=True))
-            record(name, err, ratio, cuda_ms(lambda: kern(T)),
-                   cuda_ms(lambda: plain(T)), flops, nbytes, cuda_ms(lib),
+            record(name, err, ratio, ms, cuda_ms(lambda: plain(T)), flops, nbytes, lib_ms,
                    "slate_tpu/ops/pallas/panel_kernels.py:"
                    + ("507" if name == "trsm_lower" else "516"))
+            # one right-hand side: recorded, no bar
+            b1 = Bm[:, :1].contiguous()
+            k1 = (lambda T=T: pk.trsm_lower(T, b1)) if name == "trsm_lower" else \
+                (lambda T=T: pk.trsm_upper(T, b1, transposed=True))
+            ms1 = cuda_ms(k1)
+            lib1 = cuda_ms(lambda: torch.linalg.solve_triangular(Top, b1, upper=name == "trsm_upper"))
+            out["trsm_modes"][f"{name}/{case}/nrhs=1"] = {"ms": ms1, "library_ms": lib1}
+            print(f"  {name}/{case} {dtype} nrhs=1: kernel {ms1:.3f} ms  library {lib1:.3f} ms",
+                  flush=True)
 
     # the LU modes of the pair, on packed LU storage: U untransposed with
     # randn junk in the strict lower triangle (L's multipliers), and unit
@@ -285,7 +304,72 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
               f"moves X by {moved:.3e}, junk ignored; kernel {ms:.3f} ms  plain "
               f"{plain_ms:.3f} ms  library {lib_ms:.3f} ms", flush=True)
     del packed_u, packed_l, U, Lunit, Bm, ref, got, clean, cases, lu_cases, T, Top
+    trsm_seams(pk, dtype, gen, dev)
     return out
+
+
+def trsm_seams(pk, dtype, gen, dev) -> None:
+    """The trsm pair at shapes that cross the kernel's seams (n = kb - 1,
+    kb, kb + 1 and n not a multiple of kb, kb = 128 rows a block step;
+    nrhs = 1, 3 and one column tile + 1), on row-strided views of T and
+    B, in its six modes: lower, unit lower, upper, transposed, and the
+    two packed-LU modes.  Each
+    solve holds elementwise against the plain version, is bitwise equal
+    with NaN (lower/upper/transposed) or the other LU factor (LU modes)
+    in the unread triangle, and launches trsm_kernel_launches kernels."""
+    dt = getattr(torch, dtype)
+    kb, tile = pk.TRSM_KB, pk.TRSM_BN  # the block step and the column tile
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
+    worst = 0.0
+    for n, nrhs in ((kb - 1, 3), (kb, 1), (kb + 1, tile + 1), (1000, 1), (1000, 3),
+                    (1000, tile + 1)):
+        eye = torch.eye(n, device=dev, dtype=dt)
+        low = torch.tril(rnd(n, n), -1) / n**0.5
+        junk_u = torch.triu(rnd(n, n))  # what the lower modes must not read
+        junk_l = torch.tril(rnd(n, n), -1)
+        nan_ud = torch.triu(torch.full((n, n), float("nan"), device=dev, dtype=dt))
+        nan_u = torch.triu(nan_ud, 1)  # NaN strictly above the diagonal, 0 elsewhere
+        nan_l = nan_u.T
+        # (name, kernel, plain, op(T) clean, T as stored with the other
+        # triangle poisoned)
+        modes = [
+            ("trsm_lower", lambda T, B: pk.trsm_lower(T, B),
+             lambda T, B: pk.trsm_plain(T, B, True), low + 2 * eye, low + 2 * eye + nan_u),
+            ("trsm_lower", lambda T, B: pk.trsm_lower(T, B, unit=True),
+             lambda T, B: pk.trsm_plain(T, B, True, unit=True), low + eye, low + nan_ud),
+            ("trsm_upper", lambda T, B: pk.trsm_upper(T, B),
+             lambda T, B: pk.trsm_plain(T, B, False), low.T + 2 * eye, low.T + 2 * eye + nan_l),
+            ("trsm_upper", lambda T, B: pk.trsm_upper(T, B, transposed=True),
+             lambda T, B: pk.trsm_plain(T, B, False, transposed=True), low.T + 2 * eye,
+             low + 2 * eye + nan_u),
+            ("trsm_upper", lambda T, B: pk.trsm_upper(T, B),
+             lambda T, B: pk.trsm_plain(T, B, False), low.T + 2 * eye, low.T + 2 * eye + junk_l),
+            ("trsm_lower", lambda T, B: pk.trsm_lower(T, B, unit=True),
+             lambda T, B: pk.trsm_plain(T, B, True, unit=True), low + eye, low + junk_u),
+        ]
+        for mode, (name, kern, plain, Top, Tst) in enumerate(modes):
+            # row-strided views: T inside an (n, n + 5) buffer, B inside (n, nrhs + 3)
+            Tbuf = torch.zeros(n, n + 5, device=dev, dtype=dt)
+            Tbuf[:, 2:2 + n] = Tst
+            Bbuf = rnd(n, nrhs + 3)
+            Tv, Bv = Tbuf[:, 2:2 + n], Bbuf[:, 1:1 + nrhs]
+            pk.reset_launches()
+            got = kern(Tv, Bv)
+            torch.cuda.synchronize()
+            check(pk.LAUNCHES[name] == pk.trsm_kernel_launches(n, nrhs),
+                  f"trsm seams {dtype} mode {mode} n={n}: launches {pk.LAUNCHES[name]}")
+            clean_stored = Top.T.contiguous() if mode == 3 else Top.contiguous()
+            clean = kern(clean_stored, Bv.contiguous())
+            check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+                  f"trsm seams {dtype} mode {mode} n={n} nrhs={nrhs}: the unread triangle entered")
+            ref = plain(clean_stored, Bv)
+            err, ratio = elementwise_err(got, ref, Top.abs() @ ref.abs() + Bv.abs(), n)
+            check(ratio <= 1, f"trsm seams {dtype} mode {mode} n={n} nrhs={nrhs}: "
+                              f"max err/tol {ratio:.3e} > 1")
+            worst = max(worst, ratio)
+    print(f"  trsm seams {dtype}: six modes x n in ({kb - 1}, {kb}, {kb + 1}, 1000) x nrhs in "
+          f"(1, 3, {tile + 1}) on strided views: bitwise equal with the unread triangle poisoned, "
+          f"launches as planned, worst err/tol {worst:.3e}", flush=True)
 
 
 def lu_error(lu, ref_lu, k: int):
@@ -430,14 +514,22 @@ def main_path(stt, pk, ck, metrics, dtype, gen, dev) -> dict:
     check(r_posv <= 3, f"posv {dtype}: scaled residual {r_posv:.3f} > 3")
     check(r_solve <= 3, f"potrs_from_global {dtype}: scaled residual {r_solve:.3f} > 3")
     check(factor_counts == expect, f"posv {dtype}: launches {factor_counts} != {expect}")
-    check(launches["trsm_lower"] >= 1 and launches["trsm_upper"] >= 1,
-          f"potrs_from_global {dtype}: trsm kernels not launched")
+    sweep = pk.trsm_kernel_launches(n, nrhs)
+    check(launches["trsm_lower"] == sweep and launches["trsm_upper"] == sweep,
+          f"potrs_from_global {dtype}: trsm launches {launches['trsm_lower']}, "
+          f"{launches['trsm_upper']} != {sweep} each")
+    t_solve = cuda_ms(lambda: stt.potrs_from_global(Lg, B, "auto"), reps=3)
+    t_solve_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Lg.mT, torch.linalg.solve_triangular(Lg, B, upper=False), upper=True), reps=3)
+    print(f"  potrs_from_global {dtype}: {t_solve:.3f} ms, two library solves "
+          f"{t_solve_lib:.3f} ms", flush=True)
     del X, L, Lg, Y, Am, Bm
     t_lib = cuda_ms(lambda: torch.linalg.cholesky(A), reps=3)
     print(f"  torch.linalg.cholesky {dtype} n={n}: {t_lib:.3f} ms "
           f"(yardstick, {n**3 / 3.0 / t_lib / 1e6:.1f} GFLOP/s)", flush=True)
     return {"launches": launches, "residual": r_posv, "solve_residual": r_solve,
-            "potrf_s": t_fact, "potrf_gflops": gflops, "cholesky_lib_ms": t_lib}
+            "potrf_s": t_fact, "potrf_gflops": gflops, "cholesky_lib_ms": t_lib,
+            "potrs_from_global_ms": t_solve, "two_library_solves_ms": t_solve_lib}
 
 
 def small_pallas(stt, pk, ck, gen, dev) -> None:
@@ -512,8 +604,10 @@ def lu_main_path(stt, pk, lk, metrics, dtype, gen, dev) -> dict:
     print(f"  getrs_from_global {dtype}: residual {r_solve:.3e}, trsm launches lower "
           f"{solve_counts['trsm_lower']} upper {solve_counts['trsm_upper']}", flush=True)
     check(r_solve <= 3, f"getrs_from_global {dtype}: scaled residual {r_solve:.3f} > 3")
-    check(solve_counts["trsm_lower"] == 1 and solve_counts["trsm_upper"] == 1,
-          f"getrs_from_global {dtype}: trsm launches {solve_counts}")
+    sweep = pk.trsm_kernel_launches(n, nrhs)
+    check(solve_counts["trsm_lower"] == sweep and solve_counts["trsm_upper"] == sweep,
+          f"getrs_from_global {dtype}: trsm launches {solve_counts['trsm_lower']}, "
+          f"{solve_counts['trsm_upper']} != {sweep} each")
     t_solve = cuda_ms(lambda: stt.getrs_from_global(LUg, PB), reps=3)
     t_solve_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
         LUg, torch.linalg.solve_triangular(LUg, PB, upper=False, unitriangular=True),
@@ -969,7 +1063,9 @@ def _profile_call(label, fn) -> None:
 def profile(stt, gen, dev) -> None:
     """Wall time of one warm ``posv`` and one warm ``gesv`` (n = 16384,
     nrhs = 512, float64, default options), then a profile of a third call
-    of each; then the same for ``gels`` at (32768, 16384)."""
+    of each and of one warm solve phase of each (``potrs_from_global``,
+    ``getrs_from_global``: its idle share is what the host-stepped trsm
+    launches cost); then the same for ``gels`` at (32768, 16384)."""
     n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -986,7 +1082,11 @@ def profile(stt, gen, dev) -> None:
         t_posv = time.perf_counter() - t0
     print(f"  warm potrf {t_potrf:.4f} s, posv {t_posv:.4f} s (host clock, float64 n={n})")
     _profile_call("posv", lambda: stt.posv(Am, Bm))
-    del Am, A
+    # the solve phase of a factor-cache hit: two trsm sweeps, host-stepped
+    Lg = stt.potrf(Am)[0].to_global().contiguous()
+    stt.potrs_from_global(Lg, B)
+    _profile_call("potrs_from_global", lambda: stt.potrs_from_global(Lg, B))
+    del Am, A, Lg
     A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
     Am, Bm = stt.Matrix.from_global(A, 512), stt.Matrix.from_global(B, 512)
     for _ in range(2):
@@ -1001,6 +1101,12 @@ def profile(stt, gen, dev) -> None:
         t_gesv = time.perf_counter() - t0
     print(f"  warm getrf {t_getrf:.4f} s, gesv {t_gesv:.4f} s (host clock, float64 n={n})")
     _profile_call("gesv", lambda: stt.gesv(Am, Bm))
+    LU, piv, _ = stt.getrf(Am)
+    LUg, PB = LU.to_global().contiguous(), piv.apply(B)
+    del LU
+    stt.getrs_from_global(LUg, PB)
+    _profile_call("getrs_from_global", lambda: stt.getrs_from_global(LUg, PB))
+    del LUg, PB
     del A, Am, Bm, B
     m = M_QR
     A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)

@@ -22,13 +22,14 @@ those.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -121,7 +122,8 @@ _SIGNATURES = {
     "chol_base": [_P, _I, _L, _P],
     "gemm_sub": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
     "syrk_diag": [_P, _L, _P, _L, _P, _I, _I, _I, _P],
-    "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P],
+    "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "trsm_layout": [_P, _P],
     "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -129,6 +131,10 @@ _SIGNATURES = {
     "tile_geadd": [_D, _P, _L, _L, _D, _P, _L, _L, _P, _I, _I, _I, _P],
     "tile_transpose": [_P, _L, _L, _P, _I, _I, _I, _P],
 }
+
+
+def _symbol(libs: List[ctypes.CDLL], sym: str):
+    return next(getattr(lib, sym) for lib in libs if hasattr(lib, sym))
 
 
 def _load() -> List[ctypes.CDLL]:
@@ -139,17 +145,21 @@ def _load() -> List[ctypes.CDLL]:
     libs = [ctypes.CDLL(str(so)) for so in sos]
     for name, args in _SIGNATURES.items():
         for suf in ("f32", "f64"):
-            sym = f"slate_{name}_{suf}"
-            fn = next(getattr(lib, sym) for lib in libs if hasattr(lib, sym))
+            fn = _symbol(libs, f"slate_{name}_{suf}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
+    for suf in ("f32", "f64"):  # the trsm plan's tile is the one built
+        kb, bn = ctypes.c_int(), ctypes.c_int()
+        _symbol(libs, f"slate_trsm_layout_{suf}")(ctypes.byref(kb), ctypes.byref(bn))
+        if (kb.value, bn.value) != (TRSM_KB, TRSM_BN):
+            raise RuntimeError(f"trsm kernel tile {kb.value} x {bn.value} ({suf}), the plan "
+                               f"assumes {TRSM_KB} x {TRSM_BN}")
     _libs = libs
     return libs
 
 
 def _entry(name: str, dtype: torch.dtype):
-    sym = f"slate_{name}_{'f64' if dtype == torch.float64 else 'f32'}"
-    return next(getattr(lib, sym) for lib in _load() if hasattr(lib, sym))
+    return _symbol(_load(), f"slate_{name}_{'f64' if dtype == torch.float64 else 'f32'}")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -365,7 +375,117 @@ def trsm_plain(T: torch.Tensor, B: torch.Tensor, lower: bool, unit: bool = False
     return X.contiguous()  # row-major, as the kernel writes it
 
 
-_TR_NC = 4  # csrc: TR_NC, the columns of B a block owns
+#: rows of a block step of the trsm sweep and columns of an output tile
+#: (csrc: TR_KB, TrLayout::BN; checked against the built kernels when they
+#: load), and how many source blocks a far row block takes at once, every
+#: that many launches
+TRSM_KB, TRSM_BN, TRSM_D = 128, 64, 2
+
+Span = Tuple[int, int]
+
+
+class TrsmUpdate(NamedTuple):
+    """rows -= op(T)[rows, src] X[src] (half-open row ranges of op(T));
+    ``from_b``: the rows' first update, which reads their right-hand
+    side from B (later ones read X)."""
+    rows: Span
+    src: Span
+    from_b: bool
+
+
+class TrsmStep(NamedTuple):
+    """One launch of a trsm sweep: ``updates`` first (the owner's, on the
+    rows of ``solve``, then the far row blocks'), then the row block
+    ``solve`` is solved; with no update it reads B."""
+    solve: Span
+    updates: Tuple[TrsmUpdate, ...]
+
+
+def trsm_step_plan(n: int, lower: bool) -> List[TrsmStep]:
+    """The schedule of ``trsm_lower``/``trsm_upper`` on the card, which
+    ``_trsm`` hands to the kernel step by step (``lower`` names op(T)'s
+    triangle; ``transposed`` changes only where op(T) lies in memory):
+    row blocks of ``TRSM_KB`` rows from the top, the last one ragged,
+    walked top-down for lower and bottom-up for upper.  Launch s solves
+    block s after taking block s - 1 from it; the row blocks at distance
+    1, 1 + d, 1 + 2d, ... (d = ``TRSM_D``) from it take the blocks solved
+    by launches s - d .. s - 1 at once, so each far row block is read and
+    written every d launches with d times the depth."""
+    kb, d = TRSM_KB, TRSM_D
+    blocks = [(r, min(n, r + kb)) for r in range(0, n, kb)]
+    order = blocks if lower else blocks[::-1]
+
+    def span(j0: int, j1: int) -> Span:  # the rows of order[j0:j1], contiguous
+        sel = order[j0:j1]
+        return min(b[0] for b in sel), max(b[1] for b in sel)
+
+    steps = []
+    for s, blk in enumerate(order):
+        updates = []
+        if s >= 1:
+            updates.append(TrsmUpdate(blk, span(s - 1, s), s == 1))
+            updates += [TrsmUpdate(order[s + dist], span(max(0, s - d), s), s <= d)
+                        for dist in range(1, len(order) - s, d)]
+        steps.append(TrsmStep(blk, tuple(updates)))
+    return steps
+
+
+#: the fields of one launch in the kernel's table (csrc: TrStep)
+TRSM_TABLE_FIELDS = ("own_r0", "own_k0", "own_kw", "far_r0", "far_step", "far_count",
+                     "far_k0", "far_kw", "reads_b")
+
+
+@functools.lru_cache(maxsize=64)
+def trsm_launch_table(n: int, lower: bool) -> Tuple[Tuple[int, ...], ...]:
+    """``trsm_step_plan`` as the kernel takes it, one row of
+    ``TRSM_TABLE_FIELDS`` a launch: the owner's rows and sources, the
+    far row blocks at ``far_r0 + y * far_step`` (y < ``far_count``, each
+    ``min(TRSM_KB, n - r0)`` rows) with their common sources, and
+    ``reads_b`` (bit 0: the owner reads B, bit 1: the far row blocks do).
+    Raises if a step does not fit that form."""
+    table = []
+    for st in trsm_step_plan(n, lower):
+        own = st.updates[0] if st.updates else TrsmUpdate(st.solve, (st.solve[0],) * 2, True)
+        far = st.updates[1:]
+        first = far[0].rows[0] if far else 0
+        step = far[1].rows[0] - first if len(far) > 1 else 0
+        if own.rows != st.solve or len({(u.src, u.from_b) for u in far}) > 1 or any(
+                u.rows != (first + y * step, min(n, first + y * step + TRSM_KB))
+                for y, u in enumerate(far)):
+            raise ValueError(f"trsm_launch_table: step {st} does not fit the kernel's launch")
+        src = far[0].src if far else (0, 0)
+        table.append((own.rows[0], own.src[0], own.src[1] - own.src[0], first, step, len(far),
+                      src[0], src[1] - src[0],
+                      int(own.from_b) | (2 if far and far[0].from_b else 0)))
+    return tuple(table)
+
+
+def _trsm_table_array(table) -> ctypes.Array:
+    return (ctypes.c_int * (len(TRSM_TABLE_FIELDS) * len(table)))(
+        *(v for row in table for v in row))
+
+
+@functools.lru_cache(maxsize=64)
+def _trsm_plan_array(n: int, lower: bool) -> ctypes.Array:
+    return _trsm_table_array(trsm_launch_table(n, lower))
+
+
+def _trsm_sweep(T, B, X, lower: bool, unit: bool, transposed: bool,
+                plan: ctypes.Array) -> Tuple[int, int]:
+    """Launch the kernel once a row of ``plan`` (a launch table as a
+    ctypes int array) on CUDA tensors; returns (CUDA error, launches)."""
+    launched = ctypes.c_int(0)
+    err = _entry("trsm", T.dtype)(
+        T.data_ptr(), _ld(T), B.data_ptr(), _ld(B), X.data_ptr(), _ld(X), B.shape[0],
+        B.shape[1], int(lower), int(unit), int(transposed), plan,
+        len(plan) // len(TRSM_TABLE_FIELDS), ctypes.byref(launched), _stream(T))
+    return err, launched.value
+
+
+def trsm_kernel_launches(n: int, nrhs: int = 1) -> int:
+    """Kernel launches of one ``trsm_lower``/``trsm_upper`` call on the
+    card: one a row block of ``TRSM_KB`` (none for an empty solve)."""
+    return 0 if n == 0 or nrhs == 0 else -(-n // TRSM_KB)
 
 
 def _trsm(name: str, T, B, lower: bool, unit: bool, transposed: bool):
@@ -374,32 +494,35 @@ def _trsm(name: str, T, B, lower: bool, unit: bool, transposed: bool):
     if _on_cpu(name, T, B):
         return trsm_plain(T, B, lower, unit, transposed)
     n, nrhs = B.shape
-    # the kernel reads X in row strips of _TR_NC values: pad X's rows to a
-    # multiple of _TR_NC (the padding is read, never used)
-    ldx = -(-nrhs // _TR_NC) * _TR_NC
-    Xp = torch.empty((n, ldx), dtype=B.dtype, device=B.device)
+    X = torch.empty((n, nrhs), dtype=B.dtype, device=B.device)
     if n and nrhs:
-        _launch(name, _entry("trsm", T.dtype),
-                T.data_ptr(), _ld(T), B.data_ptr(), _ld(B), Xp.data_ptr(), ldx, n, nrhs,
-                int(lower), int(unit), int(transposed), _stream(T))
-    return Xp if ldx == nrhs else Xp[:, :nrhs].contiguous()
+        err, launched = _trsm_sweep(T, B, X, lower, unit, transposed, _trsm_plan_array(n, lower))
+        LAUNCHES[name] += launched  # the launches made, also on an error
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    return X
 
 
 _TRSM_NOTE = """
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:{fn}``.  Bound on
-    the H100: n^2 nrhs FLOPs against n^2/2 elements of the triangle;
-    at nrhs = 512 the FLOPs bound it.  In practice the work each SM
-    issues (loads, shared reads and FMAs of its strip's whole
-    substitution) limits the kernel; every block also re-reads the
-    triangle through L2.  Design: the columns of B are independent, so
-    each thread block owns 4 of them and runs the whole substitution
-    over row blocks of 32, in order: 16 warps split the update from the
-    solved rows into 32-row chunks, each chunk's loads issued at once so
-    one L2 latency is paid per chunk; then one warp solves the diagonal
-    block by substitution with shuffles.  Only the stated triangle of
-    op(T) is read (packed LU storage is safe).  ``transposed`` reads T
-    as T^T (real types only on the card), so the backward sweep of a
-    Cholesky solve needs no transposed copy of L."""
+    the H100: operations (n^2 nrhs FLOPs against n^2/2 elements of the
+    triangle and 2 n nrhs of B and X; 2.05 ms at (16384, 512)).  Design:
+    a right-looking blocked substitution stepped from the host, one
+    launch a row block of 128 (``trsm_kernel_launches``), each a row of
+    ``trsm_launch_table`` (the steps of ``trsm_step_plan``), which the
+    wrapper passes in.  Launch s solves block s: the tiles of block s
+    take block s - 1, the far row blocks take the last ``TRSM_D`` solved
+    blocks at once every ``TRSM_D`` launches (half the right-hand-side
+    traffic), then the tiles of block s solve its diagonal block (strips
+    of 32 rows, substituted by groups of 8).  The products run in the
+    kernel, in 128 x 64 tiles: DMMA (m16n8k4) in float64, 8 x 4 FFMA
+    outputs a thread in float32, operands through a ring of cp.async
+    stages.  The triangle is read once a column tile, and each step
+    spreads over the unsolved row blocks.  Only the stated triangle of
+    op(T) is read (packed LU storage is safe; ``unit`` never reads the
+    diagonal).  ``transposed`` reads T as T^T (real types only on the
+    card), so the backward sweep of a Cholesky solve needs no transposed
+    copy of L."""
 
 
 def trsm_lower(L: torch.Tensor, B: torch.Tensor, unit: bool = False,

@@ -89,16 +89,30 @@ def test_gemm_sub_strided_views(dev, dtype, k):
     assert pk.LAUNCHES["gemm_sub"] == 1
 
 
+MODES = [(True, False, False), (True, True, False), (False, False, False), (False, False, True),
+         (True, False, True)]
+
+
+KB, TILE = pk.TRSM_KB, pk.TRSM_BN  # the trsm kernel's block step and column tile
+
+
+def _trsm(t, b, lower, unit, trans):
+    if lower:
+        return pk.trsm_lower(t, b, unit=unit, transposed=trans)
+    return pk.trsm_upper(t, b, transposed=trans)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("lower,unit,trans", [
-    (True, False, False), (True, True, False), (False, False, False), (False, False, True),
-    (True, False, True),
-])
-@pytest.mark.parametrize("n,nrhs", [(101, 7), (300, 1)])
+@pytest.mark.parametrize("lower,unit,trans", MODES)
+@pytest.mark.parametrize("n,nrhs", [(101, 7), (300, 1), (KB - 1, 3), (KB, 1), (KB + 1, "tile+1"),
+                                    (300, 3), (1000, "tile+1")])
 def test_trsm_packed_storage(dev, dtype, lower, unit, trans, n, nrhs):
     """op(T) X = B with NaN in the unread triangle (and on the unread unit
-    diagonal): the result is finite and agrees with the plain solve."""
+    diagonal): the result is finite and agrees with the plain solve.  The
+    shapes cross the kernel's seams: n = KB - 1, KB, KB + 1 (one block
+    step), n not a multiple of KB, nrhs = 1 and one column tile + 1."""
+    nrhs = TILE + 1 if nrhs == "tile+1" else nrhs
     rng = np.random.default_rng(n + 2 * lower + unit + 4 * trans)
     stored_lower = lower != trans
     t = _tri(rng, n, dtype, stored_lower, unit)
@@ -106,16 +120,82 @@ def test_trsm_packed_storage(dev, dtype, lower, unit, trans, n, nrhs):
     other = np.triu(ones, 0 if unit else 1) if stored_lower else np.tril(ones, -1 if not unit else 0)
     _, t_dev = _both(np.where(other, np.nan, t), dev)
     b_cpu, b = _both(_rand(rng, n, nrhs, dtype), dev)
-    if lower:
-        got = pk.trsm_lower(t_dev, b, unit=unit, transposed=trans)
-    else:
-        got = pk.trsm_upper(t_dev, b, transposed=trans)
-    got = got.cpu().numpy()
+    got = _trsm(t_dev, b, lower, unit, trans).cpu().numpy()
     ref = pk.trsm_plain(torch.from_numpy(t), b_cpu, lower, unit, trans).numpy()
     assert got.shape == (n, nrhs)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(dtype, n, ref))
-    assert pk.LAUNCHES["trsm_lower" if lower else "trsm_upper"] == 1
+    assert pk.LAUNCHES["trsm_lower" if lower else "trsm_upper"] == pk.trsm_kernel_launches(n, nrhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lower,unit,trans", MODES)
+def test_trsm_strided_views(dev, dtype, lower, unit, trans):
+    """T and B as row-strided views of larger buffers (no copy is made),
+    n and nrhs ragged against the block step and the column tile."""
+    n, nrhs = 261, TILE + 5
+    rng = np.random.default_rng(31 + 2 * lower + unit + 4 * trans)
+    t = _tri(rng, n, dtype, lower != trans, unit)
+    tbig = _rand(rng, n + 3, n + 9, dtype)
+    tbig[3:, 7:7 + n] = t
+    bbig = _rand(rng, n + 2, nrhs + 11, dtype)
+    _, tb = _both(tbig, dev)
+    b_cpu, bb = _both(bbig, dev)
+    tv, bv = tb[3:, 7:7 + n], bb[2:, 5:5 + nrhs]
+    assert tv.stride(0) == n + 9 and bv.stride(0) == nrhs + 11
+    got = _trsm(tv, bv, lower, unit, trans).cpu().numpy()
+    ref = pk.trsm_plain(torch.from_numpy(t), b_cpu[2:, 5:5 + nrhs], lower, unit, trans).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(dtype, n, ref))
+    assert pk.LAUNCHES["trsm_lower" if lower else "trsm_upper"] == pk.trsm_kernel_launches(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,nrhs", [(KB + 1, 3), (1000, 1), (1000, "tile+1")])
+def test_trsm_lu_modes_ignore_the_other_factor(dev, dtype, n, nrhs):
+    """Packed LU storage, randn junk in the other factor's place: the unit
+    lower solve and the upper solve equal the solves of the clean
+    triangles bit for bit."""
+    nrhs = TILE + 1 if nrhs == "tile+1" else nrhs
+    rng = np.random.default_rng(n + 5)
+    low = _tri(rng, n, dtype, True, True)
+    up = _tri(rng, n, dtype, False, False)
+    _, p = _both(np.tril(low, -1) + np.triu(up), dev)
+    _, lo = _both(low, dev)
+    _, u = _both(up, dev)
+    _, b = _both(_rand(rng, n, nrhs, dtype), dev)
+    y = pk.trsm_lower(p, b, unit=True)
+    assert torch.equal(y, pk.trsm_lower(lo, b, unit=True))
+    x = pk.trsm_upper(p, y)
+    assert torch.equal(x, pk.trsm_upper(u, y))
+    ref = pk.trsm_plain(u, pk.trsm_plain(lo, b, True, unit=True), False).cpu().numpy()
+    np.testing.assert_allclose(x.cpu().numpy(), ref, rtol=0, atol=_tol(dtype, n, ref))
+    assert pk.LAUNCHES["trsm_lower"] == pk.LAUNCHES["trsm_upper"] == 2 * pk.trsm_kernel_launches(n)
+
+
+@pytest.mark.cuda
+def test_potrs_from_global_on_an_ill_conditioned_factor(dev):
+    """The real Cholesky factor of an SPD matrix with condition number
+    1e8, solved through both sweeps of the kernel pair: the scaled
+    residual ||A X - B||_1 / (||A||_1 ||X||_1 n eps) stays <= 3."""
+    import slate_tpu_torch as stt
+
+    n, nrhs = 1000, 5
+    rng = np.random.default_rng(9)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = (q * np.logspace(0, -8, n)) @ q.T
+    a = (a + a.T) / 2
+    b = rng.standard_normal((n, nrhs))
+    _, A = _both(a, dev)
+    _, B = _both(b, dev)
+    X = stt.potrs_from_global(torch.linalg.cholesky(A), B, "pallas")
+    launches = pk.trsm_kernel_launches(n, nrhs)
+    assert pk.LAUNCHES["trsm_lower"] == launches and pk.LAUNCHES["trsm_upper"] == launches
+    x = X.cpu().numpy()
+    n1 = lambda m: np.abs(m).sum(0).max()  # noqa: E731
+    res = n1(a @ x - b) / (n1(a) * n1(x) * n * np.finfo(np.float64).eps)
+    assert res <= 3
 
 
 @pytest.mark.cuda
@@ -156,7 +236,8 @@ def test_posv_on_the_card_takes_the_kernels(dev):
     res = np.abs(a @ x - b).max() / (np.abs(a).max() * np.abs(x).max() * n)
     assert res <= 3 * np.finfo(np.float64).eps
     Y = stt.potrs_from_global(L.to_global(), torch.from_numpy(b).to(dev))
-    assert pk.LAUNCHES["trsm_lower"] == 1 and pk.LAUNCHES["trsm_upper"] == 1
+    launches = pk.trsm_kernel_launches(n, nrhs)
+    assert pk.LAUNCHES["trsm_lower"] == launches and pk.LAUNCHES["trsm_upper"] == launches
     np.testing.assert_allclose(Y.cpu().numpy(), x, rtol=0, atol=_tol(np.float64, n, x))
 
 
@@ -262,7 +343,8 @@ def test_gesv_on_the_card_takes_the_kernels(dev):
     assert res <= 3 * np.finfo(np.float64).eps
     pk.reset_launches()
     Y = stt.getrs_from_global(LU.to_global(), piv.apply(torch.from_numpy(b).to(dev)))
-    assert pk.LAUNCHES["trsm_lower"] == 1 and pk.LAUNCHES["trsm_upper"] == 1
+    launches = pk.trsm_kernel_launches(n, nrhs)
+    assert pk.LAUNCHES["trsm_lower"] == launches and pk.LAUNCHES["trsm_upper"] == launches
     np.testing.assert_allclose(Y.cpu().numpy(), x, rtol=0, atol=_tol(np.float64, n, x) * 10)
     pk.reset_launches()
     Xr, _, _, info = stt.gesv(A, B, {stt.Option.MethodLU: stt.MethodLU.RBT})
