@@ -2,8 +2,9 @@
 """Smoke test of slate_tpu_torch on one NVIDIA GPU (the H100 it targets).
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
-    python3 chip_smoke.py --profile  # build + profiles of one warm posv, gesv and gels
-                                     # and of one warm solve phase of posv and gesv
+    python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its gemm_sub
+                                     # and syrk_diag pieces), gesv and gels and of one
+                                     # warm solve phase of posv and gesv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -43,12 +44,20 @@ Phases, each for float64 and float32 unless stated:
   9. norms of a 16384^2 matrix in tiles of 512: One, Inf, Max (bitwise
      equal to the library's), Fro and colNorms, one tile_norms launch
      each (two for Fro); Hermitian and triangular norms on the JAX
-     package's plain route (no launch).
+     package's plain route (no launch);
+ 10. complex128 ``posv``, ``gesv`` (with both solve phases), ``gesv``
+     with MethodLU.RBT and ``gels`` at n = 2048, default options: the
+     recursive schedule and the library solves (the kernels take
+     float32/float64 only), residuals within bound, no kernel launch.
 
-Phase 2 also holds larft (T^-1 of a factored (32768, 256) panel: the
-diagonal bitwise, the lower triangle exactly zero), tile_norms, and the
-unrouted tile_geadd and tile_transpose (bitwise) against their plain
-versions on the (1024, 512, 512) tile stack of a 16384^2 matrix.
+Phase 2 also holds gemm_sub and syrk_diag at the seams of their tiles
+and K ring (both tile variants, ragged and short K, unaligned rows, the
+K split; bitwise repeatable), times gemm_sub against ``addmm`` at each
+shape class of a posv, and holds larft (T^-1 of a factored (32768, 256)
+panel: the diagonal bitwise, the lower triangle exactly zero),
+tile_norms, and the unrouted tile_geadd and tile_transpose (bitwise)
+against their plain versions on the (1024, 512, 512) tile stack of a
+16384^2 matrix.
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -184,6 +193,7 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(torch.triu(got, 1), torch.triu(C, 1)),
           f"syrk_diag {dtype}: the upper triangle changed")
+    check(torch.equal(pk.syrk_diag(C, A), got), f"syrk_diag {dtype}: two calls differ")
     err, ratio = elementwise_err(got, ref, A.abs() @ A.abs().T + C.abs(), h)
     record("syrk_diag", err, ratio, cuda_ms(lambda: pk.syrk_diag(C, A)),
            cuda_ms(lambda: pk.syrk_diag_plain(C, A)),
@@ -196,6 +206,7 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     C, A, B = rnd(M, N), rnd(M, K), rnd(N, K)
     got, ref = pk.gemm_sub(C, A, B), pk.gemm_sub_plain(C, A, B)
     err, ratio = elementwise_err(got, ref, A.abs() @ B.abs().T + C.abs(), K)
+    check(torch.equal(pk.gemm_sub(C, A, B), got), f"gemm_sub {dtype}: two calls differ")
     del got
     record("gemm_sub", err, ratio, cuda_ms(lambda: pk.gemm_sub(C, A, B)),
            cuda_ms(lambda: pk.gemm_sub_plain(C, A, B)),
@@ -203,6 +214,18 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
            cuda_ms(lambda: torch.addmm(C, A, B.T, alpha=-1)),
            "slate_tpu/ops/pallas/panel_kernels.py:403")
     del C, A, B, ref
+    # the other shape classes of a posv's gemm_sub launches: recorded, no bar
+    for M, K in ((2048, 8192), (512, 8192), (256, 8192)):
+        C, A, B = rnd(M, M), rnd(M, K), rnd(M, K)
+        plan = pk._gemm_plan(C, M, M, K, False)
+        ms, lib = cuda_ms(lambda: pk.gemm_sub(C, A, B)), cuda_ms(
+            lambda: torch.addmm(C, A, B.T, alpha=-1))
+        out.setdefault("gemm_sub_classes", {})[f"({M}, {M}, {K})"] = {
+            "ms": ms, "library_ms": lib, "plan": list(plan)}
+        print(f"  gemm_sub {dtype} ({M}, {M}, {K}): plan {tuple(plan)} kernel {ms:.3f} ms "
+              f"({2.0 * M * M * K / ms / 1e9:.1f} TFLOP/s)  addmm {lib:.3f} ms", flush=True)
+    del C, A, B
+    gemm_seams(pk, dtype, gen, dev)
 
     # trsm pair at n = 16384, nrhs = 512.  The strict triangle is randn /
     # sqrt(n), so the update from the solved rows moves X by O(1), and the
@@ -372,6 +395,68 @@ def trsm_seams(pk, dtype, gen, dev) -> None:
           f"launches as planned, worst err/tol {worst:.3e}", flush=True)
 
 
+def gemm_seams(pk, dtype, gen, dev) -> None:
+    """gemm_sub and syrk_diag across the seams of their tiles and K ring,
+    on views with 16-byte aligned rows and with rows one value off: M
+    or N at tile - 1, tile and tile + 1 of both tile variants (the 128
+    tile where a row of tiles fills the card, from the kernel's report),
+    K not a multiple of the K slice and under one slice, the K split at a
+    256 x 256 output with K = 8192, syrk_diag at t = 256 with K split.
+    Each holds elementwise against the plain version (10 sqrt(k) eps of
+    its summands), two calls are bitwise equal, and syrk_diag leaves the
+    strict upper triangle bitwise untouched."""
+    dt = getattr(torch, dtype)
+    pk._load()
+    big, small = pk._GEMM_TILES[dt]
+    fill = -(-9 * big.per_sm * pk._sms(dev) // 10) * big.bm - 3  # one row of tiles fills
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
+
+    def view(rows, cols, aligned):
+        ld = -(-cols // 4) * 4 + (0 if aligned else 4)
+        off = 0 if aligned else 1
+        return rnd(rows, ld)[:, off:off + cols]
+
+    cases = [(e, fill, 40, 0, False) for e in (big.bm - 1, big.bm, big.bm + 1)]
+    cases += [(fill, e, 37, 0, False) for e in (big.bm - 1, big.bm, big.bm + 1)]
+    cases += [(e, e, 300, 1, None) for e in (small.bm - 1, small.bm, small.bm + 1)]
+    cases += [(200, 190, 1003, 1, None), (70, 50, 3, 1, False), (256, 256, 8192, None, True)]
+    worst = 0.0
+    for aligned in (True, False):
+        for M, N, K, variant, split in cases:
+            C, A, B = view(M, N, aligned), view(M, K, aligned), view(N, K, aligned)
+            plan = pk._gemm_plan(C, M, N, K, False)
+            check(variant is None or plan.variant == variant,
+                  f"gemm_sub seams {dtype} ({M}, {N}, {K}): tile variant {plan.variant}")
+            check(split is None or (plan.ksplit > 1) == split,
+                  f"gemm_sub seams {dtype} ({M}, {N}, {K}): K split {plan.ksplit}")
+            got = pk.gemm_sub(C, A, B)
+            check(torch.equal(pk.gemm_sub(C, A, B), got),
+                  f"gemm_sub seams {dtype} ({M}, {N}, {K}): two calls differ")
+            ref = pk.gemm_sub_plain(C, A, B)
+            _, ratio = elementwise_err(got, ref, A.abs() @ B.abs().T + C.abs(), max(K, 1))
+            check(ratio <= 1, f"gemm_sub seams {dtype} ({M}, {N}, {K}) aligned={aligned}: "
+                              f"max err/tol {ratio:.3e} > 1")
+            worst = max(worst, ratio)
+        for t, K in ((256, 4096), (256, 8192), (small.bm + 1, 37), (big.bm + 1, 1)):
+            C, A = view(t, t, aligned), view(t, K, aligned)
+            got = pk.syrk_diag(C, A)
+            check(torch.equal(pk.syrk_diag(C, A), got),
+                  f"syrk_diag seams {dtype} t={t} K={K}: two calls differ")
+            check(torch.equal(torch.triu(got, 1), torch.triu(C, 1)),
+                  f"syrk_diag seams {dtype} t={t} K={K}: the upper triangle changed")
+            check(K < 4096 or pk._gemm_plan(C, t, t, K, True).ksplit > 1,
+                  f"syrk_diag seams {dtype} t={t} K={K}: K not split")
+            ref = pk.syrk_diag_plain(C, A)
+            _, ratio = elementwise_err(got, ref, A.abs() @ A.abs().T + C.abs(), K)
+            check(ratio <= 1, f"syrk_diag seams {dtype} t={t} K={K} aligned={aligned}: "
+                              f"max err/tol {ratio:.3e} > 1")
+            worst = max(worst, ratio)
+    print(f"  gemm_sub / syrk_diag seams {dtype}: tiles {big.bm} ({big.per_sm} an SM) and "
+          f"{small.bm} ({small.per_sm}), K slice {big.bk}; {len(cases)} gemm_sub and 4 "
+          f"syrk_diag shapes, aligned and unaligned rows: bitwise repeatable, upper triangle "
+          f"untouched, worst err/tol {worst:.3e}", flush=True)
+
+
 def lu_error(lu, ref_lu, k: int):
     """Elementwise error of a packed LU against the reference, held to
     10 sqrt(k) eps times the summands' magnitudes: (|L||U|)_ic on and
@@ -481,7 +566,7 @@ def spd(n, dt, gen, dev):
 def main_path(stt, pk, ck, metrics, dtype, gen, dev) -> dict:
     dt = getattr(torch, dtype)
     n, nrhs = N_MAIN, NRHS_MAIN
-    check(ck.resolve_schedule(n, "auto", dev) == "pallas",
+    check(ck.resolve_schedule(n, dt, "auto", dev) == "pallas",
           "Schedule.Auto does not resolve to the Hopper kernel family")
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -837,7 +922,7 @@ def qr_main_path(stt, pk, qf, metrics, dtype, gen, dev) -> dict:
     gels_solve_from_global on the serve pack of the factor."""
     dt = getattr(torch, dtype)
     m, n, nrhs, nb = M_QR, N_QR, NRHS_MAIN, 512
-    check(qf.resolve_qr_schedule(m, n, "auto", dev) == "pallas",
+    check(qf.resolve_qr_schedule(m, n, dt, "auto", dev) == "pallas",
           "Schedule.Auto does not resolve to the larft kernel's family for geqrf")
     A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
     B = torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt)
@@ -1035,9 +1120,56 @@ def norm_phase(stt, pk, dtype, gen, dev) -> dict:
     return out
 
 
-def _profile_call(label, fn) -> None:
+def complex_phase(stt, pk, ck, lk, qf, gen, dev) -> None:
+    """complex128 ``posv`` (and ``potrs_from_global``), ``gesv`` (and
+    ``getrs_from_global``), ``gesv`` with MethodLU.RBT and ``gels`` at
+    n = 2048 with default options.  The kernels take float32/float64
+    only, so the resolvers route complex operands to the recursive
+    schedule and the solve phases to the library solve: each scaled
+    residual is inside PERF.md section 2's bound and no kernel launches."""
+    n, nrhs, dt = 2048, 3, torch.complex128
+    eps = torch.finfo(torch.float64).eps
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    res = lambda A, X, B: n1(A @ X - B) / (n1(A) * n1(X) * A.shape[0] * eps)  # noqa: E731
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
+    routes = (ck.resolve_schedule(n, dt, "auto", dev), lk.resolve_lu_schedule(n, n, dt, "auto", dev),
+              qf.resolve_qr_schedule(2 * n, n, dt, "auto", dev))
+    check(routes == ("recursive",) * 3, f"complex128 routes {routes}: not the recursive schedule")
+    G = rnd(n, n)
+    S = G @ G.mH + n * torch.eye(n, device=dev, dtype=dt)
+    B = rnd(n, nrhs)
+    M = lambda X: stt.Matrix.from_global(X, 256)  # noqa: E731
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    X, L, info = stt.posv(stt.HermitianMatrix.from_global(S, 256), M(B))
+    r = {"posv": res(S, X.to_global(), B)}
+    check(int(info) == 0, f"complex128 posv: info {int(info)}")
+    r["potrs_from_global"] = res(S, stt.potrs_from_global(L.to_global(), B), B)
+    X, LU, piv, info = stt.gesv(M(G), M(B))
+    check(int(info) == 0, f"complex128 gesv: info {int(info)}")
+    r["gesv"] = res(G, X.to_global(), B)
+    r["getrs_from_global"] = res(G, stt.getrs_from_global(LU.to_global(), piv.apply(B)), B)
+    X, _, _, info = stt.gesv(M(G), M(B), {stt.Option.MethodLU: stt.MethodLU.RBT})
+    check(int(info) == 0, f"complex128 gesv_rbt: info {int(info)}")
+    r["gesv_rbt"] = res(G, X.to_global(), B)
+    T, Bt = rnd(2 * n, n), rnd(2 * n, nrhs)
+    X = stt.gels(M(T), M(Bt)).to_global()
+    r["gels"] = n1(T.mH @ (T @ X - Bt)) / (n1(T) * (n1(T) * n1(X) + n1(Bt)) * 2 * n * eps)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+    print(f"  complex128 n={n}, default options: routes {routes}, scaled residuals "
+          + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+          + f"; kernel launches {launched or 0}; {time.perf_counter() - t0:.1f} s", flush=True)
+    for k, v in r.items():
+        check(v <= (1000 if k == "gesv_rbt" else 3), f"complex128 {k}: scaled residual {v:.3e}")
+    check(not launched, f"complex128: kernels launched {launched}")
+
+
+def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
-    host wall time of that same call, then the operator table."""
+    host wall time of that same call, then the operator table.
+    ``pieces``: {name: (substrings)}, the device time of the kernels whose
+    name holds any of them, printed as a line each."""
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         torch.cuda.synchronize()
@@ -1057,6 +1189,10 @@ def _profile_call(label, fn) -> None:
           f"the profiler's own host cost)")
     for e in rows[:15]:
         print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} x  {e.key[:90]}")
+    for name, keys in (pieces or {}).items():
+        sel = [e for e in rows if any(k in e.key for k in keys)]
+        print(f"  piece {name}: {sum(dev_us(e) for e in sel) / 1e3:.3f} ms device time in "
+              f"{sum(e.count for e in sel)} launches ({', '.join(keys)})")
     print(ka.table(sort_by="self_device_time_total", row_limit=25))
 
 
@@ -1081,7 +1217,9 @@ def profile(stt, gen, dev) -> None:
         torch.cuda.synchronize()
         t_posv = time.perf_counter() - t0
     print(f"  warm potrf {t_potrf:.4f} s, posv {t_posv:.4f} s (host clock, float64 n={n})")
-    _profile_call("posv", lambda: stt.posv(Am, Bm))
+    _profile_call("posv", lambda: stt.posv(Am, Bm), {
+        "gemm_sub": ("sub_abt_kernel<double, false", "subk_reduce<double, false"),
+        "syrk_diag": ("sub_abt_kernel<double, true", "subk_reduce<double, true")})
     # the solve phase of a factor-cache hit: two trsm sweeps, host-stepped
     Lg = stt.potrf(Am)[0].to_global().contiguous()
     stt.potrs_from_global(Lg, B)
@@ -1209,7 +1347,10 @@ def main() -> int:
     for d in DTYPES:
         nres[d] = norm_phase(stt, pk, d, gen, dev)
         torch.cuda.empty_cache()
-    print(f"  phases 2-9: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 10: complex operands on the recursive schedule", flush=True)
+    complex_phase(stt, pk, ck, lk, qf, gen, dev)
+    torch.cuda.empty_cache()
+    print(f"  phases 2-10: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for

@@ -3,8 +3,9 @@
 // Each kernel computes what one Pallas kernel of the JAX package
 // (slate_tpu/ops/pallas/panel_kernels.py) computes; none is a block-by-
 // block copy of it.  All are templated over float and double and use
-// plain FP32/FP64 FMA, except the trsm pair's float64 products, which run
-// on the FP64 tensor cores (DMMA); nothing uses TF32.  All launch on the
+// plain FP32/FP64 FMA, except the float64 products of gemm_sub, syrk_diag
+// and the trsm pair, which run on the FP64 tensor cores (DMMA); nothing
+// uses TF32.  All launch on the
 // caller's stream, allocate nothing, and read row-major operands through
 // their leading dimensions (inner stride 1), so views of a larger matrix
 // need no copy.
@@ -139,100 +140,289 @@ chol_base_kernel(T* __restrict__ a, int b, long long lda) {
 }
 
 // ---------------------------------------------------------------------------
-// C - A B^T (gemm_sub) and its lower-triangle twin (syrk_diag, B = A).
-//
-// Shared-memory tiled SIMT product, 256 threads a block, K in steps of
-// G_BK.  Two tile shapes from one template: BM x BM = 128 x 128 with 8 x 8
-// outputs per thread (gemm_sub when the output has enough tiles to fill
-// the card), and 64 x 64 with 4 x 4 (syrk_diag, small outputs).  The next
-// K slice is loaded into registers while the current one is multiplied
-// out of shared memory.  A and B are both read along K (their rows), so no
-// transposed copy is made.  LOWER skips tiles wholly above the diagonal
-// and writes only r >= c (the caller passes out == C there, so the upper
-// triangle passes through).  With a work buffer (split K, grid.z > 1)
-// each z-slice writes its partial product and subk_reduce finishes
-// out = C - sum.
+// Shared by the products of gemm_sub / syrk_diag and of the trsm pair:
+// asynchronous copies into shared memory, the FP64 tensor-core fragment,
+// and the K loop's ring of stages.
 // ---------------------------------------------------------------------------
 
-constexpr int G_BK = 16, G_THREADS = 256;
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int sz = ok ? (int)sizeof(T) : 0;  // 0: no read, zero fill
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(sz));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(sz));
+}
+// 16 bytes, of which the first `bytes` are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-template <typename T, bool LOWER, int BM, int TM>
-__global__ void __launch_bounds__(G_THREADS)
+// c (16 x 8) += a (16 x 4) b (4 x 8), one DMMA (m16n8k4, sm_90).  Lane
+// (g, t) = (lane / 4, lane % 4) holds a = A[g][t], A[g + 8][t]; b = B[t][g];
+// c = C[g][2t + {0, 1}], C[g + 8][2t + {0, 1}]
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The K loop: nk slices of the operands pass through a ring of NST
+// shared-memory slots, NST - 1 slices in flight ahead of the one in use.
+// stage(slot, s) issues the cp.async copies of slice s into `slot`;
+// body(slot) computes on the slice in `slot`.  One commit group a slice
+// (empty past the end, so the wait count is a constant) and one block
+// barrier a slice, which both publishes the slice that has landed and
+// frees the slot refilled next (the one used an iteration before).  On
+// return every copy has landed and every thread is past its last body:
+// the ring's memory is free.
+template <int NST, typename Stage, typename Body>
+__device__ __forceinline__ void cp_ring(int nk, Stage&& stage, Body&& body) {
+  static_assert(NST >= 2, "a slot in use and one in flight");
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nk) stage(s, s);
+    cp_async_commit();
+  }
+  int slot = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();
+    if (kt + NST - 1 < nk) stage(slot == 0 ? NST - 1 : slot - 1, kt + NST - 1);
+    cp_async_commit();
+    body(slot);
+    slot = slot + 1 == NST ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// C - A B^T (gemm_sub) and its lower-triangle twin (syrk_diag, B = A).
+//
+// A (M x K) and B (N x K) are both read along K, their rows: that is the
+// row-major A fragment and the column-major B fragment of mma.sync, so no
+// transposed copy is made anywhere.  A block owns a BM x BM output tile;
+// slices of GemmLayout::BK columns of its A rows and B rows go through
+// the cp_ring (16-byte copies where rows are 16-byte aligned, one copy a
+// value otherwise; zero fill past M, N and K, so any row stride and the
+// ragged edges need no padding), staged m-major / n-major with k
+// contiguous on a padded row of BK + 4 values (4 mod 16 in doubles, 4 mod
+// 32 in floats: the fragment reads below are free of bank conflicts).
+//   float64: DMMA (mma.sync m16n8k4), 8 warps of (BM/2) x (BM/4); the
+//     FP64 tensor cores are the only way to the card's 67 TFLOP/s in f64.
+//   float32: FFMA (no TF32), a thread owns TM x TM = (BM/16)^2 outputs at
+//     rows ty + 16 i, columns tx + 16 j, and reads them as float4 along
+//     k: 2 TM LDS.128 a 4 TM^2 FFMA (16 a 256 at BM = 128).
+// Bound: operations, 2 M N K FLOPs at 67 TFLOP/s (FP64 tensor and FP32
+// SIMT peak alike).  Two tile variants of one template: BM = 128 and 64
+// (G_TILES); the host (gemm_sub_plan in ops/hopper/panel_kernels.py)
+// picks the variant and splits K across blocks (grid.z) from what
+// slate_gemm_layout_* reports, so no policy lives here.  The epilogue
+// writes out = C - acc from the registers.  LOWER skips the tiles wholly
+// above the diagonal and writes only r >= c (the caller passes out == C,
+// so the upper triangle passes through untouched).  Split K: z-slice z
+// takes columns [z kchunk, (z + 1) kchunk) (the last one the rest to K),
+// writes its partial product to the work buffer, and subk_reduce
+// finishes out = C - sum in a fixed order (no atomics: results do not
+// change from run to run).
+// ---------------------------------------------------------------------------
+
+constexpr int G_THREADS = 256;
+constexpr int G_TILES[2] = {128, 64};  // the tile variants, largest first
+
+template <typename T, int BM>
+struct GemmLayout {
+  static constexpr bool F64 = sizeof(T) == 8;
+  // K slices of 32 in 3 slots: half the barriers of 16-deep slices, and
+  // the f64 128 tile's ring still fits one block an SM
+  static constexpr int BK = 32;
+  static constexpr int LD = BK + 4;  // a staged row, k contiguous
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int NST = 3;
+  static constexpr int OPER = BM * LD;    // one operand's slice
+  static constexpr int STAGE = 2 * OPER;  // A's, then B's
+  static constexpr size_t bytes = sizeof(T) * NST * STAGE;  // 216 / 108 KB at BM = 128
+  static constexpr int MIN_BLOCKS = F64 && BM == 128 ? 1 : 2;  // for __launch_bounds__
+};
+
+// stage BK columns from k0 of `rows` rows of X from row r0 into dst
+// (dst[r * LD + k]); rows past `rows` and columns past kend read as zero
+template <typename T, int BM>
+__device__ __forceinline__ void g_stage(T* dst, const T* X, long long ldx, int r0, int rows,
+                                        int k0, int kend, bool vec) {
+  using L = GemmLayout<T, BM>;
+  constexpr int V = L::VEC, PER = L::BK / V;  // 16-byte copies along a row
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < BM * PER / G_THREADS; ++i) {
+      const int idx = threadIdx.x + i * G_THREADS;  // neighbours on neighbouring addresses
+      const int r = idx / PER, k = (idx % PER) * V;
+      const int valid = r < rows ? min(V, max(0, kend - k0 - k)) : 0;
+      cp_async16(dst + r * L::LD + k, valid ? X + (long long)(r0 + r) * ldx + k0 + k : X,
+                 valid * (int)sizeof(T));
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < BM * L::BK / G_THREADS; ++i) {
+      const int idx = threadIdx.x + i * G_THREADS;
+      const int r = idx / L::BK, k = idx % L::BK;
+      const bool ok = r < rows && k0 + k < kend;
+      cp_async(dst + r * L::LD + k, ok ? X + (long long)(r0 + r) * ldx + k0 + k : X, ok);
+    }
+  }
+}
+
+template <typename T, int BM>
+struct GemmAcc;
+
+// float64: warp w owns rows (w % 2) BM/2 and columns (w / 2) BM/4 of the
+// tile, MI x NJ DMMA tiles of 16 x 8
+template <int BM>
+struct GemmAcc<double, BM> {
+  using L = GemmLayout<double, BM>;
+  static constexpr int MI = BM / 32, NJ = BM / 32;
+  double c[MI][NJ][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.0;
+  }
+  __device__ __forceinline__ void step(const double* As, const double* Bs) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const double* Aw = As + ((warp & 1) * (BM / 2) + g) * L::LD + t;
+    const double* Bw = Bs + ((warp >> 1) * (BM / 4) + g) * L::LD + t;
+#pragma unroll
+    for (int kk = 0; kk < L::BK; kk += 4) {
+      double a[MI][2], b[NJ];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {  // rows g, g + 8 of the 16-row tiles
+        a[i][0] = Aw[(i * 16) * L::LD + kk];
+        a[i][1] = Aw[(i * 16 + 8) * L::LD + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) b[j] = Bw[(j * 8) * L::LD + kk];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dmma(c[i][j], a[i][0], a[i][1], b[j]);
+    }
+  }
+  // f(row, column, value) for every output of the thread, tile-relative
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int rw = (warp & 1) * (BM / 2), cw = (warp >> 1) * (BM / 4);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f(rw + i * 16 + (e >> 1) * 8 + g, cw + j * 8 + 2 * t + (e & 1), c[i][j][e]);
+  }
+};
+
+// float32: thread (tx, ty) owns rows ty + 16 i and columns tx + 16 j
+// (i, j < TM); a warp is 4 values of ty by 8 of tx (warps 2 along tx, 4
+// along ty), so a quarter-warp's float4 reads are one row of A (a
+// broadcast) and 8 consecutive rows of B (conflict-free at LD = 4 mod 32)
+__device__ __forceinline__ int g_tx() { return (threadIdx.x >> 5 & 1) * 8 + (threadIdx.x & 7); }
+__device__ __forceinline__ int g_ty() { return (threadIdx.x >> 6) * 4 + (threadIdx.x >> 3 & 3); }
+
+template <int BM>
+struct GemmAcc<float, BM> {
+  using L = GemmLayout<float, BM>;
+  static constexpr int TM = BM / 16;
+  float c[TM][TM];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) c[i][j] = 0.f;
+  }
+  __device__ __forceinline__ void step(const float* As, const float* Bs) {
+    const float* Ar = As + g_ty() * L::LD;
+    const float* Br = Bs + g_tx() * L::LD;
+#pragma unroll
+    for (int k4 = 0; k4 < L::BK; k4 += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(Ar + i * 16 * L::LD + k4);
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(Br + j * 16 * L::LD + k4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          c[i][j] = fmaf(a[i].x, b.x, c[i][j]);
+          c[i][j] = fmaf(a[i].y, b.y, c[i][j]);
+          c[i][j] = fmaf(a[i].z, b.z, c[i][j]);
+          c[i][j] = fmaf(a[i].w, b.w, c[i][j]);
+        }
+      }
+    }
+  }
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
+    const int tx = g_tx(), ty = g_ty();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) f(ty + 16 * i, tx + 16 * j, c[i][j]);
+  }
+};
+
+template <typename T, bool LOWER, int BM>
+__global__ void __launch_bounds__(G_THREADS, GemmLayout<T, BM>::MIN_BLOCKS)
 sub_abt_kernel(const T* C, long long ldc,  // may alias out (LOWER)
                const T* __restrict__ A, long long lda,
                const T* __restrict__ B, long long ldb,
                T* out, long long ldo, T* __restrict__ work,
-               int M, int N, int K, int kchunk) {
-  constexpr int NT = BM / TM;                    // threads along each side
-  constexpr int LD = (BM * G_BK) / G_THREADS;    // loads of A (and of B) a thread
-  static_assert(NT * NT == G_THREADS, "one output micro-tile per thread");
+               int M, int N, int K, int kchunk, int vec_a, int vec_b) {
+  using L = GemmLayout<T, BM>;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BM;
   if (LOWER && n0 > m0 + BM - 1) return;
   const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
+  const int kend = blockIdx.z + 1 == gridDim.z ? K : min(K, kbeg + kchunk);
+  const int rows_a = min(BM, M - m0), rows_b = min(BM, N - n0);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
 
-  __shared__ T As[G_BK][BM + 1];
-  __shared__ T Bs[G_BK][BM + 1];
-  const int tid = threadIdx.x, tx = tid % NT, ty = tid / NT;
-  T acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = T(0);
+  GemmAcc<T, BM> acc;
+  acc.zero();
+  cp_ring<L::NST>(
+      max(0, (kend - kbeg + L::BK - 1) / L::BK),
+      [&](int slot, int s) {
+        T* As = sm + slot * L::STAGE;
+        const int k0 = kbeg + s * L::BK;
+        g_stage<T, BM>(As, A, lda, m0, rows_a, k0, kend, vec_a);
+        g_stage<T, BM>(As + L::OPER, B, ldb, n0, rows_b, k0, kend, vec_b);
+      },
+      [&](int slot) { acc.step(sm + slot * L::STAGE, sm + slot * L::STAGE + L::OPER); });
 
-  T ra[LD], rb[LD];  // the next K slice, in flight while this one is used
-#pragma unroll
-  for (int l = 0; l < LD; ++l) {
-    const int idx = tid + l * G_THREADS, r = idx / G_BK, gk = kbeg + idx % G_BK;
-    ra[l] = (m0 + r < M && gk < kend) ? A[(long long)(m0 + r) * lda + gk] : T(0);
-    rb[l] = (n0 + r < N && gk < kend) ? B[(long long)(n0 + r) * ldb + gk] : T(0);
-  }
-  for (int k0 = kbeg; k0 < kend; k0 += G_BK) {
-#pragma unroll
-    for (int l = 0; l < LD; ++l) {
-      const int idx = tid + l * G_THREADS, r = idx / G_BK, k = idx % G_BK;
-      As[k][r] = ra[l];
-      Bs[k][r] = rb[l];
+  acc.each([&](int i, int j, T v) {
+    const int r = m0 + i, c = n0 + j;
+    if (r >= M || c >= N) return;
+    if (work != nullptr) {
+      work[((long long)blockIdx.z * M + r) * N + c] = v;
+    } else if (!LOWER || r >= c) {
+      out[(long long)r * ldo + c] = C[(long long)r * ldc + c] - v;
     }
-    __syncthreads();
-    if (k0 + G_BK < kend) {
-#pragma unroll
-      for (int l = 0; l < LD; ++l) {
-        const int idx = tid + l * G_THREADS, r = idx / G_BK, gk = k0 + G_BK + idx % G_BK;
-        ra[l] = (m0 + r < M && gk < kend) ? A[(long long)(m0 + r) * lda + gk] : T(0);
-        rb[l] = (n0 + r < N && gk < kend) ? B[(long long)(n0 + r) * ldb + gk] : T(0);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < G_BK; ++k) {
-      T av[TM], bv[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k][ty + NT * i];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) bv[j] = Bs[k][tx + NT * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty + NT * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int c = n0 + tx + NT * j;
-      if (c >= N) continue;
-      if (work != nullptr) {
-        work[((long long)blockIdx.z * M + r) * N + c] = acc[i][j];
-      } else if (!LOWER || r >= c) {
-        out[(long long)r * ldo + c] = C[(long long)r * ldc + c] - acc[i][j];
-      }
-    }
-  }
+  });
 }
 
 template <typename T, bool LOWER>
@@ -249,20 +439,54 @@ __global__ void subk_reduce(const T* C, long long ldc, const T* __restrict__ wor
   }
 }
 
-template <typename T, bool LOWER, int BM, int TM>
+template <typename T, bool LOWER, int BM>
 int launch_sub_abt(const T* C, long long ldc, const T* A, long long lda,
                    const T* B, long long ldb, T* out, long long ldo, T* work,
-                   int M, int N, int K, int ksplit, cudaStream_t s) {
-  const int kchunk = ((K + ksplit - 1) / ksplit + G_BK - 1) / G_BK * G_BK;
-  dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM, ksplit);
-  sub_abt_kernel<T, LOWER, BM, TM><<<grid, G_THREADS, 0, s>>>(
-      C, ldc, A, lda, B, ldb, out, ldo, ksplit > 1 ? work : nullptr, M, N, K, kchunk);
-  if (ksplit > 1) {
-    const long long total = (long long)M * N;
-    const int blocks = (int)std::min<long long>((total + 255) / 256, 4096);
-    subk_reduce<T, LOWER><<<blocks, 256, 0, s>>>(C, ldc, work, ksplit, out, ldo, M, N);
-  }
+                   int M, int N, int K, int ksplit, int kchunk, cudaStream_t s) {
+  using L = GemmLayout<T, BM>;
+  cudaError_t e = cudaFuncSetAttribute(sub_abt_kernel<T, LOWER, BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  // rows of A / B start 16-byte aligned: the staging copies 16 bytes at once
+  const int vec_a = reinterpret_cast<unsigned long long>(A) % 16 == 0 && lda % L::VEC == 0;
+  const int vec_b = reinterpret_cast<unsigned long long>(B) % 16 == 0 && ldb % L::VEC == 0;
+  const dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM, ksplit);
+  sub_abt_kernel<T, LOWER, BM><<<grid, G_THREADS, L::bytes, s>>>(
+      C, ldc, A, lda, B, ldb, out, ldo, ksplit > 1 ? work : nullptr, M, N, K, kchunk, vec_a,
+      vec_b);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ksplit == 1) return (int)e;
+  const long long total = (long long)M * N;
+  const int blocks = (int)std::min<long long>((total + 255) / 256, 4096);
+  subk_reduce<T, LOWER><<<blocks, 256, 0, s>>>(C, ldc, work, ksplit, out, ldo, M, N);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool LOWER>
+int launch_sub_abt_variant(int variant, const T* C, long long ldc, const T* A, long long lda,
+                           const T* B, long long ldb, T* out, long long ldo, T* work, int M,
+                           int N, int K, int ksplit, int kchunk, cudaStream_t s) {
+  if (variant == 0)
+    return launch_sub_abt<T, LOWER, G_TILES[0]>(C, ldc, A, lda, B, ldb, out, ldo, work, M, N, K,
+                                                ksplit, kchunk, s);
+  if (variant == 1)
+    return launch_sub_abt<T, LOWER, G_TILES[1]>(C, ldc, A, lda, B, ldb, out, ldo, work, M, N, K,
+                                                ksplit, kchunk, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the variant's output tile edge and K slice, and how many of its blocks
+// fit on one SM (registers and shared memory as built)
+template <typename T, int BM>
+int gemm_layout(int* bm, int* bk, int* per_sm) {
+  using L = GemmLayout<T, BM>;
+  *bm = BM;
+  *bk = L::BK;
+  cudaError_t e = cudaFuncSetAttribute(sub_abt_kernel<T, false, BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, sub_abt_kernel<T, false, BM>,
+                                                            G_THREADS, L::bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,47 +576,10 @@ struct TrLayout {
 __device__ __forceinline__ float tr_fma(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double tr_fma(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int sz = ok ? (int)sizeof(T) : 0;  // 0: no read, zero fill
-  if (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(sz));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(sz));
-}
-// 16 bytes, of which the first `bytes` are read and the rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-// wait until at most n committed groups are still in flight (n < NST <= 4)
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n >= 3) cp_async_wait<3>();
-  else if (n == 2) cp_async_wait<2>();
-  else if (n == 1) cp_async_wait<1>();
-  else cp_async_wait<0>();
-}
-
-// c (16 x 8) += a (16 x 4) b (4 x 8), one DMMA (m16n8k4, sm_90).  Lane
-// (g, t) = (lane / 4, lane % 4) holds a = A[g][t], A[g + 8][t]; b = B[t][g];
-// c = C[g][2t + {0, 1}], C[g + 8][2t + {0, 1}]
-__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1, double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
 // stage slice kb of op(T)[r0 + m][k0 + k] (m < rows, k < kw) and of
-// X[k0 + k][c0 + j] (j < nrhs - c0) into stage buffer As, one cp.async
-// group.  vec_t / vec_x: T / X rows are 16-byte aligned, so a 16-byte copy
-// takes VEC values along a row; the ragged edge reads its valid prefix and
-// zero-fills the rest.
+// X[k0 + k][c0 + j] (j < nrhs - c0) into stage buffer As.  vec_t / vec_x:
+// T / X rows are 16-byte aligned, so a 16-byte copy takes VEC values along
+// a row; the ragged edge reads its valid prefix and zero-fills the rest.
 template <typename T, bool TRANS>
 __device__ __forceinline__ void tr_stage(T* As, const T* Tm, long long ldt, const T* X,
                                          long long ldx, int nrhs, int r0, int rows, int k0,
@@ -443,31 +630,23 @@ __device__ __forceinline__ void tr_stage(T* As, const T* Tm, long long ldt, cons
       cp_async(Bs + k * L::LDB + j, ok ? X + (long long)(k0 + kb + k) * ldx + c0 + j : X, ok);
     }
   }
-  cp_async_commit();
 }
 
-// the K loop over the slices of the sources, L::NST slices in flight in a
-// ring: the slice just used is refilled with the one L::NST ahead
-#define TR_K_LOOP(T, ...)                                                                 \
-  const int nk = (kw + TR_BK - 1) / TR_BK;                                                \
-  int issued = 0;                                                                         \
-  for (; issued < min(nk, L::NST); ++issued)                                              \
-    tr_stage<T, TRANS>(sm + issued * L::STAGE, Tm, ldt, X, ldx, nrhs, r0, rows, k0, kw,   \
-                       c0, issued * TR_BK, vec_t, vec_x);                                 \
-  for (int kt = 0; kt < nk; ++kt) {                                                       \
-    cp_async_wait_n(issued - kt - 1);                                                     \
-    __syncthreads();                                                                      \
-    const T* As = sm + (kt % L::NST) * L::STAGE;                                          \
-    const T* Bs = As + L::A_ELEMS;                                                        \
-    __VA_ARGS__                                                                           \
-    if (issued < nk) {                                                                    \
-      __syncthreads(); /* every warp is done with this slot */                            \
-      tr_stage<T, TRANS>(sm + (issued % L::NST) * L::STAGE, Tm, ldt, X, ldx, nrhs, r0,    \
-                         rows, k0, kw, c0, issued * TR_BK, vec_t, vec_x);                 \
-      ++issued;                                                                           \
-    }                                                                                     \
-  }                                                                                       \
-  __syncthreads(); /* the ring is free: the product tile goes there */
+// the K loop over the slices of the sources, through the cp_ring:
+// body(As, Bs) on each slice of op(T) and X in turn
+template <typename T, bool TRANS, typename Body>
+__device__ __forceinline__ void tr_ring(const T* Tm, long long ldt, const T* X, long long ldx,
+                                        int nrhs, int r0, int rows, int k0, int kw, int c0,
+                                        bool vec_t, bool vec_x, T* sm, Body&& body) {
+  using L = TrLayout<T>;
+  cp_ring<L::NST>(
+      (kw + TR_BK - 1) / TR_BK,
+      [&](int slot, int s) {
+        tr_stage<T, TRANS>(sm + slot * L::STAGE, Tm, ldt, X, ldx, nrhs, r0, rows, k0, kw, c0,
+                           s * TR_BK, vec_t, vec_x);
+      },
+      [&](int slot) { body(sm + slot * L::STAGE, sm + slot * L::STAGE + L::A_ELEMS); });
+}
 
 // 1. P = op(T)[r0 : r0 + rows, k0 : k0 + kw] X[k0 : k0 + kw, c0 : c0 + BN]
 // into shared memory (sm[i * LDR + j]; zero when kw = 0).  float64: DMMA,
@@ -487,7 +666,8 @@ __device__ void tr_product(const double* Tm, long long ldt, const double* X, lon
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
-  TR_K_LOOP(double, {
+  tr_ring<double, TRANS>(Tm, ldt, X, ldx, nrhs, r0, rows, k0, kw, c0, vec_t, vec_x, sm,
+                         [&](const double* As, const double* Bs) {
 #pragma unroll
     for (int kk = 0; kk < TR_BK; kk += 4) {
       double a[4], b[4];
@@ -503,7 +683,7 @@ __device__ void tr_product(const double* Tm, long long ldt, const double* X, lon
 #pragma unroll
         for (int j = 0; j < 4; ++j) dmma(acc[i][j], a[2 * i], a[2 * i + 1], b[j]);
     }
-  })
+  });
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -530,7 +710,8 @@ __device__ void tr_product(const float* Tm, long long ldt, const float* X, long 
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  TR_K_LOOP(float, {
+  tr_ring<float, TRANS>(Tm, ldt, X, ldx, nrhs, r0, rows, k0, kw, c0, vec_t, vec_x, sm,
+                        [&](const float* As, const float* Bs) {
 #pragma unroll
     for (int k4 = 0; k4 < TR_BK; k4 += 4) {
       // op(T) for 4 values of k: k-major (TRANS), two vector reads a k;
@@ -564,7 +745,7 @@ __device__ void tr_product(const float* Tm, long long ldt, const float* X, long 
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
     }
-  })
+  });
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -572,8 +753,6 @@ __device__ void tr_product(const float* Tm, long long ldt, const float* X, long 
       sm[((i < 4 ? 0 : 64) + ty * 4 + (i & 3)) * L::LDR + tx * 4 + j] = acc[i][j];
   __syncthreads();
 }
-
-#undef TR_K_LOOP
 
 __device__ __forceinline__ void lds_vec(const double* p, double (&v)[2]) {
   const double2 x = *reinterpret_cast<const double2*>(p);
@@ -846,20 +1025,25 @@ int launch_trsm(const T* Tm, long long ldt, const T* B, long long ldb, T* X, lon
   SLATE_EXPORT int slate_gemm_sub_##SUF(const void* C, long long ldc, const void* A,      \
                                         long long lda, const void* B, long long ldb,      \
                                         void* out, long long ldo, void* work, int M,      \
-                                        int N, int K, int ksplit, int big, void* stream) {\
-    return big ? launch_sub_abt<T, false, 128, 8>(                                        \
-                     (const T*)C, ldc, (const T*)A, lda, (const T*)B, ldb, (T*)out, ldo,  \
-                     (T*)work, M, N, K, ksplit, (cudaStream_t)stream)                     \
-               : launch_sub_abt<T, false, 64, 4>(                                         \
-                     (const T*)C, ldc, (const T*)A, lda, (const T*)B, ldb, (T*)out, ldo,  \
-                     (T*)work, M, N, K, ksplit, (cudaStream_t)stream);                    \
+                                        int N, int K, int ksplit, int kchunk,             \
+                                        int variant, void* stream) {                      \
+    return launch_sub_abt_variant<T, false>(variant, (const T*)C, ldc, (const T*)A, lda,  \
+                                            (const T*)B, ldb, (T*)out, ldo, (T*)work, M,  \
+                                            N, K, ksplit, kchunk, (cudaStream_t)stream);  \
   }                                                                                       \
   SLATE_EXPORT int slate_syrk_diag_##SUF(void* C, long long ldc, const void* A,           \
                                          long long lda, void* work, int t, int K,         \
-                                         int ksplit, void* stream) {                      \
-    return launch_sub_abt<T, true, 64, 4>((const T*)C, ldc, (const T*)A, lda, (const T*)A, \
-                                          lda, (T*)C, ldc, (T*)work, t, t, K, ksplit,     \
-                                          (cudaStream_t)stream);                          \
+                                         int ksplit, int kchunk, int variant,             \
+                                         void* stream) {                                  \
+    return launch_sub_abt_variant<T, true>(variant, (const T*)C, ldc, (const T*)A, lda,   \
+                                           (const T*)A, lda, (T*)C, ldc, (T*)work, t, t,  \
+                                           K, ksplit, kchunk, (cudaStream_t)stream);      \
+  }                                                                                       \
+  /* tile variant v of gemm_sub / syrk_diag: edge, K slice, blocks an SM */               \
+  SLATE_EXPORT int slate_gemm_layout_##SUF(int v, int* bm, int* bk, int* per_sm) {        \
+    if (v == 0) return gemm_layout<T, G_TILES[0]>(bm, bk, per_sm);                        \
+    if (v == 1) return gemm_layout<T, G_TILES[1]>(bm, bk, per_sm);                        \
+    return (int)cudaErrorInvalidValue;                                                    \
   }                                                                                       \
   SLATE_EXPORT int slate_trsm_##SUF(const void* Tm, long long ldt, const void* B,         \
                                     long long ldb, void* X, long long ldx, int n,         \

@@ -42,7 +42,7 @@ def potrf(A: HermitianMatrix, opts: Optional[Options] = None
     sched, nb_switch, lookahead = resolve_schedule_opts(opts)
     nb_kernel = 512 if n >= 2048 else min(lay.nb, 512)
     if metrics.is_on():
-        route = chol_kernels.resolve_schedule(n, sched, full.device)
+        route = chol_kernels.resolve_schedule(n, full.dtype, sched, full.device)
         metrics.record_factor_flops(
             "potrf",
             chol_kernels.chol_schedule_flops(n, nb_kernel, route, nb_switch, lookahead),
@@ -67,11 +67,14 @@ def potrs(L: TriangularMatrix, B: Matrix, opts: Optional[Options] = None) -> Mat
     return blas3.trsm(Side.Left, 1.0, L, Y, opts)
 
 
-def _solve_trsm_route(n: int, schedule: str, device="cpu") -> str:
+def _solve_trsm_route(n: int, dtype, schedule: str, device="cpu") -> str:
     """Route of the solve-phase trsm pair: explicit ``pallas`` everywhere
     (the kernels' plain versions on the CPU); ``auto`` takes the Hopper
     pair on a CUDA device above the factor crossover, the library solve
-    otherwise."""
+    otherwise.  A dtype the kernels do not take on a CUDA device
+    (complex) takes the library solve."""
+    if not pk.kernels_take(dtype, device):
+        return "vendor"
     if schedule == "pallas":
         return "pallas"
     if (schedule == "auto" and torch.device(device).type != "cpu"
@@ -87,7 +90,7 @@ def potrs_from_global(Lg: torch.Tensor, Bg: torch.Tensor,
     the O(n^2) kernel of a factor cache hit.  The ``pallas`` route runs
     both sweeps through the Hopper trsm pair; the backward sweep reads L
     as L^H without a transposed copy."""
-    if _solve_trsm_route(Lg.shape[0], schedule, Lg.device) == "pallas":
+    if _solve_trsm_route(Lg.shape[0], Lg.dtype, schedule, Lg.device) == "pallas":
         Lg, Bg = Lg.contiguous(), Bg.contiguous()  # the kernels read rows
         Y = pk.trsm_lower(Lg, Bg)
         return pk.trsm_upper(Lg, Y, transposed=True)

@@ -182,7 +182,7 @@ def getrs_from_global(LUg: torch.Tensor, Bg: torch.Tensor,
     cache hit.  The ``pallas`` route (``auto`` on a CUDA device at
     n >= 2048) runs both sweeps through the Hopper trsm pair, which
     reads one triangle each, so the packed storage needs no unpacking."""
-    if _solve_trsm_route(LUg.shape[0], schedule, LUg.device) == "pallas":
+    if _solve_trsm_route(LUg.shape[0], LUg.dtype, schedule, LUg.device) == "pallas":
         LUg, Bg = LUg.contiguous(), Bg.contiguous()  # the kernels read rows
         Y = pk.trsm_lower(LUg, Bg, unit=True)
         return pk.trsm_upper(LUg, Y)
@@ -230,14 +230,16 @@ def _butterfly_diags(n: int, depth: int, seed: int, dtype: torch.dtype,
 def _apply_butterfly(X: torch.Tensor, diags: torch.Tensor, transpose: bool) -> torch.Tensor:
     """Y = B^T X (transpose=True) or B X, B the recursive butterfly of
     depth d = diags.shape[0]: level ell pairs the rows of each of its 2^ell
-    blocks; one ``butterfly_level`` call a level covers all its blocks."""
+    blocks; one ``butterfly_level`` call a level covers all its blocks
+    (its plain version for a dtype the kernel does not take)."""
     d, n = diags.shape
     Y = X.contiguous()  # the kernel reads rows with inner stride 1
+    level = pk.butterfly_level if X.dtype in pk.KERNEL_DTYPES else pk.butterfly_level_plain
     for ell in (range(d) if transpose else range(d - 1, -1, -1)):
         h = n // (2 * 2**ell)
         if h == 0:
             continue
-        Y = pk.butterfly_level(Y, diags[ell], h, transpose)
+        Y = level(Y, diags[ell], h, transpose)
     return Y
 
 

@@ -62,7 +62,7 @@ def geqrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     mp, npd = Gp.shape
     sched, nb_switch, _ = resolve_schedule_opts(opts)
     # one resolver decides both the kernel and the accounting route
-    route = qr_fast.resolve_qr_schedule(mp, npd, sched, Gp.device)
+    route = qr_fast.resolve_qr_schedule(mp, npd, Gp.dtype, sched, Gp.device)
     if metrics.is_on():
         metrics.record_factor_flops("geqrf", qr_fast.geqrf_schedule_flops(
             mp, npd, nb, route, nb_switch, m_true=lay.m, n_true=lay.n))

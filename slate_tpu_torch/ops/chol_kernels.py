@@ -422,17 +422,22 @@ def chol_kernel_launches(n: int, nb_switch: int = 256, lookahead: int = 1) -> di
     return _launch_add(out, _chol_rec_launches(npad - k0, nb_switch))
 
 
-def resolve_schedule(n: int, schedule: str = "auto", device="cpu") -> str:
-    """Resolve an ``auto`` schedule request against the device and size:
-    the library Cholesky on the CPU, the pallas (Hopper kernel) family
-    at or above the crossover on a CUDA device, the flat schedule below
-    it.  Explicit ``flat``/``recursive``/``pallas`` are honored on every
-    device (on the CPU the kernels' plain versions run)."""
-    if schedule in ("flat", "recursive", "pallas"):
-        return schedule
-    if torch.device(device).type == "cpu":
-        return "vendor"
-    return "pallas" if n >= RECURSIVE_MIN_N else "flat"
+def resolve_schedule(n: int, dtype, schedule: str = "auto", device="cpu") -> str:
+    """Resolve an ``auto`` schedule request against the device, dtype and
+    size: the library Cholesky on the CPU, the pallas (Hopper kernel)
+    family at or above the crossover on a CUDA device, the flat schedule
+    below it.  Explicit ``flat``/``recursive``/``pallas`` are honored on
+    every device (on the CPU the kernels' plain versions run).  A dtype
+    the kernels do not take on a CUDA device (complex) runs the pallas
+    family's schedule as ``recursive``: library products, plain base
+    cases."""
+    if schedule not in ("flat", "recursive", "pallas"):
+        if torch.device(device).type == "cpu":
+            return "vendor"
+        schedule = "pallas" if n >= RECURSIVE_MIN_N else "flat"
+    if schedule == "pallas" and not pk.kernels_take(dtype, device):
+        return "recursive"
+    return schedule
 
 
 def _vendor_cholesky(G: torch.Tensor) -> torch.Tensor:
@@ -448,7 +453,7 @@ def cholesky(G: torch.Tensor, nb: int = 512, schedule: str = "auto",
     multiple of 128 with a unit-diagonal splice (chol of blockdiag(A, I)
     is blockdiag(L, I)) and slices the factor back out."""
     n = G.shape[0]
-    route = resolve_schedule(n, schedule, G.device)
+    route = resolve_schedule(n, G.dtype, schedule, G.device)
     if route == "vendor":
         return _vendor_cholesky(G)
     npad = -(-n // 128) * 128

@@ -120,8 +120,9 @@ def build(verbose: bool = False) -> Tuple[List[Path], str]:
 _P, _L, _I, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "chol_base": [_P, _I, _L, _P],
-    "gemm_sub": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
-    "syrk_diag": [_P, _L, _P, _L, _P, _I, _I, _I, _P],
+    "gemm_sub": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P],
+    "syrk_diag": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
+    "gemm_layout": [_I, _P, _P, _P],
     "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "trsm_layout": [_P, _P],
     "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -154,6 +155,8 @@ def _load() -> List[ctypes.CDLL]:
         if (kb.value, bn.value) != (TRSM_KB, TRSM_BN):
             raise RuntimeError(f"trsm kernel tile {kb.value} x {bn.value} ({suf}), the plan "
                                f"assumes {TRSM_KB} x {TRSM_BN}")
+    for dt, suf in ((torch.float32, "f32"), (torch.float64, "f64")):
+        _GEMM_TILES[dt] = _gemm_tiles(_symbol(libs, f"slate_gemm_layout_{suf}"), suf)
     _libs = libs
     return libs
 
@@ -174,6 +177,19 @@ def _launch(name: str, fn, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: the dtypes the kernels take on a CUDA device
+KERNEL_DTYPES = (torch.float32, torch.float64)
+
+
+def kernels_take(dtype: torch.dtype, device) -> bool:
+    """Whether the kernel family can run operands of ``dtype`` on
+    ``device``: always on the CPU (the plain versions run), only for
+    ``KERNEL_DTYPES`` on a CUDA device.  The schedule resolvers route
+    the other dtypes to the library or the plain schedule, so no wrapper
+    is handed a tensor it raises for."""
+    return torch.device(device).type == "cpu" or dtype in KERNEL_DTYPES
+
+
 def _on_cpu(name: str, *ts: torch.Tensor, dim: int = 2) -> bool:
     """True when every tensor lies on the CPU (plain version); False when
     every one is a ``dim``-D (2: a matrix, 3: a stack of tiles) CUDA
@@ -185,7 +201,7 @@ def _on_cpu(name: str, *ts: torch.Tensor, dim: int = 2) -> bool:
     if kinds != {"cuda"} or len({t.device for t in ts}) != 1:
         raise ValueError(f"{name}: tensors on {[str(t.device) for t in ts]}")
     dt = ts[0].dtype
-    if dt not in (torch.float32, torch.float64):
+    if dt not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the CUDA kernel takes float32/float64, not {dt}")
     for t in ts:
         if t.dtype != dt:
@@ -222,15 +238,80 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ksplit(M: int, N: int, K: int, tile: int, lower: bool, device) -> int:
-    """Split K across blocks while the output has too few tile x tile
-    tiles to fill the card, keeping every K slice at least 256 deep."""
-    tm, tn = -(-M // tile), -(-N // tile)
-    tiles = tm * (tm + 1) // 2 if lower else tm * tn
-    ks = 1
-    while tiles * ks < 2 * _sms(device) and K // (2 * ks) >= 256:
-        ks *= 2
-    return ks
+# ---------------------------------------------------------------------------
+# the gemm_sub / syrk_diag tile and K split
+# ---------------------------------------------------------------------------
+
+
+class GemmTile(NamedTuple):
+    """A tile variant of the gemm_sub / syrk_diag kernel as the built
+    kernel reports it (``slate_gemm_layout_*``): the output tile's edge,
+    the depth of a K slice of its ring, and how many of its blocks fit on
+    one SM."""
+    bm: int
+    bk: int
+    per_sm: int
+
+
+class GemmPlan(NamedTuple):
+    """One gemm_sub / syrk_diag call: the tile variant (an index into the
+    kernel's tiles) and the K split: ``ksplit`` blocks along K, each
+    ``kchunk`` deep (a whole number of K slices), the last one the rest."""
+    variant: int
+    ksplit: int
+    kchunk: int
+
+
+#: K is split no finer than this: each block's K range keeps its ring full
+MIN_SPLIT_DEPTH = 256
+
+#: the tile variants of the built kernel, by dtype (filled by ``_load``)
+_GEMM_TILES: Dict[torch.dtype, Tuple[GemmTile, ...]] = {}
+
+
+def gemm_sub_plan(M: int, N: int, K: int, lower: bool, tiles: Tuple[GemmTile, ...],
+                  sms: int) -> GemmPlan:
+    """The tile variant and K split of one (M, N, K) product (``lower``:
+    syrk_diag's lower triangle, M = N) on a card of ``sms`` SMs, from the
+    kernel's ``tiles`` (largest first): the first variant whose blocks,
+    with K split in powers of two down to ``MIN_SPLIT_DEPTH``, fill nine
+    tenths of the card's block slots (``per_sm`` a SM), else the last
+    (smallest) one.  Splitting stops once the card is filled, so a large
+    output runs unsplit on the largest tile."""
+    for variant, tile in enumerate(tiles):
+        tm, tn = -(-M // tile.bm), -(-N // tile.bm)
+        count = tm * (tm + 1) // 2 if lower else tm * tn
+        slots = tile.per_sm * sms
+        ks = 1
+        while 10 * count * ks < 9 * slots and K // (2 * ks) >= MIN_SPLIT_DEPTH:
+            ks *= 2
+        if 10 * count * ks >= 9 * slots or variant == len(tiles) - 1:
+            break
+    nslices = max(1, -(-K // tile.bk))
+    per = -(-nslices // ks)  # K slices a block; the last block takes the rest
+    return GemmPlan(variant, nslices // per, per * tile.bk)
+
+
+def _gemm_tiles(query, suf: str) -> Tuple[GemmTile, ...]:
+    """The tile variants the built kernel reports, checked: edges
+    decreasing, K slices that divide ``MIN_SPLIT_DEPTH``, and at least
+    one block of each on an SM."""
+    tiles = []
+    for v in range(2):
+        bm, bk, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = query(v, ctypes.byref(bm), ctypes.byref(bk), ctypes.byref(per_sm))
+        if err != 0:
+            raise RuntimeError(f"slate_gemm_layout_{suf}({v}): CUDA error {err}")
+        tiles.append(GemmTile(bm.value, bk.value, per_sm.value))
+    if (any(t.per_sm < 1 or MIN_SPLIT_DEPTH % t.bk for t in tiles)
+            or any(a.bm <= b.bm for a, b in zip(tiles, tiles[1:]))):
+        raise RuntimeError(f"gemm kernel layout ({suf}) {tiles} does not fit the plan")
+    return tuple(tiles)
+
+
+def _gemm_plan(C: torch.Tensor, M: int, N: int, K: int, lower: bool) -> GemmPlan:
+    _load()
+    return gemm_sub_plan(M, N, K, lower, _GEMM_TILES[C.dtype], _sms(C.device))
 
 
 # ---------------------------------------------------------------------------
@@ -300,11 +381,13 @@ def syrk_diag(C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     lower triangle; the upper triangle passes through.
 
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:syrk_diag_pallas``.
-    Bound on the H100: operations (t^2 h FLOPs on t x h bytes, t <= 256),
-    but with t = 256 the output has only 10 lower 64 x 64 tiles.  Design:
-    the gemm_sub kernel with tiles above the diagonal skipped, and K split
-    across blocks (partials reduced by a second kernel) so that enough
-    blocks fill the card."""
+    Bound on the H100: operations (t^2 h FLOPs on t x h values, t <= 256),
+    but at t = 256 the output has only 3 lower tiles of 128, or 10 of 64.
+    Design: the gemm_sub kernel (DMMA in float64, FFMA in float32) with
+    the tiles above the diagonal skipped and the writes masked to r >= c;
+    ``gemm_sub_plan`` picks the tile and splits K across blocks (partials
+    summed by a second kernel in a fixed order) so that enough blocks
+    fill the card."""
     if C.dim() != 2 or A.dim() != 2 or C.shape[0] != C.shape[1] or A.shape[0] != C.shape[0]:
         raise ValueError(f"syrk_diag: shapes {tuple(C.shape)}, {tuple(A.shape)}")
     if _on_cpu("syrk_diag", C, A):
@@ -313,11 +396,12 @@ def syrk_diag(C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     out = C.contiguous().clone()
     if t == 0:
         return out
-    ks = _ksplit(t, t, K, 64, True, C.device)
-    work = torch.empty((ks, t, t), dtype=C.dtype, device=C.device) if ks > 1 else out
+    plan = _gemm_plan(C, t, t, K, True)
+    work = (torch.empty((plan.ksplit, t, t), dtype=C.dtype, device=C.device)
+            if plan.ksplit > 1 else out)
     _launch("syrk_diag", _entry("syrk_diag", C.dtype),
             out.data_ptr(), _ld(out), A.data_ptr(), _ld(A), work.data_ptr(),
-            t, K, ks, _stream(C))
+            t, K, plan.ksplit, plan.kchunk, plan.variant, _stream(C))
     return out
 
 
@@ -331,14 +415,19 @@ def gemm_sub(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     (for real types C - A B^T).
 
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:gemm_sub_pallas``.
-    Bound on the H100: operations — 2 M N K FLOPs, up to (4096, 4096,
-    8192) at n = 16384, about half of the factorization's FLOPs.  Design:
-    a shared-memory tiled SIMT kernel (128 x 128 tiles with 8 x 8
-    outputs a thread once the output fills the card, else 64 x 64 with
-    4 x 4; K steps of 16, the next one loaded while the current one is
-    used) reading A and B along their rows, so no transposed copy is
-    made; K is split across blocks when the output has too few tiles.
-    Tensor-core (DMMA / wgmma) versions are later work."""
+    Bound on the H100: operations — 2 M N K FLOPs at 67 TFLOP/s (FP64
+    tensor cores, FP32 SIMT), up to (4096, 4096, 8192) at n = 16384:
+    4.10 ms, about half of the factorization's FLOPs.  Design: A and B
+    are read along their rows (K), which is what the mma.sync fragments
+    take, so no transposed copy is made; K slices of both go through a
+    ring of cp.async stages in shared memory (16-byte copies where rows
+    are aligned, zero fill at the ragged edges).  float64 runs on DMMA
+    (m16n8k4, 8 warps of 64 x 32 in a 128 x 128 tile), float32 on FFMA
+    (no TF32; 8 x 8 outputs a thread read as float4 along K).
+    ``gemm_sub_plan`` picks the 128 or the 64 tile and splits K across
+    blocks (partials summed in a fixed order by a second kernel) when
+    the output has too few tiles to fill the card; the epilogue writes
+    C - A B^T from the registers."""
     if (C.dim() != 2 or A.dim() != 2 or B.dim() != 2 or A.shape[0] != C.shape[0]
             or B.shape[0] != C.shape[1] or A.shape[1] != B.shape[1]):
         raise ValueError(
@@ -351,13 +440,13 @@ def gemm_sub(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=C.dtype, device=C.device)
     if M == 0 or N == 0:
         return out
-    # 128 x 128 tiles (8 x 8 a thread) once they fill the card, else 64 x 64
-    big = -(-M // 128) * -(-N // 128) >= _sms(C.device)
-    ks = _ksplit(M, N, K, 128 if big else 64, False, C.device)
-    work = torch.empty((ks, M, N), dtype=C.dtype, device=C.device) if ks > 1 else out
+    plan = _gemm_plan(C, M, N, K, False)
+    work = (torch.empty((plan.ksplit, M, N), dtype=C.dtype, device=C.device)
+            if plan.ksplit > 1 else out)
     _launch("gemm_sub", _entry("gemm_sub", C.dtype),
             C.data_ptr(), _ld(C), A.data_ptr(), _ld(A), B.data_ptr(), _ld(B),
-            out.data_ptr(), _ld(out), work.data_ptr(), M, N, K, ks, int(big), _stream(C))
+            out.data_ptr(), _ld(out), work.data_ptr(), M, N, K, plan.ksplit, plan.kchunk,
+            plan.variant, _stream(C))
     return out
 
 
@@ -853,8 +942,11 @@ def tile_transpose_plain(T: torch.Tensor, conj: bool = False) -> torch.Tensor:
     return out.contiguous()
 
 
-def tile_transpose(T: torch.Tensor) -> torch.Tensor:
-    """Per-tile transpose (N, mb, nb) -> (N, nb, mb), contiguous.
+def tile_transpose(T: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """Per-tile transpose (N, mb, nb) -> (N, nb, mb), contiguous,
+    conjugated too for a complex stack with ``conj`` (the contract of
+    ``tile_transpose_plain``; the kernel takes real stacks only, where
+    ``conj`` changes nothing).
 
     Replaces ``slate_tpu/ops/pallas/kernels.py:tile_transpose_pallas``,
     which the JAX package disables (``_PALLAS_TRANSPOSE_ENABLED``), so
@@ -864,7 +956,7 @@ def tile_transpose(T: torch.Tensor) -> torch.Tensor:
     if T.dim() != 3:
         raise ValueError(f"tile_transpose: expected an (N, mb, nb) stack, got {tuple(T.shape)}")
     if _on_cpu("tile_transpose", T, dim=3):
-        return tile_transpose_plain(T)
+        return tile_transpose_plain(T, conj)
     N, mb, nb = T.shape
     out = torch.empty((N, nb, mb), dtype=T.dtype, device=T.device)
     if out.numel():

@@ -307,18 +307,22 @@ def resolve_lu_schedule(m: int, n: int, dtype, schedule: str = "auto", device="c
     three-level ``lu_fast`` schedule for large divisible squares
     (``flat_fast``), ``blocked_getrf`` otherwise.  ``auto``: the pallas
     (Hopper kernel) family for squares at or above the crossover on a
-    CUDA device, the library LU otherwise."""
+    CUDA device, the library LU otherwise.  A dtype the kernels do not
+    take on a CUDA device (complex) runs the pallas family's schedule as
+    ``recursive`` (the plain panel)."""
     if schedule in ("recursive", "pallas") and m >= n:
-        return schedule
-    if schedule in ("flat", "recursive", "pallas"):
+        route = schedule
+    elif schedule in ("flat", "recursive", "pallas"):
         if m == n and n >= 2048 and _lu_fast_nb(n):
             return "flat_fast"
         return "flat"
-    if torch.device(device).type != "cpu" and m == n and n >= RECURSIVE_MIN_N:
-        return "pallas"
-    if lu_supported(dtype):
-        return "vendor"
-    return "flat"
+    elif torch.device(device).type != "cpu" and m == n and n >= RECURSIVE_MIN_N:
+        route = "pallas"
+    else:
+        return "vendor" if lu_supported(dtype) else "flat"
+    if route == "pallas" and not pk.kernels_take(dtype, device):
+        return "recursive"
+    return route
 
 
 def ipiv_to_perm(ipiv: torch.Tensor, m: int) -> torch.Tensor:

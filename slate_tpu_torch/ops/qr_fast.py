@@ -233,25 +233,31 @@ def geqrf_flat(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return geqrf_fast(G, flat_nb(G.shape[1]))
 
 
-def resolve_qr_schedule(m: int, n: int, schedule: str = "auto", device="cpu") -> str:
-    """The route the QR dispatch takes for this shape and device, shared
-    by drivers/qr.geqrf's kernel choice and its FLOP accounting.  Explicit
-    ``recursive``/``pallas`` (m >= n) and ``flat`` (tiled shapes) are
-    honoured on every device (on the CPU the kernel's plain version
-    runs).  ``auto``: on a CUDA device the pallas family for m >= n and
-    n >= 2048, the flat schedule for tiled shapes with n >= 1024, the
-    library QR otherwise; on the CPU the library QR."""
-    if schedule in ("recursive", "pallas") and m >= n:
-        return schedule
+def resolve_qr_schedule(m: int, n: int, dtype, schedule: str = "auto", device="cpu") -> str:
+    """The route the QR dispatch takes for this shape, dtype and device,
+    shared by drivers/qr.geqrf's kernel choice and its FLOP accounting.
+    Explicit ``recursive``/``pallas`` (m >= n) and ``flat`` (tiled
+    shapes) are honoured on every device (on the CPU the kernel's plain
+    version runs).  ``auto``: on a CUDA device the pallas family for
+    m >= n and n >= 2048, the flat schedule for tiled shapes with
+    n >= 1024, the library QR otherwise; on the CPU the library QR.  A
+    dtype the kernels do not take on a CUDA device (complex) runs the
+    pallas family's schedule as ``recursive`` (the plain larft)."""
     tiled = m >= n and flat_nb(n) > 0
-    if schedule == "flat" and tiled:
+    if schedule in ("recursive", "pallas") and m >= n:
+        route = schedule
+    elif schedule == "flat" and tiled:
         return "flat"
-    if schedule == "auto" and torch.device(device).type != "cpu":
-        if m >= n and n >= RECURSIVE_MIN_N:
-            return "pallas"
-        if n >= 1024 and tiled:
-            return "flat"
-    return "vendor"
+    elif schedule == "auto" and torch.device(device).type != "cpu" and m >= n \
+            and n >= RECURSIVE_MIN_N:
+        route = "pallas"
+    elif schedule == "auto" and torch.device(device).type != "cpu" and n >= 1024 and tiled:
+        return "flat"
+    else:
+        return "vendor"
+    if route == "pallas" and not pk.kernels_take(dtype, device):
+        return "recursive"
+    return route
 
 
 def _rec_widths(n: int, nb_switch: int) -> List[int]:

@@ -74,7 +74,7 @@ def test_launch_mirror_matches_the_recursion_at_16384():
 @pytest.mark.parametrize("sched", ["auto", "flat", "recursive", "pallas", "vendor"])
 @pytest.mark.parametrize("n", [100, 2048, 4096])
 def test_resolve_schedule_matches_jax_on_cpu(sched, n):
-    assert tck.resolve_schedule(n, sched, "cpu") == jck.resolve_schedule(n, sched)
+    assert tck.resolve_schedule(n, torch.float64, sched, "cpu") == jck.resolve_schedule(n, sched)
 
 
 @pytest.mark.parametrize("sched", ["recursive", "pallas", "flat"])
@@ -132,10 +132,11 @@ def test_potrs_from_global_matches_jax(sched):
 
 
 def test_solve_trsm_route_on_cpu():
-    assert tchol._solve_trsm_route(4096, "auto", "cpu") == "vendor"
-    assert tchol._solve_trsm_route(4096, "pallas", "cpu") == "pallas"
-    assert tchol._solve_trsm_route(4096, "auto", "cuda") == "pallas"
-    assert tchol._solve_trsm_route(1024, "auto", "cuda") == "vendor"
+    f64 = torch.float64
+    assert tchol._solve_trsm_route(4096, f64, "auto", "cpu") == "vendor"
+    assert tchol._solve_trsm_route(4096, f64, "pallas", "cpu") == "pallas"
+    assert tchol._solve_trsm_route(4096, f64, "auto", "cuda") == "pallas"
+    assert tchol._solve_trsm_route(1024, f64, "auto", "cuda") == "vendor"
 
 
 @pytest.mark.parametrize("sched", ["pallas", "auto"])

@@ -244,8 +244,9 @@ def test_posv_on_the_card_takes_the_kernels(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_gemm_sub_large_tiles_ragged(dev, dtype):
-    """An output of 13 x 13 tiles of 128 fills the card: the 128 x 128
-    tile variant runs, with ragged edges on every side."""
+    """An output of 13 x 13 tiles of 128, with ragged edges on every side
+    and rows at odd offsets (the 128 x 128 tile variant runs where it
+    fills the card: float64)."""
     rng = np.random.default_rng(23)
     M, N, K = 1601, 1550, 333
     c_cpu, c = _both(_rand(rng, M + 3, N + 5, dtype), dev)
@@ -254,6 +255,98 @@ def test_gemm_sub_large_tiles_ragged(dev, dtype):
     got = pk.gemm_sub(c[3:, 5:], a[:, 7:], b[:, 1:]).cpu().numpy()
     ref = pk.gemm_sub(c_cpu[3:, 5:], a_cpu[:, 7:], b_cpu[:, 1:]).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(dtype, K, ref))
+
+
+def _view(rng, rows, cols, dtype, dev, aligned):
+    """A (rows, cols) view into a larger row-major matrix: rows start
+    16-byte aligned (``aligned``: a row stride that is a multiple of 4
+    values, so the staging copies 16 bytes at once and a ragged K reads
+    a partial vector) or not (one column in: one copy a value)."""
+    ld = -(-cols // 4) * 4 + (0 if aligned else 4)
+    x = _rand(rng, rows, ld, dtype)
+    off = 0 if aligned else 1
+    cpu, d = _both(x, dev)
+    return cpu[:, off:off + cols], d[:, off:off + cols]
+
+
+def _fill_cols(dtype, dev):
+    """Tile columns of 128 that make one row of tiles fill the card (the
+    128 x 128 variant's slots, as the built kernel reports them)."""
+    pk._load()
+    big = pk._GEMM_TILES[getattr(torch, np.dtype(dtype).name)][0]
+    return -(-9 * big.per_sm * pk._sms(dev) // 10), big.bm
+
+
+# (M, N, K, the tile variant, whether K is split): M or N at tile - 1,
+# tile, tile + 1 of both variants ("fill": as many columns as fill the
+# card), K not a multiple of the slice, K under one slice, and the split
+# at a 256 x 256 output with K = 8192
+GEMM_SEAMS = [(e, "fill", 40, 0, False) for e in (127, 128, 129)] + \
+    [("fill", e, 37, 0, False) for e in (127, 128, 129)] + \
+    [(e, e, 300, 1, None) for e in (63, 64, 65)] + \
+    [(200, 190, 1003, 1, None), (70, 50, 3, 1, False), (256, 256, 8192, None, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("M,N,K,variant,split", GEMM_SEAMS)
+def test_gemm_sub_seams(dev, dtype, aligned, M, N, K, variant, split):
+    """gemm_sub across the seams of its tiles and its K ring, against the
+    plain version on the card, on views with aligned and unaligned rows;
+    two calls give bitwise equal results."""
+    cols, bm = _fill_cols(dtype, dev)
+    M = cols * bm - 3 if M == "fill" else M
+    N = cols * bm - 3 if N == "fill" else N
+    rng = np.random.default_rng(M + 3 * N + K)
+    _, c = _view(rng, M, N, dtype, dev, aligned)
+    _, a = _view(rng, M, K, dtype, dev, aligned)
+    _, b = _view(rng, N, K, dtype, dev, aligned)
+    plan = pk._gemm_plan(c, M, N, K, False)
+    if variant is not None:
+        assert plan.variant == variant
+    if split is not None:
+        assert (plan.ksplit > 1) == split
+    got = pk.gemm_sub(c, a, b)
+    again = pk.gemm_sub(c, a, b)
+    assert pk.LAUNCHES["gemm_sub"] == 2
+    assert torch.equal(got, again)  # fixed order, no atomics
+    ref = pk.gemm_sub_plain(c, a, b).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=_tol(dtype, K, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("t,K", [(256, 4096), (256, 8192), (129, 37), (64, 1), (65, 300)])
+def test_syrk_diag_seams(dev, dtype, aligned, t, K):
+    """syrk_diag at the main path's t = 256 (K split) and across the tile
+    seams: the strict upper triangle is bitwise untouched, the lower one
+    agrees with the plain version, and two calls are bitwise equal."""
+    rng = np.random.default_rng(t + K)
+    _, c = _view(rng, t, t, dtype, dev, aligned)
+    _, a = _view(rng, t, K, dtype, dev, aligned)
+    got = pk.syrk_diag(c, a)
+    assert torch.equal(got, pk.syrk_diag(c, a))
+    assert pk.LAUNCHES["syrk_diag"] == 2
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    if K >= 4096:
+        assert pk._gemm_plan(c, t, t, K, True).ksplit > 1
+    ref = pk.syrk_diag_plain(c, a).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=_tol(dtype, K, ref))
+
+
+@pytest.mark.cuda
+def test_gemm_layout_is_the_plans(dev):
+    """The tiles the built kernel reports are the ones the plan reads."""
+    pk._load()
+    for dt in (torch.float32, torch.float64):
+        tiles = pk._GEMM_TILES[dt]
+        assert len(tiles) == 2 and tiles[0].bm > tiles[1].bm and tiles[-1].per_sm >= 1
+        for M, N, K in [(4096, 4096, 8192), (256, 256, 8192), (70, 50, 3)]:
+            x = torch.empty(0, dtype=dt, device=dev)
+            plan = pk._gemm_plan(x, M, N, K, False)
+            assert plan == pk.gemm_sub_plan(M, N, K, False, tiles, pk._sms(dev))
 
 
 @pytest.mark.cuda
@@ -511,3 +604,46 @@ def test_norm_on_the_card_launches_tile_norms(dev):
         got = float(stt.norm(stt.Norm[name], A))
         assert pk.LAUNCHES["tile_norms"] == (2 if name == "Fro" else 1)
         assert abs(got - ref) <= 1e-12 * ref
+
+
+def _scaled_residual(a, x, b):
+    """||A X - B||_1 / (||A||_1 ||X||_1 n eps) (PERF.md section 2)."""
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    return n1(a @ x - b) / (n1(a) * n1(x) * a.shape[0] * np.finfo(np.float64).eps)
+
+
+@pytest.mark.cuda
+def test_complex_drivers_on_the_card_take_no_kernel(dev):
+    """complex128 at n = 2048 with default options: the kernels take only
+    float32/float64, so the resolvers route the factorizations to the
+    recursive schedule and the solve phases to the library solve; every
+    residual is inside PERF.md section 2's bound and no kernel launches
+    (the wrappers still raise for a complex tensor:
+    test_wrappers_raise_on_unsupported)."""
+    import slate_tpu_torch as stt
+
+    n, nrhs = 2048, 3
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    b = rng.standard_normal((n, nrhs)) + 1j * rng.standard_normal((n, nrhs))
+    s = a @ a.conj().T + n * np.eye(n)
+    grid = stt.ProcessGrid.single()
+    M = lambda x: stt.Matrix.from_global(x, 256, grid=grid)  # noqa: E731
+    X, L, info = stt.posv(stt.HermitianMatrix.from_global(s, 256, grid=grid), M(b))
+    assert int(info) == 0 and _scaled_residual(s, X.to_global().cpu().numpy(), b) <= 3
+    Y = stt.potrs_from_global(L.to_global(), torch.from_numpy(b).to(dev))
+    assert _scaled_residual(s, Y.cpu().numpy(), b) <= 3
+    X, LU, piv, info = stt.gesv(M(a), M(b))
+    assert int(info) == 0 and _scaled_residual(a, X.to_global().cpu().numpy(), b) <= 3
+    Y = stt.getrs_from_global(LU.to_global(), piv.apply(torch.from_numpy(b).to(dev)))
+    assert _scaled_residual(a, Y.cpu().numpy(), b) <= 3
+    X, _, _, info = stt.gesv(M(a), M(b), {stt.Option.MethodLU: stt.MethodLU.RBT})
+    assert int(info) == 0 and _scaled_residual(a, X.to_global().cpu().numpy(), b) <= 1000
+    t = np.vstack([a, rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))])
+    bt = rng.standard_normal((2 * n, nrhs)) + 1j * rng.standard_normal((2 * n, nrhs))
+    x = stt.gels(M(t), M(bt)).to_global().cpu().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    ls = n1(t.conj().T @ (t @ x - bt)) / (
+        n1(t) * (n1(t) * n1(x) + n1(bt)) * 2 * n * np.finfo(np.float64).eps)
+    assert ls <= 3
+    assert all(v == 0 for v in pk.LAUNCHES.values())

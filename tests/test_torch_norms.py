@@ -102,6 +102,20 @@ def test_tile_transpose_plain_conjugates_complex():
     np.testing.assert_array_equal(pk.tile_transpose_plain(torch.from_numpy(A), True).numpy(), ref)
 
 
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("complex_", [False, True])
+def test_tile_transpose_wrapper_takes_conj(conj, complex_):
+    """The wrapper's ``conj`` against the JAX package's Pallas kernel in
+    interpret mode (real stacks) and its dispatcher's jnp path (complex
+    stacks: interpret mode has no complex outputs)."""
+    A = _rand((3, 5, 7), 6, complex_=complex_)
+    if complex_:
+        ref = np.asarray(jk.tile_transpose(jnp.asarray(A), conj=conj))
+    else:
+        ref = np.asarray(jk.tile_transpose_pallas(jnp.asarray(A), conj=conj, interpret=True))
+    np.testing.assert_array_equal(pk.tile_transpose(torch.from_numpy(A), conj=conj).numpy(), ref)
+
+
 def test_tile_kernels_reject_bad_arguments():
     with pytest.raises(ValueError):
         pk.tile_norms(torch.zeros(2, 3, 4), "two")

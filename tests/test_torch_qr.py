@@ -180,14 +180,16 @@ def test_geqrf_schedule_flops_equal_jax():
 @pytest.mark.parametrize("m,n", [(100, 100), (1024, 1024), (2048, 2048), (2304, 1536),
                                  (32768, 16384), (1000, 2000), (3000, 1000)])
 def test_resolve_qr_schedule_matches_jax_on_cpu(sched, m, n):
-    got = tq.resolve_qr_schedule(m, n, sched, "cpu")
+    got = tq.resolve_qr_schedule(m, n, torch.float64, sched, "cpu")
     assert got == jq.resolve_qr_schedule(m, n, sched)
     if sched == "auto":
         assert got == "vendor"
 
 
 def test_resolve_qr_schedule_on_cuda_and_the_launch_mirror():
-    r = tq.resolve_qr_schedule
+    def r(m, n, sched, device):
+        return tq.resolve_qr_schedule(m, n, torch.float64, sched, device)
+
     assert r(32768, 16384, "auto", "cuda") == "pallas"
     assert r(4096, 4096, "auto", "cuda") == "pallas"
     assert r(2304, 1536, "auto", "cuda") == "flat"   # tiled, 1024 <= n < 2048
