@@ -487,9 +487,10 @@ def lu_kernel_phase(pk, lk, dtype, gen, dev) -> dict:
 
     # panel_lu: the leftmost panel of the n = 16384 recursion (16384, 256),
     # then a canonical-pad panel: 10000 true rows padded with exact zeros
-    # to the lattice height 12288 (act < M)
-    nb = 256
-    for M, act in ((N_MAIN, None), (lk._lat_height(10000), 10000)):
+    # to the lattice height 12288 (act < M), and the same rows 200 wide
+    # (a last strip of 8 columns); each held bit for bit
+    for M, nb, act in ((N_MAIN, 256, None), (lk._lat_height(10000), 256, 10000),
+                       (lk._lat_height(10000), 200, 10000)):
         P = rnd(M, nb)
         if act is not None:
             P[act:] = 0
@@ -500,9 +501,10 @@ def lu_kernel_phase(pk, lk, dtype, gen, dev) -> dict:
             check(torch.equal(perm[act:].long(), torch.arange(act, M, device=dev)),
                   f"panel_lu {dtype}: a pad row pivoted")
         err, ratio = lu_error(got, ref, nb)
-        bitwise = torch.equal(got, ref)
-        print(f"  panel_lu {dtype} ({M}, {nb}, act={act}): perm equal, LU bitwise "
-              f"{bitwise}, err {err:.3e} (max err/tol {ratio:.3e})", flush=True)
+        check(torch.equal(got, ref), f"panel_lu {dtype} {M}x{nb}: LU not bitwise equal")
+        plan = pk._panel_lu_plan(P)
+        print(f"  panel_lu {dtype} ({M}, {nb}, act={act}), grid {plan.grid}, S {plan.strip}: "
+              f"perm and LU bitwise equal, err {err:.3e} (max err/tol {ratio:.3e})", flush=True)
         if act is None:
             k = min(M, nb)
             flops = sum((M - j - 1) * (1 + 2.0 * (nb - j - 1)) for j in range(k))

@@ -47,29 +47,66 @@ __device__ __forceinline__ float abs_v(float a) { return fabsf(a); }
 // The panel's columns are a chain of dependent steps, each of which needs
 // the whole column (pivot search) and then touches the whole trailing
 // panel.  At the largest shape of the main path (16384 x 256 in double,
-// 32 MiB) the panel is far beyond one SM's shared memory but fits in the
-// 50 MB L2, and one block would run the whole panel serially on one SM.
-// So the kernel is one cooperative launch over the card: each block owns a
-// contiguous slab of rows, and one grid barrier a column separates the
-// steps.
+// 32 MiB) the panel is far beyond one SM's shared memory, and one block
+// would run the whole panel serially on one SM.  So the kernel is one
+// cooperative launch over the card: each block owns a contiguous slab of
+// rows (``rpb`` of them), and one grid barrier a column separates the
+// steps.  The host plans the grid, rpb and the strip width S
+// (panel_kernels.py: panel_lu_plan).
 //
 // Rows never move during the elimination.  A row's current position in
 // the swap order (pos) is tracked instead: column j's pivot takes position
 // j and the row that held position j takes the pivot's old position, as
-// the swap would have done.  The arithmetic each row sees is the same as
-// with physical swaps, and pivot ties are broken by the smallest position
-// (jnp.argmax's first index over the swapped rows), so LU and perm are
-// those of the swap-based elimination.  Per column j:
+// the swap would have done.  Pivot ties are broken by the smallest
+// position (jnp.argmax's first index over the swapped rows), so LU and
+// perm are those of the swap-based elimination.
+//
+// Strips.  The columns go in strips [j0, j1) of S <= 32.  At a strip's
+// start each block copies the strip's columns of its rows still to pivot
+// into shared memory (the strip cache).  Per column j of the strip:
 //   1. each block finds its candidate (|value|, position, row) among its
-//      rows still to pivot and writes it to a double-buffered scratch;
-//      grid barrier; every block reduces all candidates (NaN counts as the
-//      largest, ties go to the smallest position) -> the pivot row w;
-//   2. the pivot row is read into shared memory, positions are updated;
+//      rows still to pivot, reading column j from the cache, writes it to
+//      a double-buffered scratch and writes the candidate's strip row
+//      (its current values) to that row of ``work``; without pivoting the
+//      owner of row j writes row j.  Grid barrier.  Every block reduces
+//      all candidates (NaN counts as the largest, ties go to the smallest
+//      position) -> the pivot row w;
+//   2. every block reads w's strip row from work into its copy of the
+//      strip's pivot rows (piv_s, S x S: row j holds w's multipliers of
+//      the strip's earlier columns, then u_j), positions are updated;
 //   3. each block scales column j of its own rows still to pivot
 //      (l = a / pv by IEEE division, 0 where pv == 0) and subtracts
-//      l * u from their columns right of j (a warp per row, lanes along
-//      the columns: coalesced, L2-resident).
-// Without pivoting, step 1 is the grid barrier alone and w is row j.
+//      l * u from their strip columns right of j, in the cache (a warp a
+//      row, a lane a column).  Columns right of the strip are not touched.
+// At the strip's end every block
+//   4. builds U12, the strip's pivot rows on the trailing columns [j1, nb):
+//      row jj starts from w_jj's trailing values in work, which nobody has
+//      written since the strip began, and takes w_jj's own multipliers
+//      against the rows before it, in order (the same arithmetic in every
+//      block, so no barrier is needed);
+//   5. gives its rows still to pivot the strip's updates on the trailing
+//      columns, in increasing j (one read and one write of each element a
+//      strip), and writes their strip columns back to work.  The strip's
+//      pivot rows already hold their strip values in work (what was sent
+//      in step 1 is final).
+// So every element sees the same sequence a <- a - l_rj * u_j[c], in
+// increasing j, as the column-by-column elimination, only later in time.
+//
+// The race avoided: a pivot row's owner must not write the row's U12
+// values while another block may still read its trailing values in step 4.
+// The owner writes them after the next column's grid barrier, which every
+// block passes only after its step 4; after the last strip, when trailing
+// columns remain (M < nb), a grid barrier of its own comes first.  Between
+// those barriers nobody reads or writes those rows' trailing columns:
+// candidates, write-backs and updates touch only rows still to pivot.
+//
+// The column-by-column elimination also updates finished rows, with
+// l = 0 (a - 0 * u) and every row's columns left of j (a - l * 0).  That
+// changes a value only where u or l is not finite, into NaN; the kernel
+// marks those places (a row's columns up to the last step whose l was not
+// finite; a column's rows up to the last step whose u there was not
+// finite) and writes the NaNs when it copies the rows out.
+//
 // Rows at or past ``act`` (the recursion's canonical zero pad) are never
 // eligible, so they keep their positions.  At the end each block writes
 // its rows to out[pos] and perm[pos] = row.
@@ -77,6 +114,7 @@ __device__ __forceinline__ float abs_v(float a) { return fabsf(a); }
 
 constexpr int PL_THREADS = 512;
 constexpr int PL_WARPS = PL_THREADS / 32;
+constexpr int PL_MAX_S = 32;
 
 template <typename T>
 __device__ __forceinline__ bool cand_better(T m1, int p1, T m2, int p2) {
@@ -98,14 +136,16 @@ __device__ __forceinline__ void warp_argmax(T& m, int& p, int& r) {
 }
 
 template <typename T, bool PIVOT>
-__global__ void __launch_bounds__(PL_THREADS)
+__global__ void __launch_bounds__(PL_THREADS, 2)
 panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict__ out,
-                int* __restrict__ perm, T* cmag, int* cidx, int M, int nb, int act,
-                int rpb) {
+                int* __restrict__ perm, T* cmag, int* iscr, int M, int nb, int act,
+                int rpb, int S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* u_s = reinterpret_cast<T*>(smem_raw);  // [nb] the pivot row
-  T* l_s = u_s + nb;                        // [rpb] this column's multipliers
-  int* pos_s = reinterpret_cast<int*>(l_s + rpb);  // [rpb] positions of own rows
+  const int ldc = S | 1;                    // odd: a column of the cache hits every bank
+  T* cache = reinterpret_cast<T*>(smem_raw);  // [rpb][ldc] own rows, the strip's columns
+  T* piv_s = cache + (long long)rpb * ldc;    // [S][ldc] the strip's pivot rows
+  T* u12 = piv_s + S * ldc;                   // [S][nb - S] the same on the trailing columns
+  int* pos_s = reinterpret_cast<int*>(u12 + S * max(0, nb - S));  // [rpb] positions
   __shared__ T wm[PL_WARPS];
   __shared__ int wp[PL_WARPS], wr[PL_WARPS];
   __shared__ int win_row, win_pos;
@@ -116,104 +156,190 @@ panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict_
   const int r0 = blockIdx.x * rpb;
   const int R = max(0, min(M, r0 + rpb) - r0);
   const int kmax = min(M, nb);
+  int* cidx = iscr;                                   // [2][G][2] candidates
+  int* nanl = cidx + 4 * G;                           // [M] row r: NaN in columns <= nanl[r]
+  int* bad = nanl + M + (long long)blockIdx.x * nb;   // [nb] column c: NaN at positions <= bad[c]
+  int* wins = nanl + M + (long long)G * nb + blockIdx.x * PL_MAX_S;  // [S] the strip's winners
 
   for (long long idx = tid; idx < (long long)R * nb; idx += PL_THREADS) {
     const int r = idx / nb, c = idx % nb;
     work[(long long)(r0 + r) * nb + c] = in[(long long)(r0 + r) * ldi + c];
   }
-  for (int r = tid; r < R; r += PL_THREADS) pos_s[r] = r0 + r;
+  for (int r = tid; r < R; r += PL_THREADS) { pos_s[r] = r0 + r; nanl[r0 + r] = -1; }
+  for (int c = tid; c < nb; c += PL_THREADS) bad[c] = -1;
   __syncthreads();
 
-  for (int j = 0; j < kmax; ++j) {
-    // this block's candidate for column j, then the grid's
-    if (PIVOT) {
-      T m = -INFINITY;
-      int p = INT_MAX, rw = -1;
-      for (int r = tid; r < R; r += PL_THREADS) {
-        const int ps = pos_s[r];
-        if (ps >= j && r0 + r < act) {
-          const T v = abs_v(work[(long long)(r0 + r) * nb + j]);
-          if (cand_better(v, ps, m, p)) { m = v; p = ps; rw = r0 + r; }
+  // the last strip's pivot rows still to take their U12 rows (its j0, steps, j1)
+  int pend_j0 = 0, pend_ns = 0, pend_j1 = nb;
+  auto write_u12 = [&]() {
+    const int W = nb - pend_j1;
+    for (long long idx = tid; idx < (long long)R * W; idx += PL_THREADS) {
+      const int r = idx / W, c = idx % W, jj = pos_s[r] - pend_j0;
+      if (jj >= 0 && jj < pend_ns)
+        work[(long long)(r0 + r) * nb + pend_j1 + c] = u12[jj * W + c];
+    }
+    pend_ns = 0;
+  };
+
+  for (int j0 = 0; j0 < kmax; j0 += S) {
+    const int j1 = min(j0 + S, nb), sw = j1 - j0, ns = min(j1, kmax) - j0, W = nb - j1;
+    for (int idx = tid; idx < R * sw; idx += PL_THREADS) {
+      const int r = idx / sw, c = idx % sw;
+      if (pos_s[r] >= j0) cache[r * ldc + c] = work[(long long)(r0 + r) * nb + j0 + c];
+    }
+    __syncthreads();
+
+    for (int jj = 0; jj < ns; ++jj) {
+      const int j = j0 + jj;
+      if (PIVOT) {
+        // this block's candidate for column j, sent with its strip row
+        T m = -INFINITY;
+        int p = INT_MAX, rw = -1;
+        for (int r = tid; r < R; r += PL_THREADS) {
+          const int ps = pos_s[r];
+          if (ps >= j && r0 + r < act) {
+            const T v = abs_v(cache[r * ldc + jj]);
+            if (cand_better(v, ps, m, p)) { m = v; p = ps; rw = r0 + r; }
+          }
         }
-      }
-      warp_argmax(m, p, rw);
-      if (lane == 0) { wm[warp] = m; wp[warp] = p; wr[warp] = rw; }
-      __syncthreads();
-      if (warp == 0) {
-        m = lane < PL_WARPS ? wm[lane] : T(-INFINITY);
-        p = lane < PL_WARPS ? wp[lane] : INT_MAX;
-        rw = lane < PL_WARPS ? wr[lane] : -1;
         warp_argmax(m, p, rw);
-        if (lane == 0) {
-          const int s = (j & 1) * G + blockIdx.x;
-          cmag[s] = m;
-          cidx[2 * s] = p;
-          cidx[2 * s + 1] = rw;
+        if (lane == 0) { wm[warp] = m; wp[warp] = p; wr[warp] = rw; }
+        __syncthreads();
+        if (warp == 0) {
+          m = lane < PL_WARPS ? wm[lane] : T(-INFINITY);
+          p = lane < PL_WARPS ? wp[lane] : INT_MAX;
+          rw = lane < PL_WARPS ? wr[lane] : -1;
+          warp_argmax(m, p, rw);
+          if (rw >= 0 && lane < sw)
+            work[(long long)rw * nb + j0 + lane] = cache[(rw - r0) * ldc + lane];
+          if (lane == 0) {
+            const int s = (j & 1) * G + blockIdx.x;
+            cmag[s] = m;
+            cidx[2 * s] = p;
+            cidx[2 * s + 1] = rw;
+          }
         }
-      }
-      grid.sync();
-      if (warp == 0) {
-        T bm = -INFINITY;
-        int bp = INT_MAX, br = -1;
-        for (int b = lane; b < G; b += 32) {
-          const int s = (j & 1) * G + b;
-          const T m2 = cmag[s];
-          const int p2 = cidx[2 * s];
-          if (cand_better(m2, p2, bm, bp)) { bm = m2; bp = p2; br = cidx[2 * s + 1]; }
+        grid.sync();
+        if (pend_ns) write_u12();
+        if (warp == 0) {
+          T bm = -INFINITY;
+          int bp = INT_MAX, br = -1;
+          for (int b = lane; b < G; b += 32) {
+            const int s = (j & 1) * G + b;
+            const T m2 = cmag[s];
+            const int p2 = cidx[2 * s];
+            if (cand_better(m2, p2, bm, bp)) { bm = m2; bp = p2; br = cidx[2 * s + 1]; }
+          }
+          warp_argmax(bm, bp, br);
+          if (lane == 0) { win_row = br; win_pos = bp; }
         }
-        warp_argmax(bm, bp, br);
-        if (lane == 0) { win_row = br; win_pos = bp; }
+      } else {
+        // no exchange: row j is the pivot, and its owner sends it
+        if (j >= r0 && j < r0 + R && tid < sw)
+          work[(long long)j * nb + j0 + tid] = cache[(j - r0) * ldc + tid];
+        grid.sync();
+        if (pend_ns) write_u12();
+        if (tid == 0) { win_row = j; win_pos = j; }
       }
-    } else {
-      grid.sync();  // column j - 1's update is complete everywhere
-      if (tid == 0) { win_row = j; win_pos = j; }  // no exchange: row j stays
-    }
-    __syncthreads();
-    const int w = win_row, pw = win_pos;
+      __syncthreads();
+      const int w = win_row, pw = win_pos;
 
-    // the pivot row, and the swap of positions j <-> pw
-    for (int c = j + tid; c < nb; c += PL_THREADS) u_s[c] = work[(long long)w * nb + c];
-    for (int r = tid; r < R; r += PL_THREADS) {
-      if (r0 + r == w) pos_s[r] = j;
-      else if (pos_s[r] == j) pos_s[r] = pw;
-    }
-    __syncthreads();
-    const T pv = u_s[j];
-
-    // multipliers of the rows still to pivot (positions > j)
-    for (int r = tid; r < R; r += PL_THREADS) {
-      if (pos_s[r] > j) {
-        T* a = work + (long long)(r0 + r) * nb + j;
-        const T l = pv == T(0) ? T(0) : div_rn(*a, pv);
-        *a = l;
-        l_s[r] = l;
+      // the pivot row's strip, and the swap of positions j <-> pw
+      for (int c = tid; c < sw; c += PL_THREADS) piv_s[jj * ldc + c] = work[(long long)w * nb + j0 + c];
+      if (tid == 0) wins[jj] = w;
+      for (int r = tid; r < R; r += PL_THREADS) {
+        if (r0 + r == w) pos_s[r] = j;
+        else if (pos_s[r] == j) pos_s[r] = pw;
       }
-    }
-    __syncthreads();
+      __syncthreads();
+      const T pv = piv_s[jj * ldc + jj];
 
-    // rank-1 update of their columns right of j: a warp per row
+      // multipliers of the rows still to pivot, and their strip's update:
+      // a warp a row, a lane a column
+      for (int r = warp; r < R; r += PL_WARPS) {
+        if (pos_s[r] <= j) continue;
+        T* a = cache + r * ldc;
+        const T l = pv == T(0) ? T(0) : div_rn(a[jj], pv);
+        __syncwarp();
+        if (lane == jj) a[jj] = l;
+        else if (lane > jj && lane < sw) a[lane] = sub_rn(a[lane], mul_rn(l, piv_s[jj * ldc + lane]));
+      }
+      __syncthreads();
+    }
+
+    // U12: the strip's pivot rows on the trailing columns, in every block alike
+    if (W > 0) {
+      for (int idx = tid; idx < ns * W; idx += PL_THREADS)
+        u12[idx] = work[(long long)wins[idx / W] * nb + j1 + idx % W];
+      __syncthreads();
+      for (int c = tid; c < W; c += PL_THREADS)
+        for (int jj = 1; jj < ns; ++jj) {
+          T v = u12[jj * W + c];
+          for (int i = 0; i < jj; ++i) v = sub_rn(v, mul_rn(piv_s[jj * ldc + i], u12[i * W + c]));
+          u12[jj * W + c] = v;
+        }
+      __syncthreads();
+    }
+
+    // NaN marks: columns where a u of this strip is not finite ...
+    for (int c = j0 + 1 + tid; c < nb; c += PL_THREADS) {
+      int b = -1;
+      for (int jj = 0; jj < ns && j0 + jj < c; ++jj) {
+        const T u = c < j1 ? piv_s[jj * ldc + c - j0] : u12[jj * W + c - j1];
+        if (!isfinite(u)) b = j0 + jj;
+      }
+      if (b >= 0) bad[c] = b;
+    }
+    // ... and own rows whose l of this strip is not finite
+    for (int r = tid; r < R; r += PL_THREADS) {
+      int b = -1;
+      for (int jj = 0; jj < ns && j0 + jj < pos_s[r]; ++jj)
+        if (!isfinite(cache[r * ldc + jj])) b = j0 + jj;
+      if (b >= 0) nanl[r0 + r] = b;
+    }
+
+    // own rows still to pivot: the strip's updates on the trailing columns,
+    // a warp a row, a lane a column
     for (int r = warp; r < R; r += PL_WARPS) {
-      if (pos_s[r] <= j) continue;
-      const T l = l_s[r];
-      T* row = work + (long long)(r0 + r) * nb;
-#pragma unroll 4
-      for (int c = j + 1 + lane; c < nb; c += 32) row[c] = sub_rn(row[c], mul_rn(l, u_s[c]));
+      if (pos_s[r] < j0 + ns) continue;
+      const T* lr = cache + r * ldc;
+      T* row = work + (long long)(r0 + r) * nb + j1;
+      for (int c = lane; c < W; c += 32) {
+        T v = row[c];
+        for (int i = 0; i < ns; ++i) v = sub_rn(v, mul_rn(lr[i], u12[i * W + c]));
+        row[c] = v;
+      }
     }
+    // ... and their strip columns back to work
+    for (int idx = tid; idx < R * sw; idx += PL_THREADS) {
+      const int r = idx / sw, c = idx % sw;
+      if (pos_s[r] >= j0 + ns) work[(long long)(r0 + r) * nb + j0 + c] = cache[r * ldc + c];
+    }
+    if (W > 0) { pend_j0 = j0; pend_ns = ns; pend_j1 = j1; }
+    __syncthreads();
+  }
+  if (pend_ns) {  // no next column: a barrier of its own before the U12 rows
+    grid.sync();
+    write_u12();
     __syncthreads();
   }
 
-  // rows to their final positions
+  // rows to their final positions, with the NaNs of the finished rows' updates
   for (long long idx = tid; idx < (long long)R * nb; idx += PL_THREADS) {
-    const int r = idx / nb, c = idx % nb;
-    out[(long long)pos_s[r] * nb + c] = work[(long long)(r0 + r) * nb + c];
+    const int r = idx / nb, c = idx % nb, p = pos_s[r];
+    T v = work[(long long)(r0 + r) * nb + c];
+    if (c <= nanl[r0 + r] || p <= bad[c]) v = T(NAN);
+    out[(long long)p * nb + c] = v;
   }
   for (int r = tid; r < R; r += PL_THREADS) perm[pos_s[r]] = r0 + r;
 }
 
 template <typename T>
 int launch_panel_lu(const T* in, long long ldi, T* work, T* out, int* perm, T* cmag,
-                    int* cidx, int M, int nb, int act, int pivot, int max_grid,
+                    int* iscr, int M, int nb, int act, int pivot, int grid, int rpb, int S,
                     cudaStream_t s) {
+  if (S < 1 || S > PL_MAX_S || grid < 1 || (long long)grid * rpb < M)
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -221,25 +347,18 @@ int launch_panel_lu(const T* in, long long ldi, T* work, T* out, int* perm, T* c
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   void* kern = pivot ? (void*)panel_lu_kernel<T, true> : (void*)panel_lu_kernel<T, false>;
-  // at least 16 rows a block, at most max_grid blocks
-  int grid = std::min(max_grid, std::max(1, (M + 15) / 16));
-  int rpb = 0;
-  size_t smem = 0;
-  for (;;) {
-    rpb = (M + grid - 1) / grid;
-    smem = (size_t)nb * sizeof(T) + (size_t)rpb * (sizeof(T) + sizeof(int));
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PL_THREADS, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    if (grid <= per_sm * sms) break;
-    grid = per_sm * sms;  // every block must be resident at once
-  }
+  const int ldc = S | 1;
+  const size_t smem = sizeof(T) * ((size_t)rpb * ldc + (size_t)S * ldc +
+                                   (size_t)S * std::max(0, nb - S)) + sizeof(int) * (size_t)rpb;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;  // the plan's residency, checked: every block must be resident at once
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PL_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&in, (void*)&ldi, (void*)&work, (void*)&out, (void*)&perm,
-                  (void*)&cmag, (void*)&cidx, (void*)&M, (void*)&nb, (void*)&act,
-                  (void*)&rpb};
+                  (void*)&cmag, (void*)&iscr, (void*)&M, (void*)&nb, (void*)&act,
+                  (void*)&rpb, (void*)&S};
   e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(PL_THREADS), args, smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -302,11 +421,11 @@ int launch_butterfly(const T* X, long long ldx, const T* D, T* Y, long long ldy,
 
 #define SLATE_DEFINE(SUF, T)                                                              \
   SLATE_EXPORT int slate_panel_lu_##SUF(const void* in, long long ldi, void* work,        \
-                                        void* out, void* perm, void* cmag, void* cidx,    \
-                                        int M, int nb, int act, int pivot, int max_grid,  \
-                                        void* stream) {                                   \
+                                        void* out, void* perm, void* cmag, void* iscr,    \
+                                        int M, int nb, int act, int pivot, int grid,      \
+                                        int rpb, int S, void* stream) {                   \
     return launch_panel_lu<T>((const T*)in, ldi, (T*)work, (T*)out, (int*)perm,           \
-                              (T*)cmag, (int*)cidx, M, nb, act, pivot, max_grid,          \
+                              (T*)cmag, (int*)iscr, M, nb, act, pivot, grid, rpb, S,      \
                               (cudaStream_t)stream);                                      \
   }                                                                                       \
   SLATE_EXPORT int slate_butterfly_level_##SUF(const void* X, long long ldx,              \

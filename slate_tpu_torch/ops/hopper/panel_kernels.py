@@ -125,7 +125,7 @@ _SIGNATURES = {
     "gemm_layout": [_I, _P, _P, _P],
     "trsm": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "trsm_layout": [_P, _P],
-    "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P],
     "tile_norms": [_P, _L, _L, _I, _I, _I, _I, _P, _P],
@@ -668,6 +668,64 @@ def panel_lu_plain(panel: torch.Tensor, pivot: bool = True,
     return a, perm
 
 
+#: panel_lu's launch (csrc: PL_THREADS, PL_MAX_S, __launch_bounds__): at
+#: most two blocks an SM, strips of at most 32 columns; an SM's shared
+#: memory and what the card reserves of it for each block
+PL_BLOCKS_PER_SM, PL_MAX_STRIP = 2, 32
+_SM_SMEM, _SMEM_RESERVED = 228 * 1024, 1024
+
+
+class PanelLuPlan(NamedTuple):
+    """One panel_lu launch: ``grid`` blocks of ``rows`` rows each, strips
+    of ``strip`` columns, ``smem`` bytes of dynamic shared memory a block."""
+    grid: int
+    rows: int
+    strip: int
+    smem: int
+
+
+def _pl_static_smem(itemsize: int) -> int:
+    """The kernel's static shared memory: a candidate (value, position,
+    row) a warp of 16, the winner's row and position."""
+    return 16 * itemsize + 4 * (2 * 16 + 2)
+
+
+def _panel_lu_smem(rows: int, S: int, nb: int, itemsize: int) -> int:
+    """Dynamic shared memory of a block of ``rows`` rows at strip width
+    S: the strip cache (rows x ldc), the strip's pivot rows (S x ldc),
+    U12 (S x (nb - S)) and the rows' positions; ldc is S rounded up to
+    an odd count (no bank conflicts down a column).  At S = 1 it is what
+    the column-by-column kernel needed: rows x (value + position) and
+    one row of nb values."""
+    ldc = S if S % 2 else S + 1
+    return itemsize * (rows * ldc + S * ldc + S * max(0, nb - S)) + 4 * rows
+
+
+def panel_lu_plan(M: int, nb: int, itemsize: int, sms: int,
+                  smem_per_block: int) -> PanelLuPlan:
+    """The grid, the rows a block and the strip width of one (M, nb)
+    panel_lu on a card of ``sms`` SMs whose blocks may use
+    ``smem_per_block`` bytes of shared memory: the widest strip (at most
+    32 columns) for which some grid of at least 16 rows a block and at
+    most two blocks an SM keeps every block resident at once (the
+    cooperative launch needs that).  Raises when not even one-column
+    strips fit."""
+    static = _pl_static_smem(itemsize)
+    for S in range(min(PL_MAX_STRIP, nb), 0, -1):
+        grid = min(PL_BLOCKS_PER_SM * sms, max(1, -(-M // 16)))
+        while True:
+            rows = -(-M // grid)
+            smem = _panel_lu_smem(rows, S, nb, itemsize)
+            if smem + static > smem_per_block:
+                break  # fewer blocks only make each one larger
+            per_sm = min(PL_BLOCKS_PER_SM, _SM_SMEM // (smem + static + _SMEM_RESERVED))
+            if grid <= per_sm * sms:
+                return PanelLuPlan(grid, rows, S, smem)
+            grid = per_sm * sms
+    raise ValueError(f"panel_lu: a ({M}, {nb}) panel does not fit in shared memory "
+                     f"on {sms} SMs")
+
+
 def panel_lu(panel: torch.Tensor, pivot: bool = True,
              act: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Partial-pivot unblocked LU of an (M, nb) panel -> (lu, perm int32),
@@ -678,14 +736,27 @@ def panel_lu(panel: torch.Tensor, pivot: bool = True,
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:panel_lu_pallas``.
     Bound on the H100: neither bytes (one read and one write of the
     panel) nor FLOPs (M nb^2) — min(M, nb) dependent column steps, each
-    needing the whole column, so grid-wide synchronisation and the
-    L2 traffic of the trailing update (M nb^2 reads and writes) set its
+    needing the whole column, so grid-wide synchronisation sets its
     time.  Design: one cooperative launch over the card, a slab of rows
-    a block, one grid barrier a column; rows stay in place and their
-    positions in the swap order are tracked, so the column step needs no
-    second barrier for the row exchange.  Explicitly rounded
-    multiplies, subtracts and IEEE divisions (no FMA contraction) make
-    lu and perm bit-identical to the plain version."""
+    a block (``panel_lu_plan``), one grid barrier a column; rows stay in
+    place and their positions in the swap order are tracked.  The
+    columns go in strips of up to 32: a block holds the strip's columns
+    of its rows still to pivot in shared memory, and inside the strip
+    updates only those.  Each block sends its candidate's strip row
+    with the candidate, so after the barrier every block reads the
+    pivot row's strip from one place.  At the strip's end every block
+    builds the strip's pivot rows on the trailing columns (U12, the
+    same arithmetic in each block) and gives its own rows still to pivot
+    the strip's updates there, one read and one write of each element
+    a strip instead of a column.  The owner of a pivot row writes its
+    U12 row only after the next grid barrier (a barrier of its own after
+    the last strip), when no block reads the row's trailing values any
+    more.  Every element sees the plain version's updates in the same
+    order (tests/test_torch_panel_lu_strip.py emulates the schedule);
+    explicitly rounded multiplies, subtracts and IEEE divisions (no FMA
+    contraction) make lu and perm bit-identical to the plain version,
+    and the NaNs that the plain version's updates of finished rows make
+    from a non-finite u or l are written when the rows are copied out."""
     if panel.dim() != 2:
         raise ValueError(f"panel_lu: expected a 2-D panel, got {tuple(panel.shape)}")
     M, nb = panel.shape
@@ -698,17 +769,25 @@ def panel_lu(panel: torch.Tensor, pivot: bool = True,
     dev = panel.device
     if M == 0 or nb == 0:
         return panel.clone(), torch.arange(M, dtype=torch.int32, device=dev)
+    plan = _panel_lu_plan(panel)
     out = torch.empty((M, nb), dtype=panel.dtype, device=dev)
     work = torch.empty((M, nb), dtype=panel.dtype, device=dev)
     perm = torch.empty(M, dtype=torch.int32, device=dev)
-    max_grid = 2 * _sms(dev)
-    cmag = torch.empty(2 * max_grid, dtype=panel.dtype, device=dev)
-    cidx = torch.empty(4 * max_grid, dtype=torch.int32, device=dev)
+    G = plan.grid
+    cmag = torch.empty(2 * G, dtype=panel.dtype, device=dev)
+    # candidates (2 x G x (position, row)), the rows' NaN marks (M), each
+    # block's NaN marks of the columns (G x nb) and its strip's winners (G x 32)
+    iscr = torch.empty(4 * G + M + G * (nb + PL_MAX_STRIP), dtype=torch.int32, device=dev)
     _launch("panel_lu", _entry("panel_lu", panel.dtype),
             panel.data_ptr(), _ld(panel), work.data_ptr(), out.data_ptr(), perm.data_ptr(),
-            cmag.data_ptr(), cidx.data_ptr(), M, nb, M if act is None else act,
-            int(pivot), max_grid, _stream(panel))
+            cmag.data_ptr(), iscr.data_ptr(), M, nb, M if act is None else act,
+            int(pivot), G, plan.rows, plan.strip, _stream(panel))
     return out, perm
+
+
+def _panel_lu_plan(panel: torch.Tensor) -> PanelLuPlan:
+    M, nb = panel.shape
+    return panel_lu_plan(M, nb, panel.element_size(), _sms(panel.device), _MAX_SMEM)
 
 
 # ---------------------------------------------------------------------------

@@ -392,6 +392,54 @@ def test_panel_lu_ties_and_zero_column(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,nb,act,pivot,dtype", [
+    (2000, 31, None, True, np.float64),     # one strip, narrower than 32
+    (2000, 33, None, True, np.float32),     # a last strip of one column
+    (3000, 65, None, True, np.float64),     # two whole strips and one column
+    (3000, 65, 66, True, np.float32),       # act: one row to spare at the last column
+    (5000, 100, 2500, True, np.float64),    # act inside a block's rows
+    (262144, 64, None, True, np.float64),   # a tall panel: the plan's strip is < 32
+    (4096, 256, None, False, np.float64),   # no exchanges (the RBT route)
+    (4096, 256, None, False, np.float32),
+    (70, 200, None, True, np.float64),      # M < nb: a barrier of its own after the last strip
+])
+def test_panel_lu_strip_seams(dev, m, nb, act, pivot, dtype):
+    """The strip schedule at its seams is bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(m + nb)
+    a = rng.standard_normal((m, nb))
+    if not pivot:
+        a += m * np.eye(m, nb)
+    if act is not None:
+        a[act:] = 0.0
+    _, P = _both(a.astype(dtype), dev)
+    plan = pk._panel_lu_plan(P)
+    if m == 262144:
+        assert plan.strip < 32
+    lu, perm = pk.panel_lu(P, pivot=pivot, act=act)
+    assert pk.LAUNCHES["panel_lu"] == 1
+    ref_lu, ref_perm = pk.panel_lu_plain(P, pivot, act)
+    assert torch.equal(perm, ref_perm) and torch.equal(lu, ref_lu), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_lu_nan_and_inf(dev, dtype):
+    """A NaN and an inf spread into the finished rows as the plain
+    version's updates spread them: NaN in the same places, every other
+    value equal."""
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((3000, 96))
+    a[1000, 5], a[1500, 70] = np.nan, np.inf
+    _, P = _both(a.astype(dtype), dev)
+    lu, perm = pk.panel_lu(P)
+    ref_lu, ref_perm = pk.panel_lu_plain(P)
+    nan = ref_lu.isnan()
+    assert bool(nan.any()) and torch.equal(perm, ref_perm) and torch.equal(lu.isnan(), nan)
+    assert torch.equal(lu.masked_fill(nan, 0), ref_lu.masked_fill(nan, 0))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("transpose", [True, False])
 @pytest.mark.parametrize("n2,w,h", [(256, 7, 128), (256, 7, 32), (64, 1, 2)])
