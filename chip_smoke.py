@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its gemm_sub
-                                     # and syrk_diag pieces), gesv and gels and of one
-                                     # warm solve phase of posv and gesv
+                                     # and syrk_diag pieces), gesv (with its panel_lu
+                                     # piece) and gels and of one warm solve phase of
+                                     # posv and gesv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -1240,7 +1241,7 @@ def profile(stt, gen, dev) -> None:
         torch.cuda.synchronize()
         t_gesv = time.perf_counter() - t0
     print(f"  warm getrf {t_getrf:.4f} s, gesv {t_gesv:.4f} s (host clock, float64 n={n})")
-    _profile_call("gesv", lambda: stt.gesv(Am, Bm))
+    _profile_call("gesv", lambda: stt.gesv(Am, Bm), {"panel_lu": ("panel_lu_kernel",)})
     LU, piv, _ = stt.getrf(Am)
     LUg, PB = LU.to_global().contiguous(), piv.apply(B)
     del LU

@@ -63,21 +63,24 @@ __device__ __forceinline__ float abs_v(float a) { return fabsf(a); }
 //
 // Strips.  The columns go in strips [j0, j1) of S <= 32.  At a strip's
 // start each block copies the strip's columns of its rows still to pivot
-// into shared memory (the strip cache).  Per column j of the strip:
-//   1. each block finds its candidate (|value|, position, row) among its
-//      rows still to pivot, reading column j from the cache, writes it to
-//      a double-buffered scratch and writes the candidate's strip row
-//      (its current values) to that row of ``work``; without pivoting the
-//      owner of row j writes row j.  Grid barrier.  Every block reduces
-//      all candidates (NaN counts as the largest, ties go to the smallest
-//      position) -> the pivot row w;
-//   2. every block reads w's strip row from work into its copy of the
-//      strip's pivot rows (piv_s, S x S: row j holds w's multipliers of
-//      the strip's earlier columns, then u_j), positions are updated;
-//   3. each block scales column j of its own rows still to pivot
-//      (l = a / pv by IEEE division, 0 where pv == 0) and subtracts
-//      l * u from their strip columns right of j, in the cache (a warp a
-//      row, a lane a column).  Columns right of the strip are not touched.
+// into shared memory (the strip cache).  Per column j of the strip, with
+// one block barrier and one grid barrier:
+//   1. each block's candidate (|value|, position, row) among its rows
+//      still to pivot (the best of its warps' candidates) goes to a
+//      double-buffered scratch, and the candidate's strip row (its current
+//      values) to that row of ``work``; without pivoting the owner of row
+//      j writes row j.  Grid barrier;
+//   2. every warp reduces all candidates itself (NaN counts as the
+//      largest, ties go to the smallest position) -> the pivot row w, and
+//      reads w's strip row from work, a lane a column; warp 0 keeps it in
+//      the strip's pivot rows (piv_s, S x S: row j holds w's multipliers
+//      of the strip's earlier columns, then u_j);
+//   3. a warp a row, a lane a column: positions are swapped, the rows
+//      still to pivot take their multiplier (l = a / pv by IEEE division,
+//      0 where pv == 0; one lane a row, 32 rows at once) and l * u off
+//      their strip columns right of j, in the cache, and each warp keeps
+//      its candidate for column j + 1 on the way.  Block barrier.
+// Columns right of the strip are not touched inside the strip.
 // At the strip's end every block
 //   4. builds U12, the strip's pivot rows on the trailing columns [j1, nb):
 //      row jj starts from w_jj's trailing values in work, which nobody has
@@ -115,6 +118,7 @@ __device__ __forceinline__ float abs_v(float a) { return fabsf(a); }
 constexpr int PL_THREADS = 512;
 constexpr int PL_WARPS = PL_THREADS / 32;
 constexpr int PL_MAX_S = 32;
+constexpr int PL_CAND = 8;  // candidates a lane loads at once (G <= 256: one round)
 
 template <typename T>
 __device__ __forceinline__ bool cand_better(T m1, int p1, T m2, int p2) {
@@ -136,7 +140,7 @@ __device__ __forceinline__ void warp_argmax(T& m, int& p, int& r) {
 }
 
 template <typename T, bool PIVOT>
-__global__ void __launch_bounds__(PL_THREADS, 2)
+__global__ void __launch_bounds__(PL_THREADS, 1)
 panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict__ out,
                 int* __restrict__ perm, T* cmag, int* iscr, int M, int nb, int act,
                 int rpb, int S) {
@@ -148,7 +152,6 @@ panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict_
   int* pos_s = reinterpret_cast<int*>(u12 + S * max(0, nb - S));  // [rpb] positions
   __shared__ T wm[PL_WARPS];
   __shared__ int wp[PL_WARPS], wr[PL_WARPS];
-  __shared__ int win_row, win_pos;
 
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -156,8 +159,8 @@ panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict_
   const int r0 = blockIdx.x * rpb;
   const int R = max(0, min(M, r0 + rpb) - r0);
   const int kmax = min(M, nb);
-  int* cidx = iscr;                                   // [2][G][2] candidates
-  int* nanl = cidx + 4 * G;                           // [M] row r: NaN in columns <= nanl[r]
+  int2* cidx = reinterpret_cast<int2*>(iscr);         // [2][G] candidates (position, row)
+  int* nanl = iscr + 4 * G;                           // [M] row r: NaN in columns <= nanl[r]
   int* bad = nanl + M + (long long)blockIdx.x * nb;   // [nb] column c: NaN at positions <= bad[c]
   int* wins = nanl + M + (long long)G * nb + blockIdx.x * PL_MAX_S;  // [S] the strip's winners
 
@@ -188,82 +191,116 @@ panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict_
       if (pos_s[r] >= j0) cache[r * ldc + c] = work[(long long)(r0 + r) * nb + j0 + c];
     }
     __syncthreads();
+    if (PIVOT) {  // each warp's candidate for the strip's first column
+      T m = -INFINITY;
+      int p = INT_MAX, rw = -1;
+      for (int r = tid; r < R; r += PL_THREADS) {
+        const int ps = pos_s[r];
+        if (ps >= j0 && r0 + r < act) {
+          const T v = abs_v(cache[r * ldc]);
+          if (cand_better(v, ps, m, p)) { m = v; p = ps; rw = r0 + r; }
+        }
+      }
+      warp_argmax(m, p, rw);
+      if (lane == 0) { wm[warp] = m; wp[warp] = p; wr[warp] = rw; }
+      __syncthreads();
+    }
 
     for (int jj = 0; jj < ns; ++jj) {
       const int j = j0 + jj;
+      // 1. this block's candidate (the warps' best), sent with its strip row;
+      //    without pivoting the owner of row j sends row j
       if (PIVOT) {
-        // this block's candidate for column j, sent with its strip row
-        T m = -INFINITY;
-        int p = INT_MAX, rw = -1;
-        for (int r = tid; r < R; r += PL_THREADS) {
-          const int ps = pos_s[r];
-          if (ps >= j && r0 + r < act) {
-            const T v = abs_v(cache[r * ldc + jj]);
-            if (cand_better(v, ps, m, p)) { m = v; p = ps; rw = r0 + r; }
-          }
-        }
-        warp_argmax(m, p, rw);
-        if (lane == 0) { wm[warp] = m; wp[warp] = p; wr[warp] = rw; }
-        __syncthreads();
         if (warp == 0) {
-          m = lane < PL_WARPS ? wm[lane] : T(-INFINITY);
-          p = lane < PL_WARPS ? wp[lane] : INT_MAX;
-          rw = lane < PL_WARPS ? wr[lane] : -1;
+          T m = lane < PL_WARPS ? wm[lane] : T(-INFINITY);
+          int p = lane < PL_WARPS ? wp[lane] : INT_MAX;
+          int rw = lane < PL_WARPS ? wr[lane] : -1;
           warp_argmax(m, p, rw);
           if (rw >= 0 && lane < sw)
             work[(long long)rw * nb + j0 + lane] = cache[(rw - r0) * ldc + lane];
           if (lane == 0) {
             const int s = (j & 1) * G + blockIdx.x;
             cmag[s] = m;
-            cidx[2 * s] = p;
-            cidx[2 * s + 1] = rw;
+            cidx[s] = make_int2(p, rw);
           }
         }
-        grid.sync();
-        if (pend_ns) write_u12();
-        if (warp == 0) {
-          T bm = -INFINITY;
-          int bp = INT_MAX, br = -1;
-          for (int b = lane; b < G; b += 32) {
-            const int s = (j & 1) * G + b;
-            const T m2 = cmag[s];
-            const int p2 = cidx[2 * s];
-            if (cand_better(m2, p2, bm, bp)) { bm = m2; bp = p2; br = cidx[2 * s + 1]; }
+      } else if (j >= r0 && j < r0 + R && tid < sw) {
+        work[(long long)j * nb + j0 + tid] = cache[(j - r0) * ldc + tid];
+      }
+      grid.sync();
+      if (pend_ns) {
+        write_u12();
+        __syncthreads();  // before positions change below
+      }
+
+      // 2. every warp reduces the grid's candidates itself (NaN counts as
+      //    the largest, ties go to the smallest position) -> the pivot row w,
+      //    and reads w's strip row, a lane a column
+      int w = j, pw = j;
+      if (PIVOT) {
+        T bm = -INFINITY;
+        int bp = INT_MAX, br = -1;
+        const int par = (j & 1) * G;
+        for (int b0 = 0; b0 < G; b0 += PL_CAND * 32) {
+          T cm[PL_CAND];
+          int2 cq[PL_CAND];
+#pragma unroll
+          for (int k = 0; k < PL_CAND; ++k) {  // all loads in flight at once
+            const int b = b0 + 32 * k + lane;
+            cm[k] = b < G ? cmag[par + b] : T(-INFINITY);
+            cq[k] = b < G ? cidx[par + b] : make_int2(INT_MAX, -1);
           }
-          warp_argmax(bm, bp, br);
-          if (lane == 0) { win_row = br; win_pos = bp; }
+#pragma unroll
+          for (int k = 0; k < PL_CAND; ++k)
+            if (cand_better(cm[k], cq[k].x, bm, bp)) { bm = cm[k]; bp = cq[k].x; br = cq[k].y; }
         }
-      } else {
-        // no exchange: row j is the pivot, and its owner sends it
-        if (j >= r0 && j < r0 + R && tid < sw)
-          work[(long long)j * nb + j0 + tid] = cache[(j - r0) * ldc + tid];
-        grid.sync();
-        if (pend_ns) write_u12();
-        if (tid == 0) { win_row = j; win_pos = j; }
+        warp_argmax(bm, bp, br);
+        w = br;
+        pw = bp;
       }
-      __syncthreads();
-      const int w = win_row, pw = win_pos;
-
-      // the pivot row's strip, and the swap of positions j <-> pw
-      for (int c = tid; c < sw; c += PL_THREADS) piv_s[jj * ldc + c] = work[(long long)w * nb + j0 + c];
-      if (tid == 0) wins[jj] = w;
-      for (int r = tid; r < R; r += PL_THREADS) {
-        if (r0 + r == w) pos_s[r] = j;
-        else if (pos_s[r] == j) pos_s[r] = pw;
+      const T u = lane < sw ? work[(long long)w * nb + j0 + lane] : T(0);
+      if (warp == 0) {
+        if (lane < sw) piv_s[jj * ldc + lane] = u;
+        if (lane == 0) wins[jj] = w;
       }
-      __syncthreads();
-      const T pv = piv_s[jj * ldc + jj];
+      const T pv = __shfl_sync(0xffffffffu, u, jj);
 
-      // multipliers of the rows still to pivot, and their strip's update:
-      // a warp a row, a lane a column
-      for (int r = warp; r < R; r += PL_WARPS) {
-        if (pos_s[r] <= j) continue;
-        T* a = cache + r * ldc;
-        const T l = pv == T(0) ? T(0) : div_rn(a[jj], pv);
+      // 3. a warp a row, a lane a column: the swap of positions j <-> pw,
+      //    the multipliers of the rows still to pivot (l = a / pv by IEEE
+      //    division, 0 where pv == 0; a lane a row, 32 rows at a time) and
+      //    the update of their strip columns right of j; the warp's
+      //    candidate for column j + 1 on the way
+      const bool next = PIVOT && jj + 1 < ns;
+      T m = -INFINITY;
+      int p = INT_MAX, rw = -1;
+      for (int base = warp; base < R; base += PL_THREADS) {
+        const int rt = base + PL_WARPS * lane;
+        int pt = -1;
+        T lt = T(0);
+        if (rt < R) {
+          const int p0 = pos_s[rt];
+          pt = r0 + rt == w ? j : (p0 == j ? pw : p0);
+          pos_s[rt] = pt;
+          if (pt > j && pv != T(0)) lt = div_rn(cache[rt * ldc + jj], pv);
+        }
         __syncwarp();
-        if (lane == jj) a[jj] = l;
-        else if (lane > jj && lane < sw) a[lane] = sub_rn(a[lane], mul_rn(l, piv_s[jj * ldc + lane]));
+        const int rows = min(32, (R - base + PL_WARPS - 1) / PL_WARPS);
+        for (int t = 0; t < rows; ++t) {
+          const int pr = __shfl_sync(0xffffffffu, pt, t);
+          const T l = __shfl_sync(0xffffffffu, lt, t);
+          if (pr <= j) continue;  // the same for the whole warp
+          const int r = base + PL_WARPS * t;
+          T* a = cache + r * ldc;
+          T v = T(0);
+          if (lane == jj) a[jj] = l;
+          else if (lane > jj && lane < sw) a[lane] = v = sub_rn(a[lane], mul_rn(l, u));
+          if (next) {
+            const T vn = abs_v(__shfl_sync(0xffffffffu, v, jj + 1));
+            if (r0 + r < act && cand_better(vn, pr, m, p)) { m = vn; p = pr; rw = r0 + r; }
+          }
+        }
       }
+      if (next && lane == 0) { wm[warp] = m; wp[warp] = p; wr[warp] = rw; }
       __syncthreads();
     }
 
@@ -299,15 +336,32 @@ panel_lu_kernel(const T* __restrict__ in, long long ldi, T* work, T* __restrict_
     }
 
     // own rows still to pivot: the strip's updates on the trailing columns,
-    // a warp a row, a lane a column
-    for (int r = warp; r < R; r += PL_WARPS) {
-      if (pos_s[r] < j0 + ns) continue;
-      const T* lr = cache + r * ldc;
-      T* row = work + (long long)(r0 + r) * nb + j1;
+    // in increasing j; a warp takes four of its rows at a time (each U12
+    // value read once for the four), a lane a column
+    for (int base = warp; base < R; base += 4 * PL_WARPS) {
+      int rq[4];
+      bool on[4], any = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        rq[q] = base + PL_WARPS * q;
+        on[q] = rq[q] < R && pos_s[rq[q]] >= j0 + ns;
+        any |= on[q];
+      }
+      if (!any) continue;
       for (int c = lane; c < W; c += 32) {
-        T v = row[c];
-        for (int i = 0; i < ns; ++i) v = sub_rn(v, mul_rn(lr[i], u12[i * W + c]));
-        row[c] = v;
+        T v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[q] = on[q] ? work[(long long)(r0 + rq[q]) * nb + j1 + c] : T(0);
+        for (int i = 0; i < ns; ++i) {
+          const T uu = u12[i * W + c];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (on[q]) v[q] = sub_rn(v[q], mul_rn(cache[rq[q] * ldc + i], uu));
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (on[q]) work[(long long)(r0 + rq[q]) * nb + j1 + c] = v[q];
       }
     }
     // ... and their strip columns back to work

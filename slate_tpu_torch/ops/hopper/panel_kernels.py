@@ -668,10 +668,11 @@ def panel_lu_plain(panel: torch.Tensor, pivot: bool = True,
     return a, perm
 
 
-#: panel_lu's launch (csrc: PL_THREADS, PL_MAX_S, __launch_bounds__): at
-#: most two blocks an SM, strips of at most 32 columns; an SM's shared
-#: memory and what the card reserves of it for each block
-PL_BLOCKS_PER_SM, PL_MAX_STRIP = 2, 32
+#: panel_lu's launch (csrc: PL_MAX_S, __launch_bounds__): one block an SM
+#: (fewer candidates a column and a cheaper grid barrier than two, and
+#: the registers of a whole SM), strips of at most 32 columns; an SM's
+#: shared memory and what the card reserves of it for each block
+PL_BLOCKS_PER_SM, PL_MAX_STRIP = 1, 32
 _SM_SMEM, _SMEM_RESERVED = 228 * 1024, 1024
 
 
@@ -686,8 +687,8 @@ class PanelLuPlan(NamedTuple):
 
 def _pl_static_smem(itemsize: int) -> int:
     """The kernel's static shared memory: a candidate (value, position,
-    row) a warp of 16, the winner's row and position."""
-    return 16 * itemsize + 4 * (2 * 16 + 2)
+    row) a warp of 16."""
+    return 16 * itemsize + 4 * 2 * 16
 
 
 def _panel_lu_smem(rows: int, S: int, nb: int, itemsize: int) -> int:
@@ -707,8 +708,8 @@ def panel_lu_plan(M: int, nb: int, itemsize: int, sms: int,
     panel_lu on a card of ``sms`` SMs whose blocks may use
     ``smem_per_block`` bytes of shared memory: the widest strip (at most
     32 columns) for which some grid of at least 16 rows a block and at
-    most two blocks an SM keeps every block resident at once (the
-    cooperative launch needs that).  Raises when not even one-column
+    most ``PL_BLOCKS_PER_SM`` blocks an SM keeps every block resident at
+    once (the cooperative launch needs that).  Raises when not even one-column
     strips fit."""
     static = _pl_static_smem(itemsize)
     for S in range(min(PL_MAX_STRIP, nb), 0, -1):
@@ -738,21 +739,24 @@ def panel_lu(panel: torch.Tensor, pivot: bool = True,
     panel) nor FLOPs (M nb^2) — min(M, nb) dependent column steps, each
     needing the whole column, so grid-wide synchronisation sets its
     time.  Design: one cooperative launch over the card, a slab of rows
-    a block (``panel_lu_plan``), one grid barrier a column; rows stay in
-    place and their positions in the swap order are tracked.  The
-    columns go in strips of up to 32: a block holds the strip's columns
-    of its rows still to pivot in shared memory, and inside the strip
-    updates only those.  Each block sends its candidate's strip row
-    with the candidate, so after the barrier every block reads the
-    pivot row's strip from one place.  At the strip's end every block
-    builds the strip's pivot rows on the trailing columns (U12, the
-    same arithmetic in each block) and gives its own rows still to pivot
-    the strip's updates there, one read and one write of each element
-    a strip instead of a column.  The owner of a pivot row writes its
-    U12 row only after the next grid barrier (a barrier of its own after
-    the last strip), when no block reads the row's trailing values any
-    more.  Every element sees the plain version's updates in the same
-    order (tests/test_torch_panel_lu_strip.py emulates the schedule);
+    a block (one block an SM, ``panel_lu_plan``), one grid barrier and
+    one block barrier a column; rows stay in place and their positions
+    in the swap order are tracked.  The columns go in strips of up to
+    32: a block holds the strip's columns of its rows still to pivot in
+    shared memory, and inside the strip updates only those.  Each block
+    sends its candidate's strip row with the candidate; after the
+    barrier every warp reduces the candidates and reads the pivot row's
+    strip itself, then takes a row at a time (the multipliers divided a
+    lane a row) and finds its candidate for the next column on the way.
+    At the strip's end every block builds the strip's pivot rows on the
+    trailing columns (U12, the same arithmetic in each block) and gives
+    its own rows still to pivot the strip's updates there, one read and
+    one write of each element a strip instead of a column.  The owner
+    of a pivot row writes its U12 row only after the next grid barrier
+    (a barrier of its own after the last strip), when no block reads
+    the row's trailing values any more.  Every element sees the plain
+    version's updates in the same order
+    (tests/test_torch_panel_lu_strip.py emulates the schedule);
     explicitly rounded multiplies, subtracts and IEEE divisions (no FMA
     contraction) make lu and perm bit-identical to the plain version,
     and the NaNs that the plain version's updates of finished rows make

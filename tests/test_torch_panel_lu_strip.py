@@ -215,7 +215,8 @@ def test_panel_lu_plan_fits(M, nb, itemsize):
     if plan.strip < min(32, nb):  # the widest strip: one column more does not fit
         wider = pk._panel_lu_smem(plan.rows, plan.strip + 1, nb, itemsize) + static
         assert wider > pk._MAX_SMEM or \
-            min(2, pk._SM_SMEM // (wider + pk._SMEM_RESERVED)) * 132 < plan.grid
+            min(pk.PL_BLOCKS_PER_SM, pk._SM_SMEM // (wider + pk._SMEM_RESERVED)) * 132 \
+            < plan.grid
         if plan.grid > 132:  # nor with one block an SM
             alone = pk._panel_lu_smem(-(-M // 132), plan.strip + 1, nb, itemsize) + static
             assert alone > pk._MAX_SMEM
@@ -223,10 +224,10 @@ def test_panel_lu_plan_fits(M, nb, itemsize):
 
 def test_panel_lu_plan_main_path_shapes():
     """The recursion's leftmost panel at n = 16384 takes whole strips of
-    32 and two blocks an SM; the tall f64 panel a narrower strip."""
+    32 and one block an SM; the tall f64 panel a narrower strip."""
     for itemsize in (8, 4):
         plan = pk.panel_lu_plan(16384, 256, itemsize, 132, pk._MAX_SMEM)
-        assert (plan.grid, plan.rows, plan.strip) == (264, 63, 32)
+        assert (plan.grid, plan.rows, plan.strip) == (132, 125, 32)
     assert pk.panel_lu_plan(262144, 64, 8, 132, pk._MAX_SMEM).strip < 32
 
 
