@@ -678,11 +678,10 @@ _SM_SMEM, _SMEM_RESERVED = 228 * 1024, 1024
 
 class PanelLuPlan(NamedTuple):
     """One panel_lu launch: ``grid`` blocks of ``rows`` rows each, strips
-    of ``strip`` columns, ``smem`` bytes of dynamic shared memory a block."""
+    of ``strip`` columns."""
     grid: int
     rows: int
     strip: int
-    smem: int
 
 
 def _pl_static_smem(itemsize: int) -> int:
@@ -721,7 +720,7 @@ def panel_lu_plan(M: int, nb: int, itemsize: int, sms: int,
                 break  # fewer blocks only make each one larger
             per_sm = min(PL_BLOCKS_PER_SM, _SM_SMEM // (smem + static + _SMEM_RESERVED))
             if grid <= per_sm * sms:
-                return PanelLuPlan(grid, rows, S, smem)
+                return PanelLuPlan(grid, rows, S)
             grid = per_sm * sms
     raise ValueError(f"panel_lu: a ({M}, {nb}) panel does not fit in shared memory "
                      f"on {sms} SMs")
