@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its gemm_sub
                                      # and syrk_diag pieces), gesv (with its panel_lu
-                                     # piece) and gels and of one warm solve phase of
-                                     # posv and gesv
+                                     # piece) and gels (with its larft piece) and of one
+                                     # warm solve phase of posv and gesv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -54,8 +54,9 @@ Phases, each for float64 and float32 unless stated:
 Phase 2 also holds gemm_sub and syrk_diag at the seams of their tiles
 and K ring (both tile variants, ragged and short K, unaligned rows, the
 K split; bitwise repeatable), times gemm_sub against ``addmm`` at each
-shape class of a posv, and holds larft (T^-1 of a factored (32768, 256)
-panel: the diagonal bitwise, the lower triangle exactly zero),
+shape class of a posv, and holds larft (T^-1 of factored (32768, 256)
+and (24576, 256) panels and of a view at column offset 5: the diagonal
+bitwise, the lower triangle exactly zero, two calls bitwise equal),
 tile_norms, and the unrouted tile_geadd and tile_transpose (bitwise)
 against their plain versions on the (1024, 512, 512) tile stack of a
 16384^2 matrix.
@@ -778,8 +779,10 @@ NB_SWITCH = 256
 
 
 def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
-    """larft on two factored (32768, 256) panels; tile_norms, tile_geadd
-    and tile_transpose on the (1024, 512, 512) tile stack of a 16384^2
+    """larft on factored (32768, 256) and (24576, 256) panels (the two
+    heights of the gels main path), one with a zero column and a short
+    taus, and a view at column offset 5; tile_norms, tile_geadd and
+    tile_transpose on the (1024, 512, 512) tile stack of a 16384^2
     matrix."""
     from slate_tpu_torch.ops.householder import materialize_v
 
@@ -789,42 +792,67 @@ def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
     out = {}
     record = _recorder(out, dtype)
 
-    # larft: V and tau of a real factored panel (the leftmost leaf of the
-    # main path's recursion), then the same V with one column exactly zero
-    # below its diagonal (tau = 0) and a short taus vector (6 absent)
+    # larft: V and tau of real factored panels (the leftmost leaf of the
+    # main path's recursion, and a panel at its other height), then the
+    # same V with one column exactly zero below its diagonal (tau = 0) and
+    # a short taus vector (6 absent), and V as a view at column offset 5
+    # (rows not 16-byte aligned: the one-value copies)
     M, w = M_QR, NB_SWITCH
-    fac, taus = torch.geqrf(rnd(M, w))
-    V = materialize_v(fac.contiguous())
-    del fac
+
+    def factored(m):
+        fac, tau = torch.geqrf(rnd(m, w))
+        return materialize_v(fac.contiguous()), tau
+
+    V, taus = factored(M)
+    V2, taus2 = factored(24576)
     V0, t0 = V.clone(), taus.clone()
     V0[101:, 100] = 0
     t0[100] = 0
     t0 = t0[: w - 6]
     absent = torch.cat([(t0 == 0).nonzero().flatten(),
                         torch.arange(w - 6, w, device=dev)])
-    for case, Vc, tc in (("panel", V, taus), ("zero column, short taus", V0, t0)):
+    wide = torch.zeros(M, w + 5, device=dev, dtype=dt)
+    wide[:, 5:] = V
+    tiles = pk._LARFT_TILES[dt]
+    for Vp in (V, V2):
+        plan = pk.larft_plan(Vp.shape[0], w, tiles, pk._sms(dev))
+        bm = tiles[plan.variant].bm
+        print(f"  larft {dtype} ({Vp.shape[0]}, {w}): plan {tuple(plan)}, tile {bm}, "
+              f"{plan.diag_chunks} chunks a diagonal tile, {plan.off_chunks} above, "
+              f"{pk.larft_blocks(plan, w, bm)} blocks", flush=True)
+    for case, Vc, tc in (("panel", V, taus), ("zero column, short taus", V0, t0),
+                         ("panel at height 24576", V2, taus2),
+                         ("view at column offset 5", wide[:, 5:], taus)):
         got, ref = pk.larft_tinv(Vc, tc), pk.larft_tinv_plain(Vc, tc)
         torch.cuda.synchronize()
         check(torch.equal(got.diagonal(), ref.diagonal()),
               f"larft {dtype} {case}: the diagonal differs from the plain version's")
         check(not bool(torch.tril(got, -1).any()),
               f"larft {dtype} {case}: the lower triangle is not zero")
+        check(torch.equal(pk.larft_tinv(Vc, tc), got), f"larft {dtype} {case}: two calls differ")
         scale = Vc.abs().T @ Vc.abs()
         scale = torch.where(scale == 0, torch.finfo(dt).tiny, scale)
-        err, ratio = elementwise_err(got, ref, scale, M)
+        err, ratio = elementwise_err(got, ref, scale, Vc.shape[0])
         T = pk.larft(Vc, tc)
         check(bool(torch.isfinite(T).all()), f"larft {dtype} {case}: T is not finite")
-        if case != "panel":
+        if case.startswith("zero column"):
             check(not bool(T[absent].any()) and not bool(T[:, absent].any()),
                   f"larft {dtype}: T is not zero in the rows and columns of tau = 0")
-        print(f"  larft {dtype} ({M}, {w}) {case}: diagonal bitwise, lower zero, strict upper "
-              f"err {err:.3e} (max err/tol {ratio:.3e}), T finite", flush=True)
+        print(f"  larft {dtype} {tuple(Vc.shape)} {case}: diagonal bitwise, lower zero, "
+              f"two calls bitwise equal, strict upper err {err:.3e} (max err/tol "
+              f"{ratio:.3e}), T finite", flush=True)
         check(ratio <= 1, f"larft {dtype} {case}: max err/tol {ratio:.3e} > 1")
-    record("larft", err, ratio, cuda_ms(lambda: pk.larft_tinv(V, taus)),
-           cuda_ms(lambda: pk.larft_tinv_plain(V, taus)),
-           float(M) * w * (w - 1), (M * w + w + w * w) * esz,
-           cuda_ms(lambda: V.mT @ V), "slate_tpu/ops/pallas/panel_kernels.py:312")
-    del V, V0, taus, t0, got, ref, scale, T
+        if case == "panel":
+            record("larft", err, ratio, cuda_ms(lambda: pk.larft_tinv(V, taus)),
+                   cuda_ms(lambda: pk.larft_tinv_plain(V, taus)),
+                   float(M) * w * (w - 1), (M * w + w + w * w) * esz,
+                   cuda_ms(lambda: V.mT @ V), "slate_tpu/ops/pallas/panel_kernels.py:312")
+    # the main path's other height: recorded, no bar
+    ms2, lib2 = cuda_ms(lambda: pk.larft_tinv(V2, taus2)), cuda_ms(lambda: V2.mT @ V2)
+    out["larft"]["height_24576"] = {"ms": ms2, "library_ms": lib2}
+    print(f"  larft {dtype} (24576, {w}): kernel {ms2:.3f} ms  V.mT @ V {lib2:.3f} ms",
+          flush=True)
+    del V, V0, V2, wide, taus, taus2, t0, got, ref, scale, T
 
     # the tile stack of a 16384^2 matrix in tiles of 512
     n, t = N_MAIN, 512
@@ -1260,7 +1288,8 @@ def profile(stt, gen, dev) -> None:
         torch.cuda.synchronize()
         t_gels = time.perf_counter() - t0
     print(f"  warm gels {t_gels:.4f} s (host clock, float64 ({m}, {n}), nrhs={nrhs})")
-    _profile_call("gels", lambda: stt.gels(Am, Bm))
+    _profile_call("gels", lambda: stt.gels(Am, Bm),
+                  {"larft": ("larft_gram_kernel", "larft_finish_kernel")})
 
 
 def main() -> int:
@@ -1367,7 +1396,7 @@ def main() -> int:
         check(unrouted[d]["launches"] == {"tile_geadd": 0, "tile_transpose": 0},
               f"{d}: a main path launched an unrouted kernel: {unrouted[d]['launches']}")
     sources = {"panel_lu": ("lu_kernels.cu", lres), "butterfly_level": ("lu_kernels.cu", rres),
-               "larft": ("qr_kernels.cu", qres), "tile_norms": ("tile_kernels.cu", nres),
+               "larft": ("panel_kernels.cu", qres), "tile_norms": ("tile_kernels.cu", nres),
                "tile_geadd": ("tile_kernels.cu", unrouted),
                "tile_transpose": ("tile_kernels.cu", unrouted)}
     entries = []
@@ -1393,7 +1422,9 @@ def main() -> int:
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
-                                                           for d in DTYPES}}))
+                                                           for d in DTYPES},
+                                      "larft_height_24576": {d: kres[d]["larft"]["height_24576"]
+                                                             for d in DTYPES}}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

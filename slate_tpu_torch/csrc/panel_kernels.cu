@@ -1,11 +1,12 @@
-// Hand-written Hopper kernels for the Cholesky solve path of slate_tpu_torch.
+// Hand-written Hopper kernels for the Cholesky solve path of slate_tpu_torch
+// and larft, the compact-WY assembly of the QR path.
 //
 // Each kernel computes what one Pallas kernel of the JAX package
 // (slate_tpu/ops/pallas/panel_kernels.py) computes; none is a block-by-
 // block copy of it.  All are templated over float and double and use
-// plain FP32/FP64 FMA, except the float64 products of gemm_sub, syrk_diag
-// and the trsm pair, which run on the FP64 tensor cores (DMMA); nothing
-// uses TF32.  All launch on the
+// plain FP32/FP64 FMA, except the float64 products of gemm_sub, syrk_diag,
+// the trsm pair and larft, which run on the FP64 tensor cores (DMMA);
+// nothing uses TF32.  All launch on the
 // caller's stream, allocate nothing, and read row-major operands through
 // their leading dimensions (inner stride 1), so views of a larger matrix
 // need no copy.
@@ -486,6 +487,340 @@ int gemm_layout(int* bm, int* bk, int* per_sm) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, sub_abt_kernel<T, false, BM>,
+                                                            G_THREADS, L::bytes);
+}
+
+// ---------------------------------------------------------------------------
+// larft: the compact-WY assembly stage of the QR base panel,
+//
+//   Tinv = strict_upper(V^T V) + diag(d),  d_j = 1 / tau_j (tau_j != 0),
+//                                          d_j = 1e30      (tau_j == 0)
+//
+// what slate_tpu/ops/pallas/panel_kernels.py:_larft_tinv_body (the body of
+// larft_pallas) computes, with the lower triangle exactly zero and each d_j
+// a correctly rounded IEEE division (the diagonal is bit-identical to the
+// plain PyTorch version).  The <= nb triangular solve of Tinv and the
+// tau == 0 masking stay outside, on the library solve, as in the JAX
+// package.
+//
+// V is (M, w), w <= 1024, M up to 32768 on the main path; the output is
+// (w, w).  Bound: operations, M w (w - 1) FLOPs of the strict upper Gram
+// against M w values read (2.1 GFLOP on 64 MiB at (32768, 256) in double).
+// In V^T V the reduction index runs along V's rows, its strided dimension,
+// so the operands are staged k-major, as V lies, with no transposed copy:
+// a slice of BK rows of the tile's row block [i0, i0 + BM) and column block
+// [j0, j0 + BM) (one block only for a diagonal tile) goes through the
+// cp_ring (16-byte copies along the row where V and its row stride are
+// 16-byte aligned, one copy a value otherwise; zero fill past M and w) onto
+// rows padded to BM + 4 values.
+//   float64: DMMA (mma.sync m16n8k4), the warps of GemmAcc<double, BM>:
+//     both fragments read slot[t][g + ...], and the padding (4 mod 16
+//     doubles) puts the lanes 4g + t of a half-warp on distinct banks.
+//   float32: FFMA (no TF32), thread (tx, ty) owns rows ty*4 + 64h + q and
+//     columns tx*4 + 64h + q (h < BM / 64, q < 4), read as float4 along
+//     the slot's rows: 2 BM / 32 LDS.128 a (BM / 16)^2 FFMA.  The tile is
+//     bound by its FFMAs, so a diagonal 128 tile skips its quadrant below
+//     the diagonal (rows 64.., columns ..63): 3/4 of the work.
+// Only the tiles on or above the diagonal are computed.  An output of
+// w = 256 has 3 such tiles of 128, far too few for 132 SMs, so the rows
+// are split: block (tile, chunk) sums its chunk, a whole number of BK
+// slices (chunk c of n takes slices [c S / n, (c + 1) S / n) of the S of
+// V), into a partial tile in the work buffer.  The diagonal tiles take
+// cd chunks each and the others co, so that a block's work is about the
+// same in both (cd / co = the diagonal tile's share of the work, which
+// slate_larft_layout_* reports); the host (larft_plan in
+// ops/hopper/panel_kernels.py) sizes them so that the blocks fill one
+// wave of the card.  A second kernel sums each element's partials in
+// chunk order (no atomics: the result does not change from run to run),
+// and writes the diagonal and the zeros below it.
+// ---------------------------------------------------------------------------
+
+template <typename T, int BM>
+struct LarftLayout {
+  static constexpr int BK = 32;      // rows of V a slice holds
+  static constexpr int LD = BM + 4;  // a staged row of the slice, k-major
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int NST = 3;
+  static constexpr int OPER = BK * LD;     // one column block's slice
+  static constexpr int STAGE = 2 * OPER;   // row block's, then column block's
+  static constexpr size_t bytes = sizeof(T) * NST * STAGE;  // 198 / 99 KB at BM = 128
+  static constexpr int MIN_BLOCKS = sizeof(T) == 8 && BM == 128 ? 1 : 2;
+};
+
+// Block b of the grid -> its tile (ti, tj) and chunk, of n chunks: the nt
+// diagonal tiles' cd chunks each first (tile by tile), then the strictly
+// upper tiles' co each, row-major over the tiles
+__device__ __forceinline__ void larft_block(int b, int nt, int cd, int co, int& ti, int& tj,
+                                            int& chunk, int& n) {
+  if (b < nt * cd) {
+    ti = tj = b / cd;
+    chunk = b % cd;
+    n = cd;
+    return;
+  }
+  b -= nt * cd;
+  int t = b / co;
+  chunk = b % co;
+  n = co;
+  ti = 0;
+  while (t >= nt - 1 - ti) {
+    t -= nt - 1 - ti;
+    ++ti;
+  }
+  tj = ti + 1 + t;
+}
+
+// the first partial tile of tile (ti, tj) in the work buffer (its chunks
+// follow one another), in tiles of BM x BM
+__device__ __forceinline__ long long larft_part(int ti, int tj, int nt, int cd, int co) {
+  if (ti == tj) return (long long)ti * cd;
+  const int before = ti * (nt - 1) - ti * (ti - 1) / 2;  // strictly upper tiles in rows < ti
+  return (long long)nt * cd + (long long)(before + tj - ti - 1) * co;
+}
+
+// stage rows [r0, r0 + BK) of columns [c0, c0 + BM) of V into dst
+// (dst[k * LD + c]); rows past M and columns past w read as zero
+template <typename T, int BM>
+__device__ __forceinline__ void larft_stage(T* dst, const T* V, long long ldv, int r0, int M,
+                                            int c0, int w, bool vec) {
+  using L = LarftLayout<T, BM>;
+  if (vec) {
+    constexpr int PER = BM / L::VEC;  // 16-byte copies along a row
+#pragma unroll
+    for (int i = 0; i < L::BK * PER / G_THREADS; ++i) {
+      const int idx = threadIdx.x + i * G_THREADS;  // neighbours on neighbouring addresses
+      const int k = idx / PER, c = (idx % PER) * L::VEC;
+      const int valid = r0 + k < M ? min(L::VEC, max(0, w - c0 - c)) : 0;
+      cp_async16(dst + k * L::LD + c, valid ? V + (long long)(r0 + k) * ldv + c0 + c : V,
+                 valid * (int)sizeof(T));
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < L::BK * BM / G_THREADS; ++i) {
+      const int idx = threadIdx.x + i * G_THREADS;
+      const int k = idx / BM, c = idx % BM;
+      const bool ok = r0 + k < M && c0 + c < w;
+      cp_async(dst + k * L::LD + c, ok ? V + (long long)(r0 + k) * ldv + c0 + c : V, ok);
+    }
+  }
+}
+
+template <typename T, int BM>
+struct GramAcc;
+
+// float64: GemmAcc's warps and outputs; the fragments read from k-major
+// slots: a = A[g][t] = Vi[t][g], b = B[t][g] = Vj[t][g].  A diagonal tile
+// does all the work (its warps' tiles do not follow the diagonal).
+template <int BM>
+struct GramAcc<double, BM> : GemmAcc<double, BM> {
+  using L = LarftLayout<double, BM>;
+  static constexpr int MI = BM / 32, NJ = BM / 32;
+  static constexpr int DIAG_QUARTERS = 4;  // a diagonal tile's work, in quarters of a tile's
+
+  template <bool DIAG>
+  __device__ __forceinline__ void step(const double* Is, const double* Js) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const double* Iw = Is + t * L::LD + (warp & 1) * (BM / 2) + g;
+    const double* Jw = Js + t * L::LD + (warp >> 1) * (BM / 4) + g;
+#pragma unroll
+    for (int kk = 0; kk < L::BK; kk += 4) {
+      double a[MI][2], b[NJ];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {  // rows g, g + 8 of the 16-row tiles
+        a[i][0] = Iw[kk * L::LD + i * 16];
+        a[i][1] = Iw[kk * L::LD + i * 16 + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) b[j] = Jw[kk * L::LD + j * 8];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dmma(this->c[i][j], a[i][0], a[i][1], b[j]);
+    }
+  }
+  // the partial tile, out[r * BM + c], in double2 along the rows (the
+  // outputs of each() in pairs)
+  __device__ __forceinline__ void store(double* out) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int rw = (warp & 1) * (BM / 2), cw = (warp >> 1) * (BM / 4);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<double2*>(out + (rw + i * 16 + h * 8 + g) * BM + cw + j * 8 + 2 * t) =
+              make_double2(this->c[i][j][2 * h], this->c[i][j][2 * h + 1]);
+  }
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// float32: thread (tx, ty) of g_tx / g_ty (a quarter-warp is one ty and 8
+// neighbouring tx: its float4 reads are a broadcast and 128 contiguous
+// bytes) owns rows ty*4 + 64h + q and columns tx*4 + 64h' + q'.  In a
+// diagonal 128 tile the outputs with h > h' lie below the diagonal, the
+// same quadrant for every thread, and are skipped.
+template <int BM>
+struct GramAcc<float, BM> {
+  using L = LarftLayout<float, BM>;
+  static constexpr int H = BM / 64, TM = 4 * H;
+  static constexpr int DIAG_QUARTERS = H == 2 ? 3 : 4;
+  float c[TM][TM];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) c[i][j] = 0.f;
+  }
+  template <bool DIAG>
+  __device__ __forceinline__ void step(const float* Is, const float* Js) {
+    const float* Ir = Is + g_ty() * 4;
+    const float* Jr = Js + g_tx() * 4;
+#pragma unroll 4  // not all 32: fewer values live under the 128-register cap (faster)
+    for (int k = 0; k < L::BK; ++k) {
+      float4 a[H], b[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        a[h] = *reinterpret_cast<const float4*>(Ir + k * L::LD + 64 * h);
+        b[h] = *reinterpret_cast<const float4*>(Jr + k * L::LD + 64 * h);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j)
+          if (!DIAG || i / 4 <= j / 4)
+            c[i][j] = fmaf(lane_of(a[i / 4], i % 4), lane_of(b[j / 4], j % 4), c[i][j]);
+    }
+  }
+  // the partial tile, out[r * BM + c], in float4 along the rows
+  __device__ __forceinline__ void store(float* out) const {
+    const int tx = g_tx(), ty = g_ty();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        *reinterpret_cast<float4*>(out + (ty * 4 + 64 * (i / 4) + i % 4) * BM + tx * 4 + 64 * h) =
+            make_float4(c[i][4 * h], c[i][4 * h + 1], c[i][4 * h + 2], c[i][4 * h + 3]);
+  }
+};
+
+// block (tile, chunk): the chunk's rows of the tile's Gram into its partial
+template <typename T, int BM>
+__global__ void __launch_bounds__(G_THREADS, LarftLayout<T, BM>::MIN_BLOCKS)
+larft_gram_kernel(const T* __restrict__ V, long long ldv, T* __restrict__ work, int M, int w,
+                  int cd, int co, int vec) {
+  using L = LarftLayout<T, BM>;
+  using Acc = GramAcc<T, BM>;
+  constexpr bool SKIP = Acc::DIAG_QUARTERS < 4;  // a diagonal tile skips a quadrant
+  const int nt = (w + BM - 1) / BM;
+  int ti, tj, chunk, n;
+  larft_block(blockIdx.x, nt, cd, co, ti, tj, chunk, n);
+  const int i0 = ti * BM, j0 = tj * BM;
+  const bool diag = ti == tj;  // one column block: the row block's
+  const long long nsl = (M + L::BK - 1) / L::BK;
+  const int s0 = (int)(chunk * nsl / n), s1 = (int)((chunk + 1) * nsl / n);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+
+  Acc acc;
+  acc.zero();
+  cp_ring<L::NST>(
+      s1 - s0,
+      [&](int slot, int s) {
+        T* Is = sm + slot * L::STAGE;
+        const int r0 = (s0 + s) * L::BK;
+        larft_stage<T, BM>(Is, V, ldv, r0, M, i0, w, vec);
+        if (!diag) larft_stage<T, BM>(Is + L::OPER, V, ldv, r0, M, j0, w, vec);
+      },
+      [&](int slot) {
+        const T* Is = sm + slot * L::STAGE;
+        if (SKIP && diag)
+          acc.template step<SKIP>(Is, Is);
+        else
+          acc.template step<false>(Is, diag ? Is : Is + L::OPER);
+      });
+
+  acc.store(work + (larft_part(ti, tj, nt, cd, co) + chunk) * (BM * BM));
+}
+
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// out = the strict upper sum of the partials, chunk by chunk in order,
+// the diagonal by IEEE division, zeros below
+template <typename T, int BM>
+__global__ void __launch_bounds__(256)
+larft_finish_kernel(const T* __restrict__ work, const T* __restrict__ taus, T* __restrict__ out,
+                    int w, int cd, int co) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)w * w) return;
+  const int i = (int)(idx / w), j = (int)(idx % w);
+  T v = T(0);
+  if (j > i) {
+    const int nt = (w + BM - 1) / BM, ti = i / BM, tj = j / BM;
+    const int n = ti == tj ? cd : co;
+    const T* p = work + larft_part(ti, tj, nt, cd, co) * (BM * BM) + (i % BM) * BM + (j % BM);
+    for (int c = 0; c < n; ++c) v += p[(long long)c * (BM * BM)];  // chunk order
+  } else if (j == i) {
+    const T tau = taus[i];
+    v = tau != T(0) ? div_rn(T(1), tau) : T(1e30);
+  }
+  out[idx] = v;
+}
+
+template <typename T, int BM>
+int launch_larft(const T* V, long long ldv, const T* taus, T* out, T* work, int M, int w, int cd,
+                 int co, cudaStream_t s) {
+  using L = LarftLayout<T, BM>;
+  cudaError_t e = cudaFuncSetAttribute(larft_gram_kernel<T, BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  // rows of V start 16-byte aligned (the tiles' first columns are
+  // multiples of BM): the staging copies 16 bytes at once
+  const int vec = reinterpret_cast<unsigned long long>(V) % 16 == 0 && ldv % L::VEC == 0;
+  const int nt = (w + BM - 1) / BM;
+  const int blocks = nt * cd + nt * (nt - 1) / 2 * co;
+  larft_gram_kernel<T, BM><<<blocks, G_THREADS, L::bytes, s>>>(V, ldv, work, M, w, cd, co, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long total = (long long)w * w;
+  larft_finish_kernel<T, BM><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(work, taus, out, w,
+                                                                            cd, co);
+  return (int)cudaGetLastError();
+}
+
+constexpr int LARFT_TILES[2] = {128, 64};  // the tile variants, largest first
+
+template <typename T>
+int launch_larft_variant(int variant, const T* V, long long ldv, const T* taus, T* out, T* work,
+                         int M, int w, int cd, int co, cudaStream_t s) {
+  if (w < 1 || w > 1024 || cd < 1 || co < 1) return (int)cudaErrorInvalidValue;
+  if (variant == 0)
+    return launch_larft<T, LARFT_TILES[0]>(V, ldv, taus, out, work, M, w, cd, co, s);
+  if (variant == 1)
+    return launch_larft<T, LARFT_TILES[1]>(V, ldv, taus, out, work, M, w, cd, co, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the variant's output tile edge and slice depth, how many of its blocks
+// fit on one SM (registers and shared memory as built), and a diagonal
+// tile's work in quarters of a tile's
+template <typename T, int BM>
+int larft_layout(int* bm, int* bk, int* per_sm, int* diag_quarters) {
+  using L = LarftLayout<T, BM>;
+  *bm = BM;
+  *bk = L::BK;
+  *diag_quarters = GramAcc<T, BM>::DIAG_QUARTERS;
+  cudaError_t e = cudaFuncSetAttribute(larft_gram_kernel<T, BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, larft_gram_kernel<T, BM>,
                                                             G_THREADS, L::bytes);
 }
 
@@ -1059,6 +1394,19 @@ int launch_trsm(const T* Tm, long long ldt, const T* B, long long ldb, T* X, lon
     *kb = TR_KB;                                                                          \
     *bn = TrLayout<T>::BN;                                                                \
     return 0;                                                                             \
+  }                                                                                       \
+  SLATE_EXPORT int slate_larft_##SUF(const void* V, long long ldv, const void* taus,      \
+                                     void* out, void* work, int M, int w, int cd, int co, \
+                                     int variant, void* stream) {                         \
+    return launch_larft_variant<T>(variant, (const T*)V, ldv, (const T*)taus, (T*)out,    \
+                                   (T*)work, M, w, cd, co, (cudaStream_t)stream);         \
+  }                                                                                       \
+  /* tile variant v of larft: edge, slice depth, blocks an SM, diagonal work */           \
+  SLATE_EXPORT int slate_larft_layout_##SUF(int v, int* bm, int* bk, int* per_sm,         \
+                                            int* diag_quarters) {                         \
+    if (v == 0) return larft_layout<T, LARFT_TILES[0]>(bm, bk, per_sm, diag_quarters);    \
+    if (v == 1) return larft_layout<T, LARFT_TILES[1]>(bm, bk, per_sm, diag_quarters);    \
+    return (int)cudaErrorInvalidValue;                                                    \
   }
 
 SLATE_DEFINE(f32, float)

@@ -3,9 +3,9 @@ versions, and their launch counters: every Pallas kernel of the JAX
 package has its counterpart here.
 
 The CUDA C++ sources are in ``slate_tpu_torch/csrc/``: ``panel_kernels.cu``
-(chol_base, syrk_diag, gemm_sub, the trsm pair), ``lu_kernels.cu``
-(panel_lu, butterfly_level), ``qr_kernels.cu`` (larft) and
-``tile_kernels.cu`` (tile_norms, tile_geadd, tile_transpose).  Each is
+(chol_base, syrk_diag, gemm_sub, the trsm pair, larft), ``lu_kernels.cu``
+(panel_lu, butterfly_level) and ``tile_kernels.cu`` (tile_norms,
+tile_geadd, tile_transpose).  Each is
 compiled with its own ``nvcc``, all at once, at first use into
 ``build/slate_tpu_torch/`` beside the package (a shared library with a
 plain C interface each, loaded with ctypes) and rebuilt when the
@@ -61,7 +61,7 @@ def reset_launches() -> None:
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SOURCES = tuple(_PKG_DIR / "csrc" / f"{stem}.cu"
-                for stem in ("panel_kernels", "lu_kernels", "qr_kernels", "tile_kernels"))
+                for stem in ("panel_kernels", "lu_kernels", "tile_kernels"))
 BUILD_DIR = _PKG_DIR.parent / "build" / "slate_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,7 +127,8 @@ _SIGNATURES = {
     "trsm_layout": [_P, _P],
     "panel_lu": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
-    "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P],
+    "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "larft_layout": [_I, _P, _P, _P, _P],
     "tile_norms": [_P, _L, _L, _I, _I, _I, _I, _P, _P],
     "tile_geadd": [_D, _P, _L, _L, _D, _P, _L, _L, _P, _I, _I, _I, _P],
     "tile_transpose": [_P, _L, _L, _P, _I, _I, _I, _P],
@@ -157,6 +158,7 @@ def _load() -> List[ctypes.CDLL]:
                                f"assumes {TRSM_KB} x {TRSM_BN}")
     for dt, suf in ((torch.float32, "f32"), (torch.float64, "f64")):
         _GEMM_TILES[dt] = _gemm_tiles(_symbol(libs, f"slate_gemm_layout_{suf}"), suf)
+        _LARFT_TILES[dt] = _larft_tiles(_symbol(libs, f"slate_larft_layout_{suf}"), suf)
     _libs = libs
     return libs
 
@@ -851,7 +853,99 @@ def butterfly_level(X: torch.Tensor, D: torch.Tensor, h: int, transpose: bool) -
 
 #: the diagonal that stands for an absent reflector (tau == 0)
 LARFT_BIG = 1e30
-_LARFT_TILE = 64  # csrc: LT, the output tile edge
+
+#: a chunk of V's rows is at least this many slices deep when V has that
+#: many: a block's ring runs full and its reads outweigh its partial's write
+LARFT_MIN_SLICES = 4
+
+
+class LarftTile(NamedTuple):
+    """A tile variant of the larft kernel as the built kernel reports it
+    (``slate_larft_layout_*``): the output tile's edge, the rows of a
+    slice of its ring, how many of its blocks fit on one SM, and the
+    work of a diagonal tile in quarters of a full tile's (3 where the
+    tile skips its quadrant below the diagonal)."""
+    bm: int
+    bk: int
+    per_sm: int
+    diag_work: int
+
+
+class LarftPlan(NamedTuple):
+    """One larft call: the tile variant (an index into the kernel's
+    tiles), and the number of chunks the rows of V are split into (see
+    ``larft_chunks``) for each diagonal tile and for each tile above the
+    diagonal; one block a tile and a chunk."""
+    variant: int
+    diag_chunks: int
+    off_chunks: int
+
+
+#: the tile variants of the built larft kernel, by dtype (filled by ``_load``)
+_LARFT_TILES: Dict[torch.dtype, Tuple[LarftTile, ...]] = {}
+
+
+def larft_plan(M: int, w: int, tiles: Tuple[LarftTile, ...], sms: int) -> LarftPlan:
+    """The tile variant and row split of one larft of V (M, w) on a card
+    of ``sms`` SMs, from the kernel's ``tiles`` (largest first): the
+    largest tile no wider than w (else the smallest); then the most
+    chunks for the tiles above the diagonal, with the diagonal tiles'
+    chunks in the ratio of their work (so a block's work is about the
+    same in both), whose blocks fit in one wave of the card's block slots
+    (``per_sm`` an SM), each chunk at least ``LARFT_MIN_SLICES`` slices
+    deep (one chunk when V has fewer)."""
+    variant = next((v for v, t in enumerate(tiles) if t.bm <= w), len(tiles) - 1)
+    tile = tiles[variant]
+    nt = -(-w // tile.bm)
+    off = nt * (nt - 1) // 2
+    most = max(1, -(-M // tile.bk) // LARFT_MIN_SLICES)
+    slots = tile.per_sm * sms
+
+    def diag_chunks(co: int) -> int:
+        return max(1, min(most, (co * tile.diag_work + 2) // 4))
+
+    if off == 0:
+        cd = max(1, min(most, slots // nt))
+        return LarftPlan(variant, cd, cd)
+    co = most
+    while co > 1 and nt * diag_chunks(co) + off * co > slots:
+        co -= 1
+    return LarftPlan(variant, diag_chunks(co), co)
+
+
+def larft_blocks(plan: LarftPlan, w: int, bm: int) -> int:
+    """The blocks of one larft launch: a diagonal tile's chunks each, then
+    a chunk each of the tiles above the diagonal."""
+    nt = -(-w // bm)
+    return nt * plan.diag_chunks + nt * (nt - 1) // 2 * plan.off_chunks
+
+
+def larft_chunks(M: int, bk: int, nchunk: int) -> List[Span]:
+    """The rows of V each of a tile's ``nchunk`` chunks takes, as the
+    kernel computes them: chunk c of n takes the slices [c S / n,
+    (c + 1) S / n) of the S slices of ``bk`` rows (the last one cut at
+    M), so the chunks cover the rows once, in order, within one slice of
+    each other in depth."""
+    nsl = -(-M // bk)
+    return [(c * nsl // nchunk * bk, min(M, (c + 1) * nsl // nchunk * bk))
+            for c in range(nchunk)]
+
+
+def _larft_tiles(query, suf: str) -> Tuple[LarftTile, ...]:
+    """The tile variants the built larft kernel reports, checked: edges
+    decreasing, at least one block of each on an SM, a diagonal tile's
+    work between a quarter and a whole tile's."""
+    tiles = []
+    for v in range(2):
+        vals = [ctypes.c_int() for _ in LarftTile._fields]
+        err = query(v, *map(ctypes.byref, vals))
+        if err != 0:
+            raise RuntimeError(f"slate_larft_layout_{suf}({v}): CUDA error {err}")
+        tiles.append(LarftTile(*(x.value for x in vals)))
+    if (any(t.per_sm < 1 or t.bk < 1 or not 1 <= t.diag_work <= 4 for t in tiles)
+            or any(a.bm <= b.bm for a, b in zip(tiles, tiles[1:]))):
+        raise RuntimeError(f"larft kernel layout ({suf}) {tiles} does not fit the plan")
+    return tuple(tiles)
 
 
 def _pad_taus(taus: torch.Tensor, w: int) -> torch.Tensor:
@@ -880,12 +974,21 @@ def larft_tinv(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:larft_pallas`` (body
     ``_larft_tinv_body``).  Bound on the H100: operations (M w (w - 1)
     FLOPs for the strict upper Gram against M w elements read: 2.1 GFLOP
-    on 64 MiB at (32768, 256) in float64).  Design: only the 64 x 64
-    tiles on or above the diagonal are computed; the rows are split into
-    chunks so that enough blocks fill the card, each (tile, chunk) block
-    writing a partial tile, and a second kernel sums the partials in a
-    fixed order (the result does not change from run to run), writes the
-    diagonal by IEEE division and the exact zeros below it."""
+    on 64 MiB at (32768, 256) in float64).  Design: the Gram's reduction
+    runs along V's rows, so slices of 32 rows of the tile's two column
+    blocks are staged k-major, as V lies (no transposed copy), through a
+    ring of cp.async stages (16-byte copies where V's rows are aligned,
+    zero fill at the ragged edges); float64 runs on DMMA (m16n8k4, 8
+    warps of 64 x 32 in a 128 x 128 tile), float32 on FFMA (no TF32; 8 x
+    8 outputs a thread read as float4 along the slot's rows; that tile is
+    bound by its FFMAs, and a diagonal one skips its quadrant below the
+    diagonal).  Only the tiles on or above the diagonal are computed;
+    ``larft_plan`` splits the rows into chunks of whole slices, fewer
+    for a diagonal tile that does less work, so that the (tile, chunk)
+    blocks fill one wave of the card with about the same work each, each
+    writing a partial tile, and a second kernel sums the partials in
+    chunk order (the result does not change from run to run), writes
+    the diagonal by IEEE division and the exact zeros below it."""
     if V.dim() != 2 or taus.dim() != 1 or taus.shape[0] > V.shape[1]:
         raise ValueError(f"larft: V {tuple(V.shape)}, taus {tuple(taus.shape)}")
     M, w = V.shape
@@ -897,16 +1000,19 @@ def larft_tinv(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, w), dtype=V.dtype, device=V.device)
     if w == 0:
         return out
-    nt = -(-w // _LARFT_TILE)
-    tiles = nt * (nt + 1) // 2
-    # about four blocks an SM, chunks of at least 256 rows
-    nchunk = max(1, min(-(-4 * _sms(V.device) // tiles), -(-M // 256)))
-    rpc = max(1, -(-M // nchunk))
-    work = torch.empty((nchunk, tiles, _LARFT_TILE, _LARFT_TILE), dtype=V.dtype, device=V.device)
+    plan = _larft_plan(V)
+    bm = _LARFT_TILES[V.dtype][plan.variant].bm
+    work = torch.empty((larft_blocks(plan, w, bm), bm, bm), dtype=V.dtype, device=V.device)
     _launch("larft", _entry("larft", V.dtype),
             V.data_ptr(), _ld(V), taus.data_ptr(), out.data_ptr(), work.data_ptr(),
-            M, w, nchunk, rpc, _stream(V))
+            M, w, plan.diag_chunks, plan.off_chunks, plan.variant, _stream(V))
     return out
+
+
+def _larft_plan(V: torch.Tensor) -> LarftPlan:
+    _load()
+    M, w = V.shape
+    return larft_plan(M, w, _LARFT_TILES[V.dtype], _sms(V.device))
 
 
 def _larft_finish(Tinv: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:

@@ -526,10 +526,14 @@ def _consistent_v(rng, m, w, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,w,strided", [(1, 1, False), (5, 1, False), (700, 200, True),
-                                         (3000, 256, False), (40, 64, True)])
+                                         (3000, 256, False), (40, 64, True),
+                                         (24576, 256, False), (3000, 256, True),
+                                         (1500, 1024, False), (1500, 1024, True)])
 def test_larft_matches_plain(dev, dtype, m, w, strided):
     """T^-1: diagonal bitwise, lower triangle exactly zero, the strict
-    upper Gram within tolerance; T through the library solve agrees."""
+    upper Gram within tolerance, two calls bitwise equal; T through the
+    library solve agrees.  A strided V is a view at column offset 5 (rows
+    not 16-byte aligned: the kernel's one-value copies)."""
     rng = np.random.default_rng(m + w)
     V, taus = _consistent_v(rng, m, w, dtype)
     if w > 2:
@@ -542,6 +546,7 @@ def test_larft_matches_plain(dev, dtype, m, w, strided):
     _, td = _both(taus[:short], dev)
     got = pk.larft_tinv(Vd, td)
     assert pk.LAUNCHES["larft"] == 1
+    assert torch.equal(pk.larft_tinv(Vd, td), got)  # chunk order, not arrival order
     ref = pk.larft_tinv_plain(Vd, td)
     assert torch.equal(got.diagonal(), ref.diagonal())
     assert not bool(torch.tril(got, -1).any())
@@ -552,6 +557,43 @@ def test_larft_matches_plain(dev, dtype, m, w, strided):
     dead = np.flatnonzero(np.r_[taus[:short], np.zeros(w - short)] == 0)
     assert np.isfinite(T).all() and not T[dead].any() and not T[:, dead].any()
     np.testing.assert_allclose(T, Tp, rtol=0, atol=_tol(dtype, m, Tp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,w", [(2000, 256), (333, 100)])
+def test_larft_on_an_aligned_view(dev, dtype, m, w):
+    """A view at column offset 4 of rows of w + 8 values (16-byte
+    aligned: the kernel's 16-byte copies, cut at the last column)."""
+    rng = np.random.default_rng(m * w)
+    V, taus = _consistent_v(rng, m, w, dtype)
+    big = np.zeros((m, w + 8), dtype)
+    big[:, 4:4 + w] = V
+    _, big_dev = _both(big, dev)
+    _, td = _both(taus, dev)
+    Vd = big_dev[:, 4:4 + w]
+    got = pk.larft_tinv(Vd, td)
+    ref = pk.larft_tinv_plain(Vd, td)
+    assert torch.equal(got.diagonal(), ref.diagonal())
+    assert not bool(torch.tril(got, -1).any())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=_tol(dtype, m, ref.cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_larft_layout_is_the_plans(dev):
+    """The tiles the built larft kernel reports are the ones the plan
+    reads; at the gels main path's heights its blocks fill one wave, to
+    within a chunk of each of the 3 tiles."""
+    pk._load()
+    for dt in (torch.float32, torch.float64):
+        tiles = pk._LARFT_TILES[dt]
+        assert len(tiles) == 2 and tiles[0].bm > tiles[1].bm and tiles[-1].per_sm >= 1
+        slots = tiles[0].per_sm * pk._sms(dev)
+        for M in (32768, 24576):
+            plan = pk.larft_plan(M, 256, tiles, pk._sms(dev))
+            assert plan.variant == 0
+            assert slots - 3 < pk.larft_blocks(plan, 256, tiles[0].bm) <= slots
 
 
 @pytest.mark.cuda
