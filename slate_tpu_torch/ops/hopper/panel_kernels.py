@@ -907,10 +907,14 @@ def larft_plan(M: int, w: int, tiles: Tuple[LarftTile, ...], sms: int) -> LarftP
     if off == 0:
         cd = max(1, min(most, slots // nt))
         return LarftPlan(variant, cd, cd)
-    co = most
-    while co > 1 and nt * diag_chunks(co) + off * co > slots:
-        co -= 1
-    return LarftPlan(variant, diag_chunks(co), co)
+    lo, hi = 1, most  # the blocks grow with co: bisect for the last co that fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if nt * diag_chunks(mid) + off * mid <= slots:
+            lo = mid
+        else:
+            hi = mid - 1
+    return LarftPlan(variant, diag_chunks(lo), lo)
 
 
 def larft_blocks(plan: LarftPlan, w: int, bm: int) -> int:
@@ -1000,19 +1004,24 @@ def larft_tinv(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, w), dtype=V.dtype, device=V.device)
     if w == 0:
         return out
-    plan = _larft_plan(V)
-    bm = _LARFT_TILES[V.dtype][plan.variant].bm
-    work = torch.empty((larft_blocks(plan, w, bm), bm, bm), dtype=V.dtype, device=V.device)
-    _launch("larft", _entry("larft", V.dtype),
-            V.data_ptr(), _ld(V), taus.data_ptr(), out.data_ptr(), work.data_ptr(),
-            M, w, plan.diag_chunks, plan.off_chunks, plan.variant, _stream(V))
+    fn, plan, work_shape = _larft_setup(M, w, V.dtype, V.device)
+    work = torch.empty(work_shape, dtype=V.dtype, device=V.device)
+    _launch("larft", fn, V.data_ptr(), _ld(V), taus.data_ptr(), out.data_ptr(),
+            work.data_ptr(), M, w, plan.diag_chunks, plan.off_chunks, plan.variant, _stream(V))
     return out
 
 
-def _larft_plan(V: torch.Tensor) -> LarftPlan:
+@functools.lru_cache(maxsize=64)
+def _larft_setup(M: int, w: int, dtype: torch.dtype, device: torch.device):
+    """The entry point, the plan and the shape of the partials of one
+    larft shape, kept: the QR recursion repeats a few shapes, and on a
+    call this short the card waits out the host's time before the
+    launch."""
     _load()
-    M, w = V.shape
-    return larft_plan(M, w, _LARFT_TILES[V.dtype], _sms(V.device))
+    tiles = _LARFT_TILES[dtype]
+    plan = larft_plan(M, w, tiles, _sms(device))
+    bm = tiles[plan.variant].bm
+    return _entry("larft", dtype), plan, (larft_blocks(plan, w, bm), bm, bm)
 
 
 def _larft_finish(Tinv: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
