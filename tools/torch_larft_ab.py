@@ -3,7 +3,7 @@
 versions of the kernel on one card.
 
 Run it from the root of each tree (the package is imported from the
-current directory), in turns, in one session on the card:
+current directory), in turns, in one run on the card:
 
     for t in old . . old; do (cd $t && python /path/to/torch_larft_ab.py $t [--gels]); done
 
