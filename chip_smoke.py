@@ -2,8 +2,8 @@
 """Smoke test of slate_tpu_torch on one NVIDIA GPU (the H100 it targets).
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
-    python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its gemm_sub
-                                     # and syrk_diag pieces), gesv (with its panel_lu
+    python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
+                                     # gemm_sub and syrk_diag pieces), gesv (with its panel_lu
                                      # piece) and gels (with its larft piece) and of one
                                      # warm solve phase of posv and gesv
 
@@ -51,7 +51,9 @@ Phases, each for float64 and float32 unless stated:
      recursive schedule and the library solves (the kernels take
      float32/float64 only), residuals within bound, no kernel launch.
 
-Phase 2 also holds gemm_sub and syrk_diag at the seams of their tiles
+Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
+triangle bit for bit, two calls and a strided view bitwise equal), and
+gemm_sub and syrk_diag at the seams of their tiles
 and K ring (both tile variants, ragged and short K, unaligned rows, the
 K split; bitwise repeatable), times gemm_sub against ``addmm`` at each
 shape class of a posv, and holds larft (T^-1 of factored (32768, 256)
@@ -160,6 +162,33 @@ def _recorder(out: dict, dtype: str):
     return record
 
 
+def chol_base_case(pk, b, dtype, rnd, dev):
+    """chol_base on a (b, b) SPD block with junk above the diagonal,
+    held to its plain version: the strict upper triangle bit for bit,
+    two calls and a strided view (lda > b) bitwise equal, and the lower
+    triangle elementwise within TOL_C sqrt(b) eps (|L||L|^T)_ij / L_jj
+    (L_ij = (G_ij - sum_k L_ik L_jk) / L_jj: the summands' scale).
+    Returns (the block, max abs error, max error over tolerance)."""
+    dt = getattr(torch, dtype)
+    X = rnd(b, b)
+    G = X @ X.T + b * torch.eye(b, device=dev, dtype=dt)
+    G = G + torch.triu(rnd(b, b), 1)  # junk above the diagonal must pass through
+    got, ref = pk.chol_base(G), pk.chol_base_plain(G)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.triu(got, 1), torch.triu(G, 1)),
+          f"chol_base ({b}, {b}) {dtype}: the upper triangle changed")
+    check(torch.equal(pk.chol_base(G), got), f"chol_base ({b}, {b}) {dtype}: two calls differ")
+    big = torch.zeros(b + 9, b + 13, device=dev, dtype=dt)
+    big[4:4 + b, 6:6 + b] = G
+    check(torch.equal(pk.chol_base(big[4:4 + b, 6:6 + b]), got),
+          f"chol_base ({b}, {b}) {dtype}: a strided view differs from the block")
+    Lr = torch.tril(ref)
+    low = torch.ones(b, b, dtype=torch.bool, device=dev).tril()
+    scale = torch.where(low, (Lr.abs() @ Lr.abs().T) / Lr.diagonal().abs(), 1.0)
+    err, ratio = elementwise_err(torch.tril(got), Lr, scale, b)
+    return G, err, ratio
+
+
 def kernel_phase(pk, dtype, gen, dev) -> dict:
     dt = getattr(torch, dtype)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
@@ -167,26 +196,22 @@ def kernel_phase(pk, dtype, gen, dev) -> dict:
     out = {}
     record = _recorder(out, dtype)
 
-    # chol_base at (256, 256)
-    b = 256
-    X = rnd(b, b)
-    G = X @ X.T + b * torch.eye(b, device=dev, dtype=dt)
-    G = G + torch.triu(rnd(b, b), 1)  # junk above the diagonal must pass through
-    got, ref = pk.chol_base(G), pk.chol_base_plain(G)
-    torch.cuda.synchronize()
-    check(torch.equal(torch.triu(got, 1), torch.triu(G, 1)),
-          f"chol_base {dtype}: the upper triangle changed")
-    # L_ij = (G_ij - sum_k L_ik L_jk) / L_jj: the summands' scale is
-    # (|L||L|^T)_ij / L_jj; the lower triangle only
-    Lr = torch.tril(ref)
-    low = torch.ones(b, b, dtype=torch.bool, device=dev).tril()
-    scale = torch.where(low, (Lr.abs() @ Lr.abs().T) / Lr.diagonal().abs(), 1.0)
-    err, ratio = elementwise_err(torch.tril(got), Lr, scale, b)
+    # chol_base at (256, 256), the main path's block; then (512, 512),
+    # Option.BlockSize 512's, held alike and timed, no bar
+    G, err, ratio = chol_base_case(pk, 256, dtype, rnd, dev)
     record("chol_base", err, ratio, cuda_ms(lambda: pk.chol_base(G)),
            cuda_ms(lambda: pk.chol_base_plain(G), reps=3),
-           b**3 / 3.0, 2.0 * b * b * esz,
+           256**3 / 3.0, 2.0 * 256 * 256 * esz,
            cuda_ms(lambda: torch.linalg.cholesky(G)),
            "slate_tpu/ops/pallas/panel_kernels.py:188")
+    G, err, ratio = chol_base_case(pk, 512, dtype, rnd, dev)
+    check(ratio <= 1, f"chol_base (512, 512) {dtype}: max err/tol {ratio:.3e} > 1")
+    ms, lib_ms = cuda_ms(lambda: pk.chol_base(G)), cuda_ms(lambda: torch.linalg.cholesky(G))
+    out["chol_base"]["b512"] = {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
+                                "library_ms": lib_ms}
+    print(f"  chol_base (512, 512) {dtype}: err {err:.3e} (max err/tol {ratio:.3e})  kernel "
+          f"{ms:.3f} ms  library {lib_ms:.3f} ms", flush=True)
+    del G
 
     # syrk_diag with C (256, 256), A (256, 4096)
     t, h = 256, 4096
@@ -1249,6 +1274,7 @@ def profile(stt, gen, dev) -> None:
         t_posv = time.perf_counter() - t0
     print(f"  warm potrf {t_potrf:.4f} s, posv {t_posv:.4f} s (host clock, float64 n={n})")
     _profile_call("posv", lambda: stt.posv(Am, Bm), {
+        "chol_base": ("chol_base_kernel",),
         "gemm_sub": ("sub_abt_kernel<double, false", "subk_reduce<double, false"),
         "syrk_diag": ("sub_abt_kernel<double, true", "subk_reduce<double, true")})
     # the solve phase of a factor-cache hit: two trsm sweeps, host-stepped

@@ -4,9 +4,9 @@
 // Each kernel computes what one Pallas kernel of the JAX package
 // (slate_tpu/ops/pallas/panel_kernels.py) computes; none is a block-by-
 // block copy of it.  All are templated over float and double and use
-// plain FP32/FP64 FMA, except the float64 products of gemm_sub, syrk_diag,
-// the trsm pair and larft, which run on the FP64 tensor cores (DMMA);
-// nothing uses TF32.  All launch on the
+// plain FP32/FP64 FMA, except the float64 products of chol_base's
+// trailing update, gemm_sub, syrk_diag, the trsm pair and larft, which run
+// on the FP64 tensor cores (DMMA); nothing uses TF32.  All launch on the
 // caller's stream, allocate nothing, and read row-major operands through
 // their leading dimensions (inner stride 1), so views of a larger matrix
 // need no copy.
@@ -22,123 +22,9 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace {
-
-__device__ __forceinline__ float dev_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
-
-// ---------------------------------------------------------------------------
-// chol_base: unblocked Cholesky of one (b, b) diagonal block, in place.
-//
-// One thread block walks the columns in strips of CB_S = 32.  Per strip:
-//   a. warp 0 factors the 32 x 32 diagonal block in registers (lane i holds
-//      row i; pivots and multipliers travel by shuffle), with no block
-//      barrier inside the column loop;
-//   b. each row of the panel below is solved against it by one thread
-//      (x L^T = a_r, forward substitution from shared memory);
-//   c. the trailing lower triangle takes one rank-32 update in global
-//      memory (512 KB at b = 256 in double: it stays in L2), a warp per
-//      row, each lane with four elements in flight.
-// Three block barriers a strip instead of three a column.  The strict
-// upper triangle is never read or written.  A non-positive pivot gives NaN
-// (sqrt of a negative), which propagates, as in the JAX package, so the
-// driver's info fires.
-// ---------------------------------------------------------------------------
-
-constexpr int CB_S = 32;
-constexpr int CB_LDP = CB_S + 1;  // padded shared row: no bank conflicts
-constexpr int CB_THREADS = 512;
-
-template <typename T>
-__global__ void __launch_bounds__(CB_THREADS)
-chol_base_kernel(T* __restrict__ a, int b, long long lda) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Dg = reinterpret_cast<T*>(smem_raw);  // [CB_S][CB_LDP] factored diagonal block
-  T* Pn = Dg + CB_S * CB_LDP;              // [b][CB_LDP] solved panel rows
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nwarps = CB_THREADS / 32;
-
-  for (int j0 = 0; j0 < b; j0 += CB_S) {
-    const int w = min(CB_S, b - j0);
-    const int tt = b - j0 - w;  // rows below the strip
-
-    // a. the diagonal block, in warp 0's registers
-    if (warp == 0) {
-      T d[CB_S];
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c)
-        d[c] = (lane < w && c <= lane) ? a[(long long)(j0 + lane) * lda + j0 + c] : T(0);
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c) {
-        if (c < w) {
-          const T pv = dev_sqrt(__shfl_sync(0xffffffffu, d[c], c));
-          d[c] = lane == c ? pv : (lane > c ? d[c] / pv : d[c]);
-#pragma unroll
-          for (int c2 = c + 1; c2 < CB_S; ++c2) {
-            const T l2 = __shfl_sync(0xffffffffu, d[c], c2);
-            if (lane >= c2) d[c2] = fma(-d[c], l2, d[c2]);
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c) {
-        Dg[lane * CB_LDP + c] = d[c];
-        if (lane < w && c <= lane) a[(long long)(j0 + lane) * lda + j0 + c] = d[c];
-      }
-    }
-    __syncthreads();
-
-    // b. the panel below: x L11^T = a_r for each row r
-    for (int t = tid; t < tt; t += CB_THREADS) {
-      T* row = a + (long long)(j0 + w + t) * lda + j0;
-      T x[CB_S];
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c) x[c] = c < w ? row[c] : T(0);
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c) {
-        if (c < w) {
-          T s = x[c];
-#pragma unroll
-          for (int k = 0; k < c; ++k) s = fma(-x[k], Dg[c * CB_LDP + k], s);
-          x[c] = s / Dg[c * CB_LDP + c];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CB_S; ++c) {
-        Pn[t * CB_LDP + c] = x[c];
-        if (c < w) row[c] = x[c];
-      }
-    }
-    __syncthreads();
-
-    // c. trailing lower triangle: a[r][c] -= sum_k Pn[r][k] Pn[c][k], r >= c
-    for (int r = warp; r < tt; r += nwarps) {
-      const T* pr = Pn + r * CB_LDP;
-      T* arow = a + (long long)(j0 + w + r) * lda + j0 + w;
-      for (int c0 = 0; c0 <= r; c0 += 4 * 32) {
-        T v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = c0 + 32 * q + lane;
-          v[q] = c <= r ? arow[c] : T(0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = c0 + 32 * q + lane;
-          if (c <= r) {
-            const T* pc = Pn + c * CB_LDP;
-            T s = T(0);
-#pragma unroll
-            for (int k = 0; k < CB_S; ++k) s = fma(pr[k], pc[k], s);
-            arow[c] = v[q] - s;
-          }
-        }
-      }
-    }
-    __syncthreads();  // global writes visible, shared buffers free for reuse
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Shared by the products of gemm_sub / syrk_diag and of the trsm pair:
@@ -203,6 +89,392 @@ __device__ __forceinline__ void cp_ring(int nk, Stage&& stage, Body&& body) {
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// chol_base: unblocked Cholesky of one (b, b) diagonal block.
+//
+// Replaces slate_tpu/ops/pallas/panel_kernels.py:chol_base_pallas, which
+// runs a masked rank-1 update a column over the whole block in VMEM.  On
+// the H100 the block does not fit one SM's shared memory (256^2 doubles
+// are 512 KB), and the work is a chain of b dependent column steps: one
+// block of 256 threads walks it in strips of CB_S = 32 columns, and what
+// bounds it is the chain's latency (the block's bytes take 0.3 us, its
+// b^3 / 3 FLOPs 11 us at one SM's DMMA rate, at b = 256).  The kernel
+// factors a copy in place.  The strip's solved panel P (every row below
+// the strip, CB_S values each) stays in shared memory; the trailing lower
+// triangle stays in L2, in 32 x 32 tiles.  Per strip k:
+//   b. the panel below the factored diagonal block L_kk: x L_kk^T = a_r,
+//      a warp's 32 rows copied into P a row at a time (coalesced), then a
+//      thread a row, right-looking: column c is final once multiplied by
+//      1 / L_cc, then subtracted from the later columns (a chain of 32
+//      steps, each with up to 31 independent FMAs; the earlier kernel's
+//      left-looking sums made a chain of 528 FMAs and 32 divides a row);
+//   c. the trailing update C -= P_I P_J^T, a 32 x 32 tile of the lower
+//      triangle at a time in a warp's registers: loaded from L2 once a
+//      strip, updated over the strip's 32 columns, stored once.  float64
+//      on DMMA (m16n8k4, fragments as in GemmAcc<double>), float32 on an
+//      FFMA tile (8 x 4 values a lane, float4 reads along k).  P's rows
+//      are swizzled (cb_pidx) so that both read patterns are free of bank
+//      conflicts without padding, which keeps b up to 896 / 1792.
+//      Lookahead: warp 0 takes the next strip's diagonal tile, updates it
+//      and factors it while the other warps update every other tile, so
+//      the factor stays off the critical path but for its own length.  In
+//      float64 the tile warps leave warp 0's SM sub-partition (warp % 4)
+//      to it; in float32, whose FFMA tiles are the heavier work, warps
+//      0-3 share the diagonal tile's update and warp 4 takes tiles too;
+//   a. the factor of a diagonal block: a lane a row in warp 0's registers,
+//      one reciprocal square root a column; the next pivot goes first, by
+//      shuffle, and the column's other multipliers through shared memory
+//      (one warp barrier and a few 16-byte reads a column, fewer
+//      instructions than a shuffle a multiplier); L_kk and 1 / L_cc are
+//      left in shared memory for step b.
+// Two block barriers a strip.  256 threads, not 512: at 128 registers a
+// thread the panel's 32-value rows and the factor spilled.  A
+// non-positive pivot gives NaN (rsqrt of a negative, or 0 * inf), which
+// propagates, as in the JAX package, so the driver's info fires.  Every
+// element is computed in a fixed order: two calls give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int CB_S = 32;          // strip width, tile edge
+constexpr int CB_LDD = CB_S + 1;  // the diagonal block's padded row (a lane a row)
+constexpr int CB_THREADS = 256;
+constexpr int CB_WARPS = CB_THREADS / 32;
+constexpr int CB_MAX_SMEM = 232448;  // dynamic shared memory a block may use (227 KB)
+constexpr unsigned CB_FULL = 0xffffffffu;
+// float32's tiles are FFMA-bound: warps 0-3 update the next diagonal
+// tile together (cb_diag_rows) and warp 4, in warp 0's SM sub-partition,
+// takes tiles too.  float64's tiles are light on issue (DMMA): warp 0
+// updates the diagonal tile alone and its sub-partition is left to it.
+template <typename T>
+constexpr bool CB_FFMA = sizeof(T) == 4;
+
+// shared memory of a (b, b) call: the panel (CB_S values for every row
+// from CB_S to the last whole tile), the diagonal block, its reciprocal
+// pivots and two slots of a column's multipliers
+inline size_t cb_smem_bytes(int b, size_t esz) {
+  const size_t tiles = (size_t)(b + CB_S - 1) / CB_S;
+  return ((tiles - 1) * CB_S * CB_S + CB_S * CB_LDD + 3 * CB_S) * esz;
+}
+
+__device__ __forceinline__ float dev_rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double dev_rsqrt(double x) { return rsqrt(x); }
+
+// P's element (row r >= CB_S of the block, column k of the strip).  The
+// column is XOR-swizzled by the row: float64 DMMA fragments read rows
+// g = 0..3 (a half-warp) at k = 4 kk + t, float32 float4 reads rows
+// tx = 0..7 (a quarter-warp); each lands on distinct banks.
+template <typename T>
+__device__ __forceinline__ int cb_pidx(int r, int k) {
+  const int sw = sizeof(T) == 8 ? (r & 3) << 2 : (r & 7) << 2;
+  return (r - CB_S) * CB_S + (k ^ sw);
+}
+
+template <typename T>
+struct CbTile;
+
+// float64: the warp's 32 x 32 tile as 2 x 4 DMMA tiles of 16 x 8; lane
+// (g, t) holds rows 16 i + g (+ 8) and columns 8 j + 2 t (+ 1)
+template <>
+struct CbTile<double> {
+  double c[2][4][4];
+
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f(16 * i + 8 * (e >> 1) + g, 8 * j + 2 * t + (e & 1), c[i][j][e]);
+  }
+  // c -= P[r0 + .] P[c0 + .]^T over the strip's columns; on the diagonal
+  // (r0 == c0) the two 16 x 8 tiles wholly above it are skipped
+  __device__ __forceinline__ void sub(const double* P, int r0, int c0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bool diag = r0 == c0;
+#pragma unroll
+    for (int kk = 0; kk < CB_S; kk += 4) {
+      double a[2][2], b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[i][0] = -P[cb_pidx<double>(r0 + 16 * i + g, kk + t)];
+        a[i][1] = -P[cb_pidx<double>(r0 + 16 * i + 8 + g, kk + t)];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = P[cb_pidx<double>(c0 + 8 * j + g, kk + t)];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (!(diag && i == 0 && j >= 2)) dmma(c[i][j], a[i][0], a[i][1], b[j]);
+    }
+  }
+};
+
+// float32: lane (tx, ty) = (lane % 8, lane / 8) holds rows ty + 4 i and
+// columns tx + 8 j; a quarter-warp's float4 reads are one row of P_I (a
+// broadcast) and 8 rows of P_J
+template <>
+struct CbTile<float> {
+  float c[8][4];
+
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) {
+    const int tx = threadIdx.x & 7, ty = (threadIdx.x >> 3) & 3;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f(ty + 4 * i, tx + 8 * j, c[i][j]);
+  }
+  // on the diagonal the values whose rows all lie above their columns
+  // (4 i + 3 < 8 j) are skipped
+  __device__ __forceinline__ void sub(const float* P, int r0, int c0) {
+    const int tx = threadIdx.x & 7, ty = (threadIdx.x >> 3) & 3;
+    const bool diag = r0 == c0;
+#pragma unroll
+    for (int k4 = 0; k4 < CB_S; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(P + cb_pidx<float>(r0 + ty + 4 * i, k4));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(P + cb_pidx<float>(c0 + tx + 8 * j, k4));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (diag && 4 * i + 3 < 8 * j) continue;
+          c[i][j] = fmaf(-a[i].x, b.x, c[i][j]);
+          c[i][j] = fmaf(-a[i].y, b.y, c[i][j]);
+          c[i][j] = fmaf(-a[i].z, b.z, c[i][j]);
+          c[i][j] = fmaf(-a[i].w, b.w, c[i][j]);
+        }
+      }
+    }
+  }
+};
+
+// 16 bytes of shared memory into v
+template <typename T>
+__device__ __forceinline__ void cb_ld16(const T* p, T (&v)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 8) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+}
+
+// a. warp 0 factors the w x w block held a row a lane (d[c] = A[lane][c]
+// for c <= lane < w, else 0), right-looking, one reciprocal square root a
+// column.  The chain runs through the next pivot: the lane of row c + 1
+// finishes it with its own multiplier and sends it by shuffle first; the
+// column's other multipliers go through Xc (two slots taken in turn, one
+// warp barrier a column) and are read 16 bytes at a time, off the chain.
+// Leaves L in Dg (a row a lane), 1 / L_cc in Rd, and L's lower triangle
+// in a at (j0, j0).
+template <typename T>
+__device__ __forceinline__ void cb_factor(T (&d)[CB_S], int w, T* a, long long lda, int j0,
+                                          T* Dg, T* Rd, T* Xc) {
+  constexpr int VN = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  T p2 = __shfl_sync(CB_FULL, d[0], 0), rd = T(0);
+#pragma unroll
+  for (int c = 0; c < CB_S; ++c) {
+    if (c < w) {
+      const T r = dev_rsqrt(p2), l = d[c] * r;
+      const T next = c + 1 < CB_S ? __shfl_sync(CB_FULL, fma(-l, l, d[(c + 1) % CB_S]), c + 1)
+                                  : T(0);
+      T* X = Xc + (c & 1) * CB_S;
+      X[lane] = l;
+      if (lane == c) {
+        d[c] = p2 * r;
+        rd = r;
+      } else if (lane > c) {
+        d[c] = l;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = (c + 1) / VN; q < CB_S / VN; ++q) {
+        T v[VN];
+        cb_ld16(X + q * VN, v);
+#pragma unroll
+        for (int e = 0; e < VN; ++e) {
+          const int c2 = q * VN + e;
+          if (c2 > c && lane >= c2) d[c2] = fma(-l, v[e], d[c2]);
+        }
+      }
+      p2 = next;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CB_S; ++c) Dg[lane * CB_LDD + c] = d[c];
+  Rd[lane] = rd;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < CB_S; ++i)  // a row at a time, coalesced
+    if (i < w && lane <= i) a[(long long)(j0 + i) * lda + j0 + lane] = Dg[i * CB_LDD + lane];
+}
+
+// b. rows [j0 + CB_S, b) of the strip's columns: x L_kk^T = a_r.  A warp
+// takes 32 rows: it copies them into P (a row an instruction, coalesced),
+// then a thread a row solves them, right-looking: column c is final once
+// multiplied by 1 / L_cc, then subtracted from the later columns (a chain
+// of 32 steps, each with up to 31 independent FMAs, where the earlier
+// kernel's left-looking sums made a chain of 528 FMAs and 32 divides);
+// then the warp copies the rows back out.
+template <typename T>
+__device__ __forceinline__ void cb_panel(T* a, long long lda, int b, int j0, T* P, const T* Dg,
+                                         const T* Rd) {
+  const int lane = threadIdx.x & 31;
+  for (int r0 = j0 + CB_S + (int)(threadIdx.x >> 5) * 32; r0 < b; r0 += CB_THREADS) {
+    const int rows = min(32, b - r0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // all 32 loads in flight at once
+      if (i < rows) P[cb_pidx<T>(r0 + i, lane)] = a[(long long)(r0 + i) * lda + j0 + lane];
+    __syncwarp();
+    const int r = r0 + lane;  // rows past b read P's zeros and are not written
+    T x[CB_S];
+#pragma unroll
+    for (int c = 0; c < CB_S; ++c) x[c] = P[cb_pidx<T>(r, c)];
+#pragma unroll
+    for (int c = 0; c < CB_S; ++c) {
+      x[c] *= Rd[c];
+#pragma unroll
+      for (int c2 = c + 1; c2 < CB_S; ++c2) x[c2] = fma(-x[c], Dg[c2 * CB_LDD + c], x[c2]);
+    }
+    if (r < b) {
+#pragma unroll
+      for (int c = 0; c < CB_S; ++c) P[cb_pidx<T>(r, c)] = x[c];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (i < rows) a[(long long)(r0 + i) * lda + j0 + lane] = P[cb_pidx<T>(r0 + i, lane)];
+  }
+}
+
+// c. tile (r0, c0) of the trailing lower triangle, from L2 into registers
+// and the strip's update subtracted; the values outside the block (past
+// b) and, on the diagonal, above it read as zero
+template <typename T>
+__device__ __forceinline__ void cb_tile_update(CbTile<T>& t, const T* a, long long lda, int b,
+                                               int r0, int c0, const T* P) {
+  t.each([&](int i, int j, T& v) {
+    const int r = r0 + i, c = c0 + j;
+    v = r < b && c < b && (r0 != c0 || c <= r) ? a[(long long)r * lda + c] : T(0);
+  });
+  t.sub(P, r0, c0);
+}
+
+// float32's lookahead: warp `part` (0-3) takes rows 8 part .. 8 part + 7 of
+// the next diagonal tile (j1, j1) and leaves them, updated, in Dg (lane
+// (tx, ty) holds rows ty + 4 i and columns tx + 8 j; on and below the
+// diagonal, zero above it).  The FFMA tile would keep warp 0 alone on the
+// chain for a whole 32 x 32 x 32 product; four warps take a quarter each.
+template <typename T>
+__device__ __forceinline__ void cb_diag_rows(const T* a, long long lda, int b, int j1,
+                                             const T* P, T* Dg, int part) {
+  constexpr int VN = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31, tx = lane & 7, ty = lane >> 3;
+  T c[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 8 * part + ty + 4 * i, cc = tx + 8 * j;
+      c[i][j] = j1 + r < b && j1 + cc < b && cc <= r ? a[(long long)(j1 + r) * lda + j1 + cc] : T(0);
+    }
+#pragma unroll
+  for (int k = 0; k < CB_S; k += VN) {
+    T x[2][VN], y[4][VN];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) cb_ld16(P + cb_pidx<T>(j1 + 8 * part + ty + 4 * i, k), x[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cb_ld16(P + cb_pidx<T>(j1 + tx + 8 * j, k), y[j]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < VN; ++e) c[i][j] = fma(-x[i][e], y[j][e], c[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 8 * part + ty + 4 * i, cc = tx + 8 * j;
+      Dg[r * CB_LDD + cc] = cc <= r ? c[i][j] : T(0);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CB_THREADS, 1)
+chol_base_kernel(T* a, int b, long long lda) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbk = (b + CB_S - 1) / CB_S;  // tiles along an edge
+  T* P = reinterpret_cast<T*>(smem_raw);  // [(nbk - 1) CB_S][CB_S], cb_pidx
+  T* Dg = P + (nbk - 1) * CB_S * CB_S;    // [CB_S][CB_LDD] the strip's L_kk
+  T* Rd = Dg + CB_S * CB_LDD;             // [CB_S] 1 / L_kk[c][c]
+  T* Xc = Rd + CB_S;                      // [2][CB_S] a column's multipliers
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < (nbk - 1) * CB_S * CB_S; i += CB_THREADS) P[i] = T(0);  // rows past b
+  if (warp == 0) {
+    const int w = min(CB_S, b);
+    T d[CB_S];
+#pragma unroll
+    for (int c = 0; c < CB_S; ++c) d[c] = lane < w && c <= lane ? a[(long long)lane * lda + c] : T(0);
+    cb_factor(d, w, a, lda, 0, Dg, Rd, Xc);
+  }
+  __syncthreads();
+
+  for (int k = 0; k + 1 < nbk; ++k) {
+    const int j1 = (k + 1) * CB_S;
+    cb_panel(a, lda, b, k * CB_S, P, Dg, Rd);
+    __syncthreads();  // P complete; Dg and Rd free
+    if (CB_FFMA<T> && warp < 4) {  // the next diagonal tile, a quarter a warp
+      cb_diag_rows(a, lda, b, j1, P, Dg, warp);
+      if (warp == 0)
+        asm volatile("bar.sync 1, 128;" ::: "memory");  // warps 1-3 arrive, and go on
+      else
+        asm volatile("bar.arrive 1, 128;" ::: "memory");
+    }
+    if (warp == 0) {  // lookahead: the next diagonal block
+      if (!CB_FFMA<T>) {
+        CbTile<T> t;
+        cb_tile_update(t, a, lda, b, j1, j1, P);
+        t.each([&](int i, int j, T& v) { Dg[i * CB_LDD + j] = v; });
+        __syncwarp();
+      }
+      const int w = min(CB_S, b - j1);
+      T d[CB_S];
+#pragma unroll
+      for (int c = 0; c < CB_S; ++c) d[c] = lane < w && c <= lane ? Dg[lane * CB_LDD + c] : T(0);
+      __syncwarp();
+      cb_factor(d, w, a, lda, j1, Dg, Rd, Xc);
+    } else if (CB_FFMA<T> || warp % 4 != 0) {
+      // every other tile (I, J), 0 <= J <= I < nt, row by row, (0, 0) being
+      // warp 0's; float64 over the warps outside warp 0's SM sub-partition
+      // (warp % 4), where the factor's chain issues alone
+      const int nt = nbk - 1 - k, me = CB_FFMA<T> ? warp - 1 : warp - 1 - warp / 4;
+      const int step = CB_FFMA<T> ? CB_WARPS - 1 : CB_WARPS - CB_WARPS / 4;
+      for (int q = 1 + me; q < nt * (nt + 1) / 2; q += step) {
+        int I = 0;
+        while ((I + 1) * (I + 2) / 2 <= q) ++I;
+        const int r0 = j1 + I * CB_S, c0 = j1 + (q - I * (I + 1) / 2) * CB_S;
+        CbTile<T> t;
+        cb_tile_update(t, a, lda, b, r0, c0, P);
+        t.each([&](int i, int j, T& v) {
+          const int r = r0 + i, c = c0 + j;
+          if (r < b && c < b && (r0 != c0 || c <= r)) a[(long long)r * lda + c] = v;
+        });
+      }
+    }
+    __syncthreads();  // the tiles stored, the next L_kk in Dg; P free
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1304,10 +1576,20 @@ trsm_step_kernel(const T* __restrict__ Tm, long long ldt, const T* B, long long 
 
 template <typename T>
 int launch_chol_base(T* a, int b, long long lda, cudaStream_t s) {
-  const size_t smem = (size_t)(CB_S + b) * CB_LDP * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      chol_base_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = cb_smem_bytes(b, sizeof(T));
+  if (b < 1 || smem > (size_t)CB_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // the shared-memory limit, raised once a device (a bit a device)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(raised.load() & bit)) {
+    e = cudaFuncSetAttribute(chol_base_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CB_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    raised |= bit;
+  }
   chol_base_kernel<T><<<1, CB_THREADS, smem, s>>>(a, b, lda);
   return (int)cudaGetLastError();
 }

@@ -233,7 +233,10 @@ def _tile_stride(t: torch.Tensor) -> int:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object: a fifth of a short kernel's host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _sms(device) -> int:
@@ -322,7 +325,17 @@ def _gemm_plan(C: torch.Tensor, M: int, N: int, K: int, lower: bool) -> GemmPlan
 
 #: dynamic shared memory a block may use on Hopper
 _MAX_SMEM = 227 * 1024
-_CB_S, _CB_LDP = 32, 33  # csrc: CB_S, CB_LDP
+_CB_S, _CB_LDD = 32, 33  # csrc: CB_S, CB_LDD
+
+
+def chol_base_smem(b: int, itemsize: int) -> int:
+    """Dynamic shared memory of one chol_base launch on a (b, b) block
+    (csrc: ``cb_smem_bytes``): the strip's solved panel, ``_CB_S`` values
+    for every row from ``_CB_S`` to the last whole tile, the diagonal
+    block on padded rows, its reciprocal pivots and two slots of a
+    column's multipliers."""
+    tiles = -(-b // _CB_S)
+    return ((tiles - 1) * _CB_S * _CB_S + _CB_S * _CB_LDD + 3 * _CB_S) * itemsize
 
 
 def chol_base_plain(G: torch.Tensor) -> torch.Tensor:
@@ -345,21 +358,26 @@ def chol_base(G: torch.Tensor) -> torch.Tensor:
     triangle passes through untouched (callers ``tril``).
 
     Replaces ``slate_tpu/ops/pallas/panel_kernels.py:chol_base_pallas``.
-    Bound on the H100: neither bytes (one b x b block) nor FLOPs (b^3/3)
-    — it is a chain of b dependent column steps, so it is latency-bound.
-    Design: one thread block walks strips of 32 columns: one warp
-    factors the diagonal block in registers, one thread a row solves the
-    panel below, and one rank-32 update goes to the trailing lower
-    triangle in global memory (L2-resident).  Three block barriers a
-    strip, where a column-by-column loop needs three a column."""
+    Bound on the H100: neither bytes (one b x b block) nor FLOPs (b^3/3,
+    11 us at one SM's DMMA rate at b = 256) — it is a chain of b
+    dependent column steps, so it is latency-bound.  Design: one thread
+    block walks strips of 32 columns; the strip's solved panel stays in
+    shared memory and the trailing lower triangle in L2, updated a 32 x
+    32 tile at a time in a warp's registers (DMMA in float64, FFMA in
+    float32), loaded and stored once a strip.  Warp 0 factors the next
+    diagonal block (one reciprocal square root a column) while the
+    other warps update the rest, and a thread a row solves the panel
+    below it, right-looking.  Two block barriers a strip.  One copy of G
+    (contiguous), factored in place; b up to 896 (float64) / 1792
+    (float32), the shared-memory panel's limit."""
     if G.dim() != 2 or G.shape[0] != G.shape[1]:
         raise ValueError(f"chol_base: expected a square block, got {tuple(G.shape)}")
     if _on_cpu("chol_base", G):
         return chol_base_plain(G)
     b = G.shape[0]
-    if (_CB_S + b) * _CB_LDP * G.element_size() > _MAX_SMEM:
+    if chol_base_smem(b, G.element_size()) > _MAX_SMEM:
         raise ValueError(f"chol_base: b = {b} exceeds the shared-memory panel")
-    out = G.contiguous().clone()
+    out = G.clone(memory_format=torch.contiguous_format)  # the one copy, factored in place
     if b:
         _launch("chol_base", _entry("chol_base", out.dtype),
                 out.data_ptr(), b, _ld(out), _stream(out))

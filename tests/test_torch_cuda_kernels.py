@@ -76,6 +76,64 @@ def test_chol_base_and_syrk_diag_ragged(dev, dtype):
     assert pk.LAUNCHES["chol_base"] == 1 and pk.LAUNCHES["syrk_diag"] == 1
 
 
+def _spd_junk(rng, b, dtype):
+    """An SPD block with randn junk above the diagonal."""
+    x = rng.standard_normal((b, b))
+    return (x @ x.T + b * np.eye(b)).astype(dtype) + np.triu(_rand(rng, b, b, dtype), 1)
+
+
+def _chol_ratio(got, ref):
+    """max |got - ref| / (10 sqrt(b) eps (|L||L|^T)_ij / L_jj) over the
+    lower triangle, L = tril(ref): the tolerance of chip_smoke.py's
+    phase 2 (NaN, and so a failure, where got is not finite)."""
+    b = ref.shape[0]
+    got, L = np.tril(got).astype(np.float64), np.tril(ref).astype(np.float64)
+    scale = (np.abs(L) @ np.abs(L).T) / np.abs(np.diag(L))[None, :]
+    limit = 10 * np.sqrt(b) * np.finfo(ref.dtype).eps * scale
+    return float(np.max(np.where(np.tri(b, dtype=bool), np.abs(got - L) / limit, 0.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 31, 33, 77, 256, 512])
+def test_chol_base_blocks(dev, dtype, b):
+    """chol_base at the seams of its 32-column strips and tiles and at
+    both block sizes of the posv path: within phase 2's tolerance of the
+    plain version, the strict upper triangle bit for bit, one launch a
+    call, two calls bitwise equal, and a strided view (lda > b) the same
+    bits as the contiguous block."""
+    rng = np.random.default_rng(b)
+    g = _spd_junk(rng, b, dtype)
+    g_cpu, g_dev = _both(g, dev)
+    got = pk.chol_base(g_dev)
+    assert pk.LAUNCHES["chol_base"] == 1
+    again = pk.chol_base(g_dev)
+    assert pk.LAUNCHES["chol_base"] == 2
+    assert torch.equal(got, again)
+    big = torch.zeros(b + 9, b + 13, dtype=g_dev.dtype, device=dev)
+    big[4:4 + b, 6:6 + b] = g_dev
+    assert torch.equal(pk.chol_base(big[4:4 + b, 6:6 + b]), got)
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(np.triu(got, 1), np.triu(g, 1))
+    assert _chol_ratio(got, pk.chol_base_plain(g_cpu).numpy()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chol_base_non_spd_gives_nan(dev, dtype):
+    """A negative pivot in the third strip: NaN down its column and in
+    the lower triangle after it, the block before it finite, the upper
+    triangle untouched."""
+    rng = np.random.default_rng(70)
+    g = _spd_junk(rng, 256, dtype)
+    g[70, 70] = -1.0
+    got = pk.chol_base(_both(g, dev)[1]).cpu()
+    assert bool(got[70:, 70].isnan().all())
+    assert bool(torch.isfinite(torch.tril(got[:70, :70])).all())
+    np.testing.assert_array_equal(np.triu(got.numpy(), 1), np.triu(g, 1))
+    assert pk.LAUNCHES["chol_base"] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k", [250, 3000])
