@@ -44,7 +44,9 @@ Phases, each for float64 and float32 unless stated:
      ``gels`` at (2000, 6000) with Schedule.Pallas (the LQ dual);
   9. norms of a 16384^2 matrix in tiles of 512: One, Inf, Max (bitwise
      equal to the library's), Fro and colNorms, one tile_norms launch
-     each (two for Fro); Hermitian and triangular norms on the JAX
+     each (two for Fro), and Fro of the matrix times 1e300 / 1e-160
+     (float64) or 1e30 / 1e-20 (float32), the scaled pass, against a
+     float64 reference; Hermitian and triangular norms on the JAX
      package's plain route (no launch);
  10. complex128 ``posv``, ``gesv`` (with both solve phases), ``gesv``
      with MethodLU.RBT and ``gels`` at n = 2048, default options: the
@@ -59,9 +61,10 @@ K split; bitwise repeatable), times gemm_sub against ``addmm`` at each
 shape class of a posv, and holds larft (T^-1 of factored (32768, 256)
 and (24576, 256) panels and of a view at column offset 5: the diagonal
 bitwise, the lower triangle exactly zero, two calls bitwise equal),
-tile_norms, and the unrouted tile_geadd and tile_transpose (bitwise)
-against their plain versions on the (1024, 512, 512) tile stack of a
-16384^2 matrix.
+tile_norms (every kind and max_sumsq; then with ragged counts and NaN
+in the padding, fro_sumsq with a scale and with skip), and the unrouted
+tile_geadd and tile_transpose (bitwise) against their plain versions on
+the (1024, 512, 512) tile stack of a 16384^2 matrix.
 
 Any failure exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -71,6 +74,7 @@ are printed on a line of their own before that.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -803,6 +807,66 @@ M_QR, N_QR = 32768, 16384
 NB_SWITCH = 256
 
 
+def _nonzero(scale):
+    """scale with its zeros made the smallest normal number, so that an
+    exact zero is held exactly by ``elementwise_err``."""
+    return torch.where(scale == 0, torch.finfo(scale.dtype).tiny, scale)
+
+
+def masked_tile_norms(pk, S, dtype, gen, dev, kinds) -> None:
+    """tile_norms with the norm drivers' arguments on the (N, t, t)
+    stack S: ragged counts (tile 0 whole) with NaN in the padding beyond
+    them, every kind and max_sumsq against the plain version (maxima
+    bitwise, sums within TOL_C sqrt(k) eps of their magnitudes, all
+    finite, two calls bitwise equal), then fro_sumsq with a scale and
+    with skip false / true.  Adds the counted kinds' times to kinds."""
+    N, t, _ = S.shape
+    side = int(round(N**0.5))
+    rows = torch.randint(0, t + 1, (side,), generator=gen, device=dev, dtype=torch.int32)
+    cols = torch.randint(0, t + 1, (side,), generator=gen, device=dev, dtype=torch.int32)
+    rows[0], cols[0] = t, t
+    rm = torch.arange(t, device=dev) < rows[:, None]
+    cm = torch.arange(t, device=dev) < cols[:, None]
+    mask = (rm[:, None, :, None] & cm[None, :, None, :]).reshape(N, t, t)
+    Sn = S.masked_fill(~mask, float("nan"))
+    del mask
+    for kind, k in (("max", 1), ("fro_sumsq", t * t), ("one", t), ("inf", t),
+                    ("max_sumsq", t * t)):
+        got, ref = pk.tile_norms(Sn, kind, rows, cols), pk.tile_norms_plain(Sn, kind, rows, cols)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"tile_norms {kind} {dtype} counted: the "
+              "padding's NaN reached an output")
+        check(torch.equal(pk.tile_norms(Sn, kind, rows, cols), got),
+              f"tile_norms {kind} {dtype} counted: two calls differ")
+        if kind in ("max", "max_sumsq"):
+            check(torch.equal(got.reshape(N, -1)[:, 0], ref.reshape(N, -1)[:, 0]),
+                  f"tile_norms {kind} {dtype} counted: the maxima are not bitwise equal")
+        if kind != "max":  # the sums of empty rows, columns and tiles are exactly 0
+            err, ratio = elementwise_err(got, ref, _nonzero(ref), k)
+            check(ratio <= 1, f"tile_norms {kind} {dtype} counted: max err/tol {ratio:.3e} > 1")
+        ms = cuda_ms(lambda: pk.tile_norms(Sn, kind, rows, cols))
+        kinds.setdefault(kind, {})["counted_ms"] = ms
+        print(f"  tile_norms {kind:9s} {dtype} counted, NaN in the padding: finite, two calls "
+              f"bitwise equal, matches the plain version; kernel {ms:.3f} ms", flush=True)
+    scale = pk.tile_norms_plain(Sn, "max", rows, cols).amax() * 1.5
+    got = pk.tile_norms(Sn, "fro_sumsq", rows, cols, scale=scale)
+    ref = pk.tile_norms_plain(Sn, "fro_sumsq", rows, cols, scale=scale)
+    err, ratio = elementwise_err(got, ref, _nonzero(ref), t * t)
+    check(ratio <= 1, f"tile_norms fro_sumsq {dtype} scaled: max err/tol {ratio:.3e} > 1")
+    no, yes = torch.tensor(False, device=dev), torch.tensor(True, device=dev)
+    check(torch.equal(pk.tile_norms(Sn, "fro_sumsq", rows, cols, scale=scale, skip=no), got),
+          f"tile_norms fro_sumsq {dtype}: skip false changes the scaled sums")
+    skipped = pk.tile_norms(Sn, "fro_sumsq", rows, cols, scale=scale, skip=yes)
+    check(not bool(skipped.any()), f"tile_norms fro_sumsq {dtype}: skip true is not all zeros")
+    ms = cuda_ms(lambda: pk.tile_norms(Sn, "fro_sumsq", rows, cols, scale=scale))
+    ms_skip = cuda_ms(lambda: pk.tile_norms(Sn, "fro_sumsq", rows, cols, scale=scale, skip=yes))
+    kinds["fro_sumsq"]["scaled_counted_ms"], kinds["fro_sumsq"]["skipped_ms"] = ms, ms_skip
+    print(f"  tile_norms fro_sumsq {dtype} counted, scaled: err {err:.3e} (max err/tol "
+          f"{ratio:.3e}) kernel {ms:.3f} ms; skip false bitwise equal, skip true zeros in "
+          f"{ms_skip:.4f} ms", flush=True)
+    del Sn
+
+
 def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
     """larft on factored (32768, 256) and (24576, 256) panels (the two
     heights of the gels main path), one with a zero column and a short
@@ -903,11 +967,17 @@ def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
         out_elems = got.numel()
         b_ms, b_by = bound(float(S.numel()) * (2 if kind == "fro_sumsq" else 1),
                            (S.numel() + out_elems) * esz)
+        res = (ctypes.c_int * 2)()  # the launch's blocks an SM, from the library's export
+        check(pk._entry("tile_norms_residency", dt)(N, pk._NORM_KINDS[kind], res) == 0,
+              f"tile_norms {kind} {dtype}: residency query failed")
+        kmax, k = res
         kinds[kind] = {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms}
+                       "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                       "blocks_an_sm": [k, kmax]}
         print(f"  tile_norms {kind:9s} {dtype} ({N}, {t}, {t}): err {err:.3e} (max err/tol "
               f"{ratio:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library "
-              f"{lib_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"{lib_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}), {k} of {kmax} blocks an SM",
+              flush=True)
     # one NaN: that tile's statistics are NaN in every kind, the others not
     bad = N // 2
     keep = S[bad, 3, 5].clone()
@@ -919,6 +989,21 @@ def qr_kernel_phase(pk, dtype, gen, dev) -> dict:
               f"tile_norms {kind} {dtype}: NaN does not stay in its tile")
     S[bad, 3, 5] = keep
     print(f"  tile_norms {dtype}: a NaN stays in its tile in every kind", flush=True)
+    # max_sumsq, the first launch of Fro: both statistics in one read
+    got = pk.tile_norms(S, "max_sumsq")
+    check(torch.equal(got[:, 0], pk.tile_norms(S, "max")), f"tile_norms max_sumsq {dtype}: max")
+    ref = pk.tile_norms_plain(S, "fro_sumsq")
+    err, ratio = elementwise_err(got[:, 1], ref, ref, t * t)
+    check(ratio <= 1, f"tile_norms max_sumsq {dtype}: max err/tol {ratio:.3e} > 1")
+    ms, lib_ms = cuda_ms(lambda: pk.tile_norms(S, "max_sumsq")), None
+    b_ms, b_by = bound(2.0 * S.numel(), (S.numel() + 2 * N) * esz)
+    kinds["max_sumsq"] = {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
+                          "plain_ms": cuda_ms(lambda: pk.tile_norms_plain(S, "max_sumsq")),
+                          "library_ms": lib_ms, "bound_ms": b_ms}
+    print(f"  tile_norms max_sumsq {dtype} ({N}, {t}, {t}): max bitwise, sums err {err:.3e} "
+          f"(max err/tol {ratio:.3e})  kernel {ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    masked_tile_norms(pk, S, dtype, gen, dev, kinds)
     # the entry of the kernels line: 'one', the statistic of Norm.One
     k1 = kinds["one"]
     record("tile_norms", k1["max_abs_err"], k1["err_over_tol"], k1["ms"], k1["plain_ms"],
@@ -1096,9 +1181,12 @@ def small_qr(stt, pk, qf, ck, gen, dev) -> None:
 
 def norm_phase(stt, pk, dtype, gen, dev) -> dict:
     """norm One/Inf/Max/Fro and colNorms of a 16384^2 Matrix in tiles of
-    512 (tile_norms launches: 1 each, 2 for Fro); ``add`` and the norm of
-    the transposed view (no tile_geadd or tile_transpose launch, as in the
-    JAX package); Hermitian and triangular norms on the plain route."""
+    512 (tile_norms launches: 1 each, 2 for Fro); Fro of the matrix scaled
+    so that its unscaled sum of squares would overflow or underflow
+    (1e300 / 1e-160 in float64, 1e30 / 1e-20 in float32: the scaled
+    pass, 2 launches); ``add`` and the norm of the transposed view (no
+    tile_geadd or tile_transpose launch, as in the JAX package);
+    Hermitian and triangular norms on the plain route."""
     dt = getattr(torch, dtype)
     n = N_MAIN
     eps = torch.finfo(dt).eps
@@ -1131,6 +1219,27 @@ def norm_phase(stt, pk, dtype, gen, dev) -> dict:
               f"launches {launches}, {ms:.3f} ms, library {lib_ms:.3f} ms", flush=True)
         check(rel <= tol, f"norm {name} {dtype}: rel err {rel:.3e} > {tol:.3e}")
         check(launches == (2 if name == "Fro" else 1), f"norm {name} {dtype}: launches")
+    # Fro on data whose unscaled sum of squares would overflow or
+    # underflow: the scaled pass, held to a float64 reference of the same
+    # values (c times the norm of A c / c, which does not overflow)
+    for c in ((1e300, 1e-160) if dtype == "float64" else (1e30, 1e-20)):
+        Ac = A * c
+        Mc = stt.Matrix.from_global(Ac, 512)
+        pk.reset_launches()
+        got = stt.norm(stt.Norm.Fro, Mc)
+        torch.cuda.synchronize()
+        launches = pk.LAUNCHES["tile_norms"]
+        counted = {k: v + pk.LAUNCHES[k] for k, v in counted.items()}
+        ref = c * torch.linalg.matrix_norm(Ac.double() / c, "fro")
+        rel = float((got.double() - ref).abs() / ref)
+        ms = cuda_ms(lambda: stt.norm(stt.Norm.Fro, Mc), reps=3)
+        out[f"Fro {c:g}"] = {"rel_err": rel, "launches": launches, "ms": ms}
+        print(f"  norm Fro {dtype} of A x {c:g} (the scaled pass): rel err {rel:.3e} (tol "
+              f"{tol:.3e}), tile_norms launches {launches}, {ms:.3f} ms", flush=True)
+        check(bool(torch.isfinite(got)) and rel <= tol,
+              f"norm Fro {dtype} of A x {c:g}: {float(got):.6e}, rel err {rel:.3e}")
+        check(launches == 2, f"norm Fro {dtype} of A x {c:g}: {launches} launches")
+        del Ac, Mc
     pk.reset_launches()
     cn = stt.colNorms(stt.Norm.One, Am)
     torch.cuda.synchronize()

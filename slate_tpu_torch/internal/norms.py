@@ -7,14 +7,21 @@ Each norm is a masked reduction over the (P, Q, mb, nb) tile tensor.
 ``genorm`` takes its per-tile statistics from the ``tile_norms`` Hopper
 kernel on a CUDA device (its plain version on the CPU): the port's grids
 live on one device, so the JAX package's single-device gate is always
-open here.  The Frobenius norm keeps LAPACK lassq's scaling against
-overflow: one ``max`` launch, a division on the device, one
-``fro_sumsq`` launch, and no value goes through the host.
+open here.  It hands the kernel the stored, signed tiles (complex ones
+as |T|) with the layout's valid row and column counts, which say all
+that the JAX package's padding mask says: no ``abs``, ``where`` or mask
+pass runs before the kernel, and the padding is never read.  The
+Frobenius norm keeps LAPACK lassq's guard against overflow and
+underflow: one ``max_sumsq`` launch gives the max and the unscaled sum
+of squares, and a ``fro_sumsq`` launch divided by the max runs in full
+only where the unscaled sum could overflow or underflow (otherwise it
+is told to skip); no value goes through the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,31 +36,60 @@ def _masked(A: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, A, 0)
 
 
-def _tile_stats(absA: torch.Tensor, kind: str, plain: bool = False) -> torch.Tensor:
-    """Per-tile norm statistics over the (P, Q, mb, nb) tensor: the
-    ``tile_norms`` kernel (its plain version on the CPU), or the plain
-    version everywhere with ``plain``."""
-    P, Q, mb, nb = absA.shape
-    stack = absA.reshape(P * Q, mb, nb)
-    out = pk.tile_norms_plain(stack, kind) if plain else pk.tile_norms(stack, kind)
-    if kind in ("max", "fro_sumsq"):
-        return out.reshape(P, Q)
-    if kind == "one":
-        return out.reshape(P, Q, nb)
-    return out.reshape(P, Q, mb)
+@functools.lru_cache(maxsize=64)
+def _layout_tensors(layout: TileLayout, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The layout's valid rows of each storage tile-row slot (P,) and
+    valid columns of each tile-column slot (Q,), int32, and its row and
+    column scatter indices, on ``device``: made once per layout and
+    device."""
+    return (torch.as_tensor(layout.row_mask_np.sum(1), dtype=torch.int32, device=device),
+            torch.as_tensor(layout.col_mask_np.sum(1), dtype=torch.int32, device=device),
+            torch.as_tensor(layout.row_scatter, dtype=torch.long, device=device),
+            torch.as_tensor(layout.col_scatter, dtype=torch.long, device=device))
 
 
-def _col_sums(absA: torch.Tensor, layout: TileLayout, plain: bool = False) -> torch.Tensor:
-    """Sums of the global columns -> (n,): tile columns scattered back to
-    natural order through the static permutation."""
-    sums = _tile_stats(absA, "one", plain).sum(dim=0)  # (Q, nb)
-    nat = sums[torch.as_tensor(layout.col_scatter, dtype=torch.long, device=sums.device)]
+def _tile_stats(A: torch.Tensor, kind: str, layout: Optional[TileLayout] = None,
+                plain: bool = False, **fro) -> torch.Tensor:
+    """Per-tile norm statistics of |A| over the (P, Q, mb, nb) tensor, a
+    row (or a row of values) a tile in storage order, counting only the
+    layout's valid elements when ``layout`` is given (every element
+    otherwise): the ``tile_norms`` kernel (its plain version on the CPU),
+    or the plain version everywhere with ``plain``.  ``fro`` passes
+    fro_sumsq's ``scale`` and ``skip``."""
+    P, Q, mb, nb = A.shape
+    counts = {}
+    if layout is not None:
+        counts["rows"], counts["cols"] = _layout_tensors(layout, A.device)[:2]
+    fn = pk.tile_norms_plain if plain else pk.tile_norms
+    return fn(A.reshape(P * Q, mb, nb), kind, **counts, **fro)
+
+
+def _tile_col_sums(A: torch.Tensor, layout: Optional[TileLayout], plain: bool) -> torch.Tensor:
+    """Sums down the columns of each tile column slot -> (Q, nb)."""
+    P, Q, _, nb = A.shape
+    return _tile_stats(A, "one", layout, plain).view(P, Q, nb).sum(dim=0)
+
+
+def _tile_row_sums(A: torch.Tensor, layout: Optional[TileLayout], plain: bool) -> torch.Tensor:
+    """Sums along the rows of each tile row slot -> (P, mb)."""
+    P, Q, mb, _ = A.shape
+    return _tile_stats(A, "inf", layout, plain).view(P, Q, mb).sum(dim=1)
+
+
+def _col_sums(A: torch.Tensor, layout: TileLayout, plain: bool = False,
+              counted: bool = False) -> torch.Tensor:
+    """Sums of |A| down the global columns -> (n,): tile columns
+    scattered back to natural order through the static permutation.
+    ``counted``: A holds padding, which the layout's counts leave out."""
+    sums = _tile_col_sums(A, layout if counted else None, plain)
+    nat = sums[_layout_tensors(layout, sums.device)[3]]
     return nat.reshape(-1)[: layout.n]
 
 
-def _row_sums(absA: torch.Tensor, layout: TileLayout, plain: bool = False) -> torch.Tensor:
-    sums = _tile_stats(absA, "inf", plain).sum(dim=1)  # (P, mb)
-    nat = sums[torch.as_tensor(layout.row_scatter, dtype=torch.long, device=sums.device)]
+def _row_sums(A: torch.Tensor, layout: TileLayout, plain: bool = False,
+              counted: bool = False) -> torch.Tensor:
+    sums = _tile_row_sums(A, layout if counted else None, plain)
+    nat = sums[_layout_tensors(layout, sums.device)[2]]
     return nat.reshape(-1)[: layout.m]
 
 
@@ -64,32 +100,57 @@ def _scaled_fro(amax: torch.Tensor, sumsq_of_scaled) -> torch.Tensor:
     return torch.where(amax == 0, 0, safe * torch.sqrt(sumsq_of_scaled(safe)))
 
 
+def _fro(A: torch.Tensor, layout: Optional[TileLayout], n_elems: int) -> torch.Tensor:
+    """Frobenius norm from two launches: ``max_sumsq`` (amax and the
+    unscaled sum s0), then ``fro_sumsq`` of |a| / safe (safe = amax, or
+    1 for a zero matrix), skipped on the device where sqrt(s0) is safe:
+    ok = sqrt(tiny) / eps <= amax <= sqrt(huge / n_elems), so no square
+    of an element >= eps amax underflows and the sum cannot overflow
+    (NaN and Inf fall outside).  The result, sqrt(ok ? s0 : s1) (ok ? 1
+    : safe), is the JAX package's safe sqrt(s1) outside that range (0
+    for a zero matrix, NaN for NaN or Inf)."""
+    amax, s0 = _tile_stats(A, "max_sumsq", layout).unbind(1)
+    amax, s0 = amax.amax(), s0.sum()
+    fi = torch.finfo(A.dtype)
+    ok = amax.clamp(fi.tiny ** 0.5 / fi.eps, (fi.max / max(n_elems, 1)) ** 0.5) == amax
+    safe = torch.where(amax == 0, 1, amax)
+    s1 = _tile_stats(A, "fro_sumsq", layout, scale=safe, skip=ok).sum()
+    return torch.sqrt(torch.where(ok, s0, s1)) * torch.where(ok, 1, safe)
+
+
 def genorm(norm: Norm, T: torch.Tensor, layout: TileLayout,
            scope: NormScope = NormScope.Matrix,
            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """General matrix norm (reference: slate::norm -> internal::genorm;
     NormScope enums.hh:514), its per-tile statistics from the
-    ``tile_norms`` kernel."""
-    mask = layout.element_mask(T.device) if mask is None else mask
-    absA = _masked(T.abs(), mask)
+    ``tile_norms`` kernel.  The kernel reads the stored tiles (|T| for a
+    complex T) and the layout's counts; a caller's ``mask`` takes the
+    JAX package's route instead: |T| masked, then the kernel without
+    counts.  One and Inf take the max over the tile slots' sums as they
+    lie (the padding's sums are 0), not in natural order."""
+    if mask is None:
+        A, lay = (T.abs() if T.is_complex() else T), layout
+        if A.stride(-1) != 1:  # a resolved transposed view: the kernel reads rows
+            A = A.contiguous()
+    else:
+        A, lay = _masked(T.abs(), mask), None
     if scope == NormScope.Columns:
         if norm != Norm.One:
             raise SlateError("column-scope norm supports Norm.One (colNorms)")
-        return _col_sums(absA, layout)
+        return _col_sums(A, layout, counted=lay is not None)
     if scope == NormScope.Rows:
         if norm != Norm.Inf:
             raise SlateError("row-scope norm supports Norm.Inf")
-        return _row_sums(absA, layout)
+        return _row_sums(A, layout, counted=lay is not None)
 
     if norm == Norm.Max:
-        return _tile_stats(absA, "max").amax()
+        return _tile_stats(A, "max", lay).amax()
     if norm == Norm.One:
-        return _col_sums(absA, layout).amax()
+        return _tile_col_sums(A, lay, False).amax()
     if norm == Norm.Inf:
-        return _row_sums(absA, layout).amax()
+        return _tile_row_sums(A, lay, False).amax()
     if norm == Norm.Fro:
-        amax = _tile_stats(absA, "max").amax()
-        return _scaled_fro(amax, lambda safe: _tile_stats(absA / safe, "fro_sumsq").sum())
+        return _fro(A, lay, layout.m * layout.n)
     raise SlateError(f"unsupported norm {norm}")
 
 

@@ -129,7 +129,7 @@ _SIGNATURES = {
     "butterfly_level": [_P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     "larft": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "larft_layout": [_I, _P, _P, _P, _P],
-    "tile_norms": [_P, _L, _L, _I, _I, _I, _I, _P, _P],
+    "tile_norms": [_P, _L, _L, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
     "tile_geadd": [_D, _P, _L, _L, _D, _P, _L, _L, _P, _I, _I, _I, _P],
     "tile_transpose": [_P, _L, _L, _P, _I, _I, _I, _P],
 }
@@ -163,6 +163,7 @@ def _load() -> List[ctypes.CDLL]:
     return libs
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(name: str, dtype: torch.dtype):
     return _symbol(_load(), f"slate_{name}_{'f64' if dtype == torch.float64 else 'f32'}")
 
@@ -215,7 +216,7 @@ def _on_cpu(name: str, *ts: torch.Tensor, dim: int = 2) -> bool:
             raise ValueError(f"{name}: inner stride {t.stride(-1)} != 1")
         if rows > 1 and t.stride(-2) < cols:
             raise ValueError(f"{name}: row stride {t.stride(-2)} < row length {cols}")
-        if dim == 3 and t.shape[0] > 1 and t.stride(0) < _ld(t[0]) * (rows - 1) + cols:
+        if dim == 3 and t.shape[0] > 1 and t.stride(0) < _ld(t) * (rows - 1) + cols:
             raise ValueError(f"{name}: tile stride {t.stride(0)} overlaps the tiles")
     return False
 
@@ -1073,51 +1074,113 @@ def larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
 # tile_norms / tile_geadd / tile_transpose
 # ---------------------------------------------------------------------------
 
-_NORM_KINDS = {"max": 0, "fro_sumsq": 1, "one": 2, "inf": 3}
+_NORM_KINDS = {"max": 0, "fro_sumsq": 1, "one": 2, "inf": 3, "max_sumsq": 4}
 
 
-def tile_norms_plain(T: torch.Tensor, kind: str) -> torch.Tensor:
-    """Plain version: per-tile statistics of |T| over an (N, mb, nb)
-    stack: 'max' and 'fro_sumsq' (sum of squares) -> (N,), 'one' (column
-    sums) -> (N, nb), 'inf' (row sums) -> (N, mb)."""
-    a = T.abs()
-    if kind == "max":
-        return a.amax(dim=(1, 2))
-    if kind == "fro_sumsq":
-        return (a * a).sum(dim=(1, 2))
-    if kind == "one":
-        return a.sum(dim=1)
-    if kind == "inf":
-        return a.sum(dim=2)
-    raise ValueError(f"tile_norms: unknown kind {kind!r}")
-
-
-def tile_norms(T: torch.Tensor, kind: str) -> torch.Tensor:
-    """Per-tile norm statistics, the contract of ``tile_norms_plain``.
-
-    Replaces ``slate_tpu/ops/pallas/kernels.py:tile_norms_pallas``.  Bound
-    on the H100: bytes (each element read once; 2.15 GB at (1024, 512,
-    512) in float64).  Design: a block a tile; 'max' propagates NaN as
-    ``torch.amax`` does (bit-identical to the plain version), the sums
-    are fixed-order reductions in the operand's type.  The JAX package's
-    gate (float32 and (8, 128)-aligned tiles) is a Mosaic limit: this
-    kernel takes float32/float64 and any tile shape."""
+def _norm_args(T: torch.Tensor, kind: str, rows, cols, scale, skip) -> None:
+    """Checks common to ``tile_norms`` and its plain version."""
     if kind not in _NORM_KINDS:
         raise ValueError(f"tile_norms: unknown kind {kind!r}")
     if T.dim() != 3:
         raise ValueError(f"tile_norms: expected an (N, mb, nb) stack, got {tuple(T.shape)}")
+    if (rows is None) != (cols is None):
+        raise ValueError("tile_norms: give both rows and cols, or neither")
+    if rows is not None:
+        for name, t in (("rows", rows), ("cols", cols)):
+            if t.dtype != torch.int32 or t.dim() != 1 or t.device != T.device:
+                raise ValueError(f"tile_norms: {name} must be a 1-D int32 tensor on "
+                                 f"{T.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if rows.numel() * cols.numel() != T.shape[0]:
+            raise ValueError(f"tile_norms: {rows.numel()} x {cols.numel()} counts for "
+                             f"{T.shape[0]} tiles")
+    if (scale is not None or skip is not None) and kind != "fro_sumsq":
+        raise ValueError("tile_norms: scale and skip belong to fro_sumsq")
+    for name, t, dt in (("scale", scale, T.dtype), ("skip", skip, torch.bool)):
+        if t is not None and (t.dim() != 0 or t.dtype != dt or t.device != T.device):
+            raise ValueError(f"tile_norms: {name} must be a 0-d {dt} tensor on {T.device}")
+
+
+def tile_norms_plain(T: torch.Tensor, kind: str, rows: Optional[torch.Tensor] = None,
+                     cols: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
+                     skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: per-tile statistics of |T| over an (N, mb, nb)
+    stack: 'max' and 'fro_sumsq' (sum of squares) -> (N,), 'max_sumsq'
+    (both) -> (N, 2), 'one' (column sums) -> (N, nb), 'inf' (row sums)
+    -> (N, mb).
+
+    With ``rows`` (P,) and ``cols`` (Q,), int32 and P Q = N, tile
+    b = p Q + q counts only rows < rows[p] and columns < cols[q]: the
+    rest count as zero, whatever they hold.  'fro_sumsq' takes a 0-d
+    ``scale`` (sums (|a| / scale)^2 over the counted elements) and a 0-d
+    bool ``skip`` (all zeros when true)."""
+    _norm_args(T, kind, rows, cols, scale, skip)
+    a = T.abs()
+    if scale is not None:
+        a = a / scale
+    if rows is not None:
+        N, mb, nb = T.shape
+        rm = torch.arange(mb, device=T.device) < rows[:, None]
+        cm = torch.arange(nb, device=T.device) < cols[:, None]
+        mask = (rm[:, None, :, None] & cm[None, :, None, :]).reshape(N, mb, nb)
+        a = torch.where(mask, a, 0)
+    if kind == "max":
+        return a.amax(dim=(1, 2))
+    if kind == "fro_sumsq":
+        out = (a * a).sum(dim=(1, 2))
+        return out if skip is None else torch.where(skip, 0, out)
+    if kind == "max_sumsq":
+        return torch.stack([a.amax(dim=(1, 2)), (a * a).sum(dim=(1, 2))], dim=1)
+    if kind == "one":
+        return a.sum(dim=1)
+    return a.sum(dim=2)
+
+
+def tile_norms(T: torch.Tensor, kind: str, rows: Optional[torch.Tensor] = None,
+               cols: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
+               skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-tile norm statistics of the signed tiles, the contract of
+    ``tile_norms_plain``.
+
+    Replaces ``slate_tpu/ops/pallas/kernels.py:tile_norms_pallas``; with
+    the counts it also does the JAX package's ``where(mask, |T|, 0)``,
+    and with ``scale`` its division by ``safe``, in the same read.  Bound
+    on the H100: bytes (each counted element read once; 2.15 GB at
+    (1024, 512, 512) in float64).  Design: a block a tile; 16-byte
+    streaming loads when the stack's base, row stride and tile stride
+    are multiples of 16 bytes (one value at a time otherwise), four or
+    eight in flight a thread; each launch holds the SM to the blocks
+    that fill whole waves of the N tiles (``tn_blocks_per_sm``); the
+    padding beyond the counts is never read; 'max' propagates NaN as
+    ``torch.amax`` does (bit-identical to the plain version), the sums
+    are fixed-order reductions in the operand's type, so two calls are
+    bitwise equal.  The JAX package's gate (float32 and (8, 128)-aligned
+    tiles) is a Mosaic limit: this kernel takes float32/float64 and any
+    tile shape."""
+    _norm_args(T, kind, rows, cols, scale, skip)
     if _on_cpu("tile_norms", T, dim=3):
-        return tile_norms_plain(T, kind)
+        return tile_norms_plain(T, kind, rows, cols, scale, skip)
     N, mb, nb = T.shape
-    shape = {"max": (N,), "fro_sumsq": (N,), "one": (N, nb), "inf": (N, mb)}[kind]
+    shape = {"max": (N,), "fro_sumsq": (N,), "max_sumsq": (N, 2), "one": (N, nb),
+             "inf": (N, mb)}[kind]
     out = torch.empty(shape, dtype=T.dtype, device=T.device)
-    if N and mb and nb:
-        _launch("tile_norms", _entry("tile_norms", T.dtype),
-                T.data_ptr(), _tile_stride(T), _ld(T), N, mb, nb, _NORM_KINDS[kind],
-                out.data_ptr(), _stream(T))
-    elif out.numel():
-        out.zero_()
+    if not (N and mb and nb):
+        return out.zero_()
+    ptr, sn, ld = T.data_ptr(), _tile_stride(T), _ld(T)
+    counts = (None, None, 1)
+    if rows is not None:
+        rows, cols = rows.contiguous(), cols.contiguous()
+        counts = (rows.data_ptr(), cols.data_ptr(), cols.numel())
+    _launch("tile_norms", _entry("tile_norms", T.dtype),
+            ptr, sn, ld, N, mb, nb, _NORM_KINDS[kind], *counts,
+            None if scale is None else scale.data_ptr(), None if skip is None else skip.data_ptr(),
+            int(_vector_aligned(T.element_size(), ptr, sn, ld)), out.data_ptr(), _stream(T))
     return out
+
+
+def _vector_aligned(esize: int, ptr: int, *strides: int) -> bool:
+    """Whether a base address and strides (in values of esize bytes) are
+    all multiples of 16 bytes."""
+    return ptr % 16 == 0 and all(s * esize % 16 == 0 for s in strides)
 
 
 def tile_geadd_plain(alpha, A: torch.Tensor, beta, B: torch.Tensor) -> torch.Tensor:

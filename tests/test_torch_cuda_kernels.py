@@ -680,6 +680,81 @@ def test_tile_norms_matches_plain(dev, dtype, N, mb, nb):
         assert bool(torch.isfinite(out[: N - 1]).all())
 
 
+def _counted_stack(dev, dtype, P, Q, mb, nb, off, seed):
+    """A (P Q, mb, nb) stack on the card, a view at column offset ``off``
+    of a wider one, with ragged counts (tile 0 whole) and NaN in the
+    padding beyond them; returns (stack, rows, cols)."""
+    rng = np.random.default_rng(seed)
+    big = torch.from_numpy(rng.standard_normal((P * Q, mb, nb + off)).astype(dtype)).to(dev)
+    T = big[:, :, off:]
+    rows = rng.integers(0, mb + 1, P).astype(np.int32)
+    cols = rng.integers(0, nb + 1, Q).astype(np.int32)
+    rows[0], cols[0] = mb, nb
+    rows, cols = torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)
+    rm = torch.arange(mb, device=dev) < rows[:, None]
+    cm = torch.arange(nb, device=dev) < cols[:, None]
+    mask = (rm[:, None, :, None] & cm[None, :, None, :]).reshape(P * Q, mb, nb)
+    T.masked_fill_(~mask, float("nan"))
+    return T, rows, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,Q,mb,nb,off", [(3, 4, 64, 64, 0), (2, 3, 37, 29, 0),
+                                           (4, 4, 512, 40, 3), (2, 2, 33, 100, 3),
+                                           (2, 2, 16, 128, 4), (1, 2, 9, 1030, 0)])
+def test_tile_norms_counts_scale_skip(dev, dtype, P, Q, mb, nb, off):
+    """The counts, max_sumsq, fro_sumsq's scale and skip against the
+    plain version, on the 16-byte path and the one-value path (odd nb, a
+    view at column offset 3); NaN in the padding reaches no output; two
+    calls bitwise equal."""
+    T, rows, cols = _counted_stack(dev, dtype, P, Q, mb, nb, off, P * mb + nb + off)
+    esz = np.dtype(dtype).itemsize
+    vector = (off * esz) % 16 == 0 and ((nb + off) * esz) % 16 == 0
+    assert pk._vector_aligned(esz, T.data_ptr(), T.stride(0), T.stride(1)) == vector
+    k = {"max": 1, "fro_sumsq": mb * nb, "max_sumsq": mb * nb, "one": mb, "inf": nb}
+    for kind in ("max", "fro_sumsq", "one", "inf", "max_sumsq"):
+        got = pk.tile_norms(T, kind, rows, cols)
+        ref = pk.tile_norms_plain(T, kind, rows, cols)
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all()), kind
+        assert torch.equal(pk.tile_norms(T, kind, rows, cols), got), f"{kind}: two calls differ"
+        if kind in ("max", "max_sumsq"):
+            assert torch.equal(got if kind == "max" else got[:, 0],
+                               ref if kind == "max" else ref[:, 0]), kind
+        r = ref.cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), r, rtol=0, atol=_tol(dtype, k[kind], r))
+    scale = pk.tile_norms_plain(T, "max", rows, cols).amax() * 1.5
+    got = pk.tile_norms(T, "fro_sumsq", rows, cols, scale=scale)
+    r = pk.tile_norms_plain(T, "fro_sumsq", rows, cols, scale=scale).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), r, rtol=0, atol=_tol(dtype, mb * nb, r))
+    no, yes = torch.tensor(False, device=dev), torch.tensor(True, device=dev)
+    assert torch.equal(pk.tile_norms(T, "fro_sumsq", rows, cols, scale=scale, skip=no), got)
+    assert not bool(pk.tile_norms(T, "fro_sumsq", rows, cols, scale=scale, skip=yes).any())
+    assert pk.LAUNCHES["tile_norms"] == 13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_norms_vector_and_one_value_paths_agree(dev, dtype):
+    """The same tiles read in 16-byte vectors and a value at a time (a
+    copy at column offset 3) give bitwise equal maxima and sums within
+    tolerance of each other."""
+    rng = np.random.default_rng(12)
+    _, A = _both(rng.standard_normal((8, 96, 128)).astype(dtype), dev)
+    big = torch.zeros(8, 96, 131, dtype=A.dtype, device=dev)
+    B = big[:, :, 3:]
+    B.copy_(A)
+    assert pk._vector_aligned(A.element_size(), A.data_ptr(), A.stride(0), A.stride(1))
+    assert not pk._vector_aligned(B.element_size(), B.data_ptr(), B.stride(0), B.stride(1))
+    for kind, k in (("max", 1), ("fro_sumsq", 96 * 128), ("one", 96), ("inf", 128),
+                    ("max_sumsq", 96 * 128)):
+        a, b = pk.tile_norms(A, kind), pk.tile_norms(B, kind)
+        if kind == "max":
+            assert torch.equal(a, b)
+        r = a.cpu().numpy()
+        np.testing.assert_allclose(b.cpu().numpy(), r, rtol=0, atol=_tol(dtype, k, r))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,mb,nb", [(1, 1, 1), (5, 33, 70), (2, 64, 64)])
@@ -709,6 +784,11 @@ def test_qr_and_tile_wrappers_raise_on_unsupported(dev):
     s = torch.zeros(2, 8, 8, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
         pk.tile_norms(s.transpose(1, 2), "one")
+    counts = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError):  # counts on the host
+        pk.tile_norms(s, "one", rows=counts, cols=torch.tensor([8, 8], dtype=torch.int32))
+    with pytest.raises(ValueError):  # 1 x 1 counts for 2 tiles
+        pk.tile_norms(s, "one", rows=counts.to(dev), cols=counts.to(dev))
     with pytest.raises(ValueError):
         pk.tile_transpose(s.transpose(1, 2))
     with pytest.raises(ValueError):
@@ -752,6 +832,21 @@ def test_norm_on_the_card_launches_tile_norms(dev):
         got = float(stt.norm(stt.Norm[name], A))
         assert pk.LAUNCHES["tile_norms"] == (2 if name == "Fro" else 1)
         assert abs(got - ref) <= 1e-12 * ref
+    # NaN in the padding reaches no norm
+    A.data[~A.layout.element_mask(dev)] = float("nan")
+    for name, ref in refs.items():
+        assert abs(float(stt.norm(stt.Norm[name], A)) - ref) <= 1e-12 * ref
+    # a transposed view (its resolved storage lies transposed in memory)
+    got = float(stt.norm(stt.Norm.One, stt.conj_transpose(A)))
+    assert abs(got - refs["Inf"]) <= 1e-12 * refs["Inf"]
+    # Fro on data that takes the scaled pass (the unscaled sum would
+    # overflow or underflow), still two launches
+    for c in (1e300, 1e-160):
+        pk.reset_launches()
+        got = float(stt.norm(stt.Norm.Fro, stt.Matrix.from_global(a * c, 128,
+                                                                  grid=stt.ProcessGrid.single())))
+        assert pk.LAUNCHES["tile_norms"] == 2
+        assert abs(got - refs["Fro"] * c) <= 1e-12 * refs["Fro"] * c
 
 
 def _scaled_residual(a, x, b):

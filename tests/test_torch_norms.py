@@ -231,16 +231,24 @@ def test_trnorm_synorm_henorm_match_jax(complex_):
 @pytest.mark.parametrize("name", NORMS)
 def test_norm_routing_follows_jax(monkeypatch, name):
     """genorm takes every per-tile statistic from the kernel wrapper
-    (one call, two for Fro); trnorm, synorm and henorm never call it, as
-    in the JAX package."""
+    (one call, two for Fro: max_sumsq, then the scaled fro_sumsq with
+    its skip flag), on the stored tiles with the layout's counts;
+    trnorm, synorm and henorm never call it, as in the JAX package."""
     calls = []
     wrapper = pk.tile_norms
-    monkeypatch.setattr(pk, "tile_norms", lambda T, kind: calls.append(kind) or wrapper(T, kind))
+
+    def spy(T, kind, **kw):
+        calls.append(kind)
+        assert sorted(kw) == (["cols", "rows", "scale", "skip"] if kind == "fro_sumsq"
+                              else ["cols", "rows"]), kw
+        return wrapper(T, kind, **kw)
+
+    monkeypatch.setattr(pk, "tile_norms", spy)
     tlay = tl.TileLayout(37, 37, 8, 8, 2, 2)
     tA = tl.tiles_from_global(torch.from_numpy(_rand((37, 37), 19)), tlay)
     tn.genorm(stt.Norm[name], tA, tlay)
     assert calls == {"One": ["one"], "Inf": ["inf"], "Max": ["max"],
-                     "Fro": ["max", "fro_sumsq"]}[name]
+                     "Fro": ["max_sumsq", "fro_sumsq"]}[name]
     calls.clear()
     for uplo in (stt.Uplo.Lower, stt.Uplo.Upper):
         tn.trnorm(stt.Norm[name], tA, tlay, uplo)
