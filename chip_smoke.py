@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
-                                     # gemm_sub and syrk_diag pieces), gesv (with its panel_lu
-                                     # piece) and gels (with its larft piece) and of one
-                                     # warm solve phase of posv and gesv
+                                     # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
+                                     # their panel_lu pieces) and gels (with its larft piece)
+                                     # and of one warm solve phase of posv and gesv
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -51,7 +51,23 @@ Phases, each for float64 and float32 unless stated:
  10. complex128 ``posv``, ``gesv`` (with both solve phases), ``gesv``
      with MethodLU.RBT and ``gels`` at n = 2048, default options: the
      recursive schedule and the library solves (the kernels take
-     float32/float64 only), residuals within bound, no kernel launch.
+     float32/float64 only), residuals within bound, no kernel launch;
+ 11. the rest of the dense drivers: ``gesv`` with MethodLU.CALU at
+     n = 16384, nrhs = 512 (residual within the JAX package's CALU bound
+     100, ``tntpiv_kernel_launches`` = 512 panel_lu launches, getrf time
+     against phase 4's and ``torch.linalg.lu_factor``); tournament
+     pivoting at n = 4096 through the kernel and the plain panel (equal
+     perm and bitwise-equal LU); panel_lu bit for bit against its plain
+     version at the CALU path's shapes ((2048, 512) and (1024, 512) with
+     pivoting, (16384, 512) without); ``trtri`` (through
+     ``tri_inv_blocked``), ``potri`` and ``tri_inv_blocked`` of an
+     n = 16384 factor (inverse residual <= 3, timed against
+     ``solve_triangular(L, I)``, ``cholesky_inverse`` and
+     ``linalg.inv``); ``pocondest``,
+     ``trcondest`` and ``gecondest`` (One, Inf) within ref <= rcond <=
+     3 ref; ``symm``, ``trmm`` (both sides) and ``syr2k`` against
+     ``torch.matmul``; a rank-1 ``chol_update`` and downdate of the
+     float64 factor (residual <= 3, host-clock time).
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -1330,6 +1346,273 @@ def complex_phase(stt, pk, ck, lk, qf, gen, dev) -> None:
     check(not launched, f"complex128: kernels launched {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the dense drivers
+# ---------------------------------------------------------------------------
+
+CALU_BOUND = 100  # the JAX package's CALU residual bound (tests/test_lu.py:240)
+
+
+def inv_residual(X, A) -> float:
+    """||X A - I||_1 / (||A||_1 ||X||_1 n eps), in float64."""
+    X64, A64 = X.double(), A.double()
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    R = X64 @ A64
+    R.diagonal().sub_(1.0)
+    return n1(R) / (n1(A64) * n1(X64) * A.shape[0]) / torch.finfo(X.dtype).eps
+
+
+def calu_path(stt, pk, lk, metrics, dtype, gen, dev, lres) -> dict:
+    """gesv with MethodLU.CALU at n = 16384, nrhs = 512: residual within
+    CALU_BOUND, info 0, tntpiv_kernel_launches(16384, 16384, 512) = 512
+    panel_lu launches (8 elections, 4 + 2 + 1 plays and one factor
+    without pivoting a step, 32 steps); getrf time against phase 4's
+    partial-pivot getrf and torch.linalg.lu_factor."""
+    dt = getattr(torch, dtype)
+    n, nrhs, nb = N_MAIN, NRHS_MAIN, 512
+    A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Am, Bm = stt.Matrix.from_global(A, nb), stt.Matrix.from_global(B, nb)
+    torch.cuda.synchronize()
+    metrics.reset()
+    pk.reset_launches()  # counts of the CALU path only
+    X, _, _, info = stt.gesv(Am, Bm, {stt.Option.MethodLU: stt.MethodLU.CALU})
+    torch.cuda.synchronize()
+    counts = dict(pk.LAUNCHES)
+    t_getrf = metrics.timers()["getrf"]["total_s"]
+    t_gesv = metrics.timers()["gesv"]["total_s"]
+    r = scaled_residual(A, X.to_global(), B)
+    expect = lk.tntpiv_kernel_launches(n, n, nb)
+    print(f"  gesv CALU {dtype} n={n} nrhs={nrhs}: residual {r:.3e} (bound {CALU_BOUND}), "
+          f"info {int(info)}, getrf {t_getrf:.3f} s (partial pivoting, phase 4: "
+          f"{lres['getrf_s']:.3f} s; torch.linalg.lu_factor {lres['lu_factor_lib_ms']:.1f} ms), "
+          f"gesv {t_gesv:.3f} s, panel_lu launches {counts['panel_lu']} (expected {expect})",
+          flush=True)
+    check(int(info) == 0, f"gesv CALU {dtype}: info = {int(info)}")
+    check(r <= CALU_BOUND, f"gesv CALU {dtype}: scaled residual {r:.3f} > {CALU_BOUND}")
+    check(counts["panel_lu"] == expect,
+          f"gesv CALU {dtype}: panel_lu launches {counts['panel_lu']} != {expect}")
+    check(sum(counts.values()) == counts["panel_lu"],
+          f"gesv CALU {dtype}: other kernels launched: {counts}")
+    return {"residual": r, "getrf_s": t_getrf, "gesv_s": t_gesv,
+            "panel_lu_launches": counts["panel_lu"]}
+
+
+def calu_panels(pk, dtype, gen, dev) -> dict:
+    """panel_lu against panel_lu_plain at the CALU main path's own
+    shapes, perm and LU bitwise: a (2048, 512) election and a (1024, 512)
+    play with pivoting, and the (16384, 512) panel factor without
+    pivoting (its rows in the partial-pivot order, as the winners stand
+    on top in the tournament)."""
+    dt = getattr(torch, dtype)
+    out = {}
+    for M, pivot in ((2048, True), (1024, True), (N_MAIN, False)):
+        P = torch.randn(M, 512, generator=gen, device=dev, dtype=dt)
+        if not pivot:
+            P = P[pk.panel_lu_plain(P)[1].long()].contiguous()
+        got, perm = pk.panel_lu(P, pivot=pivot)
+        ref, ref_perm = pk.panel_lu_plain(P, pivot=pivot)
+        name = f"panel_lu {dtype} ({M}, 512, pivot={pivot})"
+        check(torch.equal(perm, ref_perm), f"{name}: perm differs from panel_lu_plain")
+        check(torch.equal(got, ref), f"{name}: LU not bitwise equal to panel_lu_plain")
+        t = cuda_ms(lambda: pk.panel_lu(P, pivot=pivot), reps=3)
+        t_plain = cuda_ms(lambda: pk.panel_lu_plain(P, pivot=pivot), reps=2)
+        print(f"  {name}: perm and LU bitwise equal to the plain version, {t:.3f} ms, "
+              f"plain {t_plain:.3f} ms", flush=True)
+        out[f"{M}x512.pivot={pivot}"] = {"ms": t, "plain_ms": t_plain}
+        del P, got, ref
+    return out
+
+
+def calu_routes(stt, pk, lk, dtype, gen, dev) -> dict:
+    """blocked_getrf_tntpiv at n = 4096 in tiles of 512 with the panel
+    factor chosen explicitly: the kernel route and the plain-panel route
+    must give the same perm and bitwise-equal LU."""
+    dt = getattr(torch, dtype)
+    n, nb = 4096, 512
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    lu_k, p_k = lk.blocked_getrf_tntpiv(G, nb, panel_fn=pk.panel_lu)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    launches = pk.LAUNCHES["panel_lu"]
+    t0 = time.perf_counter()
+    lu_p, p_p = lk.blocked_getrf_tntpiv(G, nb, panel_fn=pk.panel_lu_plain)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    same_perm = bool(torch.equal(p_k, p_p))
+    bitwise = bool(torch.equal(lu_k, lu_p))
+    diff = float((lu_k - lu_p).abs().max())
+    print(f"  CALU routes {dtype} n={n}: perm equal {same_perm}, LU bitwise equal {bitwise} "
+          f"(max |diff| {diff:.3e}), kernel route {t_k:.3f} s with {launches} panel_lu "
+          f"launches, plain route {t_p:.3f} s", flush=True)
+    check(same_perm, f"CALU routes {dtype}: perm differs between the kernel and plain routes")
+    check(bitwise, f"CALU routes {dtype}: LU differs between the routes by {diff:.3e}")
+    check(launches == lk.tntpiv_kernel_launches(n, n, nb), f"CALU routes {dtype}: launches")
+    return {"perm_equal": same_perm, "lu_bitwise": bitwise, "lu_max_diff": diff,
+            "kernel_route_s": t_k, "plain_route_s": t_p}
+
+
+def inverse_phase(stt, ck, dtype, gen, dev):
+    """trtri and potri of a phase-3-style SPD factor at n = 16384 and
+    tri_inv_blocked, each within ||X A - I||_1 / (||A||_1 ||X||_1 n eps)
+    <= 3, timed against solve_triangular(L, I), torch.cholesky_inverse
+    and torch.linalg.inv; then pocondest and trcondest (One, Inf)
+    within ref <= rcond <= 3 ref, ref from the port's potri / trtri with
+    torch.linalg.inv as a check.  Returns (results, A, its factor L) for
+    chol_update_phase."""
+    dt = getattr(torch, dtype)
+    n = N_MAIN
+    A = spd(n, dt, gen, dev)
+    Lm, info = stt.potrf(stt.HermitianMatrix.from_global(A, 512))
+    check(int(info) == 0, f"inverses {dtype}: potrf info {int(info)}")
+    Lg = torch.tril(Lm.to_global())
+    I = torch.eye(n, dtype=dt, device=dev)
+    out = {}
+    tri_lib = ("solve_triangular", lambda: torch.linalg.solve_triangular(Lg, I, upper=False))
+    for name, fn, libs, ref_of in (
+            ("trtri", lambda: stt.trtri(Lm).to_global(), (tri_lib,), Lg),
+            ("potri", lambda: stt.potri(Lm).full_global(),
+             (("cholesky_inverse", lambda: torch.cholesky_inverse(Lg)),), A),
+            ("tri_inv_blocked", lambda: ck.tri_inv_blocked(Lg, 512),
+             (tri_lib, ("linalg.inv", lambda: torch.linalg.inv(Lg))), Lg)):
+        X = fn()
+        torch.cuda.synchronize()
+        r = inv_residual(X, ref_of)
+        del X
+        t = cuda_ms(fn, reps=2)
+        t_libs = {lib_name: cuda_ms(lib, reps=2) for lib_name, lib in libs}
+        print(f"  {name} {dtype} n={n}: ||XA - I|| scaled {r:.3e}, {t:.2f} ms, "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in t_libs.items()), flush=True)
+        check(r <= 3, f"{name} {dtype}: scaled inverse residual {r:.3f} > 3")
+        out[name] = {"residual": r, "ms": t, "library_ms": t_libs}
+    n1 = lambda M, o=1: float(torch.linalg.matrix_norm(M.double(), ord=o))  # noqa: E731
+    # pocondest: ref from potri, torch.linalg.inv as a check
+    Ainv = stt.potri(Lm).full_global()
+    ref_inv = n1(Ainv)
+    chk = n1(torch.linalg.inv(A))
+    check(abs(ref_inv - chk) <= 1e-4 * chk, f"pocondest {dtype}: potri norm {ref_inv} vs {chk}")
+    del Ainv
+    est = {"pocondest": (float(stt.pocondest(Lm, n1(A))), 1.0 / (n1(A) * ref_inv))}
+    Tinv = stt.trtri(Lm).to_global()
+    Linv_lib = torch.linalg.inv(Lg)
+    for o, name in ((1, "One"), (float("inf"), "Inf")):
+        ref_inv, chk = n1(Tinv, o), n1(Linv_lib, o)
+        check(abs(ref_inv - chk) <= 1e-4 * chk, f"trcondest {dtype}: trtri norm {ref_inv} vs {chk}")
+        est[f"trcondest.{name}"] = (float(stt.trcondest(Lm, stt.Norm[name])),
+                                    1.0 / (n1(Lg, o) * ref_inv))
+    del Tinv, Linv_lib
+    out["condest"] = condest_check(est, dtype)
+    return out, A, Lg
+
+
+def condest_check(est: dict, dtype: str) -> dict:
+    """ref (1 - 1e-4) <= rcond <= 3 ref for each (rcond, ref): the JAX
+    tests' bound, the slack below ref for the rounding of ref itself."""
+    out = {}
+    for name, (rcond, ref) in est.items():
+        print(f"  {name} {dtype}: rcond {rcond:.6e}, ref {ref:.6e} (ratio {rcond / ref:.4f})",
+              flush=True)
+        check(ref * (1 - 1e-4) <= rcond <= 3 * ref,
+              f"{name} {dtype}: rcond {rcond:.6e} outside [{ref:.6e}, 3 x]")
+        out[name] = {"rcond": rcond, "ref": ref}
+    return out
+
+
+def gecondest_phase(stt, dtype, gen, dev) -> dict:
+    """gecondest (One, Inf) of the partial-pivot LU of randn + 2 sqrt(n) I
+    at n = 16384, ref from the port's getri with torch.linalg.inv as a
+    check."""
+    dt = getattr(torch, dtype)
+    n = N_MAIN
+    A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    A.diagonal().add_(2 * n**0.5)
+    LU, piv, info = stt.getrf(stt.Matrix.from_global(A, 512))
+    check(int(info) == 0, f"gecondest {dtype}: getrf info {int(info)}")
+    Ainv = stt.getri(LU, piv).to_global()
+    Alib = torch.linalg.inv(A)
+    est = {}
+    for o, name in ((1, "One"), (float("inf"), "Inf")):
+        an = float(torch.linalg.matrix_norm(A.double(), ord=o))
+        ref_inv = float(torch.linalg.matrix_norm(Ainv.double(), ord=o))
+        chk = float(torch.linalg.matrix_norm(Alib.double(), ord=o))
+        check(abs(ref_inv - chk) <= 1e-4 * chk, f"gecondest {dtype}: getri norm {ref_inv} vs {chk}")
+        est[f"gecondest.{name}"] = (float(stt.gecondest(LU, piv, an, stt.Norm[name])),
+                                    1.0 / (an * ref_inv))
+    return condest_check(est, dtype)
+
+
+def blas3_phase(stt, dtype, gen, dev) -> dict:
+    """symm, syr2k and trmm (both sides) at n = 16384 and k = 512 against
+    torch.matmul of the mirrored or triangular operand, within
+    elementwise_err's 10 sqrt(k) eps scale; times against that call."""
+    dt = getattr(torch, dtype)
+    n, k, nb = N_MAIN, NRHS_MAIN, 512
+    S = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    B = torch.randn(n, k, generator=gen, device=dev, dtype=dt)
+    C = torch.randn(n, k, generator=gen, device=dev, dtype=dt)
+    Sm = stt.SymmetricMatrix.from_global(S, nb)
+    Sf = torch.tril(S) + torch.tril(S, -1).mT
+    Bm, Cm = stt.Matrix.from_global(B, nb), stt.Matrix.from_global(C, nb)
+    out = {}
+
+    def record(name, fn, lib, ref, scale, kk):
+        got = fn()
+        torch.cuda.synchronize()
+        err, ratio = elementwise_err(got, ref, scale, kk)
+        t, t_lib = cuda_ms(fn, reps=3), cuda_ms(lib, reps=3)
+        print(f"  {name} {dtype}: max |err| {err:.3e} ({ratio:.3f} of tol), {t:.2f} ms, "
+              f"torch.matmul {t_lib:.2f} ms", flush=True)
+        check(ratio <= 1, f"{name} {dtype}: error {ratio:.3f} of the tolerance")
+        out[name] = {"max_abs_err": err, "ms": t, "matmul_ms": t_lib}
+
+    record("symm.Left", lambda: stt.symm(stt.Side.Left, 2.0, Sm, Bm, 0.5, Cm).to_global(),
+           lambda: torch.matmul(Sf, B), 2.0 * (Sf @ B) + 0.5 * C,
+           2.0 * (Sf.abs() @ B.abs()) + 0.5 * C.abs(), n)
+    BmT, CmT = stt.transpose(Bm), stt.transpose(Cm)
+    record("symm.Right", lambda: stt.symm(stt.Side.Right, 2.0, Sm, BmT, 0.5, CmT).to_global(),
+           lambda: torch.matmul(B.mT, Sf), 2.0 * (B.mT @ Sf) + 0.5 * C.mT,
+           2.0 * (B.abs().mT @ Sf.abs()) + 0.5 * C.abs().mT, n)
+    Lt = torch.tril(S)
+    Tm = stt.TriangularMatrix.from_global(S, nb, uplo=stt.Uplo.Lower)
+    record("trmm.Left", lambda: stt.trmm(stt.Side.Left, 2.0, Tm, Bm).to_global(),
+           lambda: torch.matmul(Lt, B), 2.0 * (Lt @ B), 2.0 * (Lt.abs() @ B.abs()), n)
+    record("trmm.Right", lambda: stt.trmm(stt.Side.Right, 2.0, Tm, BmT).to_global(),
+           lambda: torch.matmul(B.mT, Lt), 2.0 * (B.mT @ Lt), 2.0 * (B.abs().mT @ Lt.abs()), n)
+    del Sm, Tm, Lt
+    Cs = stt.SymmetricMatrix.from_global(S, nb)
+    record("syr2k", lambda: stt.syr2k(2.0, Bm, Cm, 0.5, Cs).full_global(),
+           lambda: torch.matmul(B, C.mT),
+           2.0 * (B @ C.mT + C @ B.mT) + 0.5 * Sf,
+           2.0 * (B.abs() @ C.abs().mT + C.abs() @ B.abs().mT) + 0.5 * Sf.abs(), 2 * k)
+    return out
+
+
+def chol_update_phase(stt, ck, A, Lg, gen, dev) -> dict:
+    """A rank-1 update, then the downdate, of the float64 factor: each
+    within ||L' L'^H - (A +- u u^H)||_1 / (||A||_1 n eps) <= 3.  The
+    column loop is eager and host-bound; its time is printed."""
+    n = Lg.shape[0]
+    u = torch.randn(n, generator=gen, device=dev, dtype=Lg.dtype)
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    eps = torch.finfo(Lg.dtype).eps
+    out = {}
+    L = Lg
+    for name, down, target in (("update", False, A + torch.outer(u, u)), ("downdate", True, A)):
+        t0 = time.perf_counter()
+        L = ck.chol_update(L, u, downdate=down)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        r = n1(L @ L.mT - target) / (n1(A) * n * eps)
+        del target
+        print(f"  chol_update {name} float64 n={n}: residual {r:.3e}, {t:.2f} s (host clock, "
+              f"eager column loop)", flush=True)
+        check(r <= 3, f"chol_update {name}: scaled residual {r:.3f} > 3")
+        out[name] = {"residual": r, "s": t}
+    return out
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -1366,7 +1649,8 @@ def profile(stt, gen, dev) -> None:
     nrhs = 512, float64, default options), then a profile of a third call
     of each and of one warm solve phase of each (``potrs_from_global``,
     ``getrs_from_global``: its idle share is what the host-stepped trsm
-    launches cost); then the same for ``gels`` at (32768, 16384)."""
+    launches cost), and of a ``gesv`` with MethodLU.CALU; then the same
+    for ``gels`` at (32768, 16384)."""
     n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -1405,6 +1689,15 @@ def profile(stt, gen, dev) -> None:
         t_gesv = time.perf_counter() - t0
     print(f"  warm getrf {t_getrf:.4f} s, gesv {t_gesv:.4f} s (host clock, float64 n={n})")
     _profile_call("gesv", lambda: stt.gesv(Am, Bm), {"panel_lu": ("panel_lu_kernel",)})
+    calu = {stt.Option.MethodLU: stt.MethodLU.CALU}
+    stt.getrf(Am, calu)  # the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stt.getrf(Am, calu)
+    torch.cuda.synchronize()
+    print(f"  warm getrf CALU {time.perf_counter() - t0:.4f} s (host clock, float64 n={n})")
+    _profile_call("gesv CALU", lambda: stt.gesv(Am, Bm, calu),
+                  {"panel_lu": ("panel_lu_kernel",)})
     LU, piv, _ = stt.getrf(Am)
     LUg, PB = LU.to_global().contiguous(), piv.apply(B)
     del LU
@@ -1473,7 +1766,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
     if profile_only:
-        print("profile: posv, gesv and gels, float64", flush=True)
+        print("profile: posv, gesv, CALU gesv and gels, float64", flush=True)
         profile(stt, gen, dev)
         print(smi)
         return 0
@@ -1518,6 +1811,25 @@ def main() -> int:
     complex_phase(stt, pk, ck, lk, qf, gen, dev)
     torch.cuda.empty_cache()
     print(f"  phases 2-10: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 11: the rest of the dense drivers", flush=True)
+    t11 = time.perf_counter()
+    xres = {}
+    for d in DTYPES:
+        xres[d] = {"calu": calu_path(stt, pk, lk, metrics, d, gen, dev, lres[d])}
+        torch.cuda.empty_cache()
+        xres[d]["calu_panels"] = calu_panels(pk, d, gen, dev)
+        xres[d]["calu_routes_4096"] = calu_routes(stt, pk, lk, d, gen, dev)
+        inv, A, Lg = inverse_phase(stt, ck, d, gen, dev)
+        xres[d]["inverses"] = inv
+        if d == "float64":
+            xres[d]["chol_update"] = chol_update_phase(stt, ck, A, Lg, gen, dev)
+        del A, Lg
+        torch.cuda.empty_cache()
+        xres[d]["gecondest"] = gecondest_phase(stt, d, gen, dev)
+        torch.cuda.empty_cache()
+        xres[d]["blas3"] = blas3_phase(stt, d, gen, dev)
+        torch.cuda.empty_cache()
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -1555,6 +1867,7 @@ def main() -> int:
                        for d in DTYPES}
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
+                                      "dense_drivers": xres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

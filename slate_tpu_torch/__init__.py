@@ -5,20 +5,25 @@ package imports neither JAX nor anything of it.  It carries the
 single-device Cholesky, LU and QR / least-squares solve paths: the tile
 layout and matrix classes, the recursive-schedule factorizations
 (``potrf``/``posv``, ``getrf``/``gesv`` with partial pivoting, no
-pivoting or the random butterfly transform, ``getri``, ``geqrf``,
-``gelqf``, ``cholqr``, ``gels``), the solve phases (``potrs``,
-``getrs``, ``unmqr``/``unmlq``, ``potrs_from_global``,
-``getrs_from_global``, ``gels_solve_from_global``), the BLAS3 routines
-they use (``gemm``, ``herk``, ``syrk``, ``trsm``), and the norm and
-elementwise drivers (``norm``, ``colNorms``, ``add``, ``copy``,
-``scale``, ``scale_row_col``, ``set``, ``set_lambdas``).  Every Pallas
-kernel of the JAX package is rewritten by hand in CUDA C++ for Hopper
+pivoting, tournament pivoting or the random butterfly transform,
+``getri``, ``geqrf``, ``gelqf``, ``cholqr``, ``gels``), the solve phases
+(``potrs``, ``getrs``, ``unmqr``/``unmlq``, ``potrs_from_global``,
+``getrs_from_global``, ``gels_solve_from_global``), the inverses
+(``trtri``, ``trtrm``, ``potri``) and condition estimators
+(``gecondest``, ``pocondest``, ``trcondest``), the level-3 BLAS
+(``gemm``, ``hemm``/``symm``, ``herk``/``syrk``, ``her2k``/``syr2k``,
+``trmm``, ``trsm``), the norm and elementwise drivers (``norm``,
+``colNorms``, ``add``, ``copy``, ``scale``, ``scale_row_col``, ``set``,
+``set_lambdas``), the tile distribution functions (``func``) and the
+verb API of those slices (``simplified``).  Every Pallas kernel of the
+JAX package is rewritten by hand in CUDA C++ for Hopper
 (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for another
 device (``ProcessGrid.single("cpu")``).
 """
 
+from . import func
 from .enums import (
     Diag,
     GridOrder,
@@ -62,9 +67,10 @@ from .matrix.matrix import (
     TriangularMatrix,
 )
 from .drivers.aux import add, colNorms, copy, norm, scale, scale_row_col, set, set_lambdas
-from .drivers.blas3 import gemm, herk, syrk, trsm
-from .drivers.chol import posv, potrf, potrs, potrs_from_global
+from .drivers.blas3 import gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm, trsm
+from .drivers.chol import pocondest, posv, potrf, potri, potrs, potrs_from_global, trtri, trtrm
 from .drivers.lu import (
+    gecondest,
     gerbt,
     gesv,
     gesv_nopiv,
@@ -75,6 +81,7 @@ from .drivers.lu import (
     getrs,
     getrs_from_global,
     getrs_nopiv,
+    trcondest,
 )
 from .drivers.qr import (
     cholqr,
@@ -87,6 +94,9 @@ from .drivers.qr import (
     unmqr,
 )
 from .types import Pivots, TriangularFactors
+
+# simplified verb API (reference: include/slate/simplified_api.hh)
+from . import simplified
 from .convert import (
     geqrf_from_reference,
     getrf_from_reference,

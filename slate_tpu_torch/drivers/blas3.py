@@ -1,8 +1,9 @@
-"""Level-3 BLAS drivers, the global path of ``gemm``, ``herk``, ``syrk``
-and ``trsm`` (reference: src/gemm.cc, herk.cc, syrk.cc, trsm.cc): the
-operands as global tensors and one library call, the best schedule on
-one device.  ``hemm``/``symm``, ``her2k``/``syr2k``, ``trmm`` and the
-multi-device paths come in later slices.
+"""Level-3 BLAS drivers, the global path of ``gemm``, ``hemm``/``symm``,
+``herk``/``syrk``, ``her2k``/``syr2k``, ``trmm`` and ``trsm`` (reference:
+src/gemm.cc, hemm.cc, symm.cc, herk.cc, syrk.cc, her2k.cc, syr2k.cc,
+trmm.cc, trsm.cc): the operands as global tensors and one library call,
+the best schedule on one device.  The multi-device paths come with the
+meshes (ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..aux.metrics import instrumented
-from ..enums import Op, Side
+from ..enums import Op, Side, Uplo
 from ..exceptions import DimensionError, slate_assert
 from ..matrix.base import BaseMatrix
 from ..matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
@@ -49,10 +50,55 @@ def gemm(alpha, A: Matrix, B: Matrix, beta, C: Matrix, opts=None) -> Matrix:
     return _repack_like(out, C)
 
 
-def _herk_like(alpha, A: BaseMatrix, beta, C, conj: bool) -> BaseMatrix:
+@instrumented("symm")
+def symm(side: Side, alpha, A: SymmetricMatrix, B: Matrix, beta, C: Matrix,
+         opts=None) -> Matrix:
+    """C = alpha A B + beta C (Side.Left) or alpha B A + beta C
+    (Side.Right), A symmetric (reference: src/symm.cc)."""
+    _check_hemm_dims(side, A, B, C)
+    return _hemm_global(side, alpha, A, B, beta, C)
+
+
+@instrumented("hemm")
+def hemm(side: Side, alpha, A: HermitianMatrix, B: Matrix, beta, C: Matrix,
+         opts=None) -> Matrix:
+    """C = alpha A B + beta C (Side.Left) or alpha B A + beta C
+    (Side.Right), A Hermitian (reference: src/hemm.cc; its method A/C
+    variants collapse to one library product)."""
+    _check_hemm_dims(side, A, B, C)
+    return _hemm_global(side, alpha, A, B, beta, C)
+
+
+def _hemm_global(side: Side, alpha, A, B: Matrix, beta, C: Matrix) -> Matrix:
+    """One product with A's stored triangle mirrored (``full_global``)."""
+    Af, B2, C2 = A.full_global(), B.to_global(), C.to_global()
+    if side == Side.Left:
+        out = blas2d.gemm2d(alpha, Af, B2, beta, C2)
+    else:
+        out = blas2d.gemm2d(alpha, B2, Af, beta, C2)
+    return _repack_like(out, C)
+
+
+def _check_hemm_dims(side, A, B, C):
+    if side == Side.Left:
+        ok = A.n == B.m and A.m == C.m and B.n == C.n
+    else:
+        ok = B.n == A.m and B.m == C.m and A.n == C.n
+    if not ok:
+        raise DimensionError(f"hemm/symm dims: A {A.m}x{A.n}, B {B.m}x{B.n}, C {C.m}x{C.n}")
+
+
+def _herk_like(alpha, A: BaseMatrix, beta, C, conj: bool, rank2: bool = False,
+               B: BaseMatrix = None) -> BaseMatrix:
     slate_assert(C.m == C.n, "herk/syrk C must be square")
     A2, C2 = A.to_global(), C.full_global()
-    out = blas2d.herk2d(alpha, A2, beta, C2) if conj else blas2d.syrk2d(alpha, A2, beta, C2)
+    if rank2:
+        B2 = B.to_global()
+        fn = blas2d.her2k2d if conj else blas2d.syr2k2d
+        out = fn(alpha, A2, B2, beta, C2)
+    else:
+        fn = blas2d.herk2d if conj else blas2d.syrk2d
+        out = fn(alpha, A2, beta, C2)
     return _repack_like(out, C)
 
 
@@ -70,3 +116,39 @@ def herk(alpha, A: Matrix, beta, C: HermitianMatrix, opts=None):
     if A.m != C.m:
         raise DimensionError(f"herk dims: A {A.m}x{A.n}, C {C.m}x{C.n}")
     return _herk_like(alpha, A, beta, C, conj=True)
+
+
+@instrumented("syr2k")
+def syr2k(alpha, A: Matrix, B: Matrix, beta, C: SymmetricMatrix, opts=None):
+    """C = alpha (A B^T + B A^T) + beta C (reference: src/syr2k.cc)."""
+    if A.m != C.m or B.m != C.m or A.n != B.n:
+        raise DimensionError("syr2k dims")
+    return _herk_like(alpha, A, beta, C, conj=False, rank2=True, B=B)
+
+
+@instrumented("her2k")
+def her2k(alpha, A: Matrix, B: Matrix, beta, C: HermitianMatrix, opts=None):
+    """C = alpha A B^H + conj(alpha) B A^H + beta C (reference: src/her2k.cc)."""
+    if A.m != C.m or B.m != C.m or A.n != B.n:
+        raise DimensionError("her2k dims")
+    return _herk_like(alpha, A, beta, C, conj=True, rank2=True, B=B)
+
+
+def _resolve_tri(A: TriangularMatrix):
+    """Triangular operand as (storage global tensor, the uplo of op(A),
+    op), honoring A.op."""
+    op = A.op
+    uplo = A.uplo
+    if op != Op.NoTrans:
+        uplo = Uplo.Upper if A.uplo == Uplo.Lower else Uplo.Lower
+    return A._with(op=Op.NoTrans).to_global(), uplo, op
+
+
+@instrumented("trmm")
+def trmm(side: Side, alpha, A: TriangularMatrix, B: Matrix, opts=None) -> Matrix:
+    """B = alpha op(A) B (Side.Left) or alpha B op(A) (Side.Right)
+    (reference: src/trmm.cc): one library product with the stored
+    triangle of A (a unit diagonal read as ones)."""
+    A2 = A._with(op=Op.NoTrans).to_global()
+    out = blas2d.trmm2d(side, A.uplo, A.op, A.diag, alpha, A2, B.to_global())
+    return _repack_like(out, B)

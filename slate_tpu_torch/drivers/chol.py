@@ -3,8 +3,11 @@
 ``potrf`` factors on the global path through the schedule dispatcher in
 ops/chol_kernels.py; on a CUDA device at n >= 2048 ``auto`` takes the
 ``pallas`` family, i.e. the Hopper kernels.  ``potrs_from_global`` is
-the solve-only entry point of a factor cache hit.  ``trtri``, ``potri``,
-``pocondest`` and the mixed-precision drivers come in later slices.
+the solve-only entry point of a factor cache hit.  ``trtri``, ``trtrm``
+and ``potri`` invert through library solves against the identity and
+one product; ``pocondest`` estimates the reciprocal condition number
+with the Hager/Higham estimator (``internal/norm1est.py``).  The
+mixed-precision drivers come with ROADMAP.md's Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import torch
 
 from ..aux import metrics
 from ..aux.metrics import instrumented
-from ..enums import Side, Uplo
+from ..enums import Diag, Op, Side, Uplo
 from ..exceptions import slate_assert
+from ..internal.norm1est import rcond
+from ..internal.precision import hdot
 from ..matrix.base import conj_transpose
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import chol_kernels
@@ -107,3 +112,67 @@ def posv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
     L, info = potrf(A, opts)
     X = potrs(L, B, opts)
     return X, L, info
+
+
+@instrumented("trtri")
+def trtri(T: TriangularMatrix, opts: Optional[Options] = None) -> TriangularMatrix:
+    """Triangular inverse (reference: src/trtri.cc) by
+    ``chol_kernels.tri_inv_blocked``: the stored triangle (a unit
+    diagonal read as ones; Upper through its transpose) inverted by
+    recursive 2x2 blocking.  op(T)^-1 lives in the triangle of op(T),
+    not of the storage: a transposed view inverts into the other
+    triangle."""
+    slate_assert(T.m == T.n, "trtri requires square")
+    A2, out_uplo, op = blas3._resolve_tri(T)
+    lower = torch.tril(A2) if T.uplo == Uplo.Lower else torch.triu(A2).mT
+    if T.diag == Diag.Unit:
+        lower.diagonal().fill_(1)
+    inv = chol_kernels.tri_inv_blocked(lower)  # T^-1, or T^-T when Upper
+    if T.uplo == Uplo.Upper:
+        inv = inv.mT
+    if op == Op.Trans:
+        inv = inv.mT
+    elif op == Op.ConjTrans:
+        inv = inv.mH
+    return TriangularMatrix.from_global(inv, T.layout.mb, T.layout.nb, grid=T.grid,
+                                        uplo=out_uplo, diag=T.diag)
+
+
+def trtrm(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
+    """L^H L (Lower) or U U^H (Upper) of the stored triangle, the second
+    half of potri (reference: src/trtrm.cc)."""
+    Lg = L._with(op=Op.NoTrans).to_global()
+    if L.uplo == Uplo.Lower:
+        tri = torch.tril(Lg)
+        out = hdot(tri.mH, tri)
+    else:
+        tri = torch.triu(Lg)
+        out = hdot(tri, tri.mH)
+    return HermitianMatrix.from_global(out, L.layout.mb, L.layout.nb, grid=L.grid,
+                                       uplo=L.uplo)
+
+
+@instrumented("potri")
+def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
+    """SPD inverse from the Cholesky factor: A^-1 = L^-H L^-1
+    (reference: src/potri.cc = trtri + trtrm)."""
+    return trtrm(trtri(L, opts), opts)
+
+
+def pocondest(L: TriangularMatrix, anorm, opts: Optional[Options] = None) -> torch.Tensor:
+    """Reciprocal condition estimate from the Cholesky factor (reference:
+    src/pocondest.cc, through the Hager/Higham estimator of
+    internal_norm1est.cc): O(n^2) factor solves a probe instead of the
+    O(n^3) explicit inverse.  A^-1 is self-adjoint, so one solve serves
+    both directions."""
+    G = L._with(op=Op.NoTrans).to_global()
+    lower = L.uplo == Uplo.Lower
+
+    def solve(R):
+        if lower:  # L L^H X = R
+            Y = torch.linalg.solve_triangular(G, R, upper=False)
+            return torch.linalg.solve_triangular(G.mH, Y, upper=True)
+        Y = torch.linalg.solve_triangular(G.mH, R, upper=False)  # U^H U X = R
+        return torch.linalg.solve_triangular(G, Y, upper=True)
+
+    return rcond(anorm, solve, solve, G.shape[0], L.dtype, device=G.device)

@@ -1,6 +1,7 @@
-"""LU family drivers (reference: src/getrf.cc, getrf_nopiv.cc, getrs.cc,
-getrs_nopiv.cc, gesv.cc, gesv_nopiv.cc, gesv_rbt.cc + gerbt.cc +
-internal_rbt_generate.cc, getri.cc), the single-device path of the JAX
+"""LU family drivers (reference: src/getrf.cc, getrf_nopiv.cc,
+getrf_tntpiv.cc, getrs.cc, getrs_nopiv.cc, gesv.cc, gesv_nopiv.cc,
+gesv_rbt.cc + gerbt.cc + internal_rbt_generate.cc, getri.cc,
+gecondest.cc, trcondest.cc), the single-device path of the JAX
 package's ``drivers/lu.py``.
 
 ``getrf`` factors the padded global tensor through the schedule
@@ -10,10 +11,14 @@ kernel.  ``getrs_from_global`` is the solve-only entry point of a factor
 cache hit: the Hopper trsm pair on the packed factor.  ``gesv`` with
 ``MethodLU.RBT`` randomizes with the random butterfly transform (the
 Hopper ``butterfly_level`` kernel) and factors without pivoting.
+``MethodLU.CALU`` / ``BEAM`` factor with tournament pivoting
+(``lu_kernels.blocked_getrf_tntpiv``), whose elections and panel factors
+run the ``panel_lu`` kernel on a CUDA device.  ``gecondest`` and
+``trcondest`` estimate reciprocal condition numbers with the Hager/Higham
+estimator (``internal/norm1est.py``).
 
-Not ported yet: tournament pivoting (``MethodLU.CALU`` / ``BEAM``,
-which raise), ``gecondest`` / ``trcondest`` (the norm slice), the mixed
-precision re-exports, and the mesh paths.
+The mixed-precision re-exports come with ROADMAP.md's Queue 1 item 3,
+the mesh paths with item 8.
 """
 
 from __future__ import annotations
@@ -25,17 +30,19 @@ import torch
 
 from ..aux import metrics
 from ..aux.metrics import instrumented
-from ..enums import MethodLU, Op, Option
+from ..enums import Diag, MethodLU, Norm, Op, Option, Uplo
 from ..exceptions import slate_assert
+from ..internal.norm1est import rcond
 from ..internal.precision import hdot
 from ..matrix.base import BaseMatrix
-from ..matrix.matrix import Matrix
+from ..matrix.matrix import Matrix, TriangularMatrix
 from ..matgen.philox import random_torch
 from ..ops import lu_kernels
 from ..ops.hopper import panel_kernels as pk
 from ..options import Options, get_option, resolve_schedule_opts
 from ..parallel.layout import TileLayout, tiles_from_global
 from ..types import Pivots
+from .aux import norm as _norm
 from .chol import _solve_trsm_route
 
 
@@ -81,12 +88,17 @@ def getrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Pivots, to
     permutation over the padded rows; info > 0 flags an exactly singular
     U diagonal."""
     slate_assert(A.op == Op.NoTrans, "getrf expects a non-transposed view")
-    if _method(opts) in (MethodLU.CALU, MethodLU.BEAM):
-        raise NotImplementedError(
-            "getrf: tournament pivoting (MethodLU.CALU / BEAM) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5); use MethodLU.PartialPiv")
     lay = A.layout
     Gp = _padded_global(A)
+    if _method(opts) in (MethodLU.CALU, MethodLU.BEAM):
+        # tournament pivoting (reference: getrf_tntpiv.cc); BEAM maps to
+        # the tournament too
+        if metrics.is_on():
+            metrics.record_factor_flops("getrf", lu_kernels.tntpiv_schedule_flops(
+                *Gp.shape, lay.nb, m_true=lay.m, n_true=lay.n))
+        lu2d, perm = lu_kernels.blocked_getrf_tntpiv(Gp, lay.nb)
+        LU = A._with(data=tiles_from_global(lu2d[: lay.m, : lay.n], lay))
+        return LU, Pivots(perm), _udiag_info(LU, lay)
     sched, nb_switch, lookahead = resolve_schedule_opts(opts)
     mp, np_ = Gp.shape
     if metrics.is_on():
@@ -310,3 +322,61 @@ def getri(LU: Matrix, pivots: Pivots, opts: Optional[Options] = None) -> Matrix:
     eye = torch.eye(LU.m, dtype=LU.dtype, device=LU.device)
     return getrs(LU, pivots, Matrix.from_global(eye, LU.layout.mb, LU.layout.nb,
                                                 grid=LU.grid), opts)
+
+
+@instrumented("gecondest")
+def gecondest(LU: Matrix, pivots: Pivots, anorm, norm_type: Norm = Norm.One,
+              opts=None) -> torch.Tensor:
+    """Reciprocal condition estimate from LU factors (reference:
+    src/gecondest.cc, through the Hager/Higham estimator of
+    internal_norm1est.cc): O(n^2) factor solves instead of an explicit
+    inverse."""
+    G = LU.to_global()
+    n = G.shape[0]
+    perm = pivots.perm[:n].long().clamp(0, n - 1)
+    inv_perm = torch.zeros(n, dtype=perm.dtype, device=perm.device)
+    inv_perm[perm] = torch.arange(n, dtype=perm.dtype, device=perm.device)
+
+    def solve(R):  # A^-1 R  (A = P^T L U)
+        Y = torch.linalg.solve_triangular(G, R[perm], upper=False, unitriangular=True)
+        return torch.linalg.solve_triangular(G, Y, upper=True)
+
+    def solve_h(R):  # A^-H R
+        Y = torch.linalg.solve_triangular(G.mH, R, upper=False)
+        Z = torch.linalg.solve_triangular(G.mH, Y, upper=True, unitriangular=True)
+        return Z[inv_perm]
+
+    return rcond(anorm, solve, solve_h, n, LU.dtype, norm_type == Norm.Inf, device=G.device)
+
+
+def trcondest(T: TriangularMatrix, norm_type: Norm = Norm.One, opts=None) -> torch.Tensor:
+    """Triangular reciprocal condition estimate (reference:
+    src/trcondest.cc, through internal_norm1est.cc): Hager/Higham on
+    op(T)^-1 with O(n^2) solves against the stored triangle, ||T|| from
+    ``norm``."""
+    anorm = _norm(norm_type, T)
+    G = T._with(op=Op.NoTrans).to_global()
+    n = G.shape[0]
+    st_lower = T.uplo == Uplo.Lower
+    unit = T.diag == Diag.Unit
+    cplx = T.is_complex
+
+    def tri(R, trans: bool, conj: bool):
+        """op(G) X = R, op given in storage terms (trans, conj)."""
+        if conj and not trans:  # conj(G) X = R
+            return torch.linalg.solve_triangular(
+                G, R.conj_physical(), upper=not st_lower,
+                unitriangular=unit).conj_physical()
+        Gop = (G.mH if conj and cplx else G.T) if trans else G
+        return torch.linalg.solve_triangular(Gop, R, upper=st_lower == trans,
+                                             unitriangular=unit)
+
+    vt, vc = T.op != Op.NoTrans, T.op == Op.ConjTrans
+
+    def solve(R):
+        return tri(R, vt, vc)
+
+    def solve_h(R):
+        return tri(R, not vt, cplx and not vc)
+
+    return rcond(anorm, solve, solve_h, n, T.dtype, norm_type == Norm.Inf, device=G.device)

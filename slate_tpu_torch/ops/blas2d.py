@@ -38,6 +38,19 @@ def herk2d(alpha, A, beta, C):
     return gemm2d(alpha, A, A.mH, beta, C)
 
 
+def syr2k2d(alpha, A, B, beta, C):
+    """C = alpha (A B^T + B A^T) + beta C (reference: tile::syr2k)."""
+    return gemm2d(alpha, A, B.T, 1, gemm2d(alpha, B, A.T, beta, C))
+
+
+def her2k2d(alpha, A, B, beta, C):
+    """C = alpha A B^H + conj(alpha) B A^H + beta C (reference: tile::her2k)."""
+    alpha_c = alpha
+    if A.is_complex():
+        alpha_c = alpha.conj() if torch.is_tensor(alpha) else alpha.conjugate()
+    return gemm2d(alpha, A, B.mH, 1, gemm2d(alpha_c, B, A.mH, beta, C))
+
+
 def _tri_take(A, uplo: Uplo, diag: Diag):
     """Materialize the referenced triangle of A (unit diag -> ones)."""
     T = torch.tril(A) if uplo == Uplo.Lower else torch.triu(A)
@@ -46,6 +59,13 @@ def _tri_take(A, uplo: Uplo, diag: Diag):
             A.shape[0], dtype=A.dtype, device=A.device
         )
     return T
+
+
+def trmm2d(side: Side, uplo: Uplo, op: Op, diag: Diag, alpha, A, B):
+    """B = alpha op(T(A)) B or alpha B op(T(A)) (reference: tile::trmm).
+    Only the ``uplo`` triangle of A is read; a unit diagonal reads as ones."""
+    T = apply_op(_tri_take(A, uplo, diag), op)
+    return alpha * (hdot(T, B) if side == Side.Left else hdot(B, T))
 
 
 def trsm2d(side: Side, uplo: Uplo, op: Op, diag: Diag, alpha, A, B):

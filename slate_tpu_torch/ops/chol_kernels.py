@@ -3,8 +3,12 @@ src/potrf.cc:84-209), the counterpart of the JAX package's
 ``ops/chol_kernels.py``:
 
 * ``chol_unblocked`` — ib-strip Cholesky of one diagonal block.
+* ``chol_fori``      — the single-level loop of the JAX package: every
+  step at the full shape with row masks (no driver calls it).
 * ``blocked_potrf``  — the two-level ``flat`` schedule, which ``auto``
   takes below ``RECURSIVE_MIN_N`` on a CUDA device.
+* ``tri_inv_blocked`` — explicit inverse of a lower-triangular matrix by
+  recursive 2x2 blocking, the inversion of ``trtri``.
 * ``chol_recursive`` — divide and conquer on the halving lattice; the
   ``pallas`` family runs its base case and trailing update through the
   hand-written Hopper kernels in ``ops/hopper/panel_kernels.py``, the
@@ -13,6 +17,8 @@ src/potrf.cc:84-209), the counterpart of the JAX package's
   (``chol_kernel_launches``): pure-Python walks of the schedules.
 * ``cholesky`` — the schedule dispatcher with its pad to a multiple of
   128 and unit-diagonal splice.
+* ``chol_rank1_update`` / ``chol_update`` — rank-k up/downdates of a
+  factor in O(k n^2), column by column.
 
 Large solves and products inside the schedules go to
 ``torch.linalg.solve_triangular`` / ``torch.matmul`` (TF32 off), as the
@@ -61,6 +67,32 @@ def chol_unblocked(a: torch.Tensor, ib: int = 16) -> torch.Tensor:
         Q = torch.where((idx >= j0 + ib)[:, None], P, 0)
         a = a - _dot(P, Q.mH)
     return torch.tril(a)
+
+
+def chol_fori(G: torch.Tensor, nb: int = 512) -> torch.Tensor:
+    """Single-level blocked Cholesky of (n, n), n a multiple of nb, as the
+    JAX package's one ``fori_loop`` runs it: every step at the full
+    shape with row masks, the trailing update a (n, nb) x (nb, n)
+    product (about 6x the n^3/3 model, ``_chol_fori_flops``).  No driver
+    of either package calls it; it stays beside the JAX function it
+    mirrors."""
+    n = G.shape[0]
+    if n == nb:
+        return chol_unblocked(G)
+    assert n % nb == 0, "chol_fori requires n % nb == 0"
+    rows = torch.arange(n, device=G.device)
+    zero = torch.zeros((), dtype=G.dtype, device=G.device)
+    G = G.clone()
+    for k0 in range(0, n, nb):
+        k1 = k0 + nb
+        Lkk = chol_unblocked(G[k0:k1, k0:k1])
+        sol = torch.linalg.solve_triangular(Lkk.mH, G[:, k0:k1], upper=True, left=False)
+        Lpan = torch.where((rows >= k1)[:, None], sol, zero)
+        placed = torch.roll(torch.nn.functional.pad(Lkk, (0, 0, 0, n - nb)), k0, dims=0)
+        placed = torch.where(((rows >= k0) & (rows < k1))[:, None], placed, zero)
+        G[:, k0:k1] = torch.where((rows < k0)[:, None], zero, placed + Lpan)
+        G = G - _dot(Lpan, Lpan.mH)
+    return torch.tril(G)
 
 
 def _chol_panels(G: torch.Tensor, nb: int) -> torch.Tensor:
@@ -121,6 +153,24 @@ def blocked_potrf(G: torch.Tensor, nb: int = 512, coarse_panels: int = 4) -> tor
         cols.append(colk)
         k0 += w
     return torch.cat(cols, dim=1)
+
+
+def tri_inv_blocked(L: torch.Tensor, nb: int = 512) -> torch.Tensor:
+    """Explicit inverse of a lower-triangular matrix by recursive 2x2
+    blocking: inv([[A, 0], [B, C]]) = [[inv(A), 0], [-inv(C) B inv(A),
+    inv(C)]], two half-size inverses and two products a level; library
+    solves against the identity only at <= nb blocks.  The split point
+    is the JAX package's (half, rounded up to 128).  ``trtri`` inverts
+    through it."""
+    n = L.shape[0]
+    if n <= nb:
+        return torch.linalg.solve_triangular(L, _eye(n, L), upper=False)
+    h = min(max(((n + 1) // 2 + 127) // 128 * 128, 128), n - 1)
+    Ai = tri_inv_blocked(L[:h, :h], nb)
+    Ci = tri_inv_blocked(L[h:, h:], nb)
+    lowblk = -_dot(Ci, _dot(L[h:, :h], Ai))
+    top = torch.cat([Ai, _zeros(h, n - h, L)], dim=1)
+    return torch.cat([top, torch.cat([lowblk, Ci], dim=1)], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -467,3 +517,51 @@ def cholesky(G: torch.Tensor, nb: int = 512, schedule: str = "auto",
     if route in ("recursive", "pallas"):
         return chol_recursive(G, nb_switch, lookahead, route)
     return blocked_potrf(G, nb)
+
+
+# ---------------------------------------------------------------------------
+# Rank-k Cholesky up/downdate: L' L'^H = L L^H +- U U^H in O(k n^2), the
+# incremental-edit path of the serve tier's factor cache.
+# ---------------------------------------------------------------------------
+
+
+def chol_rank1_update(L: torch.Tensor, u: torch.Tensor, downdate: bool = False) -> torch.Tensor:
+    """Rank-1 update (A + u u^H) or downdate (A - u u^H) of a lower
+    Cholesky factor, a column at a time with full-vector masks (O(n^2)
+    work, no host synchronisation).
+
+    Per column k (lkk = L[k,k] real positive, sigma = +-1):
+    ``t = u[k]/lkk``, ``c = sqrt(1 + sigma |t|^2)`` in the real dtype,
+    ``L'[j,k] = (L[j,k] + sigma conj(t) u[j]) / c`` for j > k,
+    ``L'[k,k] = c lkk``, and ``u <- (u - t L[:,k]) / c`` with the OLD
+    column: the hyperbolic analogue of the Givens sweep, valid for a
+    complex Hermitian A since the diagonal stays real.  A downdate past
+    positive definiteness (1 - |t|^2 <= 0) gives NaN columns through the
+    sqrt, the breakdown contract of ``chol_unblocked``."""
+    n = L.shape[0]
+    sigma = -1.0 if downdate else 1.0
+    idx = torch.arange(n, device=L.device)
+    zero = torch.zeros((), dtype=L.dtype, device=L.device)
+    L = L.clone()
+    u = u.to(L.dtype)
+    for k in range(n):
+        lkk = L[k, k].real
+        t = u[k] / lkk.to(L.dtype)
+        c = torch.sqrt(1.0 + sigma * (t * t.conj()).real)
+        cL = c.to(L.dtype)
+        colk = L[:, k].clone()
+        below = idx > k
+        newcol = torch.where(below, (colk + (sigma * t.conj()) * u) / cL, colk)
+        newcol[k] = (c * lkk).to(L.dtype)
+        u = torch.where(below, (u - t * colk) / cL, zero)
+        L[:, k] = newcol
+    return torch.tril(L)
+
+
+def chol_update(L: torch.Tensor, U: torch.Tensor, downdate: bool = False) -> torch.Tensor:
+    """Rank-k Cholesky up/downdate, ``L' L'^H = L L^H +- U U^H`` with U of
+    shape (n, k) or (n,): k rank-1 sweeps of the running factor, O(k n^2)."""
+    U2 = U if U.dim() == 2 else U[:, None]
+    for i in range(U2.shape[1]):
+        L = chol_rank1_update(L, U2[:, i], downdate)
+    return L

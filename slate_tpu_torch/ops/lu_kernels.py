@@ -6,6 +6,9 @@ the counterpart of the JAX package's ``ops/lu_kernels.py``:
 * ``blocked_getrf``   — the single-level ``flat`` schedule: every step at
   the full padded shape, as in the JAX package (its FLOP count is the
   one ``getrf_schedule_flops`` reports).
+* ``tournament_pivots`` / ``blocked_getrf_tntpiv`` — tournament (CALU)
+  pivoting at the JAX package's full padded shapes; on a CUDA device its
+  elections and panel factors run the Hopper ``panel_lu`` kernel.
 * ``getrf_recursive`` — divide and conquer on the halving lattice with
   the canonical-height pad (``canon``), the ``act`` invariant and the
   lookahead peel; the ``pallas`` family runs its panels through the
@@ -13,7 +16,8 @@ the counterpart of the JAX package's ``ops/lu_kernels.py``:
   version.  ``pivot=False`` runs the same recursion without exchanges
   (the no-pivot LU of the random butterfly solve).
 * mirrors: ``getrf_schedule_flops`` (equal to the JAX package's for the
-  same arguments) and ``getrf_kernel_launches``.
+  same arguments), ``getrf_kernel_launches``, and the tournament's
+  ``tntpiv_schedule_flops`` / ``tntpiv_kernel_launches``.
 * ``resolve_lu_schedule`` / ``lu_global`` — the dispatcher; ``vendor`` is
   ``torch.linalg.lu_factor``.
 
@@ -24,7 +28,7 @@ Tensors stay on the device they came on.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,140 @@ def blocked_getrf(Gp: torch.Tensor, nb: int) -> Tuple[torch.Tensor, torch.Tensor
         Urow = torch.where((cols >= k1)[None, :], row_new, zero)
         G = G - _dot(Lpan, Urow)
     return G, perm
+
+
+def _panel_route(dtype: torch.dtype, device) -> Callable:
+    """The panel factor of the tournament: the Hopper ``panel_lu`` kernel
+    on a CUDA device for a dtype it takes (its plain version on the
+    CPU), ``panel_lu_plain`` for the others (complex on the card), the
+    route every resolver takes.  Both give bitwise-equal results."""
+    return pk.panel_lu if pk.kernels_take(dtype, device) else panel_lu
+
+
+def tournament_pivots(panel: torch.Tensor, nb: int, chunk: int,
+                      panel_fn: Callable) -> torch.Tensor:
+    """Tournament (CALU) pivot selection on an (M, nb) panel (reference:
+    src/getrf_tntpiv.cc, internal_getrf_tntpiv.cc): every ``chunk`` rows
+    elect nb candidate rows with a partial-pivot LU, and the winners play
+    up a binary tree, one panel factor a bracket.  An odd bracket count
+    gets a zero-row bye with the index M.
+
+    Returns the nb winning row indices (into panel, M for a bye's row),
+    in pivot order, int64 on the panel's device.  ``panel_fn`` is the
+    panel factor, which ``blocked_getrf_tntpiv`` chooses."""
+    M, nbp = panel.shape
+    assert nbp == nb and chunk >= nb and M % chunk == 0
+
+    def play(ch, ix):  # the nb rows a bracket elects, in pivot order
+        win = panel_fn(ch)[1][:nb].long()
+        return ch[win], ix[win]
+
+    cands = panel.reshape(M // chunk, chunk, nb)
+    idxs = torch.arange(M, device=panel.device).reshape(M // chunk, chunk)
+    while True:  # the elections, then each round's plays, brackets in order
+        won = [play(cands[b], idxs[b]) for b in range(cands.shape[0])]
+        cands, idxs = torch.stack([c for c, _ in won]), torch.stack([i for _, i in won])
+        if len(won) == 1:
+            return idxs[0]
+        if len(won) % 2 == 1:  # odd: the last bracket gets a zero-row bye
+            cands = torch.cat([cands, cands.new_zeros((1, nb, nb))])
+            idxs = torch.cat([idxs, torch.full_like(idxs[:1], M)])
+        cands, idxs = cands.reshape(-1, 2 * nb, nb), idxs.reshape(-1, 2 * nb)
+
+
+def blocked_getrf_tntpiv(Gp: torch.Tensor, nb: int, chunk: int = 0,
+                         panel_fn: Optional[Callable] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked LU with tournament pivoting (reference: getrf_tntpiv.cc,
+    MethodLU.CALU), the JAX package's loop at its full padded shapes:
+    rows padded to whole chunks (``chunk`` = 4 nb by default), each
+    step's panel rolled to the top, its pivot rows elected by
+    ``tournament_pivots``, moved to the top in order (the other rows keep
+    their order behind them), and the panel factored without further
+    exchanges; then the masked U row and trailing update of
+    ``blocked_getrf``.  Returns (LU, perm) over Gp's rows: LU = (L\\U) of
+    Gp[perm].  ``panel_fn`` is the panel factor of the elections and the
+    factor (default: ``_panel_route``)."""
+    Mp, Np = Gp.shape
+    dev = Gp.device
+    panel_fn = panel_fn or _panel_route(Gp.dtype, dev)
+    chunk = chunk or max(4 * nb, nb)
+    Mc = -(-Mp // chunk) * chunk
+    G = torch.nn.functional.pad(Gp, (0, 0, 0, Mc - Mp)).contiguous()
+    rows = torch.arange(Mc, device=dev)
+    cols = torch.arange(Np, device=dev)
+    perm = torch.arange(Mc, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=G.dtype, device=dev)
+    eye = _eye(nb, G)
+    for k in range(min(Mp, Np) // nb):
+        k0, k1 = k * nb, (k + 1) * nb
+        active = (rows < Mp - k0)[:, None]
+        colr = torch.where(active, torch.roll(G[:, k0:k1], -k0, dims=0), zero)
+        win = tournament_pivots(colr, nb, chunk, panel_fn)  # active frame
+        # winners to the top in order, the other rows behind them in
+        # theirs; a bye's index (Mc) names no row
+        hit = win < Mc
+        is_win = torch.zeros(Mc, dtype=torch.int64, device=dev)
+        is_win[win[hit]] = 1
+        win_pos = torch.zeros(Mc, dtype=torch.int64, device=dev)
+        win_pos[win[hit]] = torch.arange(nb, device=dev)[hit]
+        rest_rank = torch.cumsum(1 - is_win, 0) - 1
+        key = torch.where(is_win == 1, win_pos, nb + rest_rank)
+        step_act = torch.argsort(key, stable=True)
+        mapped = torch.where(rows - k0 >= 0, step_act[(rows - k0).clamp(0, Mc - 1)] + k0, rows)
+        step = torch.where(mapped < Mc, mapped, mapped - Mc)
+        G, perm = G[step], perm[step]
+        colr2 = torch.where(active, torch.roll(G[:, k0:k1], -k0, dims=0), zero)
+        lu_pan, _ = panel_fn(colr2, pivot=False)
+        col_new = torch.where((rows >= k0)[:, None], torch.roll(lu_pan, k0, dims=0),
+                              G[:, k0:k1])
+        G[:, k0:k1] = col_new
+        Lkk = torch.tril(lu_pan[:nb], -1) + eye
+        row = G[k0:k1]
+        rs = torch.linalg.solve_triangular(Lkk, row, upper=False, unitriangular=True)
+        row_new = torch.where((cols >= k1)[None, :], rs, row)
+        G[k0:k1] = row_new
+        Lpan = torch.where((rows >= k1)[:, None], col_new, zero)
+        Urow = torch.where((cols >= k1)[None, :], row_new, zero)
+        G = G - _dot(Lpan, Urow)
+    return G[:Mp], perm[:Mp]
+
+
+def tntpiv_kernel_launches(m: int, n: int, nb: int, chunk: int = 0) -> int:
+    """``panel_lu`` calls of one ``blocked_getrf_tntpiv`` of a padded
+    (m, n) tensor: a step's elections (one a chunk), its plays (one a
+    bracket a round, byes included) and its factor without pivoting."""
+    chunk = chunk or max(4 * nb, nb)
+    K = -(-m // chunk)
+    calls = K + 1
+    while K > 1:
+        K = (K + 1) // 2
+        calls += K
+    return (min(m, n) // nb) * calls
+
+
+def tntpiv_schedule_flops(m: int, n: int, nb: int, chunk: int = 0,
+                          m_true: Optional[int] = None, n_true: Optional[int] = None) -> dict:
+    """(model, exec, units) FLOP accounting for one
+    ``blocked_getrf_tntpiv`` of a padded (m, n) tensor, in
+    ``getrf_schedule_flops``' terms: each step's elections and plays,
+    its panel factor without pivoting, the U-row solve and the trailing
+    update, all at the full padded shapes the loop runs."""
+    mt, nt_ = (m_true or m), (n_true or n)
+    model = float(nt_) * nt_ * (mt - nt_ / 3.0)
+    chunk = chunk or max(4 * nb, nb)
+    Mc = -(-m // chunk) * chunk
+    K, plays = Mc // chunk, 0
+    while K > 1:
+        K = (K + 1) // 2
+        plays += K
+    panel = lambda M: 2.0 * M * nb * nb  # noqa: E731  (one rank-1 a column)
+    per_step = ((Mc // chunk) * panel(chunk) + plays * panel(2 * nb) + panel(Mc)
+                + float(nb) * nb * n + 2.0 * Mc * nb * n)
+    units = {("lu_panel", chunk, nb), ("lu_panel", Mc, nb), ("trsm", nb, n), ("gemm", Mc, nb, n)}
+    if plays:
+        units.add(("lu_panel", 2 * nb, nb))
+    return {"model": model, "exec": (min(m, n) // nb) * per_step, "units": units}
 
 
 # ---------------------------------------------------------------------------

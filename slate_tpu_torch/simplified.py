@@ -1,0 +1,135 @@
+"""Simplified verb-named API (reference: include/slate/simplified_api.hh:
+15-848 — multiply, rank_k_update, triangular_solve, lu_solve, chol_solve,
+least_squares_solve, ...), the verbs of the slices this package carries.
+
+A thin overload layer over the drivers, dispatching on matrix kind like
+the reference's C++ overload set.  Functional: outputs are returned.
+The band, indefinite, mixed-precision, eigenvalue and SVD verbs come
+with their slices (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+from .drivers import blas3 as _blas3
+from .drivers import chol as _chol
+from .drivers import lu as _lu
+from .drivers import qr as _qr
+from .enums import Side
+from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
+
+
+# ----- level 3 -------------------------------------------------------------
+
+
+def multiply(alpha, A, B, beta, C, opts=None):
+    """C = alpha A B + beta C, dispatched on A/B kind (simplified_api.hh
+    multiply overloads for gemm/hemm/symm)."""
+    if isinstance(A, HermitianMatrix):
+        return _blas3.hemm(Side.Left, alpha, A, B, beta, C, opts)
+    if isinstance(B, HermitianMatrix):
+        return _blas3.hemm(Side.Right, alpha, B, A, beta, C, opts)
+    if isinstance(A, SymmetricMatrix):
+        return _blas3.symm(Side.Left, alpha, A, B, beta, C, opts)
+    if isinstance(B, SymmetricMatrix):
+        return _blas3.symm(Side.Right, alpha, B, A, beta, C, opts)
+    return _blas3.gemm(alpha, A, B, beta, C, opts)
+
+
+def rank_k_update(alpha, A, beta, C, opts=None):
+    """C = alpha A A^H/T + beta C (herk/syrk overloads)."""
+    if isinstance(C, HermitianMatrix):
+        return _blas3.herk(alpha, A, beta, C, opts)
+    return _blas3.syrk(alpha, A, beta, C, opts)
+
+
+def rank_2k_update(alpha, A, B, beta, C, opts=None):
+    """C = alpha A B^H + conj(alpha) B A^H + beta C (her2k/syr2k overloads)."""
+    if isinstance(C, HermitianMatrix):
+        return _blas3.her2k(alpha, A, B, beta, C, opts)
+    return _blas3.syr2k(alpha, A, B, beta, C, opts)
+
+
+def triangular_multiply(alpha, A: TriangularMatrix, B, side=Side.Left, opts=None):
+    return _blas3.trmm(side, alpha, A, B, opts)
+
+
+def triangular_solve(alpha, A, B, side=Side.Left, pivots=None, opts=None):
+    """trsm overload (the band tbsm comes with the band slice)."""
+    return _blas3.trsm(side, alpha, A, B, opts)
+
+
+# ----- LU ------------------------------------------------------------------
+
+
+def lu_factor(A: Matrix, opts=None):
+    return _lu.getrf(A, opts)
+
+
+def lu_factor_nopiv(A: Matrix, opts=None):
+    return _lu.getrf_nopiv(A, opts)
+
+
+def lu_solve(A, B, opts=None):
+    """Solve A X = B (gesv overload)."""
+    X, *_ = _lu.gesv(A, B, opts)
+    return X
+
+
+def lu_solve_using_factor(LU, pivots, B, opts=None):
+    return _lu.getrs(LU, pivots, B, opts)
+
+
+def lu_solve_using_factor_nopiv(LU, B, opts=None):
+    return _lu.getrs_nopiv(LU, B, opts)
+
+
+def lu_inverse_using_factor(LU, pivots, opts=None):
+    return _lu.getri(LU, pivots, opts)
+
+
+def lu_inverse_using_factor_out_of_place(LU, pivots, opts=None):
+    """(reference: getriOOP — out-of-place is the only mode in the
+    functional API)"""
+    return _lu.getri(LU, pivots, opts)
+
+
+# ----- Cholesky ------------------------------------------------------------
+
+
+def chol_factor(A, opts=None):
+    return _chol.potrf(A, opts)
+
+
+def chol_solve(A, B, opts=None):
+    X, *_ = _chol.posv(A, B, opts)
+    return X
+
+
+def chol_solve_using_factor(L, B, opts=None):
+    return _chol.potrs(L, B, opts)
+
+
+def chol_inverse_using_factor(L, opts=None):
+    return _chol.potri(L, opts)
+
+
+# ----- least squares / QR / LQ --------------------------------------------
+
+
+def least_squares_solve(A: Matrix, B: Matrix, opts=None):
+    return _qr.gels(A, B, opts)
+
+
+def qr_factor(A: Matrix, opts=None):
+    return _qr.geqrf(A, opts)
+
+
+def lq_factor(A: Matrix, opts=None):
+    return _qr.gelqf(A, opts)
+
+
+def multiply_by_q(side, op, fac, T, C, from_lq=False, opts=None):
+    """Apply Q from qr_factor / lq_factor (unmqr/unmlq overloads)."""
+    if from_lq:
+        return _qr.unmlq(side, op, fac, T, C, opts)
+    return _qr.unmqr(side, op, fac, T, C, opts)

@@ -890,3 +890,102 @@ def test_complex_drivers_on_the_card_take_no_kernel(dev):
         n1(t) * (n1(t) * n1(x) + n1(bt)) * 2 * n * np.finfo(np.float64).eps)
     assert ls <= 3
     assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_calu_kernel_route_matches_plain_route(dev, dtype):
+    """Tournament pivoting at n = 2100 in tiles of 256 (padded to 2304,
+    rows to 3072: three chunks, an odd bracket count): the panel_lu
+    kernel route and the plain-panel route give the same perm and LU bit
+    for bit, with ``tntpiv_kernel_launches`` launches; gesv with
+    MethodLU.CALU solves within the JAX package's CALU bound (100)."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.drivers.lu import _padded_global
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    n, nb, nrhs = 2100, 256, 3
+    rng = np.random.default_rng(23)
+    a, b = _rand(rng, n, n, dtype), _rand(rng, n, nrhs, dtype)
+    grid = stt.ProcessGrid.single()
+    Am = stt.Matrix.from_global(a, nb, grid=grid)
+    Gp = _padded_global(Am)
+    lu_k, p_k = lk.blocked_getrf_tntpiv(Gp, nb, panel_fn=pk.panel_lu)
+    launches = pk.LAUNCHES["panel_lu"]
+    lu_p, p_p = lk.blocked_getrf_tntpiv(Gp, nb, panel_fn=pk.panel_lu_plain)
+    assert launches == lk.tntpiv_kernel_launches(*Gp.shape, nb) == 9 * 7
+    assert pk.LAUNCHES["panel_lu"] == launches
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(lu_k, lu_p)
+    pk.reset_launches()
+    X, _, _, info = stt.gesv(Am, stt.Matrix.from_global(b, nb, grid=grid),
+                             {stt.Option.MethodLU: stt.MethodLU.CALU})
+    assert int(info) == 0 and pk.LAUNCHES["panel_lu"] == 9 * 7
+    x = X.to_global().cpu().double().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    r = n1(a.astype(np.float64) @ x - b) / (n1(a) * n1(x) * n * np.finfo(dtype).eps)
+    assert r <= 100, r
+
+
+@pytest.mark.cuda
+def test_complex_calu_on_the_card_takes_no_kernel(dev):
+    import slate_tpu_torch as stt
+
+    n, nb = 600, 128
+    rng = np.random.default_rng(29)
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    b = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    grid = stt.ProcessGrid.single()
+    X, _, _, info = stt.gesv(stt.Matrix.from_global(a, nb, grid=grid),
+                             stt.Matrix.from_global(b, nb, grid=grid), {"method_lu": "calu"})
+    x = X.to_global().cpu().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    assert int(info) == 0
+    assert n1(a @ x - b) / (n1(a) * n1(x) * n * np.finfo(np.float64).eps) <= 100
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inverses_and_estimators_on_the_card(dev, dtype):
+    """n = 2100: potri and trtri within ||X A - I||_1 / (||A||_1 ||X||_1 n
+    eps) <= 3; pocondest, gecondest (One, Inf) and trcondest within
+    ref <= rcond <= 3 ref, ref from the float64 inverse."""
+    import slate_tpu_torch as stt
+
+    n, nb = 2100, 256
+    rng = np.random.default_rng(31)
+    g = rng.standard_normal((n, n))
+    s = (g @ g.T + n * np.eye(n)).astype(dtype)
+    a = (g + np.sqrt(n) * np.eye(n)).astype(dtype)
+    grid = stt.ProcessGrid.single()
+    eps = np.finfo(dtype).eps
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    ninf = lambda m: np.abs(m).sum(axis=1).max()  # noqa: E731
+
+    def inv_residual(x, m):
+        x, m = x.astype(np.float64), m.astype(np.float64)
+        return n1(x @ m - np.eye(n)) / (n1(m) * n1(x) * n * eps)
+
+    S = stt.HermitianMatrix.from_global(s, nb, grid=grid)
+    L, info = stt.potrf(S)
+    assert int(info) == 0
+    Ainv = stt.potri(L).full_global().cpu().numpy()
+    assert inv_residual(Ainv, s) <= 3
+    Lg = np.tril(L.to_global().cpu().numpy())
+    assert inv_residual(stt.trtri(L).to_global().cpu().numpy(), Lg) <= 3
+
+    def within(rcond, m, inv, norm=n1):
+        ref = 1.0 / (norm(m.astype(np.float64)) * norm(inv))
+        assert ref * (1 - 1e-3) <= float(rcond) <= 3.0 * ref, (float(rcond), ref)
+
+    s64, a64 = s.astype(np.float64), a.astype(np.float64)
+    within(stt.pocondest(L, float(n1(s64))), s64, np.linalg.inv(s64))
+    LU, piv, info = stt.getrf(stt.Matrix.from_global(a, nb, grid=grid))
+    assert int(info) == 0
+    ainv = np.linalg.inv(a64)
+    within(stt.gecondest(LU, piv, float(n1(a64))), a64, ainv)
+    within(stt.gecondest(LU, piv, float(ninf(a64)), stt.Norm.Inf), a64, ainv, ninf)
+    within(stt.trcondest(L), Lg, np.linalg.inv(Lg.astype(np.float64)))
+    within(stt.trcondest(stt.conj_transpose(L), stt.Norm.Inf), Lg.T,
+           np.linalg.inv(Lg.T.astype(np.float64)), ninf)

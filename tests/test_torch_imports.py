@@ -36,6 +36,11 @@ import slate_tpu_torch.drivers.aux
 import slate_tpu_torch.drivers.blas3
 import slate_tpu_torch.internal.norms
 import slate_tpu_torch.internal.tile_ops
+import slate_tpu_torch.internal.norm1est
+import slate_tpu_torch.drivers.chol
+import slate_tpu_torch.ops.chol_kernels
+import slate_tpu_torch.func
+import slate_tpu_torch.simplified
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -65,7 +70,9 @@ def test_no_source_file_imports_jax_or_slate_tpu():
     names = {str(f.relative_to(PKG)) for f in files if f.is_relative_to(PKG)}
     assert {"types.py", "ops/lu_kernels.py", "ops/lu_fast.py", "matgen/philox.py",
             "drivers/lu.py", "ops/householder.py", "ops/qr_fast.py", "drivers/qr.py",
-            "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py"} <= names
+            "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py",
+            "internal/norm1est.py", "func.py", "simplified.py", "drivers/chol.py",
+            "drivers/blas3.py", "ops/chol_kernels.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -247,13 +247,6 @@ def test_singular_matrix_sets_info(sched, grid11):
     assert int(info) > 0
 
 
-def test_calu_is_not_ported_yet():
-    A = stt.Matrix.from_global(np.eye(8), 4, grid=CPU)
-    for method in ("calu", stt.MethodLU.BEAM):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stt.getrf(A, {"method_lu": method})
-
-
 @pytest.mark.parametrize("sched", ["pallas", "auto"])
 def test_getrs_from_global_matches_jax(sched):
     n, nrhs = 160, 5
