@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
-                                     # their panel_lu pieces) and gels (with its larft piece)
-                                     # and of one warm solve phase of posv and gesv
+                                     # their panel_lu pieces) and gels (with its larft piece),
+                                     # of one warm solve phase of posv and gesv, and of one
+                                     # warm posv_mixed, posv_mixed_gmres and gesv_mixed
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -67,7 +68,23 @@ Phases, each for float64 and float32 unless stated:
      ``trcondest`` and ``gecondest`` (One, Inf) within ref <= rcond <=
      3 ref; ``symm``, ``trmm`` (both sides) and ``syr2k`` against
      ``torch.matmul``; a rank-1 ``chol_update`` and downdate of the
-     float64 factor (residual <= 3, host-clock time).
+     float64 factor (residual <= 3, host-clock time);
+ 12. matgen and the mixed-precision solvers: ``posv_mixed``,
+     ``posv_mixed_gmres``, ``gesv_mixed`` and ``gesv_mixed_gmres`` at
+     n = 16384, nrhs = 512, float64 working, default options (the
+     float32 factor through chol_base / syrk_diag / gemm_sub or
+     panel_lu, launches equal to the mirrors; no fallback, residual
+     <= 3, final backward error <= the policy's tolerance; times
+     against phases 3 and 4 and cholesky + cholesky_solve / lu_factor
+     + lu_solve), ``posv_mixed`` and ``gesv_mixed`` in float32 working
+     (the CUDA row's degenerate pair); ``matgen.cond_matrix`` operands
+     at n = 4096 (cond 1e4 converges in <= 8 steps; cond 1e9 falls
+     back, gives info != 0 without the fallback; at cond 1e7 GMRES-IR
+     converges where classical IR stalls; GMRES-IR's fallback at cond
+     1e8 / 1e9) and at n = 128 (GMRES-IR converges at cond 1e9 where
+     classical IR stalls); ``generate_matrix`` rand / randn of a 16384^2 matrix in
+     tiles of 512 and 256, bitwise equal, rand bitwise equal to
+     ``philox.random_np`` at sampled (i, j).
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -97,6 +114,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_MAIN, NRHS_MAIN = 16384, 512
@@ -638,6 +656,7 @@ def main_path(stt, pk, ck, metrics, dtype, gen, dev) -> dict:
     r_solve = scaled_residual(A, Y, B)
     expect = ck.chol_kernel_launches(n)
     t_fact = metrics.timers()["potrf"]["total_s"]
+    t_posv = metrics.timers()["posv"]["total_s"]
     gflops = n**3 / 3.0 / t_fact / 1e9
     print(f"  posv {dtype} n={n} nrhs={nrhs}: residual {r_posv:.3e}, info 0, "
           f"potrf {t_fact:.3f} s = {gflops:.1f} GFLOP/s (model n^3/3), "
@@ -662,7 +681,8 @@ def main_path(stt, pk, ck, metrics, dtype, gen, dev) -> dict:
     print(f"  torch.linalg.cholesky {dtype} n={n}: {t_lib:.3f} ms "
           f"(yardstick, {n**3 / 3.0 / t_lib / 1e6:.1f} GFLOP/s)", flush=True)
     return {"launches": launches, "residual": r_posv, "solve_residual": r_solve,
-            "potrf_s": t_fact, "potrf_gflops": gflops, "cholesky_lib_ms": t_lib,
+            "potrf_s": t_fact, "posv_s": t_posv, "potrf_gflops": gflops,
+            "cholesky_lib_ms": t_lib,
             "potrs_from_global_ms": t_solve, "two_library_solves_ms": t_solve_lib}
 
 
@@ -1613,6 +1633,214 @@ def chol_update_phase(stt, ck, A, Lg, gen, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: matgen and the mixed-precision solvers
+# ---------------------------------------------------------------------------
+
+MIXED_FALLBACK_BOUND = 100  # tests/test_refine.py:218-231: the fallback's residual
+
+
+def _mixed_run(stt, pk, metrics, routine: str, Am, Bm, opts=None):
+    """One counted mixed solve: (X, info, iters, launches, host seconds,
+    final backward error)."""
+    metrics.reset()
+    pk.reset_launches()  # counts of this solve only
+    X, info, iters = getattr(stt, routine)(Am, Bm, opts)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    return (X.to_global(), int(info), int(iters), launches,
+            metrics.timers()[routine]["total_s"],
+            metrics.gauges().get(f"refine.{routine}.residual"))
+
+
+def _factor_mirror(ck, lk, spd: bool, n: int) -> dict:
+    """The Hopper kernel launches of the factor a mixed solve makes:
+    chol_kernel_launches (posv) or getrf_kernel_launches (gesv)."""
+    if spd:
+        return ck.chol_kernel_launches(n)
+    return {"panel_lu": lk.getrf_kernel_launches(n, 256, 1)}
+
+
+def mixed_main_path(stt, pk, ck, lk, metrics, dtype, gen, dev, direct) -> dict:
+    """posv_mixed, posv_mixed_gmres, gesv_mixed and gesv_mixed_gmres at
+    n = 16384, nrhs = 512, tiles of 512, default options: info 0, no
+    fallback (iters >= 0), scaled residual <= 3, final berr <= the
+    policy's tolerance, the factor's launches equal to the mirrors (and
+    no other kernel); times (host clock to a synchronize, the counted
+    run and a warm one) against the direct driver of phase 3 / 4 and
+    cholesky + cholesky_solve / lu_factor + lu_solve.  In float32 the
+    pair is the CUDA row's degenerate one: the residual, and iters
+    printed."""
+    from slate_tpu_torch.refine import policy
+
+    dt = getattr(torch, dtype)
+    n, nrhs, nb = N_MAIN, NRHS_MAIN, 512
+    tol = policy.default_tolerance(dt, n)
+    pol = policy.select(dt, n, backend=dev.type)
+    check(pol.factor == "float32", f"{dtype}: the CUDA precision row gives factor {pol.factor}")
+    out = {"factor": pol.factor}
+    for spd_ in (True, False):
+        kind = "posv" if spd_ else "gesv"
+        A = spd(n, dt, gen, dev) if spd_ else torch.randn(n, n, generator=gen, device=dev,
+                                                          dtype=dt)
+        B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+        Am = (stt.HermitianMatrix if spd_ else stt.Matrix).from_global(A, nb)
+        Bm = stt.Matrix.from_global(B, nb)
+        torch.cuda.synchronize()
+        expect = _factor_mirror(ck, lk, spd_, n)
+        for gmres in ((False, True) if dtype == "float64" else (False,)):
+            routine = f"{kind}_mixed" + ("_gmres" if gmres else "")
+            X, info, iters, launches, t, berr = _mixed_run(stt, pk, metrics, routine, Am, Bm)
+            r = scaled_residual(A, X, B)
+            got = {k: launches[k] for k in expect}
+            others = {k: v for k, v in launches.items() if k not in expect and v}
+            del X
+            t0 = time.perf_counter()
+            getattr(stt, routine)(Am, Bm)
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            name = f"{routine} {dtype} n={n} nrhs={nrhs}"
+            cyc = f" ({iters // pol.restart} GMRES cycles)" if gmres else ""
+            print(f"  {name}: residual {r:.3e}, info {info}, iters {iters}{cyc}, final berr "
+                  f"{berr:.3e} (tolerance {tol:.3e}), {t:.4f} s, warm {t_warm:.4f} s "
+                  f"({kind} direct, phase {3 if spd_ else 4}: "
+                  f"{direct[kind][kind + '_s']:.4f} s), {pol.factor} factor launches {got} "
+                  f"(expected {expect})", flush=True)
+            check(info == 0, f"{name}: info = {info}")
+            check(r <= 3, f"{name}: scaled residual {r:.3f} > 3")
+            check(got == expect, f"{name}: launches {got} != {expect}")
+            check(not others, f"{name}: other kernels launched: {others}")
+            if dtype == "float64":
+                check(iters >= 0, f"{name}: the fallback ran (iters = {iters})")
+                check(berr is not None and berr <= tol,
+                      f"{name}: final berr {berr} > tolerance {tol:.3e}")
+            out[routine] = {"residual": r, "iters": iters, "berr": berr, "s": t,
+                            "warm_s": t_warm, "launches": got}
+        if spd_:
+            t_lib = cuda_ms(lambda: torch.cholesky_solve(B, torch.linalg.cholesky(A)), reps=3)
+            lib = "cholesky + cholesky_solve"
+        else:
+            t_lib = cuda_ms(lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor(A), B), reps=3)
+            lib = "lu_factor + lu_solve"
+        print(f"  {lib} {dtype} n={n} nrhs={nrhs}: {t_lib:.3f} ms", flush=True)
+        out[f"{kind}_library_ms"] = t_lib
+        del A, B, Am, Bm
+        torch.cuda.empty_cache()
+    return out
+
+
+def cond_phase(stt, pk, metrics, gen, dev) -> dict:
+    """matgen.cond_matrix operands at n = 4096, nrhs = 4, tiles of 512,
+    seeds fixed: cond 1e4 converges in <= 8 IR steps (gesv_mixed and
+    posv_mixed); cond 1e9 falls back under default options (iters < 0,
+    residual <= MIXED_FALLBACK_BOUND) and gives info != 0 without the
+    fallback; at cond 1e7 classical IR stalls and GMRES-IR converges
+    (iters > 0).  At cond 1e9 GMRES-IR converges (iters > 0) where
+    classical IR stalls at n = 128, tiles of 32: the float32 LU leaves
+    about n/6 eigenvalues of the preconditioned operator away from 1,
+    fewer than GMRES(30) resolves at n = 128 and far more at n = 4096,
+    where its fallback (and at cond 1e8) is checked for its residual
+    only; tests/test_torch_refine.py holds both reaches against the JAX
+    package's."""
+    n, nrhs, nb = 4096, 4, 512
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=torch.float64)
+    out = {}
+
+    def make(cond, spd_, n=n, nb=nb):
+        t0 = time.perf_counter()
+        A = torch.from_numpy(stt.matgen.cond_matrix(n, cond, seed=11, spd=spd_, device=dev))
+        t = time.perf_counter() - t0
+        print(f"  cond_matrix n={n} cond={cond:.0e} spd={spd_}: {t:.2f} s", flush=True)
+        out[f"cond_matrix_{n}_{cond:.0e}_{'spd' if spd_ else 'general'}_s"] = t
+        A = A.to(dev)
+        return A, (stt.HermitianMatrix if spd_ else stt.Matrix).from_global(A, nb)
+
+    def run(label, A, Am, routine, opts=None):
+        Bn = B[:A.shape[0]]
+        Bm = stt.Matrix.from_global(Bn, Am.nb)
+        X, info, iters, _, t, berr = _mixed_run(stt, pk, metrics, routine, Am, Bm, opts)
+        r = scaled_residual(A, X, Bn)
+        print(f"  {label}: {routine}{' without fallback' if opts else ''}: iters {iters}, "
+              f"info {info}, residual {r:.3e}, final berr {berr:.3e}, {t:.3f} s", flush=True)
+        out[f"{label}.{routine}{'.no_fallback' if opts else ''}"] = {
+            "iters": iters, "info": info, "residual": r, "berr": berr, "s": t}
+        return info, iters, r
+
+    no_fb = {stt.Option.UseFallbackSolver: False}
+    for spd_ in (False, True):
+        A, Am = make(1e4, spd_)
+        routine = "posv_mixed" if spd_ else "gesv_mixed"
+        info, iters, r = run("cond 1e4", A, Am, routine)
+        check(info == 0 and 0 <= iters <= 8 and r <= 3,
+              f"cond 1e4 {routine}: iters {iters}, info {info}, residual {r:.3f}")
+    A, Am = make(1e9, False)
+    info, iters, r = run("cond 1e9", A, Am, "gesv_mixed")
+    check(iters < 0 and info == 0 and r <= MIXED_FALLBACK_BOUND,
+          f"cond 1e9 gesv_mixed: no fallback or a bad one (iters {iters}, info {info}, "
+          f"residual {r:.3f})")
+    info, iters, _ = run("cond 1e9", A, Am, "gesv_mixed", no_fb)
+    check(info != 0 and iters >= 0, f"cond 1e9 without fallback: info {info}, iters {iters}")
+    info, iters, r = run("cond 1e9", A, Am, "gesv_mixed_gmres")
+    check(info == 0 and r <= MIXED_FALLBACK_BOUND,
+          f"cond 1e9 gesv_mixed_gmres: info {info}, residual {r:.3f}")
+    A, Am = make(1e8, False)
+    info, iters, r = run("cond 1e8", A, Am, "gesv_mixed_gmres")
+    check(info == 0 and r <= MIXED_FALLBACK_BOUND,
+          f"cond 1e8 gesv_mixed_gmres: info {info}, residual {r:.3f}")
+    A, Am = make(1e7, False)
+    info, iters, _ = run("cond 1e7", A, Am, "gesv_mixed", no_fb)
+    check(info != 0, f"cond 1e7: classical IR converged (iters {iters})")
+    info, iters, r = run("cond 1e7", A, Am, "gesv_mixed_gmres")
+    check(info == 0 and iters > 0 and r <= 3,
+          f"cond 1e7 gesv_mixed_gmres: iters {iters}, info {info}, residual {r:.3f}")
+    A, Am = make(1e9, False, n=128, nb=32)
+    info, iters, _ = run("n 128 cond 1e9", A, Am, "gesv_mixed", no_fb)
+    check(info != 0, f"n 128 cond 1e9: classical IR converged (iters {iters})")
+    info, iters, r = run("n 128 cond 1e9", A, Am, "gesv_mixed_gmres", no_fb)
+    check(info == 0 and iters > 0 and r <= 3,
+          f"n 128 cond 1e9 gesv_mixed_gmres: iters {iters}, info {info}, residual {r:.3f}")
+    return out
+
+
+def matgen_phase(stt, dev) -> dict:
+    """generate_matrix("rand") and ("randn") of a 16384^2 float64 Matrix
+    in tiles of 512 and of 256: the two tilings bitwise equal, rand
+    bitwise equal to philox.random_np at 4096 sampled (i, j); timed."""
+    from slate_tpu_torch.matgen import philox
+
+    n, seed = N_MAIN, 2026
+    out = {}
+    rng = np.random.default_rng(5)
+    i, j = rng.integers(0, n, 4096), rng.integers(0, n, 4096)
+    for kind in ("rand", "randn"):
+        G = {}
+        for nb in (512, 256):
+            M = stt.Matrix.zeros(n, n, nb, dtype=torch.float64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            A, _ = stt.generate_matrix(kind, M, seed=seed)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            G[nb] = A.to_global()
+            out[f"{kind}.tiles_{nb}_s"] = t
+            del M, A
+        same = bool(torch.equal(G[512], G[256]))
+        msg = ""
+        if kind == "rand":
+            got = G[512][torch.from_numpy(i).to(dev), torch.from_numpy(j).to(dev)].cpu().numpy()
+            ref = philox.random_np("uniform", seed, i, j, np.float64)
+            check(np.array_equal(got, ref), "generate_matrix rand: differs from random_np")
+            msg = ", 4096 sampled (i, j) bitwise equal to random_np"
+        print(f"  generate_matrix {kind} float64 n={n}: tiles of 512 "
+              f"{out[kind + '.tiles_512_s']:.3f} s, of 256 {out[kind + '.tiles_256_s']:.3f} s, "
+              f"the tilings bitwise equal {same}{msg}", flush=True)
+        check(same, f"generate_matrix {kind}: the tilings differ")
+        out[f"{kind}.tilings_bitwise_equal"] = same
+        del G
+        torch.cuda.empty_cache()
+    return out
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -1649,8 +1877,11 @@ def profile(stt, gen, dev) -> None:
     nrhs = 512, float64, default options), then a profile of a third call
     of each and of one warm solve phase of each (``potrs_from_global``,
     ``getrs_from_global``: its idle share is what the host-stepped trsm
-    launches cost), and of a ``gesv`` with MethodLU.CALU; then the same
-    for ``gels`` at (32768, 16384)."""
+    launches cost), and of a ``gesv`` with MethodLU.CALU; a profile of
+    one warm ``posv_mixed``, ``posv_mixed_gmres`` and ``gesv_mixed`` on
+    the same operands (their float32 factor's kernels and the library
+    solves and products as pieces); then the same for ``gels`` at
+    (32768, 16384)."""
     n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
     A = spd(n, dt, gen, dev)
     B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
@@ -1670,6 +1901,15 @@ def profile(stt, gen, dev) -> None:
         "chol_base": ("chol_base_kernel",),
         "gemm_sub": ("sub_abt_kernel<double, false", "subk_reduce<double, false"),
         "syrk_diag": ("sub_abt_kernel<double, true", "subk_reduce<double, true")})
+    mixed_pieces = {
+        "chol_base": ("chol_base_kernel",),
+        "gemm_sub": ("sub_abt_kernel<float, false", "subk_reduce<float, false"),
+        "syrk_diag": ("sub_abt_kernel<float, true", "subk_reduce<float, true"),
+        "panel_lu": ("panel_lu_kernel",),
+        "library trsm": ("trsm",), "library gemm": ("gemm",)}
+    for routine in ("posv_mixed", "posv_mixed_gmres"):
+        getattr(stt, routine)(Am, Bm)  # the warm-up
+        _profile_call(routine, lambda: getattr(stt, routine)(Am, Bm), mixed_pieces)
     # the solve phase of a factor-cache hit: two trsm sweeps, host-stepped
     Lg = stt.potrf(Am)[0].to_global().contiguous()
     stt.potrs_from_global(Lg, B)
@@ -1689,6 +1929,8 @@ def profile(stt, gen, dev) -> None:
         t_gesv = time.perf_counter() - t0
     print(f"  warm getrf {t_getrf:.4f} s, gesv {t_gesv:.4f} s (host clock, float64 n={n})")
     _profile_call("gesv", lambda: stt.gesv(Am, Bm), {"panel_lu": ("panel_lu_kernel",)})
+    stt.gesv_mixed(Am, Bm)  # the warm-up
+    _profile_call("gesv_mixed", lambda: stt.gesv_mixed(Am, Bm), mixed_pieces)
     calu = {stt.Option.MethodLU: stt.MethodLU.CALU}
     stt.getrf(Am, calu)  # the warm-up
     torch.cuda.synchronize()
@@ -1830,6 +2072,15 @@ def main() -> int:
         xres[d]["blas3"] = blas3_phase(stt, d, gen, dev)
         torch.cuda.empty_cache()
     print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    print("phase 12: matgen and the mixed-precision solvers", flush=True)
+    t12 = time.perf_counter()
+    direct = {d: {"posv": mres[d], "gesv": lres[d]} for d in DTYPES}
+    mixed = {d: mixed_main_path(stt, pk, ck, lk, metrics, d, gen, dev, direct[d])
+             for d in DTYPES}
+    mixed["cond_matrix_4096"] = cond_phase(stt, pk, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    mixed["generate_matrix"] = matgen_phase(stt, dev)
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -1867,7 +2118,7 @@ def main() -> int:
                        for d in DTYPES}
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
-                                      "dense_drivers": xres,
+                                      "dense_drivers": xres, "mixed": mixed,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

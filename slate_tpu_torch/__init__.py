@@ -14,8 +14,11 @@ pivoting, tournament pivoting or the random butterfly transform,
 (``gemm``, ``hemm``/``symm``, ``herk``/``syrk``, ``her2k``/``syr2k``,
 ``trmm``, ``trsm``), the norm and elementwise drivers (``norm``,
 ``colNorms``, ``add``, ``copy``, ``scale``, ``scale_row_col``, ``set``,
-``set_lambdas``), the tile distribution functions (``func``) and the
-verb API of those slices (``simplified``).  Every Pallas kernel of the
+``set_lambdas``), the tile distribution functions (``func``), the
+matrix generator (``matgen``: ``generate_matrix``, ``cond_matrix``),
+the mixed-precision solvers (``gesv_mixed``, ``posv_mixed`` and their
+GMRES-IR variants, over the ``refine`` subsystem) and the verb API of
+those slices (``simplified``).  Every Pallas kernel of the
 JAX package is rewritten by hand in CUDA C++ for Hopper
 (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 
@@ -93,10 +96,18 @@ from .drivers.qr import (
     unmlq,
     unmqr,
 )
+from .drivers.mixed import gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_gmres
 from .types import Pivots, TriangularFactors
+
+# matgen (reference: include/slate/generate_matrix.hh)
+from . import matgen
+from .matgen.generate import generate_matrix
 
 # simplified verb API (reference: include/slate/simplified_api.hh)
 from . import simplified
+
+# mixed-precision refinement subsystem (policy / IR / GMRES-IR cores)
+from . import refine
 from .convert import (
     geqrf_from_reference,
     getrf_from_reference,

@@ -1,6 +1,8 @@
 """Process-wide metrics registry, the driver-facing part of the JAX
-package's ``aux/metrics.py``: counters, gauges, per-driver wall timers
-and the factorization FLOP accounting.
+package's ``aux/metrics.py``: counters, gauges, per-driver wall timers,
+the factorization FLOP accounting and the counter-delta window
+(:class:`deltas`).  Histograms come with the serve tier (ROADMAP.md
+Queue 1 item 4).
 
 Zero overhead when off: every entry point starts with one module-level
 bool check.  The JAX package's ``gated_jit`` (a metrics-gated jit of
@@ -138,3 +140,30 @@ def timers() -> Dict[str, dict]:
             k: {"count": v[0], "total_s": v[1], "min_s": v[2], "max_s": v[3]}
             for k, v in _timers.items()
         }
+
+
+class deltas:
+    """Counter-delta window: snapshot on enter, ``d.get(name)`` reads the
+    live increment since.  Tests use it to read a call's counters
+    without a global reset::
+
+        with metrics.deltas() as d:
+            ...
+        assert d.get("refine.fallbacks") == 1
+    """
+
+    def __enter__(self):
+        self._before = counters()
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def get(self, name: str) -> float:
+        return counters().get(name, 0) - self._before.get(name, 0)
+
+    def all(self) -> Dict[str, float]:
+        now = counters()
+        keys = sorted(set(now) | set(self._before))
+        out = {k: now.get(k, 0) - self._before.get(k, 0) for k in keys}
+        return {k: v for k, v in out.items() if v}

@@ -3,11 +3,12 @@
 ``potrf`` factors on the global path through the schedule dispatcher in
 ops/chol_kernels.py; on a CUDA device at n >= 2048 ``auto`` takes the
 ``pallas`` family, i.e. the Hopper kernels.  ``potrs_from_global`` is
-the solve-only entry point of a factor cache hit.  ``trtri``, ``trtrm``
-and ``potri`` invert through library solves against the identity and
-one product; ``pocondest`` estimates the reciprocal condition number
-with the Hager/Higham estimator (``internal/norm1est.py``).  The
-mixed-precision drivers come with ROADMAP.md's Queue 1 item 3.
+the solve-only entry point of a factor cache hit.  ``trtri`` and
+``potri`` invert through ``chol_kernels.tri_inv_blocked``, ``trtrm``
+is one product; ``pocondest`` estimates the reciprocal condition number
+with the Hager/Higham estimator (``internal/norm1est.py``).
+``posv_mixed`` and ``posv_mixed_gmres`` (``drivers/mixed.py``) are
+re-exported here.
 """
 
 from __future__ import annotations
@@ -157,6 +158,12 @@ def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatri
     """SPD inverse from the Cholesky factor: A^-1 = L^-H L^-1
     (reference: src/potri.cc = trtri + trtrm)."""
     return trtrm(trtri(L, opts), opts)
+
+
+# Mixed-precision SPD solvers: implementations live in drivers/mixed.py,
+# re-exported here for the reference-parity import paths
+# (chol.posv_mixed).
+from .mixed import posv_mixed, posv_mixed_gmres  # noqa: E402,F401
 
 
 def pocondest(L: TriangularMatrix, anorm, opts: Optional[Options] = None) -> torch.Tensor:

@@ -17,8 +17,10 @@ run the ``panel_lu`` kernel on a CUDA device.  ``gecondest`` and
 ``trcondest`` estimate reciprocal condition numbers with the Hager/Higham
 estimator (``internal/norm1est.py``).
 
-The mixed-precision re-exports come with ROADMAP.md's Queue 1 item 3,
-the mesh paths with item 8.
+The mixed-precision solvers live in ``drivers/mixed.py`` and are
+re-exported here (``gesv_mixed``, ``gesv_mixed_gmres``, and the
+deprecated ``ir_refine_while``); the mesh paths come with ROADMAP.md's
+Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -322,6 +324,15 @@ def getri(LU: Matrix, pivots: Pivots, opts: Optional[Options] = None) -> Matrix:
     eye = torch.eye(LU.m, dtype=LU.dtype, device=LU.device)
     return getrs(LU, pivots, Matrix.from_global(eye, LU.layout.mb, LU.layout.nb,
                                                 grid=LU.grid), opts)
+
+
+# Mixed-precision solvers: implementations live in drivers/mixed.py,
+# routed through the refine subsystem; re-exported here for the
+# reference-parity import paths (lu.gesv_mixed).
+from .mixed import gesv_mixed, gesv_mixed_gmres  # noqa: E402,F401
+
+# Back-compat shim for the pre-refine helper name.
+from ..refine.ir import ir_refine_while  # noqa: E402,F401
 
 
 @instrumented("gecondest")

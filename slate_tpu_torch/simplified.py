@@ -4,8 +4,8 @@ least_squares_solve, ...), the verbs of the slices this package carries.
 
 A thin overload layer over the drivers, dispatching on matrix kind like
 the reference's C++ overload set.  Functional: outputs are returned.
-The band, indefinite, mixed-precision, eigenvalue and SVD verbs come
-with their slices (ROADMAP.md, Queue 1).
+The band, indefinite, eigenvalue and SVD verbs come with their slices
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -13,8 +13,10 @@ from __future__ import annotations
 from .drivers import blas3 as _blas3
 from .drivers import chol as _chol
 from .drivers import lu as _lu
+from .drivers import mixed as _mixed
 from .drivers import qr as _qr
 from .enums import Side
+from .exceptions import NumericalError
 from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
 
 
@@ -107,6 +109,23 @@ def chol_solve(A, B, opts=None):
 
 def chol_solve_using_factor(L, B, opts=None):
     return _chol.potrs(L, B, opts)
+
+
+def solve_mixed(A, B, opts=None):
+    """Mixed-precision solve with iterative refinement, dispatched on
+    matrix kind (HermitianMatrix -> posv_mixed, else gesv_mixed).
+    Returns only X, so it demands the success contract itself: with the
+    fallback solver on (the default) a non-converging system is
+    re-solved at full precision; with it off, non-convergence raises
+    NumericalError — never a silently-wrong finite X."""
+    if isinstance(A, HermitianMatrix):
+        X, info, _iters = _mixed.posv_mixed(A, B, opts)
+    else:
+        X, info, _iters = _mixed.gesv_mixed(A, B, opts)
+    if int(info) != 0:
+        raise NumericalError(
+            f"solve_mixed: refinement did not converge (info={int(info)})", int(info))
+    return X
 
 
 def chol_inverse_using_factor(L, opts=None):

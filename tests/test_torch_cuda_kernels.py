@@ -989,3 +989,64 @@ def test_inverses_and_estimators_on_the_card(dev, dtype):
     within(stt.trcondest(L), Lg, np.linalg.inv(Lg.astype(np.float64)))
     within(stt.trcondest(stt.conj_transpose(L), stt.Norm.Inf), Lg.T,
            np.linalg.inv(Lg.T.astype(np.float64)), ninf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gmres", [False, True], ids=["ir", "gmres"])
+@pytest.mark.parametrize("spd", [False, True], ids=["gesv", "posv"])
+def test_mixed_solvers_on_the_card_take_the_float32_kernels(dev, spd, gmres):
+    """n = 2048, Schedule.Pallas, float64 working: the float32 factor
+    launches the kernels as the mirrors count (chol_base / syrk_diag /
+    gemm_sub, or panel_lu), and nothing else; no fallback; the scaled
+    residual ||A X - B||_1 / (||A||_1 ||X||_1 n eps) <= 3."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import chol_kernels as ck
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    n, nrhs, nb = 2048, 3, 256
+    rng = np.random.default_rng(37)
+    a = rng.standard_normal((n, n))
+    if spd:
+        a = a @ a.T + n * np.eye(n)
+    b = rng.standard_normal((n, nrhs))
+    grid = stt.ProcessGrid.single()
+    A = (stt.HermitianMatrix if spd else stt.Matrix).from_global(a, nb, grid=grid)
+    routine = ("posv" if spd else "gesv") + "_mixed" + ("_gmres" if gmres else "")
+    X, info, iters = getattr(stt, routine)(A, stt.Matrix.from_global(b, nb, grid=grid),
+                                           {"schedule": "pallas"})
+    assert int(info) == 0 and iters >= 0
+    expect = ck.chol_kernel_launches(n) if spd else {"panel_lu": lk.getrf_kernel_launches(n)}
+    assert {k: pk.LAUNCHES[k] for k in expect} == expect
+    assert sum(pk.LAUNCHES.values()) == sum(expect.values())
+    x = X.to_global().cpu().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    assert n1(a @ x - b) / (n1(a) * n1(x) * n * np.finfo(np.float64).eps) <= 3
+
+
+@pytest.mark.cuda
+def test_refine_policy_on_a_cuda_operand_is_the_degenerate_float32_pair(dev):
+    from slate_tpu_torch.refine import policy
+
+    x = torch.ones(4, device=dev)
+    pol = policy.select(x.dtype, 4, backend=x.device.type)
+    assert pol.factor == "float32" and pol.degenerate
+    assert policy.select(torch.float64, 4, backend=x.device.type).factor == "float32"
+    assert policy.factor_dtype(np.complex128, x.device.type) == np.dtype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rand", "randn"])
+def test_generate_tiles_bitwise_across_tilings_on_the_card(dev, kind):
+    """generate_matrix of a 4096^2 matrix in tiles of 512, 256 and 384
+    (ragged): the same bits; rand equal to the host Philox."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.matgen import philox
+
+    n, seed = 4096, 99
+    got = {nb: stt.generate_matrix(kind, stt.Matrix.zeros(n, n, nb, dtype=torch.float64),
+                                   seed=seed)[0].to_global() for nb in (512, 256, 384)}
+    assert torch.equal(got[512], got[256]) and torch.equal(got[512], got[384])
+    if kind == "rand":
+        i, j = np.arange(0, n, 7)[:, None], np.arange(0, n, 5)[None, :]
+        ref = philox.random_np("uniform", seed, i + 0 * j, j + 0 * i)
+        np.testing.assert_array_equal(got[512][::7, ::5].cpu().numpy(), ref)

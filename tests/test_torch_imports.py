@@ -41,6 +41,13 @@ import slate_tpu_torch.drivers.chol
 import slate_tpu_torch.ops.chol_kernels
 import slate_tpu_torch.func
 import slate_tpu_torch.simplified
+import slate_tpu_torch.matgen.generate
+import slate_tpu_torch.refine.policy
+import slate_tpu_torch.refine.ir
+import slate_tpu_torch.refine.gmres
+import slate_tpu_torch.drivers.mixed
+import slate_tpu_torch.aux.faults
+import slate_tpu_torch.aux.spans
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))

@@ -198,12 +198,12 @@ def test_verb_is_its_driver_and_matches_jax(verb, grid11):
 
 def test_verbs_cover_the_landed_slices():
     """Every verb of the JAX package is here except those of the band,
-    indefinite, mixed, eig and SVD slices, which come with them."""
+    indefinite, eig and SVD slices, which come with them."""
     def verbs(mod):
         return {n for n in dir(mod) if not n.startswith("_") and callable(getattr(mod, n))
                 and getattr(getattr(mod, n), "__module__", "") == mod.__name__}
 
-    later = {"band_multiply", "solve_mixed", "indefinite_factor", "indefinite_solve",
+    later = {"band_multiply", "indefinite_factor", "indefinite_solve",
              "indefinite_solve_using_factor", "eig", "eig_vals", "svd", "svd_vals"}
     assert verbs(tsimp) == verbs(jsimp) - later
 
