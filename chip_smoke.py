@@ -84,7 +84,29 @@ Phases, each for float64 and float32 unless stated:
      1e8 / 1e9) and at n = 128 (GMRES-IR converges at cond 1e9 where
      classical IR stalls); ``generate_matrix`` rand / randn of a 16384^2 matrix in
      tiles of 512 and 256, bitwise equal, rand bitwise equal to
-     ``philox.random_np`` at sampled (i, j).
+     ``philox.random_np`` at sampled (i, j);
+ 13. the serve path (``slate_tpu_torch.serve``) on cuda:0, metrics on,
+     default options, operands passed as numpy: factor-cache hit streams
+     of posv (X X^T + n I) and gesv (normal A + 2 sqrt(n) I) at n = 4096
+     (bucket 4096, tiles of 64) through ``SolverService(factor_cache=
+     FactorCache(8), batch_max=8, batch_window_s=0.002)``: one miss
+     (launches equal to ``chol_kernel_launches`` / ``getrf_kernel_launches``
+     plus one trsm sweep each), ``warmup()``, 40 requests of nrhs = 16
+     over 8 B (40 hits, no cold build, only the trsm pair launched,
+     ``trsm_kernel_launches(4096)`` a dispatch each, residuals <= 3),
+     requests/s, p50 / p99 of the queued / execute / total latency, one
+     hit dispatch against two ``solve_triangular``, the host time of
+     ``matrix_fingerprint`` / ``residual_ok`` / the finiteness check a
+     request, the device's idle share over a profiled stream of 16 hits,
+     and ``result_corrupt`` and ``factor_stale`` fired once each (counted
+     once, X still right); gels at (8192, 4096): one miss through
+     ``gels_factor_pack`` (larft launches as ``geqrf_kernel_launches``),
+     12 hits (normal-equations residual <= 3, no kernel launched), a hit
+     dispatch against ``torch.ormqr`` + one solve; a full-phase stream
+     with the factor cache off: 24 interleaved gesv and posv requests,
+     n in {1500, 2600, 3900} (buckets 2048 / 4096 / 4096), coalesced,
+     the kernel family at the 2048 bucket, residuals <= 3, and the 4096
+     bucket's ``from_global`` / ``to_global`` in tiles of 64.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -1841,6 +1863,309 @@ def matgen_phase(stt, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serve path
+# ---------------------------------------------------------------------------
+
+N_SERVE, NRHS_SERVE, SERVE_BATCH = 4096, 16, 8
+
+
+def _serve_runs(metrics, label: str) -> int:
+    """Dispatches of one bucket so far: its warm-run timer counts."""
+    return sum(int(v["count"]) for k, v in metrics.timers().items()
+               if k.startswith(f"serve.{label}.b") and k.endswith(".run"))
+
+
+def _serve_latency(d, label: str) -> dict:
+    """p50 / p99 (ms) of the window's queued / execute / total histograms."""
+    out = {}
+    for part in ("queued", "execute", "total"):
+        h = d.hist(f"serve.latency.{label}.{part}")
+        out[part] = None if h is None else {
+            "count": h["count"], "p50_ms": h["p50"] * 1e3, "p99_ms": h["p99"] * 1e3}
+    return out
+
+
+def _host_s(fn, reps: int = 3) -> float:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def _serve_faults(faults, svc, routine, A_np, B_np, A, B, residual, dtype) -> dict:
+    """result_corrupt once and factor_stale once on the hit path: each is
+    still delivered with a correct X, and counted once."""
+    from slate_tpu_torch.aux import metrics
+
+    out = {}
+    for site, counter in (("result_corrupt", "serve.corrupt_result"),
+                          ("factor_stale", "serve.factor_cache.stale")):
+        faults.arm(site, once=True)
+        faults.on()
+        with metrics.deltas() as d:
+            X = svc.submit(routine, A_np, B_np).result(timeout=600)
+            fired, counted = d.get(f"faults.injected.{site}"), d.get(counter)
+        faults.reset()
+        r = residual(A, torch.from_numpy(X).to(A.device), B)
+        print(f"  {routine} {dtype} {site}: fired {fired}, {counter} {counted}, "
+              f"residual {r:.3e}", flush=True)
+        check(fired == 1 and counted == 1, f"serve {routine} {dtype} {site}: fired {fired}, "
+              f"{counter} {counted} (expected 1 each)")
+        check(r <= 3, f"serve {routine} {dtype} {site}: residual {r:.3f} > 3")
+        out[site] = {"counted": counted, "residual": r}
+    return out
+
+
+def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, dev) -> dict:
+    """One factor-cache miss, warmup(), then 40 requests of nrhs = 16
+    over 8 distinct B through SolverService on cuda:0 (posv on X X^T + n I,
+    gesv on a normal A + 2 sqrt(n) I, n = 4096: bucket 4096, tiles of
+    64): the miss launches the factor's mirror, the window is 40 hits
+    with no cold build and launches only the trsm pair, one sweep a
+    dispatch each."""
+    dt = getattr(torch, dtype)
+    n, nrhs = N_SERVE, NRHS_SERVE
+    if routine == "posv":
+        A = spd(n, dt, gen, dev)
+    else:
+        A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+        A.diagonal().add_(2 * n**0.5)
+    Bs = [torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt) for _ in range(8)]
+    A_np, B_np = A.cpu().numpy(), [B.cpu().numpy() for B in Bs]
+    skey = serve.bucket_for(routine, n, n, nrhs, A_np.dtype).solve_sibling()
+    sweep = pk.trsm_kernel_launches(n)
+    svc = serve.SolverService(factor_cache=serve.FactorCache(max_entries=8),
+                              batch_max=SERVE_BATCH, batch_window_s=0.002)
+    try:
+        pk.reset_launches()  # counts of the miss only
+        with metrics.deltas() as d:
+            X0 = svc.submit(routine, A_np, B_np[0]).result(timeout=600)
+            check(d.get("serve.factor_cache.miss") == 1, f"serve {routine} {dtype}: no miss")
+        miss = {k: v for k, v in pk.LAUNCHES.items() if v}
+        expect = {**{k: v for k, v in _factor_mirror(ck, lk, routine == "posv", n).items()
+                     if v}, "trsm_lower": sweep, "trsm_upper": sweep}
+        check(miss == expect, f"serve {routine} {dtype} miss: launches {miss} != {expect}")
+        check(scaled_residual(A, torch.from_numpy(X0).to(dev), Bs[0]) <= 3,
+              f"serve {routine} {dtype}: the miss's residual > 3")
+        t0 = time.perf_counter()
+        built = svc.warmup()
+        t_warm = time.perf_counter() - t0
+        runs0 = _serve_runs(metrics, skey.label)
+        pk.reset_launches()  # counts of the hit stream only
+        with metrics.deltas() as d:
+            t0 = time.perf_counter()
+            futs = [svc.submit(routine, A_np, B_np[i % 8]) for i in range(40)]
+            Xs = [f.result(timeout=600) for f in futs]
+            t_stream = time.perf_counter() - t0
+            hits, cold = d.get("serve.factor_cache.hit"), d.get("jit.compilations")
+            lat = _serve_latency(d, skey.label)
+            batched = d.get("serve.batched")
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        dispatches = _serve_runs(metrics, skey.label) - runs0
+        res = max(scaled_residual(A, torch.from_numpy(X).to(dev), Bs[i % 8])
+                  for i, X in enumerate(Xs))
+        print(f"  {routine} {dtype} hit stream: 40 requests in {t_stream:.3f} s = "
+              f"{40 / t_stream:.1f} requests/s, hits {hits}, cold builds {cold} (warmup built "
+              f"{built} in {t_warm:.3f} s), {dispatches} dispatches ({batched} batched), "
+              f"launches {launches}, max residual {res:.3e}", flush=True)
+        print(f"  {routine} {dtype} latency (ms) {skey.label}: " + ", ".join(
+            f"{p} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f}" for p, v in lat.items() if v),
+            flush=True)
+        check(hits == 40, f"serve {routine} {dtype}: {hits} hits, expected 40")
+        check(cold == 0, f"serve {routine} {dtype}: {cold} cold builds after warmup()")
+        check(launches == {"trsm_lower": sweep * dispatches, "trsm_upper": sweep * dispatches},
+              f"serve {routine} {dtype}: hit launches {launches}, expected the trsm pair "
+              f"{sweep} x {dispatches} dispatches each")
+        check(res <= 3, f"serve {routine} {dtype}: hit residual {res:.3f} > 3")
+
+        # one hit dispatch (the core, no host copy) against two library
+        # solves on the same factor and the concatenated right sides
+        entry = svc.factor_cache.get(serve.matrix_fingerprint(A_np, routine))
+        F = entry.factor
+        Bb = torch.stack([torch.nn.functional.pad(B, (0, skey.nrhs - nrhs)) for B in Bs])
+        if entry.perm is not None:
+            Bb = Bb[:, entry.perm]
+        exe = svc.cache.executable(skey, SERVE_BATCH)
+        Bcat = Bb.permute(1, 0, 2).reshape(n, -1)
+        unit = routine == "gesv"  # packed LU: unit L below, U on and above
+        U = F if unit else F.mT
+        t_hit = cuda_ms(lambda: exe(F, Bb), reps=5)
+        t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+            U, torch.linalg.solve_triangular(F, Bcat, upper=False, unitriangular=unit),
+            upper=True), reps=5)
+        X = Xs[0]
+        t_fp = _host_s(lambda: serve.matrix_fingerprint(A_np, routine))
+        from slate_tpu_torch.serve import factor_cache as sfc
+
+        t_res = _host_s(lambda: sfc.residual_ok(A_np, B_np[0], X, routine))
+        t_val = _host_s(lambda: bool(np.isfinite(A_np).all()))
+        print(f"  {routine} {dtype} hit dispatch (b{SERVE_BATCH}, {n} x {Bcat.shape[1]}): "
+              f"{t_hit:.3f} ms, two solve_triangular {t_lib:.3f} ms; host a request: "
+              f"matrix_fingerprint {t_fp * 1e3:.1f} ms, residual_ok {t_res * 1e3:.1f} ms, "
+              f"finiteness check {t_val * 1e3:.1f} ms", flush=True)
+        # the device's idle share over a second stream of 16 hits, in a
+        # profiler trace (device time of every kernel and copy / wall)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in [svc.submit(routine, A_np, B_np[i % 8]) for i in range(16)]:
+                f.result(timeout=600)
+            t_prof = time.perf_counter() - t0
+        busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / 1e6
+        idle = max(0.0, 1 - busy / t_prof)
+        print(f"  {routine} {dtype} profiled hit stream: device busy {busy * 1e3:.3f} ms of "
+              f"{t_prof:.3f} s (idle share {idle:.4f})", flush=True)
+        flt = _serve_faults(faults, svc, routine, A_np, B_np[1], A, Bs[1], scaled_residual,
+                            dtype)
+    finally:
+        svc.stop()
+    return {"requests_per_s": 40 / t_stream, "stream_s": t_stream, "hits": hits,
+            "cold_builds": cold, "dispatches": dispatches, "launches": launches,
+            "miss_launches": miss, "max_residual": res, "latency": lat,
+            "hit_dispatch_ms": t_hit, "two_library_solves_ms": t_lib,
+            "fingerprint_host_ms": t_fp * 1e3, "residual_ok_host_ms": t_res * 1e3,
+            "finite_check_host_ms": t_val * 1e3, "warmup_s": t_warm,
+            "profiled_busy_ms": busy * 1e3, "profiled_wall_s": t_prof, "idle_share": idle,
+            "faults": flt}
+
+
+def serve_gels_stream(serve, pk, qf, metrics, dtype, gen, dev) -> dict:
+    """A normal tall A at (8192, 4096) -> bucket (8192, 4096): one miss
+    factors through gels_factor_pack (larft launches as the
+    geqrf_kernel_launches mirror), then 12 requests of nrhs = 16 hit
+    through gels_solve_from_global (no kernel: reflectors and one library
+    solve, as in the JAX package)."""
+    dt = getattr(torch, dtype)
+    m, n, nrhs = 2 * N_SERVE, N_SERVE, NRHS_SERVE
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    Bs = [torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt) for _ in range(4)]
+    A_np, B_np = A.cpu().numpy(), [B.cpu().numpy() for B in Bs]
+    key = serve.bucket_for("gels", m, n, nrhs, A_np.dtype)
+    check((key.m, key.n) == (m, n), f"gels bucket {key.label}")
+    svc = serve.SolverService(factor_cache=serve.FactorCache(max_entries=4),
+                              batch_max=SERVE_BATCH, batch_window_s=0.002)
+    try:
+        pk.reset_launches()  # counts of the miss only
+        t0 = time.perf_counter()
+        X0 = svc.submit("gels", A_np, B_np[0]).result(timeout=900)
+        t_miss = time.perf_counter() - t0
+        miss = {k: v for k, v in pk.LAUNCHES.items() if v}
+        expect = qf.geqrf_kernel_launches(n, NB_SWITCH)
+        check(miss == {"larft": expect}, f"serve gels {dtype} miss: launches {miss}, "
+              f"expected larft {expect}")
+        svc.warmup()
+        pk.reset_launches()  # counts of the hit stream only
+        with metrics.deltas() as d:
+            t0 = time.perf_counter()
+            futs = [svc.submit("gels", A_np, B_np[i % 4]) for i in range(12)]
+            Xs = [f.result(timeout=600) for f in futs]
+            t_stream = time.perf_counter() - t0
+            hits, cold = d.get("serve.factor_cache.hit"), d.get("jit.compilations")
+            lat = _serve_latency(d, key.solve_sibling().label)
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        pairs = [(X0, Bs[0])] + [(X, Bs[i % 4]) for i, X in enumerate(Xs)]
+        res = max(ls_residual(A, torch.from_numpy(X).to(dev), B) for X, B in pairs)
+        t_fp = _host_s(lambda: serve.matrix_fingerprint(A_np, "gels"))
+        from slate_tpu_torch.serve import factor_cache as sfc
+
+        t_res = _host_s(lambda: sfc.residual_ok(A_np, B_np[0], Xs[0], "gels"))
+        print(f"  gels {dtype} ({m}, {n}): miss {t_miss:.3f} s, larft launches "
+              f"{miss.get('larft')} (expected {expect}); 12 hits in {t_stream:.3f} s = "
+              f"{12 / t_stream:.1f} requests/s, hits {hits}, cold builds {cold}, hit "
+              f"launches {launches}, max normal-equations residual {res:.3e}; host a "
+              f"request: matrix_fingerprint {t_fp * 1e3:.1f} ms, residual_ok "
+              f"{t_res * 1e3:.1f} ms", flush=True)
+        check(hits == 12 and cold == 0, f"serve gels {dtype}: hits {hits}, cold builds {cold}")
+        check(launches == {}, f"serve gels {dtype}: the hit path launched {launches}")
+        check(res <= 3, f"serve gels {dtype}: residual {res:.3f} > 3")
+        entry = svc.factor_cache.get(serve.matrix_fingerprint(A_np, "gels"))
+        skey = key.solve_sibling()
+        exe = svc.cache.executable(skey, SERVE_BATCH)
+        Bb = torch.stack([Bs[i % 4] for i in range(SERVE_BATCH)])
+        t_hit = cuda_ms(lambda: exe(entry.factor, Bb), reps=3)
+        fq, tau = torch.geqrf(A)
+        Bcat = Bb.permute(1, 0, 2).reshape(m, -1)
+        t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+            fq[:n, :n], torch.ormqr(fq, tau, Bcat, left=True, transpose=True)[:n],
+            upper=True), reps=3)
+        del fq, tau
+        print(f"  gels {dtype} hit dispatch (b{SERVE_BATCH}, {m} x {Bcat.shape[1]}): "
+              f"{t_hit:.3f} ms, torch.ormqr + solve_triangular {t_lib:.3f} ms", flush=True)
+    finally:
+        svc.stop()
+    return {"miss_s": t_miss, "miss_launches": miss, "requests_per_s": 12 / t_stream,
+            "hits": hits, "cold_builds": cold, "max_residual": res, "latency": lat,
+            "hit_dispatch_ms": t_hit, "ormqr_solve_lib_ms": t_lib,
+            "fingerprint_host_ms": t_fp * 1e3, "residual_ok_host_ms": t_res * 1e3}
+
+
+def serve_full_stream(stt, serve, pk, ck, metrics, dtype, gen, dev) -> dict:
+    """Factor cache off: 24 interleaved gesv and posv requests, n in
+    {1500, 2600, 3900} (buckets 2048 / 4096 / 4096, identity pad),
+    submitted to a paused service and then served: coalesced batches,
+    the posv bucket at 2048 on the kernel family, every residual <= 3."""
+    dt = getattr(torch, dtype)
+    check(ck.resolve_schedule(2048, dt, "auto", dev) == "pallas",
+          "Schedule.Auto does not take the kernel family at the 2048 bucket")
+    reqs = []
+    for i in range(24):
+        n = (1500, 2600, 3900)[i % 3]
+        routine = ("gesv", "posv")[i % 2]
+        if routine == "posv":
+            A = spd(n, dt, gen, dev)
+        else:
+            A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+            A.diagonal().add_(2 * n**0.5)
+        B = torch.randn(n, NRHS_SERVE, generator=gen, device=dev, dtype=dt)
+        reqs.append((routine, A, B, A.cpu().numpy(), B.cpu().numpy()))
+    svc = serve.SolverService(factor_cache=False, batch_max=SERVE_BATCH,
+                              batch_window_s=0.002, start=False)
+    try:
+        pk.reset_launches()  # counts of this stream only
+        with metrics.deltas() as d:
+            futs = [svc.submit(r, a, b) for r, _, _, a, b in reqs]
+            t0 = time.perf_counter()
+            svc.start()
+            Xs = [f.result(timeout=900) for f in futs]
+            t_stream = time.perf_counter() - t0
+            batched, pads, cold = (d.get("serve.batched"), d.get("serve.batch_pad"),
+                                   d.get("jit.compilations"))
+            lat = {lbl: _serve_latency(d, lbl) for lbl in sorted(
+                {serve.bucket_for(r, a.shape[0], a.shape[0], NRHS_SERVE, a.dtype).label
+                 for r, _, _, a, _ in reqs})}
+    finally:
+        svc.stop()
+    launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+    res = max(scaled_residual(A, torch.from_numpy(X).to(dev), B)
+              for (_, A, B, _, _), X in zip(reqs, Xs))
+    print(f"  full-phase stream {dtype}: 24 requests in {t_stream:.3f} s = "
+          f"{24 / t_stream:.1f} requests/s, batched {batched}, repeat pads {pads}, cold "
+          f"builds {cold}, launches {launches}, max residual {res:.3e}", flush=True)
+    for lbl, v in lat.items():
+        print(f"  {dtype} latency (ms) {lbl}: " + ", ".join(
+            f"{p} p50 {x['p50_ms']:.1f} p99 {x['p99_ms']:.1f}" for p, x in v.items() if x),
+            flush=True)
+    # the 4096 bucket's tiling (4096 tiles of 64): what building the
+    # tiles and reading them back costs a full-phase item
+    A4 = reqs[2][1]  # n = 3900: the 4096 bucket
+    Ap = torch.nn.functional.pad(A4, (0, 4096 - A4.shape[1], 0, 4096 - A4.shape[0]))
+    M = stt.Matrix.from_global(Ap, 64)
+    t_from = cuda_ms(lambda: stt.Matrix.from_global(Ap, 64), reps=5)
+    t_to = cuda_ms(lambda: M.to_global(), reps=5)
+    del M, Ap
+    print(f"  {dtype} tiles of 64 at the 4096 bucket: from_global {t_from:.3f} ms, "
+          f"to_global {t_to:.3f} ms", flush=True)
+    check(batched > 0, f"serve full-phase {dtype}: nothing coalesced")
+    check(launches.get("chol_base", 0) > 0 and launches.get("panel_lu", 0) > 0,
+          f"serve full-phase {dtype}: launches {launches} miss the kernel family")
+    check(res <= 3, f"serve full-phase {dtype}: residual {res:.3f} > 3")
+    return {"requests_per_s": 24 / t_stream, "stream_s": t_stream, "batched": batched,
+            "batch_pad": pads, "cold_builds": cold, "launches": launches,
+            "max_residual": res, "latency": lat, "from_global_4096_nb64_ms": t_from,
+            "to_global_4096_nb64_ms": t_to}
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -1968,7 +2293,8 @@ def main() -> int:
         return 2
     try:
         import slate_tpu_torch as stt
-        from slate_tpu_torch.aux import metrics
+        from slate_tpu_torch import serve
+        from slate_tpu_torch.aux import faults, metrics
         from slate_tpu_torch.ops import chol_kernels as ck
         from slate_tpu_torch.ops import lu_kernels as lk
         from slate_tpu_torch.ops import qr_fast as qf
@@ -2081,6 +2407,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixed["generate_matrix"] = matgen_phase(stt, dev)
     print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    print("phase 13: the serve path", flush=True)
+    t13 = time.perf_counter()
+    sres = {}
+    for d in DTYPES:
+        sres[d] = {r: serve_hit_stream(serve, faults, pk, ck, lk, metrics, r, d, gen, dev)
+                   for r in ("posv", "gesv")}
+        torch.cuda.empty_cache()
+        sres[d]["gels"] = serve_gels_stream(serve, pk, qf, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+        sres[d]["full_phase"] = serve_full_stream(stt, serve, pk, ck, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -2119,6 +2457,7 @@ def main() -> int:
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
+                                      "serve": sres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

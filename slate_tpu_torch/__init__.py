@@ -17,8 +17,10 @@ pivoting, tournament pivoting or the random butterfly transform,
 ``set_lambdas``), the tile distribution functions (``func``), the
 matrix generator (``matgen``: ``generate_matrix``, ``cond_matrix``),
 the mixed-precision solvers (``gesv_mixed``, ``posv_mixed`` and their
-GMRES-IR variants, over the ``refine`` subsystem) and the verb API of
-those slices (``simplified``).  Every Pallas kernel of the
+GMRES-IR variants, over the ``refine`` subsystem), the verb API of
+those slices (``simplified``) and the serving tier above them
+(``serve``: buckets, the executable and factor caches, a one-lane
+``SolverService`` and ``serve.gesv/posv/gels``).  Every Pallas kernel of the
 JAX package is rewritten by hand in CUDA C++ for Hopper
 (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 
@@ -108,7 +110,10 @@ from . import simplified
 
 # mixed-precision refinement subsystem (policy / IR / GMRES-IR cores)
 from . import refine
+# the serving tier (lazy: importing it pulls in no driver)
+from . import serve
 from .convert import (
+    factor_entry_from_reference,
     geqrf_from_reference,
     getrf_from_reference,
     matrix_from_reference,

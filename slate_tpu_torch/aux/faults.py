@@ -1,44 +1,76 @@
 """Deterministic, seedable fault injection: the part of the JAX
-package's ``aux/faults.py`` that the mixed-precision drivers use (the
-serve tier's sites come with its port, ROADMAP.md Queue 1 items 4 and 7).
+package's ``aux/faults.py`` that the mixed-precision drivers and the
+serve tier use.  The artifact, session, SDC, lock and fleet sites
+belong to the serve planes that are not ported yet (ROADMAP.md Queue 1
+items 4b and 7).
 
 Sites (:data:`SITES`) and where they are checked:
 
-    ``result_corrupt`` NaN poisoned into element 0 of the low-precision
-                       factor (``drivers/mixed`` factor step — drives the
-                       refinement into its fallback solver)
-    ``info_nonzero``   a fake nonzero factor info, ``info=`` value, in the
-                       mixed drivers' factor step (fallback exercise)
+    ``compile``        a bucket's cold build fails
+                       (``serve.cache.ExecutableCache.executable``)
+    ``execute``        dispatch raises (``cache.run`` / ``direct_call``)
+    ``result_corrupt`` NaN poisoned into the first batch item's output
+                       (``cache.run``) / into the low-precision factor
+                       (``drivers/mixed`` factor step)
+    ``latency``        injected sleep before dispatch, ``ms=`` spec key
+                       (``cache.run`` / ``direct_call``)
+    ``worker_death``   the service worker thread dies mid-loop with a
+                       batch in flight (``service.SolverService._loop``)
+    ``info_nonzero``   the first batch item's ``info`` forced nonzero,
+                       ``info=`` spec key (``cache.run``); also a fake
+                       nonzero factor info in the mixed drivers
+    ``factor_stale``   a factor-cache hit serves a factor whose first
+                       element is silently wrong (finite): the hit
+                       path's residual validation must catch it
+                       (``serve.service`` solve-phase dispatch)
 
 Triggers (exactly one per site): probability ``p=0.2`` (seeded RNG per
 site, so the fire pattern is a pure function of ``seed`` and the call
-sequence), every-Nth call ``every=3``, or ``once`` (fires on the first
-call, then never again).
+sequence), every-Nth call ``every=3``, or ``once`` (fires on the
+``after=N``-th call, default the first, then never again).
 
 One module-level bool gates every entry point, so with faults off each
 site costs a single bool check.  Every injection increments
 ``faults.injected.<site>`` in the metrics registry and the site's local
-stats (:func:`stats`)::
+stats (:func:`stats`).  The poisoning helpers take a numpy array or a
+tensor and return a fresh copy of the same kind, on its own device::
 
-    from slate_tpu_torch.aux import faults
-    faults.arm("info_nonzero", once=True)
-    faults.on()
-    ...
-    faults.reset()
+    SLATE_TPU_FAULTS="execute:p=0.2,seed=7;worker_death:every=9" python app.py
+
+Spec grammar (``SLATE_TPU_FAULTS`` / ``Option.Faults`` / :func:`configure`)::
+
+    spec      := site_spec (';' site_spec)*
+    site_spec := site ':' item (',' item)*
+    item      := 'p=<float>' | 'every=<int>' | 'once'
+               | 'after=<int>' | 'seed=<int>' | 'ms=<float>' | 'info=<int>'
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from ..exceptions import SlateError
 from . import metrics
 
-SITES = ("result_corrupt", "info_nonzero")
+SITES = ("compile", "execute", "result_corrupt", "latency", "worker_death",
+         "info_nonzero", "factor_stale")
+
+
+class FaultInjected(SlateError):
+    """An armed fault site fired (raised only under chaos testing; carries
+    the site name so recovery paths can attribute the failure)."""
+
+    def __init__(self, message: str, site: str = ""):
+        super().__init__(message)
+        self.site = site
 
 
 @dataclass
@@ -49,7 +81,9 @@ class _Site:
     p: float = 0.0
     every: int = 0
     once: bool = False
+    after: int = 1
     seed: int = 0
+    ms: float = 1.0  # latency-site sleep duration
     info: int = 1  # info_nonzero-site injected value
     calls: int = 0
     fired: int = 0
@@ -85,15 +119,15 @@ def reset() -> None:
 
 
 def arm(site: str, p: float = 0.0, every: int = 0, once: bool = False,
-        seed: int = 0, info: int = 1) -> None:
+        after: int = 1, seed: int = 0, ms: float = 1.0, info: int = 1) -> None:
     """Arm one site with exactly one trigger (p / every / once).  Does
     NOT enable injection — call :func:`on`."""
     if site not in SITES:
         raise ValueError(f"unknown fault site {site!r}; sites: {SITES}")
     if sum((p > 0, every > 0, bool(once))) != 1:
         raise ValueError(f"{site}: exactly one trigger of p=/every=/once required")
-    s = _Site(name=site, p=float(p), every=int(every), once=bool(once),
-              seed=int(seed), info=int(info))
+    s = _Site(name=site, p=float(p), every=int(every), once=bool(once), after=int(after),
+              seed=int(seed), ms=float(ms), info=int(info))
     # per-site stream: the same seed arms several sites independently
     s.rng = random.Random(f"{s.seed}:{site}")
     with _lock:
@@ -103,6 +137,36 @@ def arm(site: str, p: float = 0.0, every: int = 0, once: bool = False,
 def disarm(site: str) -> None:
     with _lock:
         _sites.pop(site, None)
+
+
+def configure(spec: str) -> None:
+    """Parse the spec grammar and arm each site_spec."""
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        site, sep, items = part.partition(":")
+        if not sep:
+            raise ValueError(f"fault spec {part!r}: expected 'site:trigger'")
+        kw: dict = {}
+        for item in items.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            if item == "once":
+                kw["once"] = True
+                continue
+            k, sep, v = item.partition("=")
+            k, v = k.strip(), v.strip()
+            if not sep:
+                raise ValueError(f"fault spec item {item!r} in {part!r}")
+            if k in ("p", "ms"):
+                kw[k] = float(v)
+            elif k in ("every", "after", "seed", "info"):
+                kw[k] = int(v)
+            else:
+                raise ValueError(f"unknown fault spec key {k!r} in {part!r}")
+        arm(site.strip(), **kw)
 
 
 def fire(site: str) -> Optional[_Site]:
@@ -118,7 +182,7 @@ def fire(site: str) -> Optional[_Site]:
     with _lock:
         s.calls += 1
         if s.once:
-            hit = s.fired == 0
+            hit = s.calls >= s.after and s.fired == 0
         elif s.every > 0:
             hit = s.calls % s.every == 0
         else:
@@ -131,32 +195,78 @@ def fire(site: str) -> Optional[_Site]:
     return None
 
 
-def _with_first(t: torch.Tensor, value) -> torch.Tensor:
-    """A fresh copy of ``t``, on its own device, with its first element
-    set to ``value``."""
-    out = t.clone(memory_format=torch.contiguous_format)
-    out.view(-1)[0] = value
+def check(site: str) -> None:
+    """Raise :class:`FaultInjected` when the site fires (the compile /
+    execute / worker_death form)."""
+    if not _enabled:
+        return
+    s = fire(site)
+    if s is not None:
+        raise FaultInjected(f"injected {site} fault (#{s.fired})", site=site)
+
+
+def sleep(site: str = "latency") -> float:
+    """Sleep ``ms`` milliseconds when the site fires; returns the seconds
+    slept."""
+    if not _enabled:
+        return 0.0
+    s = fire(site)
+    if s is None:
+        return 0.0
+    time.sleep(s.ms / 1e3)
+    return s.ms / 1e3
+
+
+def _with_first(a, fn):
+    """A fresh copy of ``a`` (a tensor stays on its own device) with its
+    first element replaced by ``fn(first)``."""
+    if isinstance(a, torch.Tensor):
+        out = a.clone(memory_format=torch.contiguous_format)
+    else:
+        out = np.array(a, order="C")  # a fresh writable copy, flat in C order
+    flat = out.view(-1) if isinstance(out, torch.Tensor) else out.reshape(-1)
+    flat[0] = fn(flat[0])
     return out
 
 
-def corrupt(site: str, t: torch.Tensor) -> torch.Tensor:
-    """Return ``t`` with its first element NaN-poisoned when the site
-    fires, unchanged otherwise."""
+def corrupt(site: str, a):
+    """``a`` with its first element NaN-poisoned when the site fires
+    (result_corrupt: item 0 of a batched output), unchanged otherwise."""
     if not _enabled or fire(site) is None:
-        return t
-    return _with_first(t, float("nan"))
+        return a
+    return _with_first(a, lambda _v: float("nan"))
 
 
-def poison_info(site: str, info: torch.Tensor) -> torch.Tensor:
+def perturb(site: str, a):
+    """``a`` with its first element perturbed to a finite wrong value
+    (x -> 2x + 1) when the site fires (factor_stale), unchanged
+    otherwise."""
+    if not _enabled or fire(site) is None:
+        return a
+    return _with_first(a, lambda v: v * 2 + 1)
+
+
+def poison_info(site: str, info):
     """Force the first entry of an ``info`` vector to the site's
     ``info=`` value when it fires, unchanged otherwise."""
     if not _enabled:
         return info
     s = fire(site)
-    return info if s is None else _with_first(info, s.info)
+    return info if s is None else _with_first(info, lambda _v: s.info)
 
 
 def stats() -> Dict[str, dict]:
     """Per-site {calls, fired} counters for every armed site."""
     with _lock:
         return {k: {"calls": v.calls, "fired": v.fired} for k, v in _sites.items()}
+
+
+# env activation, as the JAX package does it: a malformed spec fails
+# naming the knob rather than silently leaving chaos disarmed
+_env_spec = os.environ.get("SLATE_TPU_FAULTS")
+if _env_spec:
+    try:
+        configure(_env_spec)
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"SLATE_TPU_FAULTS={_env_spec!r}: {e}") from e
+    on()

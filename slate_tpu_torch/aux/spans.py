@@ -1,9 +1,10 @@
 """Request-scoped span tracing: the part of the JAX package's
-``aux/spans.py`` that the mixed-precision drivers call (``is_on``,
-``current``, ``annotate``, ``event``, the ``span`` block) with a bounded
-ring of completed spans.  The flight recorder's export, pressure and
-trace-id machinery come with the serve planes (ROADMAP.md Queue 1
-item 7).
+``aux/spans.py`` that the mixed-precision drivers and the serve tier
+call (``is_on``, ``now``, trace ids, ``start``/``end`` for spans held
+across threads, ``record`` for measured intervals, ``event``, the
+``span`` block, ``current``, ``annotate``) with a bounded ring of
+completed spans.  The flight recorder's Chrome export and pressure
+report come with the serve planes (ROADMAP.md Queue 1 item 7).
 
 Zero overhead off: every entry point starts with one module-level bool
 check; OFF is the default.  A span lands on the ring when it ends; an
@@ -19,6 +20,7 @@ instant event lands at once::
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from collections import deque
@@ -31,21 +33,33 @@ _enabled = False
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=RING)
 _ids = itertools.count(1)  # span ids (next() is atomic under the GIL)
+_trace_ids = itertools.count(1)
 _tls = threading.local()  # per-thread stack of context-managed spans
 
 
+def now() -> float:
+    """The span clock (monotonic, the metrics timers' clock)."""
+    return time.perf_counter()
+
+
 class Span:
-    """One named interval ``[t_start, t_end]`` with a parent span id and
-    an attrs dict; ``kind`` is "span" or "instant"."""
+    """One named interval ``[t_start, t_end]`` on a thread / lane, with a
+    trace id, a parent span id and an attrs dict; ``kind`` is "span" or
+    "instant"."""
 
-    __slots__ = ("name", "sid", "parent", "t_start", "t_end", "kind", "attrs")
+    __slots__ = ("name", "trace", "sid", "parent", "t_start", "t_end", "thread",
+                 "lane", "kind", "attrs")
 
-    def __init__(self, name, parent=None, kind="span", attrs=None):
+    def __init__(self, name, trace=None, parent=None, lane=None, kind="span",
+                 attrs=None, t_start=None):
         self.name = name
+        self.trace = trace
         self.sid = next(_ids)
         self.parent = parent.sid if isinstance(parent, Span) else parent
-        self.t_start = time.perf_counter()
+        self.t_start = now() if t_start is None else t_start
         self.t_end: Optional[float] = None
+        self.thread = threading.get_ident()
+        self.lane = lane
         self.kind = kind
         self.attrs = dict(attrs) if attrs else {}
 
@@ -73,30 +87,76 @@ def clear() -> None:
         _ring.clear()
 
 
+def new_trace() -> str:
+    """A fresh trace id (one per serve request)."""
+    return f"t{os.getpid():x}-{next(_trace_ids):x}"
+
+
 def _push(sp: Span) -> None:
     with _lock:
         _ring.append(sp)
 
 
-def event(name: str, parent=None, **attrs) -> Optional[Span]:
-    """Instant event (zero duration), on the ring at once."""
+def start(name: str, trace: Optional[str] = None, parent=None,
+          lane: Optional[str] = None, **attrs) -> Optional[Span]:
+    """Open a span that :func:`end` completes, for lifecycle spans held
+    across threads (the :class:`span` block is the single-thread form).
+    None when tracing is off."""
     if not _enabled:
         return None
-    sp = Span(name, parent=parent, kind="instant", attrs=attrs)
-    sp.t_end = sp.t_start
+    return Span(name, trace=trace, parent=parent, lane=lane, attrs=attrs)
+
+
+def end(sp: Optional[Span], **attrs) -> None:
+    """Stamp ``t_end``, merge ``attrs`` and push onto the ring.
+    Idempotent: a span already ended is left as it is (the first
+    outcome wins, as with Future.set_result)."""
+    if sp is None or not _enabled or sp.t_end is not None:
+        return
+    sp.t_end = now()
+    if attrs:
+        sp.attrs.update(attrs)
+    _push(sp)
+
+
+def record(name: str, t_start: float, t_end: float, trace: Optional[str] = None,
+           parent=None, lane: Optional[str] = None, kind: str = "span",
+           **attrs) -> Optional[Span]:
+    """Append one already-measured interval (both times from :func:`now`):
+    a batch's per-item execute spans, planned backoff windows."""
+    if not _enabled:
+        return None
+    sp = Span(name, trace=trace, parent=parent, lane=lane, kind=kind, attrs=attrs,
+              t_start=t_start)
+    sp.t_end = t_end
     _push(sp)
     return sp
 
 
+def event(name: str, trace: Optional[str] = None, parent=None,
+          lane: Optional[str] = None, **attrs) -> Optional[Span]:
+    """Instant event (zero duration), on the ring at once."""
+    if not _enabled:
+        return None
+    t = now()
+    return record(name, t, t, trace=trace, parent=parent, lane=lane, kind="instant",
+                  **attrs)
+
+
 class span:
     """Context manager for nested single-thread spans: parents onto the
-    innermost active span of this thread and becomes :func:`current`
-    inside the block, so :func:`annotate` reaches it."""
+    innermost active span of this thread (or an explicit ``parent``, a
+    request's root span held by another thread) and becomes
+    :func:`current` inside the block, so :func:`annotate` reaches it."""
 
-    __slots__ = ("name", "attrs", "_sp")
+    __slots__ = ("name", "trace", "lane", "parent", "attrs", "_sp")
 
-    def __init__(self, name: str, **attrs):
+    def __init__(self, name: str, trace: Optional[str] = None,
+                 lane: Optional[str] = None, parent=None, **attrs):
         self.name = name
+        self.trace = trace
+        self.lane = lane
+        self.parent = parent
         self.attrs = attrs
         self._sp: Optional[Span] = None
 
@@ -106,7 +166,12 @@ class span:
         stack = getattr(_tls, "stack", None)
         if stack is None:
             stack = _tls.stack = []
-        self._sp = Span(self.name, parent=stack[-1] if stack else None, attrs=self.attrs)
+        parent = self.parent if self.parent is not None else (stack[-1] if stack else None)
+        tr = self.trace
+        if tr is None and isinstance(parent, Span):
+            tr = parent.trace
+        self._sp = Span(self.name, trace=tr, parent=parent, lane=self.lane,
+                        attrs=self.attrs)
         stack.append(self._sp)
         return self._sp
 
@@ -119,8 +184,7 @@ class span:
             stack.pop()
         if exc_type is not None:
             sp.attrs.setdefault("outcome", exc_type.__name__)
-        sp.t_end = time.perf_counter()
-        _push(sp)
+        end(sp)
         return False
 
 

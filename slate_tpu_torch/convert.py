@@ -18,7 +18,11 @@ and the permutation), so this package's ``getrs`` and
 ``getrs_from_global`` can solve with a factorization the JAX package
 made.  ``geqrf_from_reference`` does the same for a ``geqrf`` result (the
 factor's tile array and the T stack), for ``unmqr``, ``gels_solve_from_global``
-and the LQ drivers.
+and the LQ drivers.  ``factor_entry_from_reference`` takes one entry of
+the JAX package's serve factor cache (its numpy factor, permutation,
+bucket key and n, read by attribute) and returns this package's
+``FactorEntry`` with the factor on a device, so a factor the JAX
+package cached can serve hits in this package's ``FactorCache``.
 """
 
 from __future__ import annotations
@@ -104,3 +108,19 @@ def geqrf_from_reference(fac_data: np.ndarray, T: np.ndarray, *, m: int, n: int,
     TriangularFactors' (num_panels, nb, nb) stack."""
     fac = matrix_from_reference(fac_data, m=m, n=n, mb=mb, nb=nb, p=p, q=q, device=device)
     return fac, TriangularFactors(torch.tensor(np.asarray(T), device=fac.device))
+
+
+def factor_entry_from_reference(entry, device: Union[str, torch.device] = "cuda:0"):
+    """This package's serve ``FactorEntry`` for a JAX package
+    ``serve.factor_cache.FactorEntry``: the same fingerprint, routine,
+    bucket key (through its JSON form) and n, the bucket-padded factor
+    as a tensor on ``device`` and the permutation as int64 there."""
+    from .serve.buckets import BucketKey
+    from .serve.factor_cache import FactorEntry
+
+    perm = None if entry.perm is None else torch.tensor(
+        np.asarray(entry.perm), dtype=torch.int64, device=device)
+    return FactorEntry(fp=str(entry.fp), routine=str(entry.routine),
+                       key=BucketKey.from_json(entry.key.to_json()),
+                       factor=torch.tensor(np.asarray(entry.factor), device=device),
+                       perm=perm, n=int(entry.n), replica=entry.replica)

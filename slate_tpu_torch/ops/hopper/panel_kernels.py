@@ -28,6 +28,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -68,6 +69,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 _libs: Optional[List[ctypes.CDLL]] = None
+# serialises build() and the load (reentrant: the load builds): the
+# serve worker and a caller's warmup() may both reach _load first, and
+# must not run nvcc twice or write one library from two threads
+_load_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -90,6 +95,11 @@ def build(verbose: bool = False) -> Tuple[List[Path], str]:
     ``nvcc`` each, all started together.  Returns (the libraries, the
     compilers' output; "" when all were cached).  ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory, spills)."""
+    with _load_lock:
+        return _build_locked(verbose)
+
+
+def _build_locked(verbose: bool) -> Tuple[List[Path], str]:
     sos = [_library(src) for src in SOURCES]
     jobs = []
     try:
@@ -140,10 +150,22 @@ def _symbol(libs: List[ctypes.CDLL], sym: str):
 
 
 def _load() -> List[ctypes.CDLL]:
-    global _libs
     if _libs is not None:
         return _libs
+    with _load_lock:
+        return _libs if _libs is not None else _load_locked()
+
+
+def _load_locked() -> List[ctypes.CDLL]:
+    global _libs
     sos, _ = build()
+    _libs = _open(sos)
+    return _libs
+
+
+def _open(sos: List[Path]) -> List[ctypes.CDLL]:
+    """Load the built libraries, set every entry point's signature and
+    check the tiles each reports against the plans'."""
     libs = [ctypes.CDLL(str(so)) for so in sos]
     for name, args in _SIGNATURES.items():
         for suf in ("f32", "f64"):
@@ -159,7 +181,6 @@ def _load() -> List[ctypes.CDLL]:
     for dt, suf in ((torch.float32, "f32"), (torch.float64, "f64")):
         _GEMM_TILES[dt] = _gemm_tiles(_symbol(libs, f"slate_gemm_layout_{suf}"), suf)
         _LARFT_TILES[dt] = _larft_tiles(_symbol(libs, f"slate_larft_layout_{suf}"), suf)
-    _libs = libs
     return libs
 
 

@@ -14,13 +14,10 @@ from typing import Any, Mapping, Optional, Union
 
 from .enums import Option, RefineMethod, Schedule
 from .exceptions import OptionError
+from .serve.buckets import DEFAULT_SHARD_THRESHOLD
 
 OptionKey = Union[Option, str]
 Options = Mapping[OptionKey, Any]
-
-#: n at or above which a request routes to the sharded drivers when a
-#: mesh is configured (the JAX package keeps it in serve/buckets.py)
-DEFAULT_SHARD_THRESHOLD = 2048
 
 _DEFAULTS = {
     Option.ChunkSize: 1,

@@ -1,0 +1,55 @@
+"""slate_tpu_torch.serve — the batching solver service above the
+drivers, on the card (the JAX package's ``serve`` in its default form).
+
+Shape-bucketed dispatch (`buckets`), an executable cache with a
+persistent warmup manifest (`cache`, ``SLATE_TPU_WARMUP=/path.json``),
+a one-lane placement (`placement`), a factor-once/solve-many cache
+dispatching trsm-only executables on repeated-A traffic
+(`factor_cache`, ``SLATE_TPU_FACTOR_CACHE``), the deadline-aware
+batching service (`service`) and thin sync wrappers (`api`):
+``serve.gesv/posv/gels``, ``serve.submit``, ``serve.warmup``.
+
+Not ported yet (ROADMAP.md Queue 1 items 4b and 7): the artifact store
+and ``restore``, replicas, the admission and integrity planes (each
+raises when configured), ``get_fleet``, ``get_arena`` and ``session``.
+
+Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
+pulls in no driver until the first request.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_API = (
+    "gesv", "posv", "gels", "submit", "warmup", "wait_ready", "configure", "shutdown",
+    "get_service", "get_cache", "health", "InvalidInput",
+    "get_factor_cache", "factor_fingerprint", "invalidate", "invalidate_all",
+    "update_factor",
+)
+_SERVICE = (
+    "SolverService", "Rejected", "DeadlineExceeded", "Shed", "decorrelated_backoff",
+    "PHASE_COLD", "PHASE_RESTORING", "PHASE_READY",
+)
+_CACHE = ("ExecutableCache", "direct_call", "WARMUP_ENV")
+_BUCKETS = (
+    "BucketKey", "Breaker", "bucket_for", "bucket_dim", "halving_bucket",
+    "size_bucket_runs", "batch_bucket",
+)
+_PLACEMENT = ("PlacementPolicy",)
+_FACTOR = ("FactorCache", "FactorEntry", "matrix_fingerprint", "FACTOR_CACHE_ENV")
+_SUBMODULES = ("api", "buckets", "cache", "service", "placement", "factor_cache",
+               "admission")
+_HOMES = {**{n: ".api" for n in _API}, **{n: ".service" for n in _SERVICE},
+          **{n: ".cache" for n in _CACHE}, **{n: ".buckets" for n in _BUCKETS},
+          **{n: ".placement" for n in _PLACEMENT}, **{n: ".factor_cache" for n in _FACTOR}}
+
+__all__ = list(_HOMES) + list(_SUBMODULES)
+
+
+def __getattr__(name: str):
+    if name in _HOMES:
+        return getattr(importlib.import_module(_HOMES[name], __name__), name)
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,390 @@
+"""Executable cache + on-disk warmup manifest (the JAX package's
+``serve/cache.py`` without its artifact store, ROADMAP.md Queue 1
+item 4b, and without the device-monitor cost capture, item 7).
+
+PyTorch runs eagerly, so an "executable" here is the closure that
+:func:`_build_core` returns for one ``(BucketKey, batch)``, over padded
+tensors on the lane's device: ``fn(A_batch, B_batch) -> (X_batch,
+info_batch)`` with ``A: (batch, Mb, Nb)``, ``B: (batch, Mb, nrhs_b)``.
+Its cold build is its first run on a device (``_warm_inputs`` at
+warmup, or the first request): that run loads the kernel library,
+creates the cuBLAS/cuSOLVER handles and warms the caching allocator.
+Cold builds count under the JAX package's counter name,
+``jit.compilations`` (and ``serve.<label>.b<batch>.compile`` /
+``.compilations``; warm runs time ``.run``), so the JAX package's
+steady-state rule reads the same here: after ``warmup()``, a stream in
+warmed buckets makes no cold build, and no kernel build or library
+load.
+
+Full-phase batches loop over their items (the drivers are not batched)
+and stack the results.  Solve-phase keys (the factor cache's
+trsm-only family) take the factor as their first operand, unbatched:
+the batch's padded right-hand sides are concatenated along columns
+into one ``(Mb, batch * nrhs_b)`` operand and solved by ONE
+``potrs_from_global`` / ``getrs_from_global`` /
+``gels_solve_from_global`` call, then split by columns — the
+counterpart of the JAX package's ``vmap(in_axes=(None, 0))``.
+
+Only two batch points exist per key (1 and batch_max,
+``buckets.batch_bucket``), and every built ``(key, batch)`` lands in
+the manifest (``SLATE_TPU_WARMUP=/path.json`` or an explicit path), so
+``warmup()`` can bring a deployment's whole bucket set live at start.
+Results come back to the host as numpy: that copy is the
+synchronisation point of a dispatch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+import warnings
+from typing import Callable, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..aux import faults, metrics, sync
+from ..exceptions import NumericalError
+from .buckets import BucketKey, manifest_dumps, manifest_loads, solve_factor_shape
+
+WARMUP_ENV = "SLATE_TPU_WARMUP"
+ARTIFACTS_ENV = "SLATE_TPU_ARTIFACTS"
+
+#: manifest paths already warned about this process (warn once a path)
+_warned_manifests: Set[str] = set()
+
+
+def _grid(device):
+    from ..parallel.grid import ProcessGrid
+
+    return ProcessGrid.single(device)
+
+
+def _solve_batched(solve: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
+    """Wrap a one-factor solve over (rows, k) into the batched solve-phase
+    core: the batch's right-hand sides side by side as one operand."""
+
+    def core(F, Bb):
+        bb, m, r = Bb.shape
+        X = solve(F, Bb.permute(1, 0, 2).reshape(m, bb * r))
+        Xb = X.reshape(X.shape[0], bb, r).permute(1, 0, 2)
+        return Xb, torch.zeros(bb, dtype=torch.int32, device=Bb.device)
+
+    return core
+
+
+def _build_core(key: BucketKey) -> Callable:
+    """The batched core over padded tensors for one bucket.  The key's
+    factorization schedule is threaded into the drivers through
+    Option.Schedule."""
+    from ..drivers import chol as _chol
+    from ..drivers import lu as _lu
+    from ..drivers import qr as _qr
+    from ..enums import Option, Uplo
+    from ..matrix.matrix import HermitianMatrix, Matrix
+
+    nb = key.nb
+    opts = {Option.Schedule: key.schedule}
+
+    if key.mesh:
+        raise NotImplementedError(
+            f"bucket {key.label}: sharded serving needs the distributed drivers "
+            "(ROADMAP.md Queue 1 item 8)")
+
+    if key.phase == "solve":
+        # trsm-only bucket (the factor cache's hit family): the first
+        # operand is the bucket-padded factor ([[LU,0],[0,I]] with the
+        # rows of B pre-permuted for gesv, [[L,0],[0,I]] for posv, the
+        # packed QR for gels), not A
+        if key.routine == "gesv":
+            return _solve_batched(lambda F, B: _lu.getrs_from_global(F, B, key.schedule))
+        if key.routine == "posv":
+            return _solve_batched(lambda F, B: _chol.potrs_from_global(F, B, key.schedule))
+        if key.routine == "gels":
+            return _solve_batched(lambda F, B: _qr.gels_solve_from_global(F, B, key.m, nb))
+        raise ValueError(f"solve-phase serving supports gesv/posv/gels, not {key.routine!r}")
+
+    if key.tag == "abft":
+        raise NotImplementedError(
+            f"bucket {key.label}: checksummed (ABFT) cores belong to the integrity "
+            "plane (ROADMAP.md Queue 1 item 7)")
+
+    if key.precision == "mixed":
+        # low-precision factor + refinement (drivers/mixed.serve_mixed_core);
+        # non-converged items come back NaN and the service re-solves them
+        from ..drivers import mixed as _mixed
+
+        if key.routine not in ("gesv", "posv"):
+            raise ValueError(f"mixed-precision serving supports gesv/posv, "
+                             f"not {key.routine!r}")
+
+        def core1(Ag, Bg):
+            return _mixed.serve_mixed_core(key.routine, Ag, Bg, nb, key.schedule)
+
+    elif key.routine == "gesv":
+
+        def core1(Ag, Bg):
+            g = _grid(Ag.device)
+            X, _LU, _piv, info = _lu.gesv(Matrix.from_global(Ag, nb, grid=g),
+                                          Matrix.from_global(Bg, nb, grid=g), opts)
+            return X.to_global(), info
+
+    elif key.routine == "posv":
+
+        def core1(Ag, Bg):
+            g = _grid(Ag.device)
+            X, _L, info = _chol.posv(
+                HermitianMatrix.from_global(Ag, nb, grid=g, uplo=Uplo.Lower),
+                Matrix.from_global(Bg, nb, grid=g), opts)
+            return X.to_global(), info
+
+    elif key.routine == "gels":
+
+        def core1(Ag, Bg):
+            g = _grid(Ag.device)
+            X = _qr.gels(Matrix.from_global(Ag, nb, grid=g),
+                         Matrix.from_global(Bg, nb, grid=g), opts)
+            return X.to_global(), torch.zeros((), dtype=torch.int32, device=Ag.device)
+
+    else:
+        raise ValueError(f"unknown serving routine: {key.routine!r}")
+
+    def core(Ab, Bb):
+        # the drivers are not batched: one item at a time, stacked (the
+        # JAX package's mesh branch batches the same way)
+        outs = [core1(Ab[i], Bb[i]) for i in range(Ab.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1].reshape(()).to(torch.int32) for o in outs]))
+
+    return core
+
+
+def direct_call(routine: str, A: np.ndarray, B: np.ndarray, device=None) -> np.ndarray:
+    """Unpadded, unbatched driver call on ``device`` (default ``cuda:0``;
+    never a quiet move to the CPU) — the reference result and the
+    graceful-degradation fallback path.  Raises NumericalError on a
+    nonzero info."""
+    from ..drivers import chol as _chol
+    from ..drivers import lu as _lu
+    from ..drivers import qr as _qr
+    from ..enums import Uplo
+    from ..matrix.matrix import HermitianMatrix, Matrix
+
+    faults.sleep("latency")
+    faults.check("execute")
+    g = _grid(device)
+    nb = min(64, A.shape[1])
+    if routine == "gesv":
+        X, _LU, _piv, info = _lu.gesv(Matrix.from_global(A, nb, grid=g),
+                                      Matrix.from_global(B, nb, grid=g))
+        if int(info) != 0:
+            raise NumericalError(f"gesv: singular U({int(info)})",
+                                 int(info)).with_context(routine=routine)
+        return X.to_global().cpu().numpy()
+    if routine == "posv":
+        X, _L, info = _chol.posv(HermitianMatrix.from_global(A, nb, grid=g, uplo=Uplo.Lower),
+                                 Matrix.from_global(B, nb, grid=g))
+        if int(info) != 0:
+            raise NumericalError(f"posv: not SPD at {int(info)}",
+                                 int(info)).with_context(routine=routine)
+        return X.to_global().cpu().numpy()
+    if routine == "gels":
+        nbm = min(64, max(A.shape))
+        X = _qr.gels(Matrix.from_global(A, nbm, grid=g), Matrix.from_global(B, nbm, grid=g))
+        return X.to_global().cpu().numpy()
+    raise ValueError(f"unknown serving routine: {routine!r}")
+
+
+def _warm_inputs(key: BucketKey, batch: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Well-conditioned dummy operands for a cold build, made on the
+    device: identity A (SPD, pivot-free, full rank, and a valid LU /
+    Cholesky factor for the solve-phase family; for the gels pack the
+    identity V/R with zero T panels) and zero B."""
+    dt = getattr(torch, key.dtype)
+    d = min(key.m, key.n)
+    if key.phase == "solve":
+        A = torch.zeros(solve_factor_shape(key), dtype=dt, device=device)
+        A[:d, :d].diagonal().fill_(1)
+    else:
+        A = torch.zeros((batch, key.m, key.n), dtype=dt, device=device)
+        A[:, :d, :d].diagonal(dim1=1, dim2=2).fill_(1)
+    return A, torch.zeros((batch, key.m, key.nrhs), dtype=dt, device=device)
+
+
+def _dev_id(device) -> str:
+    return str(torch.device(device))
+
+
+class ExecutableCache:
+    """(BucketKey, batch) -> core closure, with manifest persistence and
+    the per-device cold-build record.  Thread-safe: the lane worker and
+    ``warmup()`` may race on a first run."""
+
+    def __init__(self, manifest_path: Optional[str] = None):
+        if os.environ.get(ARTIFACTS_ENV):
+            raise NotImplementedError(
+                f"{ARTIFACTS_ENV}: the executable artifact store is not ported yet "
+                "(ROADMAP.md Queue 1 item 4b)")
+        self._lock = sync.RLock(name="cache.ExecutableCache._lock")
+        self._exes: Dict[Tuple[BucketKey, int], Callable] = {}  # guarded by: _lock
+        self._entries: Set[Tuple[BucketKey, int]] = set()  # guarded by: _lock
+        # device ids each entry has run on: the first run on a device is
+        # its cold build
+        self._primed: Dict[Tuple[BucketKey, int], Set[str]] = {}  # guarded by: _lock
+        self.manifest_path = (manifest_path if manifest_path is not None
+                              else os.environ.get(WARMUP_ENV) or None)
+        if self.manifest_path and os.path.exists(self.manifest_path):
+            try:
+                with open(self.manifest_path) as f:
+                    self._entries.update(manifest_loads(json.load(f)))
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                # a corrupt manifest never blocks serving, but is counted
+                # and warned about once a path
+                metrics.inc("serve.manifest_corrupt")
+                if self.manifest_path not in _warned_manifests:
+                    _warned_manifests.add(self.manifest_path)
+                    warnings.warn(
+                        f"corrupt warmup manifest at {self.manifest_path!r} "
+                        f"({type(e).__name__}: {e}); starting with an empty bucket "
+                        "set — steady state will rebuild",
+                        RuntimeWarning, stacklevel=2)
+
+    # -- manifest ----------------------------------------------------------
+
+    def entries(self) -> List[Tuple[BucketKey, int]]:
+        with self._lock:
+            return sorted(self._entries, key=lambda e: (e[0].label, e[1]))
+
+    def ensure_manifest(self, key: BucketKey, batches) -> None:
+        """Record every batch point of a bucket's working set."""
+        with self._lock:
+            new = [int(b) for b in batches if (key, int(b)) not in self._entries]
+            if new:
+                self._entries.update((key, b) for b in new)
+                self._flush_locked()
+
+    def _flush_locked(self) -> None:
+        if not self.manifest_path:
+            return
+        tmp = f"{self.manifest_path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                f.write(manifest_dumps(self._entries) + "\n")
+            os.replace(tmp, self.manifest_path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+    def save_manifest(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the current bucket set to ``path`` (or the configured
+        path).  Returns the path written."""
+        with self._lock:
+            if path is not None:
+                self.manifest_path = path
+            self._flush_locked()
+            return self.manifest_path
+
+    # -- executables -------------------------------------------------------
+
+    def is_live(self, key: BucketKey, batch: int) -> bool:
+        """Whether the (key, batch) core has run on some device (a probe
+        that never builds)."""
+        with self._lock:
+            return bool(self._primed.get((key, batch)))
+
+    def executable(self, key: BucketKey, batch: int) -> Callable:
+        """The core closure of one (key, batch); building it records the
+        entry in the manifest.  The ``compile`` fault site fires here, on
+        a build only."""
+        with self._lock:
+            exe = self._exes.get((key, batch))
+            if exe is not None:
+                return exe
+        faults.check("compile")
+        exe = _build_core(key)
+        with self._lock:
+            exe = self._exes.setdefault((key, batch), exe)
+            if (key, batch) not in self._entries:
+                self._entries.add((key, batch))
+                self._flush_locked()
+        return exe
+
+    def run(self, key: BucketKey, A_batch, B_batch, device=None):
+        """Execute one padded batch on ``device`` (default ``cuda:0``);
+        returns host numpy (X_batch, info_batch).  A and B may be numpy
+        (uploaded here) or tensors already on the device.
+
+        Fault sites (one bool each when off): ``latency`` sleeps before
+        dispatch, ``execute`` raises in place of the dispatch,
+        ``result_corrupt`` NaN-poisons item 0 of X, ``info_nonzero``
+        forces item 0's info nonzero."""
+        faults.sleep("latency")
+        faults.check("execute")
+        device = torch.device(device) if device is not None else _grid(None).device
+        # the batch point: A's leading axis for the full family, B's for
+        # the solve family (whose factor operand is unbatched)
+        batch = B_batch.shape[0] if key.phase == "solve" else A_batch.shape[0]
+        exe = self.executable(key, batch)
+        did = _dev_id(device)
+        with self._lock:
+            cold = did not in self._primed.get((key, batch), ())
+        t0 = time.perf_counter()
+        A = torch.as_tensor(A_batch, device=device)
+        B = torch.as_tensor(B_batch, device=device)
+        Xd, infod = exe(A, B)
+        X, info = Xd.cpu().numpy(), infod.cpu().numpy()  # the sync point
+        dt = time.perf_counter() - t0
+        name = f"serve.{key.label}.b{batch}"
+        if cold:
+            metrics.inc("jit.compilations")
+            metrics.inc(f"{name}.compilations")
+            metrics.observe(f"{name}.compile", dt)
+        else:
+            metrics.observe(f"{name}.run", dt)
+        with self._lock:
+            self._primed.setdefault((key, batch), set()).add(did)
+        X = faults.corrupt("result_corrupt", X)
+        info = faults.poison_info("info_nonzero", np.atleast_1d(info))
+        return X, info
+
+    # -- warmup --------------------------------------------------------------
+
+    def warmup(self, path: Optional[str] = None, batch_max: Optional[int] = None,
+               devices=None, verbose: bool = False) -> int:
+        """Cold-build every manifest entry (plus ``path``'s entries) on
+        every device of ``devices`` (default ``[cuda:0]``) it has not run
+        on yet.  Returns the number of entries built for the first time.
+        Errors propagate.  The pass lands in the ``serve.warmup`` timer
+        and the ``serve.warmup_s`` gauge."""
+        with self._lock:
+            todo = list(self._entries)
+        if path is not None and os.path.exists(path):
+            with open(path) as f:
+                todo += [e for e in manifest_loads(f.read()) if e not in todo]
+        todo.sort(key=lambda e: (e[0].label, e[1]))
+        devs = list(dict.fromkeys(_dev_id(d) for d in (devices or [_grid(None).device])))
+        compiled = 0
+        with metrics.phase("serve.warmup", always=True) as ph:
+            for key, batch in todo:
+                if batch_max is not None and batch > batch_max:
+                    continue
+                with self._lock:
+                    primed = set(self._primed.get((key, batch), ()))
+                need = [d for d in devs if d not in primed]
+                if not need:
+                    continue
+                t0 = time.perf_counter()
+                for d in need:
+                    A, B = _warm_inputs(key, batch, d)
+                    self.run(key, A, B, device=d)
+                if not primed:
+                    compiled += 1
+                if verbose:
+                    print(f"[serve.warmup] {key.label} b{batch}: "
+                          f"{time.perf_counter() - t0:.2f}s")
+        metrics.gauge("serve.warmup_s", ph.seconds)
+        metrics.inc("serve.warmup_compiles", compiled)
+        return compiled

@@ -1050,3 +1050,52 @@ def test_generate_tiles_bitwise_across_tilings_on_the_card(dev, kind):
         i, j = np.arange(0, n, 7)[:, None], np.arange(0, n, 5)[None, :]
         ref = philox.random_np("uniform", seed, i + 0 * j, j + 0 * i)
         np.testing.assert_array_equal(got[512][::7, ::5].cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("routine", ["posv", "gesv"])
+def test_serve_hit_stream_launches_only_the_trsm_pair(dev, routine):
+    """A factor-cache hit stream at n = 2048 on the card: after one miss
+    and warmup(), the window makes no cold build, launches only the trsm
+    pair (trsm_kernel_launches(2048) a dispatch each), and every X meets
+    the scaled residual bound."""
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.serve import FactorCache, SolverService
+
+    n, nrhs = 2048, 16
+    rng = np.random.default_rng(5)
+    G = rng.standard_normal((n, n))
+    A = G @ G.T + n * np.eye(n) if routine == "posv" else G + 2 * np.sqrt(n) * np.eye(n)
+    Bs = [rng.standard_normal((n, nrhs)) for _ in range(8)]
+    was_on = metrics.is_on()
+    metrics.on()
+    s = SolverService(factor_cache=FactorCache(max_entries=4), batch_max=4,
+                      batch_window_s=0.002)
+    try:
+        s.submit(routine, A, Bs[0]).result(timeout=600)
+        s.warmup()
+
+        def runs():
+            return sum(int(v["count"]) for k, v in metrics.timers().items()
+                       if k.startswith(f"serve.{routine}.") and ".solve.b" in k
+                       and k.endswith(".run"))
+
+        runs0 = runs()
+        pk.reset_launches()
+        with metrics.deltas() as d:
+            futs = [s.submit(routine, A, B) for B in Bs]
+            Xs = [f.result(timeout=600) for f in futs]
+            assert d.get("serve.factor_cache.hit") == len(Bs)
+            assert d.get("jit.compilations") == 0
+        launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+        assert set(launched) == {"trsm_lower", "trsm_upper"}, launched
+        expect = pk.trsm_kernel_launches(n) * (runs() - runs0)  # one sweep a dispatch
+        assert launched == {"trsm_lower": expect, "trsm_upper": expect}
+        for B, X in zip(Bs, Xs):
+            r = np.linalg.norm(A @ X - B, 1) / (np.linalg.norm(A, 1) * np.linalg.norm(X, 1)
+                                                * n * np.finfo(np.float64).eps)
+            assert r <= 3, r
+    finally:
+        s.stop()
+        if not was_on:
+            metrics.off()

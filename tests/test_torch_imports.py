@@ -48,6 +48,17 @@ import slate_tpu_torch.refine.gmres
 import slate_tpu_torch.drivers.mixed
 import slate_tpu_torch.aux.faults
 import slate_tpu_torch.aux.spans
+import slate_tpu_torch.aux.sync
+import slate_tpu_torch.aux.metrics
+import slate_tpu_torch.integrity.policy
+import slate_tpu_torch.serve
+import slate_tpu_torch.serve.buckets
+import slate_tpu_torch.serve.admission
+import slate_tpu_torch.serve.placement
+import slate_tpu_torch.serve.factor_cache
+import slate_tpu_torch.serve.cache
+import slate_tpu_torch.serve.service
+import slate_tpu_torch.serve.api
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -79,7 +90,10 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "drivers/lu.py", "ops/householder.py", "ops/qr_fast.py", "drivers/qr.py",
             "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py",
             "internal/norm1est.py", "func.py", "simplified.py", "drivers/chol.py",
-            "drivers/blas3.py", "ops/chol_kernels.py"} <= names
+            "drivers/blas3.py", "ops/chol_kernels.py", "aux/sync.py", "integrity/policy.py",
+            "serve/buckets.py", "serve/admission.py", "serve/placement.py",
+            "serve/factor_cache.py", "serve/cache.py", "serve/service.py",
+            "serve/api.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
