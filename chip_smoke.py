@@ -106,7 +106,31 @@ Phases, each for float64 and float32 unless stated:
      with the factor cache off: 24 interleaved gesv and posv requests,
      n in {1500, 2600, 3900} (buckets 2048 / 4096 / 4096), coalesced,
      the kernel family at the 2048 bucket, residuals <= 3, and the 4096
-     bucket's ``from_global`` / ``to_global`` in tiles of 64.
+     bucket's ``from_global`` / ``to_global`` in tiles of 64;
+ 14. band and indefinite, n = 16384, nrhs = 512, seeded operands on the
+     card: ``pbsv`` at kd = 256 in both Uplo (the windowed band
+     Cholesky, whose 64 window Cholesky factors take the ``flat``
+     schedule: no kernel; the time a window; against ``cholesky`` +
+     ``cholesky_solve`` of the dense matrix) and at kd = 4096 = n / 4 (the
+     dense potrf: ``chol_kernel_launches``); ``gbsv`` at kl = ku = 128 (one
+     panel_lu launch a window, ``band_lperms`` set, panel_lu at the
+     window shape (256, 128) bit for bit against its plain version,
+     residual within the JAX package's gbsv bound 30; against
+     ``lu_factor`` + ``lu_solve``) and at kl = ku = 4096 (the dense getrf:
+     ``getrf_kernel_launches``); ``tbsm`` at kd = 256, lower and upper,
+     both sides and one transposed op, against ``solve_triangular``;
+     ``gbmm`` and ``hbmm`` against ``torch.matmul`` of the masked dense
+     matrix; ``hesv`` of (G + G^T)/2 + 3 sqrt(n) diag(+-1) (pivot-free:
+     info 0, no Aasen or butterfly, ``getrf_kernel_launches`` panel_lu
+     launches without pivot search, residual <= 3; against
+     ``ldl_factor`` + ``ldl_solve``); float64 ``hetrf(method="rbt")`` +
+     ``hetrs`` of kron(I, [[0, 1], [1, 0]]) (2 x 14 butterfly_level
+     launches each, residual <= 1000); Aasen (``hetrf(method="aasen")``
+     and ``hesv``'s breakdown refactor) on the zero-diagonal chain at
+     n = 2048, cut from 16384 because Aasen's LTL^H is the reference's
+     host column loop (O(n^3) in numpy BLAS-2 calls); complex128
+     ``pbsv``, ``gbsv`` and ``hesv`` at n = 2048 with no kernel launch.
+     Host-clock times, launches and peak device memory of each call.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2166,6 +2190,392 @@ def serve_full_stream(stt, serve, pk, ck, metrics, dtype, gen, dev) -> dict:
             "to_global_4096_nb64_ms": t_to}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: band and indefinite
+# ---------------------------------------------------------------------------
+
+KD_NARROW, KLU_NARROW, KD_WIDE = 256, 128, 4096  # kd = n / 4 takes the dense route
+GBSV_BOUND = 30  # tests/test_band_indefinite.py:48: checks.passed(err, factor=30)
+RBT_BOUND = 1000  # the JAX package's RBT bound (PERF.md section 2)
+N_AASEN = 2048  # Aasen's host column loop: O(n^3) in numpy BLAS-2 calls
+
+
+def _band(A, kl, ku):
+    """A with the entries outside the band (j - i > ku or i - j > kl) zero."""
+    return torch.triu(torch.tril(A, ku), -kl)
+
+
+def _sym_band(n, kd, dt, gen, dev):
+    """A symmetric band + (2 kd + 2) I (the JAX tests' SPD band operand)."""
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    A = _band(G + G.mH, kd, kd) / 2
+    A.diagonal().add_(2 * kd + 2)
+    return A
+
+
+def _band_run(pk, metrics, fn):
+    """(result, host seconds, kernel launches, peak GB) of one call that
+    ends in a synchronize; the counts and the peak are this call's."""
+    torch.cuda.synchronize()
+    metrics.reset()
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    return (out, t, {k: v for k, v in pk.LAUNCHES.items() if v},
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def pbsv_phase(stt, pk, ck, metrics, dtype, gen, dev) -> dict:
+    """pbsv at n = 16384, nrhs = 512: kd = 256 in both Uplo (the windowed
+    band Cholesky, 64 windows of 256 whose diagonal Cholesky is the
+    ``flat`` schedule: no kernel launched), timed by window and against
+    cholesky + cholesky_solve of the dense matrix; kd = 4096 = n / 4 (the
+    dense potrf: the Cholesky kernels, ``chol_kernel_launches``)."""
+    dt = getattr(torch, dtype)
+    n, nrhs = N_MAIN, NRHS_MAIN
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Bm = stt.Matrix.from_global(B, 512)
+    out = {}
+    for kd in (KD_NARROW, KD_WIDE):
+        A = _sym_band(n, kd, dt, gen, dev)
+        for uplo in (("Lower", "Upper") if kd == KD_NARROW else ("Lower",)):
+            M = stt.Matrix.from_global(torch.tril(A) if uplo == "Lower" else torch.triu(A), 512)
+            Ab = stt.HermitianBandMatrix(M.data, M.layout, grid=M.grid, kd=kd,
+                                         uplo=stt.Uplo[uplo])
+            del M
+            (X, L, info), t, launches, peak = _band_run(pk, metrics, lambda: stt.pbsv(Ab, Bm))
+            tm = metrics.timers()
+            r = scaled_residual(A, X.to_global(), B)
+            label = f"pbsv {dtype} n={n} kd={kd} {uplo}"
+            steps = -(-n // min(max(kd, 32), 512))
+            res = {"s": t, "pbtrf_s": tm["pbtrf"]["total_s"], "pbtrs_s": tm["pbtrs"]["total_s"],
+                   "residual": r, "launches": launches, "peak_gb": peak}
+            if kd == KD_NARROW:
+                res["pbtrf_ms_a_window"] = res["pbtrf_s"] / steps * 1e3
+                res["pbtrs_ms_a_window"] = res["pbtrs_s"] / (2 * steps) * 1e3
+                expect = {}
+                how = (f"{steps} windows, pbtrf {res['pbtrf_ms_a_window']:.3f} ms a window, "
+                       f"pbtrs {res['pbtrs_ms_a_window']:.3f} ms a window (two sweeps)")
+            else:
+                expect = {k: v for k, v in ck.chol_kernel_launches(n).items() if v}
+                how = "dense potrf"
+            print(f"  {label}: residual {r:.3e}, info {int(info)}, {t:.3f} s (pbtrf "
+                  f"{res['pbtrf_s']:.3f} s, pbtrs {res['pbtrs_s']:.3f} s; {how}), launches "
+                  f"{launches or 0} (expected {expect or 0}), peak {peak:.2f} GB", flush=True)
+            check(int(info) == 0, f"{label}: info = {int(info)}")
+            check(r <= 3, f"{label}: scaled residual {r:.3f} > 3")
+            check(launches == expect, f"{label}: launches {launches} != {expect}")
+            out[f"kd{kd}.{uplo}"] = res
+            del X, L, Ab
+        if kd == KD_NARROW:
+            t_lib = cuda_ms(lambda: torch.cholesky_solve(B, torch.linalg.cholesky(A)), reps=3)
+            out["cholesky_cholesky_solve_ms"] = t_lib
+            print(f"  torch.linalg.cholesky + cholesky_solve {dtype} n={n} (dense): "
+                  f"{t_lib:.3f} ms (yardstick)", flush=True)
+        del A
+        torch.cuda.empty_cache()
+    return out
+
+
+def gbsv_phase(stt, pk, lk, metrics, dtype, gen, dev) -> dict:
+    """gbsv at n = 16384, nrhs = 512, A = a normal band + 2 I: kl = ku =
+    128 (the windowed band LU, one panel_lu launch a window at (256,
+    128), band_lperms set; panel_lu there bit for bit against its plain
+    version; timed against lu_factor + lu_solve), and kl = ku = 4096
+    (the dense getrf: ``getrf_kernel_launches``)."""
+    dt = getattr(torch, dtype)
+    n, nrhs = N_MAIN, NRHS_MAIN
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Bm = stt.Matrix.from_global(B, 512)
+    out = {}
+    for klu in (KLU_NARROW, KD_WIDE):
+        A = _band(torch.randn(n, n, generator=gen, device=dev, dtype=dt), klu, klu)
+        A.diagonal().add_(2)
+        Ab = stt.BandMatrix.from_global(A, klu, klu, 512)
+        (X, LU, piv, info), t, launches, peak = _band_run(pk, metrics, lambda: stt.gbsv(Ab, Bm))
+        tm = metrics.timers()
+        r = scaled_residual(A, X.to_global(), B)
+        label = f"gbsv {dtype} n={n} kl=ku={klu}"
+        res = {"s": t, "gbtrf_s": tm["gbtrf"]["total_s"], "gbtrs_s": tm["gbtrs"]["total_s"],
+               "residual": r, "launches": launches, "peak_gb": peak}
+        if klu == KLU_NARROW:
+            w = piv.band_w
+            steps = -(-n // w)
+            expect = {"panel_lu": steps}
+            check(piv.band_lperms is not None and tuple(piv.band_lperms.shape) == (steps, w + klu),
+                  f"{label}: band_lperms not set")
+            how = f"{steps} windows of {w}, gbtrf {res['gbtrf_s'] / steps * 1e3:.3f} ms a window"
+        else:
+            expect = {"panel_lu": lk.getrf_kernel_launches(n)}
+            check(piv.band_lperms is None, f"{label}: the dense route set band_lperms")
+            how = "dense getrf"
+        print(f"  {label}: residual {r:.3e} (bound {GBSV_BOUND}), info {int(info)}, {t:.3f} s "
+              f"(gbtrf {res['gbtrf_s']:.3f} s, gbtrs {res['gbtrs_s']:.3f} s; {how}), launches "
+              f"{launches} (expected {expect}), peak {peak:.2f} GB", flush=True)
+        check(int(info) == 0, f"{label}: info = {int(info)}")
+        check(r <= GBSV_BOUND, f"{label}: scaled residual {r:.3f} > {GBSV_BOUND}")
+        check(launches == expect, f"{label}: launches {launches} != {expect}")
+        del X, LU, piv, Ab
+        if klu == KLU_NARROW:
+            # the window panel as band_getrf takes it: a view of the padded band
+            P = A[n // 2:n // 2 + w + klu, n // 2:n // 2 + w]
+            got, perm = pk.panel_lu(P)
+            ref, ref_perm = pk.panel_lu_plain(P)
+            check(torch.equal(perm, ref_perm), f"{label}: window panel_lu perm differs")
+            check(torch.equal(got, ref), f"{label}: window panel_lu not bitwise equal")
+            res["window_panel_lu_ms"] = cuda_ms(lambda: pk.panel_lu(P), reps=5)
+            res["window_panel_lu_plain_ms"] = cuda_ms(lambda: pk.panel_lu_plain(P), reps=3)
+            t_lib = cuda_ms(lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor(A), B), reps=3)
+            out["lu_factor_lu_solve_ms"] = t_lib
+            print(f"  panel_lu {dtype} at the window ({w + klu}, {w}): lu and perm bitwise equal "
+                  f"to the plain version, {res['window_panel_lu_ms']:.4f} ms, plain "
+                  f"{res['window_panel_lu_plain_ms']:.3f} ms; torch.linalg.lu_factor + lu_solve "
+                  f"n={n} (dense): {t_lib:.3f} ms (yardstick)", flush=True)
+        out[f"klu{klu}"] = res
+        del A
+        torch.cuda.empty_cache()
+    return out
+
+
+def tbsm_phase(stt, pk, metrics, dtype, gen, dev) -> dict:
+    """tbsm at n = 16384, kd = 256, alpha = 1: lower and upper, Side.Left
+    (nrhs = 512) and Side.Right (512 rows), and one transposed op; each
+    against one ``solve_triangular`` of the dense T."""
+    dt = getattr(torch, dtype)
+    n, nrhs, kd = N_MAIN, NRHS_MAIN, KD_NARROW
+    out = {}
+    for uplo in ("Lower", "Upper"):
+        G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+        T = _band(G, kd, 0) if uplo == "Lower" else _band(G, 0, kd)
+        del G
+        T.diagonal().add_(kd + 2)
+        M = stt.Matrix.from_global(T, 512)
+        Tb = stt.TriangularBandMatrix(M.data, M.layout, grid=M.grid, kd=kd, uplo=stt.Uplo[uplo])
+        del M
+        cases = [("NoTrans", "Left"), ("NoTrans", "Right")]
+        if uplo == "Lower":
+            cases.append(("Trans", "Left"))
+        for op, side in cases:
+            A = Tb if op == "NoTrans" else stt.transpose(Tb)
+            opT = T if op == "NoTrans" else T.T
+            shape = (n, nrhs) if side == "Left" else (nrhs, n)
+            B = torch.randn(*shape, generator=gen, device=dev, dtype=dt)
+            Bm = stt.Matrix.from_global(B, 512)
+            X, t, launches, peak = _band_run(
+                pk, metrics, lambda: stt.tbsm(stt.Side[side], 1.0, A, Bm).to_global())
+            if side == "Left":
+                r = scaled_residual(opT, X, B)
+                lib = lambda: torch.linalg.solve_triangular(  # noqa: E731
+                    opT, B, upper=(uplo == "Upper") == (op == "NoTrans"))
+            else:
+                r = scaled_residual(opT.T, X.T, B.T)
+                lib = lambda: torch.linalg.solve_triangular(  # noqa: E731
+                    opT, B, upper=(uplo == "Upper") == (op == "NoTrans"), left=False)
+            t_lib = cuda_ms(lib, reps=3)
+            label = f"tbsm {dtype} n={n} kd={kd} {uplo} {op} {side}"
+            print(f"  {label}: residual {r:.3e}, {t:.3f} s, launches {launches or 0}, peak "
+                  f"{peak:.2f} GB; solve_triangular (dense) {t_lib:.3f} ms", flush=True)
+            check(r <= 3, f"{label}: scaled residual {r:.3f} > 3")
+            check(not launches, f"{label}: kernels launched {launches}")
+            out[f"{uplo}.{op}.{side}"] = {"s": t, "residual": r, "peak_gb": peak,
+                                          "solve_triangular_ms": t_lib}
+            del X, B, Bm
+        del T, Tb
+        torch.cuda.empty_cache()
+    return out
+
+
+def band_multiply_phase(stt, pk, dtype, gen, dev) -> dict:
+    """gbmm (kl = ku = 128) and hbmm (kd = 128, Side.Left) at n = 16384,
+    512 columns, against ``torch.matmul`` of the masked dense matrix,
+    elementwise within 10 sqrt(n) eps |A||B|."""
+    dt = getattr(torch, dtype)
+    n, nrhs, k = N_MAIN, NRHS_MAIN, KLU_NARROW
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Bm, Cm = stt.Matrix.from_global(B, 512), stt.Matrix.from_global(torch.zeros_like(B), 512)
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    out = {}
+    Ag = stt.BandMatrix.from_global(G, k, k, 512)
+    H = G + G.T  # stored triangle: the lower one
+    M = stt.Matrix.from_global(torch.tril(H), 512)
+    Ah = stt.HermitianBandMatrix(M.data, M.layout, grid=M.grid, kd=k)
+    del M
+    dense = {"gbmm": _band(G, k, k), "hbmm": _band(H, k, k)}
+    del G, H
+    for name, fn in (("gbmm", lambda: stt.gbmm(1.0, Ag, Bm, 0.0, Cm)),
+                     ("hbmm", lambda: stt.hbmm(stt.Side.Left, 1.0, Ah, Bm, 0.0, Cm))):
+        pk.reset_launches()
+        got = fn().to_global()
+        torch.cuda.synchronize()
+        launches = {k_: v for k_, v in pk.LAUNCHES.items() if v}
+        D = dense[name]
+        ref = torch.matmul(D, B)
+        err, ratio = elementwise_err(got, ref, torch.matmul(D.abs(), B.abs()), n)
+        t = cuda_ms(lambda: fn(), reps=3)
+        t_lib = cuda_ms(lambda: torch.matmul(D, B), reps=3)
+        print(f"  {name} {dtype} n={n} k={k}: max err {err:.3e} (max err/tol {ratio:.3e}), "
+              f"{t:.3f} ms, torch.matmul (dense) {t_lib:.3f} ms, launches {launches or 0}",
+              flush=True)
+        check(ratio <= 1, f"{name} {dtype}: max err/tol {ratio:.3e} > 1")
+        check(not launches, f"{name} {dtype}: kernels launched {launches}")
+        out[name] = {"max_abs_err": err, "err_over_tol": ratio, "ms": t, "matmul_ms": t_lib}
+        del got, ref
+    return out
+
+
+def hesv_phase(stt, pk, lk, metrics, dtype, gen, dev) -> dict:
+    """hesv at n = 16384, nrhs = 512, A = (G + G^T)/2 + 3 sqrt(n) diag(s),
+    s a seeded +-1 vector: indefinite, its leading minors far from
+    singular, so the pivot-free LDL^H holds (info 0, no Aasen or
+    butterfly on L; getrf_nopiv's panel_lu launches without pivot search,
+    ``getrf_kernel_launches``); residual <= 3 after the two refinement
+    sweeps; timed against ldl_factor + ldl_solve."""
+    dt = getattr(torch, dtype)
+    n, nrhs = N_MAIN, NRHS_MAIN
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    A = (G + G.T) / 2
+    del G
+    s = torch.where(torch.randn(n, generator=gen, device=dev, dtype=dt) >= 0, 1.0, -1.0)
+    A.diagonal().add_(3 * n**0.5 * s)
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Am, Bm = stt.HermitianMatrix.from_global(A, 512), stt.Matrix.from_global(B, 512)
+    (X, L, d, info), t, launches, peak = _band_run(pk, metrics, lambda: stt.hesv(Am, Bm))
+    tm = metrics.timers()
+    r = scaled_residual(A, X.to_global(), B)
+    route = "aasen" if getattr(L, "_aasen", None) is not None else (
+        "rbt" if getattr(L, "_rbt", None) is not None else "pivot-free")
+    expect = {"panel_lu": lk.getrf_kernel_launches(n)}
+    label = f"hesv {dtype} n={n} nrhs={nrhs}"
+    del X, L, d
+    t_lib = cuda_ms(lambda: torch.linalg.ldl_solve(*torch.linalg.ldl_factor(A), B), reps=1)
+    print(f"  {label}: residual {r:.3e}, info {int(info)}, route {route}, {t:.3f} s (hetrf "
+          f"{tm['hetrf']['total_s']:.3f} s, hetrs {tm['hetrs']['total_s']:.3f} s for 3 solves), "
+          f"launches {launches} (expected {expect}), peak {peak:.2f} GB; "
+          f"torch.linalg.ldl_factor + ldl_solve {t_lib:.3f} ms (yardstick)", flush=True)
+    check(int(info) == 0, f"{label}: info = {int(info)}")
+    check(route == "pivot-free", f"{label}: route {route}, not pivot-free")
+    check(launches == expect, f"{label}: launches {launches} != {expect}")
+    check(r <= 3, f"{label}: scaled residual {r:.3f} > 3")
+    return {"s": t, "hetrf_s": tm["hetrf"]["total_s"], "hetrs_s": tm["hetrs"]["total_s"],
+            "residual": r, "launches": launches, "peak_gb": peak, "ldl_factor_solve_ms": t_lib}
+
+
+def hetrf_rbt_phase(stt, pk, metrics, gen, dev) -> dict:
+    """hetrf(method="rbt") + hetrs at n = 16384, float64, A = kron(I,
+    [[0, 1], [1, 0]]), whose odd leading minors vanish: the pivot-free pass
+    breaks down, the full-depth butterfly (log2 n = 14 levels) runs
+    2 x 14 butterfly_level launches for the factor and 2 x 14 for the
+    solve; residual <= RBT_BOUND."""
+    n, nrhs, dt = N_MAIN, NRHS_MAIN, torch.float64
+    A = torch.zeros(n, n, device=dev, dtype=dt)
+    i = torch.arange(0, n, 2, device=dev)
+    A[i, i + 1] = 1.0
+    A[i + 1, i] = 1.0
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Am, Bm = stt.HermitianMatrix.from_global(A, 512), stt.Matrix.from_global(B, 512)
+    (L, d, info), t_f, l_f, peak = _band_run(pk, metrics, lambda: stt.hetrf(Am, method="rbt"))
+    X, t_s, l_s, _ = _band_run(pk, metrics, lambda: stt.hetrs(L, d, Bm).to_global())
+    r = scaled_residual(A, X, B)
+    depth = n.bit_length() - 1
+    print(f"  hetrf(rbt) + hetrs float64 n={n} kron(I, [[0,1],[1,0]]): residual {r:.3e} (bound "
+          f"{RBT_BOUND}), info {int(info)} (of the randomized factor), hetrf {t_f:.3f} s "
+          f"(launches {l_f}), hetrs {t_s:.3f} s (launches {l_s}), peak {peak:.2f} GB",
+          flush=True)
+    check(getattr(L, "_rbt", None) is not None, "hetrf(rbt): no butterfly refactor")
+    check(l_f.get("butterfly_level") == 2 * depth,
+          f"hetrf(rbt): butterfly_level launches {l_f.get('butterfly_level')} != {2 * depth}")
+    check(l_s == {"butterfly_level": 2 * depth},
+          f"hetrs(rbt): launches {l_s} != {{'butterfly_level': {2 * depth}}}")
+    check(r <= RBT_BOUND, f"hetrf(rbt) + hetrs: scaled residual {r:.3f} > {RBT_BOUND}")
+    return {"hetrf_s": t_f, "hetrs_s": t_s, "residual": r, "info": int(info),
+            "launches_hetrf": l_f, "launches_hetrs": l_s, "peak_gb": peak}
+
+
+def aasen_phase(stt, pk, dtype, dev) -> dict:
+    """hetrf(method="aasen") + hetrs and hesv (auto: the pivot-free pass
+    breaks down and refactors with Aasen) on the zero-diagonal chain of
+    tests/test_band_indefinite.py:333 at n = N_AASEN, nrhs = 512.  Cut from
+    16384: Aasen's LTL^H is the reference's host column loop, O(n^3) in
+    numpy BLAS-2 calls, minutes at 16384.  Host-clock times."""
+    dt = getattr(torch, dtype)
+    n, nrhs = N_AASEN, NRHS_MAIN
+    A = torch.diag(torch.ones(n - 1, device=dev, dtype=dt), 1)
+    A = A + A.T
+    B = torch.randn(n, nrhs, device=dev, dtype=dt,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    Am, Bm = stt.HermitianMatrix.from_global(A, 256), stt.Matrix.from_global(B, 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L, d, info = stt.hetrf(Am, method="aasen")
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = stt.hetrs(L, d, Bm).to_global()
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    r = scaled_residual(A, X, B)
+    t0 = time.perf_counter()
+    Xa, La, _, info_a = stt.hesv(Am, Bm)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    r_a = scaled_residual(A, Xa.to_global(), B)
+    print(f"  Aasen {dtype} n={n} (zero-diagonal chain): hetrf(aasen) {t_f:.3f} s host, hetrs "
+          f"{t_s:.3f} s, residual {r:.3e}; hesv (auto) {t_a:.3f} s, route "
+          f"{'aasen' if getattr(La, '_aasen', None) is not None else 'other'}, residual "
+          f"{r_a:.3e}", flush=True)
+    check(int(info) == 0 and getattr(L, "_aasen", None) is not None, "hetrf(aasen) failed")
+    check(getattr(La, "_aasen", None) is not None and int(info_a) == 0,
+          "hesv: the chain's breakdown did not refactor with Aasen")
+    check(r <= 3 and r_a <= 3, f"Aasen {dtype}: scaled residuals {r:.3f}, {r_a:.3f} > 3")
+    return {"hetrf_aasen_s": t_f, "hetrs_s": t_s, "residual": r, "hesv_auto_s": t_a,
+            "hesv_residual": r_a}
+
+
+def band_complex_phase(stt, pk, gen, dev) -> dict:
+    """complex128 pbsv (kd = 64), gbsv (kl = ku = 32) and hesv at n = 2048:
+    the plain window panel and the flat / recursive schedules, no kernel
+    launched, residuals within bound."""
+    n, nrhs, dt = 2048, 3, torch.complex128
+    B = torch.randn(n, nrhs, generator=gen, device=dev, dtype=dt)
+    Bm = stt.Matrix.from_global(B, 256)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    A1 = _sym_band(n, 64, dt, gen, dev)
+    M = stt.Matrix.from_global(torch.tril(A1), 256)
+    X1, _, info1 = stt.pbsv(stt.HermitianBandMatrix(M.data, M.layout, grid=M.grid, kd=64), Bm)
+    A2 = _band(torch.randn(n, n, generator=gen, device=dev, dtype=dt), 32, 32)
+    A2.diagonal().add_(2)
+    X2, _, piv2, info2 = stt.gbsv(stt.BandMatrix.from_global(A2, 32, 32, 256), Bm)
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    A3 = (G + G.mH) / 2
+    s = torch.where(torch.randn(n, generator=gen, device=dev, dtype=torch.float64) >= 0, 1.0, -1.0)
+    A3.diagonal().add_((3 * n**0.5 * s).to(dt))
+    X3, L3, _, info3 = stt.hesv(stt.HermitianMatrix.from_global(A3, 256), Bm)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+    eps = torch.finfo(torch.float64).eps
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    res = lambda A, X, B: n1(A @ X - B) / (n1(A) * n1(X) * n * eps)  # noqa: E731
+    r = {"pbsv": res(A1, X1.to_global(), B), "gbsv": res(A2, X2.to_global(), B),
+         "hesv": res(A3, X3.to_global(), B)}
+    print(f"  complex128 n={n}: scaled residuals "
+          + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+          + f"; info {int(info1)}, {int(info2)}, {int(info3)}; band_lperms "
+          f"{'set' if piv2.band_lperms is not None else 'unset'}; kernel launches "
+          f"{launched or 0}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(int(info1) == int(info2) == int(info3) == 0, "complex128 band/indefinite: info != 0")
+    check(piv2.band_lperms is not None, "complex128 gbsv: not the windowed route")
+    check(getattr(L3, "_aasen", None) is None and getattr(L3, "_rbt", None) is None,
+          "complex128 hesv: not pivot-free")
+    for k, v in r.items():
+        check(v <= (GBSV_BOUND if k == "gbsv" else 3), f"complex128 {k}: scaled residual {v:.3e}")
+    check(not launched, f"complex128 band/indefinite: kernels launched {launched}")
+    return r
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -2419,6 +2829,24 @@ def main() -> int:
         sres[d]["full_phase"] = serve_full_stream(stt, serve, pk, ck, metrics, d, gen, dev)
         torch.cuda.empty_cache()
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    print("phase 14: band and indefinite", flush=True)
+    t14 = time.perf_counter()
+    metrics.on()
+    bres = {}
+    for d in DTYPES:
+        bres[d] = {"pbsv": pbsv_phase(stt, pk, ck, metrics, d, gen, dev)}
+        bres[d]["gbsv"] = gbsv_phase(stt, pk, lk, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+        bres[d]["tbsm"] = tbsm_phase(stt, pk, metrics, d, gen, dev)
+        bres[d]["band_multiply"] = band_multiply_phase(stt, pk, d, gen, dev)
+        torch.cuda.empty_cache()
+        bres[d]["hesv"] = hesv_phase(stt, pk, lk, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+        bres[d]["aasen_2048"] = aasen_phase(stt, pk, d, dev)
+    bres["hetrf_rbt_float64"] = hetrf_rbt_phase(stt, pk, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    bres["complex128_2048"] = band_complex_phase(stt, pk, gen, dev)
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -2457,7 +2885,7 @@ def main() -> int:
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
-                                      "serve": sres,
+                                      "serve": sres, "band_indefinite": bres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

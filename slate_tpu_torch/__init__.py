@@ -17,7 +17,12 @@ pivoting, tournament pivoting or the random butterfly transform,
 ``set_lambdas``), the tile distribution functions (``func``), the
 matrix generator (``matgen``: ``generate_matrix``, ``cond_matrix``),
 the mixed-precision solvers (``gesv_mixed``, ``posv_mixed`` and their
-GMRES-IR variants, over the ``refine`` subsystem), the verb API of
+GMRES-IR variants, over the ``refine`` subsystem), the band kinds and
+solvers (``BandMatrix``, ``TriangularBandMatrix``,
+``HermitianBandMatrix``; ``gbmm``, ``hbmm``, ``tbsm``, ``gbtrf``/``gbtrs``/
+``gbsv``, ``pbtrf``/``pbtrs``/``pbsv`` on windowed band kernels), the
+Hermitian-indefinite solvers (``hetrf``/``hetrs``/``hesv``: pivot-free
+LDL^H, Aasen's LTL^H on the host, the random butterfly), the verb API of
 those slices (``simplified``) and the serving tier above them
 (``serve``: buckets, the executable and factor caches, a one-lane
 ``SolverService`` and ``serve.gesv/posv/gels``).  Every Pallas kernel of the
@@ -64,11 +69,14 @@ from .parallel.grid import ProcessGrid, default_grid, set_default_grid
 from .parallel.layout import TileLayout
 from .matrix.base import conj_transpose, transpose
 from .matrix.matrix import (
+    BandMatrix,
     BaseTrapezoidMatrix,
+    HermitianBandMatrix,
     HermitianMatrix,
     Matrix,
     SymmetricMatrix,
     TrapezoidMatrix,
+    TriangularBandMatrix,
     TriangularMatrix,
 )
 from .drivers.aux import add, colNorms, copy, norm, scale, scale_row_col, set, set_lambdas
@@ -99,6 +107,8 @@ from .drivers.qr import (
     unmqr,
 )
 from .drivers.mixed import gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_gmres
+from .drivers.band import gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf, pbtrs, tbsm
+from .drivers.indefinite import hesv, hetrf, hetrs
 from .types import Pivots, TriangularFactors
 
 # matgen (reference: include/slate/generate_matrix.hh)

@@ -12,7 +12,13 @@ nothing of the JAX package itself:
         kind=type(A).__name__, uplo=A.uplo.name, op=A.op.name,
         diag=A.diag.name, device="cpu")
 
-``pivots_from_reference`` takes its pivots' forward permutation, and
+The band kinds (``BandMatrix``, ``TriangularBandMatrix``,
+``HermitianBandMatrix``) also take their bandwidths: ``kl=A.kl,
+ku=A.ku`` or ``kd=A.kd``.
+
+``pivots_from_reference`` takes its pivots' forward permutation (and a
+windowed ``gbtrf``'s ``band_lperms`` / ``band_w``, so ``gbtrs`` can
+solve with a band factorization the JAX package made), and
 ``getrf_from_reference`` a whole ``getrf`` result (the LU's tile array
 and the permutation), so this package's ``getrs`` and
 ``getrs_from_global`` can solve with a factorization the JAX package
@@ -27,14 +33,22 @@ package cached can serve hits in this package's ``FactorCache``.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .enums import Diag, Op, Uplo
 from .matrix.base import BaseMatrix
-from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
+from .matrix.matrix import (
+    BandMatrix,
+    HermitianBandMatrix,
+    HermitianMatrix,
+    Matrix,
+    SymmetricMatrix,
+    TriangularBandMatrix,
+    TriangularMatrix,
+)
 from .parallel.grid import ProcessGrid
 from .parallel.layout import TileLayout
 from .types import Pivots, TriangularFactors
@@ -44,6 +58,9 @@ _KINDS = {
     "TriangularMatrix": TriangularMatrix,
     "SymmetricMatrix": SymmetricMatrix,
     "HermitianMatrix": HermitianMatrix,
+    "BandMatrix": BandMatrix,
+    "TriangularBandMatrix": TriangularBandMatrix,
+    "HermitianBandMatrix": HermitianBandMatrix,
 }
 
 
@@ -64,11 +81,16 @@ def matrix_from_reference(
     uplo: Union[str, Uplo] = "General",
     op: Union[str, Op] = "NoTrans",
     diag: Union[str, Diag] = "NonUnit",
+    kl: int = 0,
+    ku: int = 0,
+    kd: int = 0,
     device: Union[str, torch.device] = "cuda:0",
 ) -> BaseMatrix:
     """This package's matrix with the JAX package's tile storage (a
     (P, Q, mb, nb) array in owner-major order) on ``device``.  The p x q
-    grid is kept as a logical grid on that one device."""
+    grid is kept as a logical grid on that one device.  ``kl``/``ku``
+    are a BandMatrix's bandwidths, ``kd`` a triangular or Hermitian
+    band's."""
     if kind not in _KINDS:
         raise ValueError(f"unknown matrix kind {kind!r}; one of {sorted(_KINDS)}")
     layout = TileLayout(m, n, mb, nb, p, q)
@@ -77,16 +99,27 @@ def matrix_from_reference(
     cls = _KINDS[kind]
     if cls is Matrix:
         return Matrix(T, layout, grid=grid, op=_enum(Op, op))
+    if cls is BandMatrix:
+        return BandMatrix(T, layout, grid=grid, op=_enum(Op, op), kl=kl, ku=ku)
+    if issubclass(cls, TriangularBandMatrix):
+        return cls(T, layout, grid=grid, op=_enum(Op, op), kd=kd, uplo=_enum(Uplo, uplo),
+                   diag=_enum(Diag, diag))
     return cls(T, layout, grid=grid, op=_enum(Op, op), uplo=_enum(Uplo, uplo),
                diag=_enum(Diag, diag))
 
 
 def pivots_from_reference(perm: np.ndarray,
-                          device: Union[str, torch.device] = "cuda:0") -> Pivots:
+                          device: Union[str, torch.device] = "cuda:0",
+                          band_lperms: Optional[np.ndarray] = None,
+                          band_w: Optional[int] = None) -> Pivots:
     """This package's Pivots for the JAX package's ``Pivots.perm`` (a
     forward row permutation over the padded rows), as int32 on
-    ``device``."""
-    return Pivots(torch.tensor(np.asarray(perm), dtype=torch.int32, device=device))
+    ``device``; a windowed ``gbtrf``'s ``band_lperms`` (int32 there too)
+    and ``band_w`` when given."""
+    lperms = None if band_lperms is None else torch.tensor(
+        np.asarray(band_lperms), dtype=torch.int32, device=device)
+    return Pivots(torch.tensor(np.asarray(perm), dtype=torch.int32, device=device),
+                  band_lperms=lperms, band_w=None if band_w is None else int(band_w))
 
 
 def getrf_from_reference(lu_data: np.ndarray, perm: np.ndarray, *, m: int, n: int,

@@ -5,7 +5,10 @@ HermitianMatrix.hh).
 All kinds share the full (P, Q, mb, nb) tile storage; the triangular,
 symmetric and Hermitian kinds reference one triangle.  ``from_global``
 places the tiles on the grid's device (``default_grid()`` when no grid
-is given, i.e. ``cuda:0``).  The band kinds come in a later slice.
+is given, i.e. ``cuda:0``).  The band kinds (``BandMatrix``,
+``TriangularBandMatrix``, ``HermitianBandMatrix``) keep the same dense
+tile storage with the entries outside the band zero, and carry their
+bandwidths (``kl``/``ku``, ``kd``) as attributes.
 """
 
 from __future__ import annotations
@@ -125,3 +128,67 @@ class HermitianMatrix(SymmetricMatrix):
         d = torch.diagonal(Ak)
         diag_part = torch.diag(d.real.to(Ak.dtype) if Ak.is_complex() else d)
         return Ak + Ak.mH - diag_part
+
+
+# ---------------------------------------------------------------------------
+# Band kinds (reference: BandMatrix.hh, TriangularBandMatrix.hh,
+# HermitianBandMatrix.hh).  Dense tile storage + bandwidth metadata; tiles
+# wholly outside the band are zero.
+# ---------------------------------------------------------------------------
+
+
+class BandMatrix(Matrix):
+    """General band matrix with lower/upper bandwidth (kl, ku)."""
+
+    def __init__(self, data, layout, grid=None, op=Op.NoTrans, kl=0, ku=0):
+        super().__init__(data, layout, grid=grid, op=op)
+        self.kl = kl
+        self.ku = ku
+
+    @staticmethod
+    def from_global(A, kl, ku, mb, nb=None, grid=None) -> "BandMatrix":
+        """Build from an (m, n) array, the entries outside the band
+        dropped."""
+        nb = nb if nb is not None else mb
+        A, grid = _place(A, grid)
+        m, n = A.shape
+        # j - i <= ku and i - j <= kl; triu/tril write zeros, as the JAX
+        # package's where does
+        A = torch.triu(torch.tril(A, ku), -kl)
+        layout = _make_layout(m, n, mb, nb, grid)
+        return BandMatrix(tiles_from_global(A, layout), layout, grid=grid, kl=kl, ku=ku)
+
+    def band_mask(self) -> torch.Tensor:
+        """(P, Q, mb, nb) bool mask of the band's elements (valid region
+        only)."""
+        lay, dev = self.layout, self.data.device
+        gr = torch.as_tensor(lay.global_rows_np, device=dev)[:, None, :, None]
+        gc = torch.as_tensor(lay.global_cols_np, device=dev)[None, :, None, :]
+        band = ((gc - gr) <= self.ku) & ((gr - gc) <= self.kl)
+        return band & lay.element_mask(device=dev)
+
+
+class TriangularBandMatrix(BandMatrix):
+    """Triangular band (reference: TriangularBandMatrix.hh)."""
+
+    def __init__(self, data, layout, grid=None, op=Op.NoTrans, kd=0,
+                 uplo=Uplo.Lower, diag=Diag.NonUnit):
+        kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+        super().__init__(data, layout, grid=grid, op=op, kl=kl, ku=ku)
+        self.uplo = uplo
+        self.diag = diag
+        self.kd = kd
+
+
+class HermitianBandMatrix(TriangularBandMatrix):
+    """Hermitian band, one triangle stored (reference: HermitianBandMatrix.hh)."""
+
+    def full_global(self) -> torch.Tensor:
+        """Materialize the full Hermitian band from the stored triangle
+        (entries outside the referenced triangle are not read)."""
+        A = self.to_global()
+        if self.uplo == Uplo.Lower:
+            kept, strict = torch.tril(A), torch.tril(A, -1)
+        else:
+            kept, strict = torch.triu(A), torch.triu(A, 1)
+        return kept + strict.mH

@@ -4,20 +4,31 @@ least_squares_solve, ...), the verbs of the slices this package carries.
 
 A thin overload layer over the drivers, dispatching on matrix kind like
 the reference's C++ overload set.  Functional: outputs are returned.
-The band, indefinite, eigenvalue and SVD verbs come with their slices
-(ROADMAP.md, Queue 1).
+The band verbs dispatch on the band kinds (gbmm/hbmm, tbsm, gbsv/gbtrs,
+pbtrf/pbsv/pbtrs) and the indefinite verbs call hetrf/hesv/hetrs; the
+eigenvalue and SVD verbs come with their slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+from .drivers import band as _band
 from .drivers import blas3 as _blas3
 from .drivers import chol as _chol
+from .drivers import indefinite as _indef
 from .drivers import lu as _lu
 from .drivers import mixed as _mixed
 from .drivers import qr as _qr
 from .enums import Side
 from .exceptions import NumericalError
-from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularMatrix
+from .matrix.matrix import (
+    BandMatrix,
+    HermitianBandMatrix,
+    HermitianMatrix,
+    Matrix,
+    SymmetricMatrix,
+    TriangularBandMatrix,
+    TriangularMatrix,
+)
 
 
 # ----- level 3 -------------------------------------------------------------
@@ -25,7 +36,9 @@ from .matrix.matrix import HermitianMatrix, Matrix, SymmetricMatrix, TriangularM
 
 def multiply(alpha, A, B, beta, C, opts=None):
     """C = alpha A B + beta C, dispatched on A/B kind (simplified_api.hh
-    multiply overloads for gemm/hemm/symm)."""
+    multiply overloads for gemm/hemm/symm/gbmm/hbmm)."""
+    if isinstance(A, BandMatrix):
+        return _band.gbmm(alpha, A, B, beta, C, opts)
     if isinstance(A, HermitianMatrix):
         return _blas3.hemm(Side.Left, alpha, A, B, beta, C, opts)
     if isinstance(B, HermitianMatrix):
@@ -56,8 +69,14 @@ def triangular_multiply(alpha, A: TriangularMatrix, B, side=Side.Left, opts=None
 
 
 def triangular_solve(alpha, A, B, side=Side.Left, pivots=None, opts=None):
-    """trsm overload (the band tbsm comes with the band slice)."""
+    """trsm / tbsm overloads."""
+    if isinstance(A, TriangularBandMatrix):
+        return _band.tbsm(side, alpha, A, B, pivots, opts)
     return _blas3.trsm(side, alpha, A, B, opts)
+
+
+def band_multiply(alpha, A: BandMatrix, B, beta, C, opts=None):
+    return _band.gbmm(alpha, A, B, beta, C, opts)
 
 
 # ----- LU ------------------------------------------------------------------
@@ -72,12 +91,17 @@ def lu_factor_nopiv(A: Matrix, opts=None):
 
 
 def lu_solve(A, B, opts=None):
-    """Solve A X = B (gesv overload)."""
+    """Solve A X = B (gesv / gbsv overloads)."""
+    if isinstance(A, BandMatrix):
+        X, *_ = _band.gbsv(A, B, opts)
+        return X
     X, *_ = _lu.gesv(A, B, opts)
     return X
 
 
 def lu_solve_using_factor(LU, pivots, B, opts=None):
+    if isinstance(LU, BandMatrix):
+        return _band.gbtrs(LU, pivots, B, opts)
     return _lu.getrs(LU, pivots, B, opts)
 
 
@@ -99,15 +123,22 @@ def lu_inverse_using_factor_out_of_place(LU, pivots, opts=None):
 
 
 def chol_factor(A, opts=None):
+    if isinstance(A, HermitianBandMatrix):
+        return _band.pbtrf(A, opts)
     return _chol.potrf(A, opts)
 
 
 def chol_solve(A, B, opts=None):
+    if isinstance(A, HermitianBandMatrix):
+        X, *_ = _band.pbsv(A, B, opts)
+        return X
     X, *_ = _chol.posv(A, B, opts)
     return X
 
 
 def chol_solve_using_factor(L, B, opts=None):
+    if isinstance(L, TriangularBandMatrix):
+        return _band.pbtrs(L, B, opts)
     return _chol.potrs(L, B, opts)
 
 
@@ -130,6 +161,28 @@ def solve_mixed(A, B, opts=None):
 
 def chol_inverse_using_factor(L, opts=None):
     return _chol.potri(L, opts)
+
+
+# ----- indefinite ----------------------------------------------------------
+
+
+def indefinite_factor(A: HermitianMatrix, opts=None):
+    return _indef.hetrf(A, opts)
+
+
+def indefinite_solve(A: HermitianMatrix, B, opts=None):
+    """Solve with breakdown surfaced: this verb returns only X, so it
+    demands the success flag itself (the lazy-info contract) and raises
+    NumericalError when info != 0."""
+    X, _L, _d, info = _indef.hesv(A, B, opts)
+    if int(info) != 0:
+        raise NumericalError(
+            f"indefinite_solve: factorization breakdown (info={int(info)})", int(info))
+    return X
+
+
+def indefinite_solve_using_factor(L, d, B, opts=None):
+    return _indef.hetrs(L, d, B, opts)
 
 
 # ----- least squares / QR / LQ --------------------------------------------

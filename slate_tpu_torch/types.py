@@ -19,11 +19,14 @@ class Pivots:
     """Row pivots as a forward permutation: (P A)[i] = A[perm[i]].
 
     ``perm`` is int32 (as in the JAX package) and covers the padded row
-    space; rows >= m map to themselves.  The band fields (the windowed
-    gbtrf's local pivot orders) stay ``None`` until the band slice."""
+    space; rows >= m map to themselves.  The band fields are set by the
+    windowed ``gbtrf`` (drivers/band.py): ``band_lperms`` the (steps,
+    w + kl) int32 window-local pivot orders, ``band_w`` the window step;
+    such pivots are solved by ``gbtrs`` only (the net ``perm`` alone does
+    not reproduce the interleaved factorization)."""
 
     perm: torch.Tensor  # (m_pad,) int32
-    band_lperms: Optional[torch.Tensor] = None
+    band_lperms: Optional[torch.Tensor] = None  # (steps, w + kl) int32
     band_w: Optional[int] = None
 
     def apply(self, B: torch.Tensor) -> torch.Tensor:

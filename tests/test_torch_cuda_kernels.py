@@ -1099,3 +1099,125 @@ def test_serve_hit_stream_launches_only_the_trsm_pair(dev, routine):
         s.stop()
         if not was_on:
             metrics.off()
+
+
+def _band(rng, n, kl, ku, dtype):
+    i = np.arange(n)
+    mask = ((i[None, :] - i[:, None]) <= ku) & ((i[:, None] - i[None, :]) <= kl)
+    return ((rng.standard_normal((n, n)) + 2 * np.eye(n)) * mask).astype(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w,kl", [(128, 128), (40, 33)])
+def test_panel_lu_at_the_band_window_bitwise(dev, dtype, w, kl):
+    """panel_lu on a (w + kl, w) window view of a padded band tensor (row
+    stride the padded width), as band_getrf calls it: lu and perm bit
+    for bit as the plain version's."""
+    rng = np.random.default_rng(w + kl)
+    G = torch.from_numpy(_rand(rng, 3 * (w + kl), 4 * w, dtype)).to(dev)
+    P = G[w:2 * w + kl, w:2 * w]
+    got, perm = pk.panel_lu(P)
+    ref, ref_perm = pk.panel_lu_plain(P)
+    assert pk.LAUNCHES["panel_lu"] == 1
+    assert torch.equal(perm, ref_perm) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gbtrf_kernel_route_matches_plain_route(dev, dtype, monkeypatch):
+    """gbtrf at n = 2100, kl = 64, ku = 50 on the card: one panel_lu launch
+    a window (ceil(n / w)), lperms, perm and LU equal to a run with the
+    plain panel forced; gbsv within the JAX package's bound (30)."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import band_kernels as bk
+
+    n, kl, ku, nb = 2100, 64, 50, 256
+    rng = np.random.default_rng(31)
+    a, b = _band(rng, n, kl, ku, dtype), _rand(rng, n, 3, dtype)
+    grid = stt.ProcessGrid.single()
+    Am = stt.BandMatrix.from_global(a, kl, ku, nb, grid=grid)
+    LU, piv, info = stt.gbtrf(Am)
+    w = piv.band_w
+    assert pk.LAUNCHES["panel_lu"] == -(-n // w) and piv.band_lperms.shape == (-(-n // w), w + kl)
+    monkeypatch.setattr(bk, "_panel_route", lambda dt, d: pk.panel_lu_plain)
+    LU_p, piv_p, _ = stt.gbtrf(Am)
+    assert pk.LAUNCHES["panel_lu"] == -(-n // w)
+    assert torch.equal(piv.band_lperms, piv_p.band_lperms) and torch.equal(piv.perm, piv_p.perm)
+    assert torch.equal(LU.data, LU_p.data)
+    X = stt.gbtrs(LU, piv, stt.Matrix.from_global(b, nb, grid=grid))
+    x = X.to_global().cpu().double().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    r = n1(a.astype(np.float64) @ x - b) / (n1(a) * n1(x) * n * np.finfo(dtype).eps)
+    assert int(info) == 0 and r <= 30, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hesv_on_the_card_is_pivot_free(dev, dtype):
+    """hesv of chip_smoke.py phase 14's operand, (G + G^T)/2 + 3 sqrt(n)
+    diag(s) with s = +-1, at n = 2048: the pivot-free LDL^H (no Aasen, no
+    butterfly), getrf_kernel_launches(2048) panel_lu launches without
+    pivot search, scaled residual <= 3; the butterfly refactor of
+    kron(I, [[0, 1], [1, 0]]) launches butterfly_level 2 log2(n) times a
+    factor and a solve."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    n, nb = 2048, 256
+    rng = np.random.default_rng(37)
+    g = rng.standard_normal((n, n))
+    s = np.where(rng.standard_normal(n) >= 0, 1.0, -1.0)
+    a = ((g + g.T) / 2 + 3 * np.sqrt(n) * np.diag(s)).astype(dtype)
+    b = _rand(rng, n, 4, dtype)
+    grid = stt.ProcessGrid.single()
+    X, L, d, info = stt.hesv(stt.HermitianMatrix.from_global(a, nb, grid=grid),
+                             stt.Matrix.from_global(b, nb, grid=grid))
+    assert int(info) == 0
+    assert getattr(L, "_aasen", None) is None and getattr(L, "_rbt", None) is None
+    assert pk.LAUNCHES["panel_lu"] == lk.getrf_kernel_launches(n)
+    x = X.to_global().cpu().double().numpy()
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    r = n1(a.astype(np.float64) @ x - b) / (n1(a) * n1(x) * n * np.finfo(dtype).eps)
+    assert r <= 3, r
+    k = np.kron(np.eye(n // 2), np.array([[0.0, 1.0], [1.0, 0.0]])).astype(dtype)
+    pk.reset_launches()
+    L, d, info = stt.hetrf(stt.HermitianMatrix.from_global(k, nb, grid=grid), method="rbt")
+    assert getattr(L, "_rbt", None) is not None and pk.LAUNCHES["butterfly_level"] == 2 * 11
+    pk.reset_launches()
+    X = stt.hetrs(L, d, stt.Matrix.from_global(b, nb, grid=grid))
+    assert pk.LAUNCHES["butterfly_level"] == 2 * 11
+    x = X.to_global().cpu().double().numpy()
+    r = n1(k.astype(np.float64) @ x - b) / (n1(k) * n1(x) * n * np.finfo(dtype).eps)
+    assert r <= 1000, r
+
+
+@pytest.mark.cuda
+def test_complex_band_and_indefinite_on_the_card_take_no_kernel(dev):
+    """complex128 pbsv, gbsv and hesv at n = 600 on the card: the plain
+    panel and the flat / recursive schedules, no kernel launched."""
+    import slate_tpu_torch as stt
+
+    n, nb, kd = 600, 128, 20
+    rng = np.random.default_rng(41)
+    grid = stt.ProcessGrid.single()
+    c = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    i = np.arange(n)
+    band = np.abs(i[:, None] - i[None, :]) <= kd
+    h = (c + c.conj().T) / 2
+    spd = h * band + (2 * kd + 2) * np.eye(n)
+    b = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    B = stt.Matrix.from_global(b, nb, grid=grid)
+    M = stt.Matrix.from_global(np.tril(spd), nb, grid=grid)
+    X1, _, info1 = stt.pbsv(stt.HermitianBandMatrix(M.data, M.layout, grid=grid, kd=kd), B)
+    gb = (c + 4 * np.sqrt(kd) * np.eye(n)) * band
+    X2, _, _, info2 = stt.gbsv(stt.BandMatrix.from_global(gb, kd, kd, nb, grid=grid), B)
+    hi = h + 3 * np.sqrt(n) * np.diag(np.where(rng.standard_normal(n) >= 0, 1.0, -1.0))
+    X3, L3, _, info3 = stt.hesv(stt.HermitianMatrix.from_global(hi, nb, grid=grid), B)
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    for a, X, info in ((spd, X1, info1), (gb, X2, info2), (hi, X3, info3)):
+        x = X.to_global().cpu().numpy()
+        assert int(info) == 0
+        assert n1(a @ x - b) / (n1(a) * n1(x) * n * np.finfo(np.float64).eps) <= 30
+    assert getattr(L3, "_aasen", None) is None and getattr(L3, "_rbt", None) is None
+    assert all(v == 0 for v in pk.LAUNCHES.values()), pk.LAUNCHES
