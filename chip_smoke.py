@@ -2,11 +2,13 @@
 """Smoke test of slate_tpu_torch on one NVIDIA GPU (the H100 it targets).
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
+    python3 chip_smoke.py --eig      # build + phase 15 alone (with --profile: its profile alone)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
                                      # of one warm solve phase of posv and gesv, and of one
-                                     # warm posv_mixed, posv_mixed_gmres and gesv_mixed
+                                     # warm posv_mixed, posv_mixed_gmres and gesv_mixed, and a
+                                     # warm float64 heev at n = 4096 by stage (eig_profile)
 
 Phases, each for float64 and float32 unless stated:
   1. build the Hopper kernels from slate_tpu_torch/csrc (one nvcc a
@@ -131,6 +133,22 @@ Phases, each for float64 and float32 unless stated:
      host column loop (O(n^3) in numpy BLAS-2 calls); complex128
      ``pbsv``, ``gbsv`` and ``hesv`` at n = 2048 with no kernel launch.
      Host-clock times, launches and peak device memory of each call.
+ 15. the Hermitian eigensolvers at n = 4096, tiles of 128 (the JAX
+     package's on-chip heev size), seeded (G + G^H)/2 on the card, metrics
+     on: ``heev`` with vectors in float64 (``heev_staged``; the native
+     host chaser, counted in ``heev.hb2st.host``) and float32 (the device
+     wavefront), values only in float64 (the Sturm bisection); ``hegv``
+     itype 1 in float64 with B = X X^T + n I (the Cholesky kernels at
+     ``chol_kernel_launches``); complex128 ``heev`` at n = 1024 (the
+     device wavefront, no kernel).  Gates: eigenvalues within
+     10 n eps ||A||_1 of ``eigvalsh``, ||AZ - Z Lambda||_1 / (||A||_1 n eps)
+     and ||Z^H Z - I||_1 / (n eps) <= 100, hegv's
+     ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) <= 100, the route.
+     Stage times, peak memory and the library yardsticks (``eigh``,
+     ``eigvalsh``, cholesky + solve_triangular + eigh).  ``--profile``
+     adds a profiled float64 heev: device busy time and launches by
+     stage and of he2hb's panel against its trailing update, and the
+     wavefront's and the Sturm scan's launches a step.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2576,6 +2594,223 @@ def band_complex_phase(stt, pk, gen, dev) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the Hermitian eigensolvers
+# ---------------------------------------------------------------------------
+
+N_EIG, NB_EIG = 4096, 128  # the JAX package's on-chip heev size (tools/validate_onchip.py)
+N_EIG_C128 = 1024  # complex128: the device wavefront, cut for time
+EIG_BOUND = 100  # tools/validate_onchip.py:151: residual and orthogonality <= 100
+STAGES = ("he2hb+gather", "hb2st", "stedc+unmtr_hb2st", "eigvals", "unmtr_he2hb")
+
+
+def _herm(n, dt, gen, dev):
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    return (G + G.mH) / 2
+
+
+def eig_gates(A, w, Z, wref, eps) -> dict:
+    """Eigenvalue error / (n eps ||A||_1) against ``wref``, and (with Z)
+    ||AZ - Z Lambda||_1 / (||A||_1 n eps), ||Z^H Z - I||_1 / (n eps), all
+    in 64 bits on the card."""
+    up = torch.complex128 if A.is_complex() else torch.float64
+    A64, w64 = A.to(up), w.double()
+    n = A.shape[0]
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    a1 = n1(A64)
+    out = {"eigval_err": float((w64 - wref.double()).abs().max()) / (n * eps * a1)}
+    if Z is not None:
+        Z64 = Z.to(up)
+        out["residual"] = n1(A64 @ Z64 - Z64 * w64.to(up)[None, :]) / (a1 * n * eps)
+        out["orthogonality"] = n1(Z64.mH @ Z64 - torch.eye(n, dtype=up, device=A.device)) / (
+            n * eps)
+    return out
+
+
+def _eig_run(pk, metrics, fn):
+    """``_band_run`` of one call, and the call's ``heev.*`` stage seconds
+    and hb2st route counts."""
+    out, t, launches, peak = _band_run(pk, metrics, fn)
+    tm, c = metrics.timers(), metrics.counters()
+    stages = {s: tm[f"heev.{s}"]["total_s"] for s in STAGES if f"heev.{s}" in tm}
+    route = {k: int(c.get(f"heev.hb2st.{k}", 0)) for k in ("host", "device")}
+    return out, t, stages, route, launches, peak
+
+
+def heev_phase(stt, pk, metrics, dtype, n, gen, dev, vectors=True) -> dict:
+    """heev of (G + G^H)/2 at n, tiles of 128, default options (its
+    two-stage path, ``heev_staged``); the gates against eigvalsh /
+    eigh on the same card, which are also the yardsticks."""
+    dt = getattr(torch, dtype)
+    A = _herm(n, dt, gen, dev)
+    Am = stt.HermitianMatrix.from_global(A, NB_EIG)
+    t_all = time.perf_counter()
+    (w, Z), t, stages, route, launches, peak = _eig_run(
+        pk, metrics, lambda: stt.heev(Am, vectors=vectors))
+    Zg = Z.to_global() if Z is not None else None
+    up = torch.complex128 if A.is_complex() else torch.float64
+    wref = torch.linalg.eigvalsh(A.to(up))
+    eps = torch.finfo(dt).eps
+    g = eig_gates(A, w, Zg, wref, eps)
+    lib = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+    t_lib = cuda_ms(lambda: lib(A), reps=1)
+    label = f"heev {dtype} n={n} {'vectors' if vectors else 'values'}"
+    print(f"  {label}: {t:.3f} s host clock, stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; hb2st route {route}; gates " + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+          + f"; kernel launches {launches or 0}; peak {peak:.2f} GB; torch.linalg."
+          f"{'eigh' if vectors else 'eigvalsh'} {t_lib:.3f} ms (yardstick); "
+          f"{time.perf_counter() - t_all:.1f} s with the checks", flush=True)
+    check(g["eigval_err"] <= 10, f"{label}: eigenvalue error {g['eigval_err']:.3e} > 10 n eps")
+    if vectors:
+        check(g["residual"] <= EIG_BOUND, f"{label}: residual {g['residual']:.3e}")
+        check(g["orthogonality"] <= EIG_BOUND, f"{label}: orthogonality {g['orthogonality']:.3e}")
+    expect = "host" if dt == torch.float64 else "device"
+    check(route == {"host": int(expect == "host"), "device": int(expect == "device")},
+          f"{label}: hb2st route {route}, expected the {expect} route")
+    check(not launches, f"{label}: launched {launches} (the eigensolver reaches no kernel)")
+    return {"s": t, "stages_s": stages, "route": route, "gates": g, "peak_gb": peak,
+            "library_ms": t_lib}
+
+
+def hegv_phase(stt, pk, ck, metrics, gen, dev) -> dict:
+    """hegv itype 1 at n = 4096, float64: A = (G + G^T)/2, B = X X^T + n I;
+    potrf(B) launches the Cholesky kernels at ``chol_kernel_launches``;
+    ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) <= 100; against
+    cuSOLVER's route: cholesky + two solve_triangular + eigh + one
+    solve_triangular."""
+    n, dt = N_EIG, torch.float64
+    A = _herm(n, dt, gen, dev)
+    X0 = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+    B = X0 @ X0.T
+    B.diagonal().add_(n)
+    del X0
+    Am, Bm = stt.HermitianMatrix.from_global(A, NB_EIG), stt.HermitianMatrix.from_global(B, NB_EIG)
+    (w, X, info), t, stages, route, launches, peak = _eig_run(
+        pk, metrics, lambda: stt.hegv(1, Am, Bm))
+    Xg = X.to_global()
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    eps = torch.finfo(dt).eps
+    r = n1(A @ Xg - (B @ Xg) * w[None, :]) / (n1(A) * n1(Xg) * n * eps)
+
+    def library():
+        L = torch.linalg.cholesky(B)
+        C = torch.linalg.solve_triangular(L, torch.linalg.solve_triangular(L, A, upper=False).mH,
+                                          upper=False).mH
+        wl, Y = torch.linalg.eigh(C)
+        return wl, torch.linalg.solve_triangular(L.mH, Y, upper=True)
+
+    t_lib = cuda_ms(library, reps=1)
+    wl, _ = library()
+    werr = float((w - wl).abs().max()) / (n * eps * float(wl.abs().max()))
+    expect = {k: v for k, v in ck.chol_kernel_launches(n).items() if v}
+    label = f"hegv float64 n={n} itype 1"
+    print(f"  {label}: {t:.3f} s host clock, heev stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; residual {r:.3e}, info {int(info)}, eigenvalues vs the library route "
+          f"{werr:.3e} n eps max|w|; hb2st route {route}; launches {launches} (expected "
+          f"{expect}); peak {peak:.2f} GB; cholesky + solve_triangular x 3 + eigh "
+          f"{t_lib:.3f} ms (yardstick)", flush=True)
+    check(int(info) == 0, f"{label}: info {int(info)}")
+    check(r <= EIG_BOUND, f"{label}: residual {r:.3e} > {EIG_BOUND}")
+    check(werr <= 10, f"{label}: eigenvalues differ from the library route by {werr:.3e}")
+    check(launches == expect, f"{label}: launches {launches} != {expect}")
+    check(route == {"host": 1, "device": 0}, f"{label}: hb2st route {route}")
+    return {"s": t, "stages_s": stages, "residual": r, "launches": launches, "peak_gb": peak,
+            "library_ms": t_lib}
+
+
+def eig_main(stt, pk, ck, metrics, gen, dev) -> dict:
+    """Phase 15: heev with vectors at n = 4096 in float64 (the host
+    chaser) and float32 (the device wavefront), values only in float64
+    (the Sturm bisection), hegv in float64, complex128 heev at n = 1024,
+    then the profile of a float64 heev."""
+    t15 = time.perf_counter()
+    eres = {}
+    for d in DTYPES:
+        eres[f"heev_{d}"] = heev_phase(stt, pk, metrics, d, N_EIG, gen, dev)
+        torch.cuda.empty_cache()
+    eres["heev_values_float64"] = heev_phase(stt, pk, metrics, "float64", N_EIG, gen, dev,
+                                             vectors=False)
+    eres["hegv_float64"] = hegv_phase(stt, pk, ck, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    eres[f"heev_complex128_{N_EIG_C128}"] = heev_phase(stt, pk, metrics, "complex128",
+                                                       N_EIG_C128, gen, dev)
+    torch.cuda.empty_cache()
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+    return eres
+
+
+def _kernel_stats(e):
+    """(launches, summed kernel ms) of the device kernels launched under
+    a profiler event and its children."""
+    ks = getattr(e, "kernels", ())
+    n, ms = len(ks), sum(k.duration for k in ks) / 1e3
+    for c in e.cpu_children:
+        cn, cms = _kernel_stats(c)
+        n, ms = n + cn, ms + cms
+    return n, ms
+
+
+def eig_profile(stt, gen, dev) -> dict:
+    """A profiled warm float64 heev at n = 4096 (host chaser): device
+    time and kernel launches by stage and of he2hb's panel factor
+    against its trailing update; then the device wavefront's launches a
+    superstep and the Sturm scan's launches a row step, from a float32
+    hb2st at n = 512 and a bisection at n = 256."""
+    from slate_tpu_torch.ops import bulge
+
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    A = _herm(N_EIG, torch.float64, gen, dev)
+    Am = stt.HermitianMatrix.from_global(A, NB_EIG)
+    with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stt.heev(Am)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("heev.") or e.name in ("he2hb.panel", "he2hb.update"):
+            r = ranges.setdefault(e.name, {"busy_ms": 0.0, "launches": 0, "host_ms": 0.0})
+            k, ms = _kernel_stats(e)
+            r["busy_ms"] += ms
+            r["launches"] += k
+            r["host_ms"] += e.cpu_time_total / 1e3
+    for name, r in ranges.items():
+        print(f"  profiled {name}: device busy {r['busy_ms']:.3f} ms in {r['launches']} "
+              f"launches, host {r['host_ms']:.3f} ms (idle share "
+              f"{max(0.0, 1 - r['busy_ms'] / max(r['host_ms'], 1e-9)):.3f})", flush=True)
+    pan, upd = ranges.get("he2hb.panel", {}), ranges.get("he2hb.update", {})
+    busy = pan.get("busy_ms", 0) + upd.get("busy_ms", 0)
+    share = pan.get("busy_ms", 0) / max(busy, 1e-9)
+    print(f"  he2hb panel share of he2hb's device busy time {share:.3f} (panel "
+          f"{pan.get('busy_ms', 0):.3f} ms in {pan.get('launches', 0)} launches, trailing "
+          f"update {upd.get('busy_ms', 0):.3f} ms in {upd.get('launches', 0)} launches; "
+          f"profiled heev {t_prof:.3f} s wall)", flush=True)
+    out = {"ranges": ranges, "he2hb_panel_share": share}
+    n, b = 512, NB_EIG
+    W = bulge.band_to_storage(torch.tril(torch.triu(_herm(n, torch.float32, gen, dev), -b), b),
+                              b, n + 4 * b + 8)
+    steps = 3 * (n - 3) + (n - 3) // b + 2
+    with torch.profiler.profile(activities=act) as prof:
+        bulge.hb2st(W, n, b)
+        torch.cuda.synchronize()
+    k = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["hb2st_launches_per_superstep"] = k / steps
+    d = torch.randn(256, generator=gen, device=dev, dtype=torch.float64)
+    e = torch.randn(255, generator=gen, device=dev, dtype=torch.float64)
+    with torch.profiler.profile(activities=act) as prof:
+        bulge.tridiag_eigvals_bisect(d, e)
+        torch.cuda.synchronize()
+    k2 = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["bisect_launches_per_row_step"] = k2 / (64 * 256)
+    print(f"  hb2st wavefront: {k} launches over {steps} supersteps ({k / steps:.1f} a "
+          f"superstep, float32 n={n}); Sturm bisection: {k2} launches over 64 x 256 row "
+          f"steps ({k2 / (64 * 256):.2f} a step)", flush=True)
+    return out
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -2695,6 +2930,9 @@ def profile(stt, gen, dev) -> None:
     print(f"  warm gels {t_gels:.4f} s (host clock, float64 ({m}, {n}), nrhs={nrhs})")
     _profile_call("gels", lambda: stt.gels(Am, Bm),
                   {"larft": ("larft_gram_kernel", "larft_finish_kernel")})
+    del A, B, Am, Bm
+    torch.cuda.empty_cache()
+    eig_profile(stt, gen, dev)
 
 
 def main() -> int:
@@ -2713,6 +2951,7 @@ def main() -> int:
         print(f"chip_smoke: slate_tpu_torch is not importable here: {e}", file=sys.stderr)
         return 2
     profile_only = "--profile" in sys.argv[1:]
+    eig_only = "--eig" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2746,6 +2985,16 @@ def main() -> int:
     if profile_only:
         print("profile: posv, gesv, CALU gesv and gels, float64", flush=True)
         profile(stt, gen, dev)
+        print(smi)
+        return 0
+    if eig_only:
+        metrics.on()
+        if profile_only:
+            print("profile: heev, float64", flush=True)
+            eig_profile(stt, gen, dev)
+        else:
+            print("phase 15: the Hermitian eigensolvers", flush=True)
+            eig_main(stt, pk, ck, metrics, gen, dev)
         print(smi)
         return 0
     t_start = time.perf_counter()
@@ -2847,6 +3096,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bres["complex128_2048"] = band_complex_phase(stt, pk, gen, dev)
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    print("phase 15: the Hermitian eigensolvers", flush=True)
+    eres = eig_main(stt, pk, ck, metrics, gen, dev)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -2886,6 +3137,7 @@ def main() -> int:
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
                                       "serve": sres, "band_indefinite": bres,
+                                      "eig": eres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

@@ -22,8 +22,10 @@ solvers (``BandMatrix``, ``TriangularBandMatrix``,
 ``HermitianBandMatrix``; ``gbmm``, ``hbmm``, ``tbsm``, ``gbtrf``/``gbtrs``/
 ``gbsv``, ``pbtrf``/``pbtrs``/``pbsv`` on windowed band kernels), the
 Hermitian-indefinite solvers (``hetrf``/``hetrs``/``hesv``: pivot-free
-LDL^H, Aasen's LTL^H on the host, the random butterfly), the verb API of
-those slices (``simplified``) and the serving tier above them
+LDL^H, Aasen's LTL^H on the host, the random butterfly), the Hermitian
+eigensolvers (``heev`` two-stage through ``he2hb``, the bulge chase and
+divide and conquer; ``sterf``/``steqr``/``stedc``, ``unmtr_he2hb``,
+``hegst``/``hegv``/``sygv``), the verb API of those slices (``simplified``) and the serving tier above them
 (``serve``: buckets, the executable and factor caches, a one-lane
 ``SolverService`` and ``serve.gesv/posv/gels``).  Every Pallas kernel of the
 JAX package is rewritten by hand in CUDA C++ for Hopper
@@ -109,6 +111,7 @@ from .drivers.qr import (
 from .drivers.mixed import gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_gmres
 from .drivers.band import gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf, pbtrs, tbsm
 from .drivers.indefinite import hesv, hetrf, hetrs
+from .drivers.eig import he2hb, heev, hegst, hegv, stedc, steqr, sterf, sygv, unmtr_he2hb
 from .types import Pivots, TriangularFactors
 
 # matgen (reference: include/slate/generate_matrix.hh)
@@ -125,6 +128,7 @@ from . import serve
 from .convert import (
     factor_entry_from_reference,
     geqrf_from_reference,
+    he2hb_from_reference,
     getrf_from_reference,
     matrix_from_reference,
     pivots_from_reference,

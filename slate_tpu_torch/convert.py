@@ -24,7 +24,10 @@ and the permutation), so this package's ``getrs`` and
 ``getrs_from_global`` can solve with a factorization the JAX package
 made.  ``geqrf_from_reference`` does the same for a ``geqrf`` result (the
 factor's tile array and the T stack), for ``unmqr``, ``gels_solve_from_global``
-and the LQ drivers.  ``factor_entry_from_reference`` takes one entry of
+and the LQ drivers.  ``he2hb_from_reference`` takes a ``he2hb`` result
+(the band's, V's tile arrays and the T stack), so this package's
+``unmtr_he2hb`` can apply the JAX package's reflectors.
+``factor_entry_from_reference`` takes one entry of
 the JAX package's serve factor cache (its numpy factor, permutation,
 bucket key and n, read by attribute) and returns this package's
 ``FactorEntry`` with the factor on a device, so a factor the JAX
@@ -141,6 +144,19 @@ def geqrf_from_reference(fac_data: np.ndarray, T: np.ndarray, *, m: int, n: int,
     TriangularFactors' (num_panels, nb, nb) stack."""
     fac = matrix_from_reference(fac_data, m=m, n=n, mb=mb, nb=nb, p=p, q=q, device=device)
     return fac, TriangularFactors(torch.tensor(np.asarray(T), device=fac.device))
+
+
+def he2hb_from_reference(band_data: np.ndarray, V_data: np.ndarray, T: np.ndarray, *,
+                         n: int, nb: int, uplo: Union[str, Uplo] = "Lower", p: int = 1,
+                         q: int = 1, device: Union[str, torch.device] = "cuda:0"):
+    """(HermitianBandMatrix, V Matrix, TriangularFactors) of this package
+    for a JAX package ``he2hb`` result: ``band_data`` and ``V_data`` the
+    band's and the reflectors' storage-order tile arrays (tiles of nb,
+    kd = nb), ``T`` its TriangularFactors' (num_panels, nb, nb) stack."""
+    band = matrix_from_reference(band_data, m=n, n=n, mb=nb, nb=nb, p=p, q=q,
+                                 kind="HermitianBandMatrix", uplo=uplo, kd=nb, device=device)
+    V = matrix_from_reference(V_data, m=n, n=n, mb=nb, nb=nb, p=p, q=q, device=device)
+    return band, V, TriangularFactors(torch.tensor(np.asarray(T), device=band.device))
 
 
 def factor_entry_from_reference(entry, device: Union[str, torch.device] = "cuda:0"):

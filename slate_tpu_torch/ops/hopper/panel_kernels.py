@@ -28,12 +28,12 @@ import math
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ...internal.build import BUILD_DIR, build_lock
 from ...internal.precision import hdot
 
 LAUNCHES: Dict[str, int] = {
@@ -63,16 +63,11 @@ def reset_launches() -> None:
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SOURCES = tuple(_PKG_DIR / "csrc" / f"{stem}.cu"
                 for stem in ("panel_kernels", "lu_kernels", "tile_kernels"))
-BUILD_DIR = _PKG_DIR.parent / "build" / "slate_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
 _libs: Optional[List[ctypes.CDLL]] = None
-# serialises build() and the load (reentrant: the load builds): the
-# serve worker and a caller's warmup() may both reach _load first, and
-# must not run nvcc twice or write one library from two threads
-_load_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -95,7 +90,7 @@ def build(verbose: bool = False) -> Tuple[List[Path], str]:
     ``nvcc`` each, all started together.  Returns (the libraries, the
     compilers' output; "" when all were cached).  ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory, spills)."""
-    with _load_lock:
+    with build_lock:
         return _build_locked(verbose)
 
 
@@ -152,7 +147,7 @@ def _symbol(libs: List[ctypes.CDLL], sym: str):
 def _load() -> List[ctypes.CDLL]:
     if _libs is not None:
         return _libs
-    with _load_lock:
+    with build_lock:
         return _libs if _libs is not None else _load_locked()
 
 

@@ -5,8 +5,9 @@ least_squares_solve, ...), the verbs of the slices this package carries.
 A thin overload layer over the drivers, dispatching on matrix kind like
 the reference's C++ overload set.  Functional: outputs are returned.
 The band verbs dispatch on the band kinds (gbmm/hbmm, tbsm, gbsv/gbtrs,
-pbtrf/pbsv/pbtrs) and the indefinite verbs call hetrf/hesv/hetrs; the
-eigenvalue and SVD verbs come with their slice (ROADMAP.md, Queue 1).
+pbtrf/pbsv/pbtrs), the indefinite verbs call hetrf/hesv/hetrs and the
+eigenvalue verbs heev; the SVD verbs come with their slice (ROADMAP.md,
+Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from .drivers import band as _band
 from .drivers import blas3 as _blas3
 from .drivers import chol as _chol
+from .drivers import eig as _eig
 from .drivers import indefinite as _indef
 from .drivers import lu as _lu
 from .drivers import mixed as _mixed
@@ -205,3 +207,17 @@ def multiply_by_q(side, op, fac, T, C, from_lq=False, opts=None):
     if from_lq:
         return _qr.unmlq(side, op, fac, T, C, opts)
     return _qr.unmqr(side, op, fac, T, C, opts)
+
+
+# ----- eigen ---------------------------------------------------------------
+
+
+def eig(A: HermitianMatrix, opts=None):
+    """Eigenvalues + vectors (simplified_api.hh eig)."""
+    return _eig.heev(A, opts, vectors=True)
+
+
+def eig_vals(A: HermitianMatrix, opts=None):
+    """Eigenvalues only (simplified_api.hh eig_vals)."""
+    w, _ = _eig.heev(A, opts, vectors=False)
+    return w

@@ -1221,3 +1221,136 @@ def test_complex_band_and_indefinite_on_the_card_take_no_kernel(dev):
         assert n1(a @ x - b) / (n1(a) * n1(x) * n * np.finfo(np.float64).eps) <= 30
     assert getattr(L3, "_aasen", None) is None and getattr(L3, "_rbt", None) is None
     assert all(v == 0 for v in pk.LAUNCHES.values()), pk.LAUNCHES
+
+
+def _herm_np(rng, n, dtype):
+    a = rng.standard_normal((n, n))
+    if np.dtype(dtype).kind == "c":
+        a = a + 1j * rng.standard_normal((n, n))
+    return ((a + a.conj().T) / 2).astype(dtype)
+
+
+def _eig_bounds(a, w, z, eps):
+    """(eigenvalue error / (n eps ||A||_1), ||AZ - Z Lambda||_1 /
+    (||A||_1 n eps), ||Z^H Z - I||_1 / (n eps)) against float64 eigvalsh."""
+    n = a.shape[0]
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    a64 = a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
+    werr = np.abs(w - np.linalg.eigvalsh(a64)).max() / (n * eps * n1(a64))
+    if z is None:
+        return werr, 0.0, 0.0
+    res = n1(a64 @ z - z * w[None, :]) / (n1(a64) * n * eps)
+    orth = n1(z.conj().T @ z - np.eye(n)) / (n * eps)
+    return werr, res, orth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(np.float64, "host"), (np.float32, "device"),
+                                         (np.complex128, "device")])
+def test_heev_on_the_card_matches_the_cpu(dev, dtype, route):
+    """heev at n = 400, tiles of 64 (two-stage) on the card against the
+    port's CPU result: the float64 chase on the native host chaser, the
+    float32 and complex128 chases on the device wavefront (counted in
+    heev.hb2st.*); eigenvalues within 10 n eps ||A||_1, residual and
+    orthogonality <= 100; the vectors up to sign (phase) where the
+    spectrum is separated; no kernel launched (heev reaches none)."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.aux import metrics
+
+    n, nb = 400, 64
+    a = _herm_np(np.random.default_rng(43), n, dtype)
+    metrics.on()
+    with metrics.deltas() as d:
+        w, Z = stt.heev(stt.HermitianMatrix.from_global(a, nb, grid=stt.ProcessGrid.single()))
+        counts = {k: d.get(f"heev.hb2st.{k}") for k in ("host", "device")}
+    assert counts == {"host": int(route == "host"), "device": int(route == "device")}, counts
+    w, z = w.cpu().double().numpy(), Z.to_global().cpu().numpy()
+    eps = np.finfo(dtype).eps
+    werr, res, orth = _eig_bounds(a, w, z.astype(np.complex128 if np.iscomplexobj(z)
+                                                  else np.float64), eps)
+    assert werr <= 10 and res <= 100 and orth <= 100, (werr, res, orth)
+    cpu = stt.ProcessGrid.single("cpu")
+    wc, Zc = stt.heev(stt.HermitianMatrix.from_global(a, nb, grid=cpu))
+    wc, zc = wc.double().numpy(), Zc.to_global().numpy()
+    np.testing.assert_allclose(w, wc, rtol=0, atol=10 * n * eps * np.abs(a).sum(0).max())
+    gaps = np.diff(wc)
+    gap = np.minimum(np.concatenate([[np.inf], gaps]), np.concatenate([gaps, [np.inf]]))
+    sep = gap > 1e-2 * np.abs(a).sum(0).max()
+    p = np.abs(z.conj().T @ zc)[np.ix_(sep, sep)]
+    np.testing.assert_allclose(p, np.eye(int(sep.sum())), rtol=0, atol=1e3 * n * eps)
+    assert all(v == 0 for v in pk.LAUNCHES.values()), pk.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_heev_staged_on_the_card(dev):
+    """On the card heev's two-stage path is heev_staged: the four stage
+    times, the host chaser for float64, the bounds; values only through
+    the Sturm bisection."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.aux import metrics
+
+    n, nb = 1100, 128
+    a = _herm_np(np.random.default_rng(47), n, np.float64)
+    A = stt.HermitianMatrix.from_global(a, nb, grid=stt.ProcessGrid.single())
+    metrics.on()
+    with metrics.deltas() as d:
+        w, Z, times = stt.drivers.heev_staged(A)
+        assert d.get("heev.hb2st.host") == 1 and d.get("heev.hb2st.device") == 0
+    assert list(times) == ["he2hb+gather", "hb2st", "stedc+unmtr_hb2st", "unmtr_he2hb"]
+    werr, res, orth = _eig_bounds(a, w.cpu().numpy(), Z.to_global().cpu().numpy(),
+                                  np.finfo(np.float64).eps)
+    assert werr <= 10 and res <= 100 and orth <= 100, (werr, res, orth)
+    with metrics.deltas() as d:
+        w2, _ = stt.heev(A)
+        assert d.get("heev_staged.calls") == 1
+    np.testing.assert_array_equal(w2.cpu().numpy(), w.cpu().numpy())
+    wv, none, tv = stt.drivers.heev_staged(A, vectors=False)
+    assert none is None and list(tv) == ["he2hb+gather", "hb2st", "eigvals"]
+    assert _eig_bounds(a, wv.cpu().numpy(), None, np.finfo(np.float64).eps)[0] <= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hegv_on_the_card_launches_the_cholesky_kernels(dev, dtype):
+    """hegv itype 1 at n = 2100 (B = X X^T + n I): potrf(B) launches the
+    Cholesky kernels at chol_kernel_launches(n); hegst and the
+    back-transform are library solves; ||AX - BX Lambda||_1 /
+    (||A||_1 ||X||_1 n eps) <= 100."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.ops import chol_kernels as ck
+
+    n, nb = 2100, 128
+    rng = np.random.default_rng(53)
+    a = _herm_np(rng, n, dtype)
+    x = rng.standard_normal((n, n))
+    b = (x @ x.T + n * np.eye(n)).astype(dtype)
+    grid = stt.ProcessGrid.single()
+    w, X, info = stt.hegv(1, stt.HermitianMatrix.from_global(a, nb, grid=grid),
+                          stt.HermitianMatrix.from_global(b, nb, grid=grid))
+    assert int(info) == 0
+    expect = ck.chol_kernel_launches(n)
+    got = {k: pk.LAUNCHES[k] for k in expect}
+    assert got == expect, (got, expect)
+    assert all(v == 0 for k, v in pk.LAUNCHES.items() if k not in expect), pk.LAUNCHES
+    w, xg = w.cpu().double().numpy(), X.to_global().cpu().double().numpy()
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    n1 = lambda m: np.abs(m).sum(axis=0).max()  # noqa: E731
+    r = n1(a64 @ xg - (b64 @ xg) * w[None, :]) / (n1(a64) * n1(xg) * n * np.finfo(dtype).eps)
+    assert r <= 100, r
+
+
+@pytest.mark.cuda
+def test_heev_float32_raises_under_tf32(dev):
+    """A float32 heev on the card raises while TF32 is on, as the other
+    float32 drivers do."""
+    import slate_tpu_torch as stt
+
+    a = _herm_np(np.random.default_rng(59), 300, np.float32)
+    A = stt.HermitianMatrix.from_global(a, 64, grid=stt.ProcessGrid.single())
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="tf32"):
+            stt.heev(A)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -63,6 +63,13 @@ import slate_tpu_torch.ops.band_kernels
 import slate_tpu_torch.ops.aasen
 import slate_tpu_torch.drivers.band
 import slate_tpu_torch.drivers.indefinite
+import slate_tpu_torch.native
+import slate_tpu_torch.parallel.band_gather
+import slate_tpu_torch.ops.bulge
+import slate_tpu_torch.ops.stedc
+import slate_tpu_torch.ops.stein
+import slate_tpu_torch.ops.jacobi
+import slate_tpu_torch.drivers.eig
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -98,7 +105,9 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "serve/buckets.py", "serve/admission.py", "serve/placement.py",
             "serve/factor_cache.py", "serve/cache.py", "serve/service.py",
             "serve/api.py", "ops/band_kernels.py", "ops/aasen.py", "drivers/band.py",
-            "drivers/indefinite.py"} <= names
+            "drivers/indefinite.py", "native/__init__.py", "parallel/band_gather.py",
+            "ops/bulge.py", "ops/stedc.py", "ops/stein.py", "ops/jacobi.py",
+            "drivers/eig.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
@@ -121,3 +130,28 @@ def test_from_global_places_data_on_the_grid_device():
     g = stt.ProcessGrid.single("cpu")
     A = stt.HermitianMatrix.from_global(torch.eye(6, dtype=torch.float64), 4, grid=g)
     assert A.device == torch.device("cpu") and A.grid is g
+
+
+def test_native_loader_reads_only_its_own_source(monkeypatch, tmp_path):
+    """The native chase library builds from the port's own copy of
+    hb2st.c (never the JAX package's file), into the port's build
+    directory, keyed by the source's hash."""
+    from slate_tpu_torch import native
+
+    assert native.SOURCE == PKG / "native" / "hb2st.c" and native.SOURCE.is_file()
+    text = (PKG / "native" / "__init__.py").read_text()
+    assert "slate_tpu/" not in text and "slate_tpu." not in text.replace("slate_tpu_torch", "")
+    built = []
+    real_run = native.subprocess.run
+
+    def run(cmd, *a, **k):
+        built.append(cmd)
+        return real_run(cmd, *a, **k)
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_lib_tried", False)
+    monkeypatch.setattr(native.subprocess, "run", run)
+    assert native.load() is not None
+    assert len(built) == 1 and str(native.SOURCE) in built[0]
+    assert [p.parent for p in tmp_path.glob("libslate_hb2st_*.so")] == [tmp_path]
