@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # all phases (exit 0 = passed)
     python3 chip_smoke.py --eig      # build + phase 15 alone (with --profile: its profile alone)
+    python3 chip_smoke.py --svd      # build + phase 16 alone (with --profile: a warm float64
+                                     # SVD of case (a) by stage, svd_profile)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -149,6 +151,24 @@ Phases, each for float64 and float32 unless stated:
      adds a profiled float64 heev: device busy time and launches by
      stage and of he2hb's panel against its trailing update, and the
      wavefront's and the Sturm scan's launches a step.
+ 16. the SVD (``stt.svd``, default options, seeded normal operands, tiles
+     of 64, metrics on): (a) tall (8192, 2048) float64 with vectors: the
+     geqrf pre-reduction (``geqrf_kernel_launches(2048)`` larft launches,
+     no other kernel), ge2tb, the Jordan-Wielandt chase on the native
+     host chaser (``svd.hb2st.host``), stedc, unmtr_hb2st, the
+     unmbr_ge2tb back-transforms and unmqr; (b) square n = 2048 float32
+     with vectors on the device wavefront; (c) square n = 2048 float64
+     values only (host chase, Sturm bisection); (d) (1024, 1536) float64
+     with vectors, tiles of 128 (``svd_accurate`` on the gathered band);
+     (e) complex128 n = 1024 with vectors on the device wavefront.  Gates:
+     singular values within 10 max(m, n) eps sigma_max of ``svdvals`` of
+     the float64 operand, ||A - U S V^H||_1 / (||A||_1 max(m, n) eps) and
+     ||U^H U - I||_1 / (k eps), ||V^H V - I||_1 / (k eps) <= 100, the
+     route, the launches.  Host-clock time, the stage times of the
+     instrumented sub-drivers, peak memory, cuSOLVER's ``svd`` and
+     ``svdvals`` as yardsticks.  ``--svd --profile`` profiles one warm
+     case (a) by stage: device busy time, launches and idle share of each
+     ``svd.*`` range, ge2tb's panels against its trailing updates.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2811,6 +2831,152 @@ def eig_profile(stt, gen, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the SVD
+# ---------------------------------------------------------------------------
+
+# (case, m, n, nb, dtype, vectors, the hb2st route or None): (a) tall, the
+# geqrf pre-reduction (larft kernel) -> the JW route on the host chaser ->
+# unmqr; (b) square on the device wavefront; (c) values only, host chase
+# + Sturm bisection; (d) m < n < 2m, svd_accurate on the gathered band;
+# (e) complex128 on the wavefront, cut to n = 1024 as phase 15's c128 case
+SVD_CASES = (
+    ("a", 8192, 2048, 64, "float64", True, "host"),
+    ("b", 2048, 2048, 64, "float32", True, "device"),
+    ("c", 2048, 2048, 64, "float64", False, "host"),
+    ("d", 1024, 1536, 128, "float64", True, None),
+    ("e", 1024, 1024, 64, "complex128", True, "device"),
+)
+SVD_TIMERS = ("geqrf", "ge2tb", "spmd.upper_band_diagonals_tiles", "svd.hb2st",
+              "svd.eigvals", "stedc", "svd.unmtr_hb2st", "unmbr_ge2tb_left",
+              "unmbr_ge2tb_right", "unmqr")
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event ms): one call, no warm-up."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def svd_gates(A, s, U, Vh, sref, eps) -> dict:
+    """Singular-value error / (max(m, n) eps sigma_max) against ``sref``
+    (svdvals of the float64 operand), and (with U, Vh)
+    ||A - U S V^H||_1 / (||A||_1 max(m, n) eps), ||U^H U - I||_1 / (k eps)
+    and ||V^H V - I||_1 / (k eps), k = min(m, n), all in 64 bits."""
+    up = torch.complex128 if A.is_complex() else torch.float64
+    m, n = A.shape
+    k, mx = min(m, n), max(m, n)
+    n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
+    out = {"sval_err": float((s.double() - sref).abs().max()) / (mx * eps * float(sref[0]))}
+    if U is not None:
+        A64, U64, Vh64 = A.to(up), U.to(up), Vh.to(up)
+        out["reconstruction"] = n1(A64 - (U64 * s.to(up)[None, :]) @ Vh64) / (n1(A64) * mx * eps)
+        eye = torch.eye(k, dtype=up, device=A.device)
+        out["orthogonality_u"] = n1(U64.mH @ U64 - eye) / (k * eps)
+        out["orthogonality_v"] = n1(Vh64 @ Vh64.mH - eye) / (k * eps)
+    return out
+
+
+def svd_case(stt, pk, qf, metrics, case, gen, dev) -> dict:
+    """One SVD of a seeded normal operand through ``stt.svd`` (default
+    options): host-clock time, the stage times of the instrumented
+    sub-drivers, the hb2st route, launches, peak memory, the gates, and
+    cuSOLVER's ``svd(full_matrices=False)`` and ``svdvals`` on the same
+    operand as yardsticks (one call each; svdvals of the float64 operand
+    is the gates' reference)."""
+    label, m, n, nb, dtype, vectors, route_expect = case
+    dt = getattr(torch, dtype)
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+    Am = stt.Matrix.from_global(A, nb)
+    (s, U, Vh), t, launches, peak = _band_run(pk, metrics, lambda: stt.svd(Am, vectors=vectors))
+    tm, c = metrics.timers(), metrics.counters()
+    stages = {k: tm[k]["total_s"] for k in SVD_TIMERS if k in tm}
+    route = {k: int(c.get(f"svd.hb2st.{k}", 0)) for k in ("host", "device")}
+    Ug = U.to_global() if U is not None else None
+    Vhg = Vh.to_global() if Vh is not None else None
+    up = torch.complex128 if A.is_complex() else torch.float64
+    sv, t_vals = _timed(lambda: torch.linalg.svdvals(A))
+    sref = sv if A.dtype == up else torch.linalg.svdvals(A.to(up))
+    g = svd_gates(A, s, Ug, Vhg, sref, torch.finfo(dt).eps)
+    _, t_svd = _timed(lambda: torch.linalg.svd(A, full_matrices=False))
+    name = f"svd ({label}) {dtype} ({m}, {n}) tiles {nb} {'vectors' if vectors else 'values'}"
+    print(f"  {name}: {t:.3f} s host clock, stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; hb2st route {route}; gates " + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+          + f"; kernel launches {launches or 0}; peak {peak:.2f} GB; torch.linalg.svd "
+          f"{t_svd:.3f} ms, svdvals {t_vals:.3f} ms (yardsticks, one call each)", flush=True)
+    check(g["sval_err"] <= 10, f"{name}: singular-value error {g['sval_err']:.3e} > 10")
+    for k in ("reconstruction", "orthogonality_u", "orthogonality_v"):
+        check(k not in g or g[k] <= EIG_BOUND, f"{name}: {k} {g.get(k, 0):.3e} > {EIG_BOUND}")
+    expect_route = {"host": int(route_expect == "host"), "device": int(route_expect == "device")}
+    check(route == expect_route, f"{name}: hb2st route {route}, expected {expect_route}")
+    expect = {"larft": qf.geqrf_kernel_launches(n)} if m >= 2 * n else {}
+    check(launches == expect, f"{name}: launches {launches} != {expect}")
+    return {"s": t, "stages_s": stages, "route": route, "gates": g, "launches": launches,
+            "peak_gb": peak, "library_svd_ms": t_svd, "library_svdvals_ms": t_vals}
+
+
+def svd_main(stt, pk, qf, metrics, gen, dev) -> dict:
+    """Phase 16: the five SVD cases of ``SVD_CASES``."""
+    t16 = time.perf_counter()
+    out = {}
+    for case in SVD_CASES:
+        out[f"{case[0]}_{case[4]}_{case[1]}x{case[2]}"] = svd_case(stt, pk, qf, metrics, case,
+                                                                  gen, dev)
+        torch.cuda.empty_cache()
+    print(f"  phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    return out
+
+
+def svd_profile(stt, gen, dev) -> dict:
+    """A profiled warm float64 SVD of case (a), (8192, 2048) in tiles of
+    64 with vectors: device busy time, launches and host time by stage
+    (the ``svd.*`` ranges), and ge2tb's panels against its trailing
+    updates."""
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _, m, n, nb, dtype, _, _ = SVD_CASES[0]
+    A = torch.randn(m, n, generator=gen, device=dev, dtype=getattr(torch, dtype))
+    Am = stt.Matrix.from_global(A, nb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stt.svd(Am, vectors=True)  # the warm-up
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stt.svd(Am, vectors=True)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("svd.") or e.name.startswith("ge2tb."):
+            r = ranges.setdefault(e.name, {"busy_ms": 0.0, "launches": 0, "host_ms": 0.0})
+            k, ms = _kernel_stats(e)
+            r["busy_ms"] += ms
+            r["launches"] += k
+            r["host_ms"] += e.cpu_time_total / 1e3
+    for name, r in ranges.items():
+        print(f"  profiled {name}: device busy {r['busy_ms']:.3f} ms in {r['launches']} "
+              f"launches, host {r['host_ms']:.3f} ms (idle share "
+              f"{max(0.0, 1 - r['busy_ms'] / max(r['host_ms'], 1e-9)):.3f})", flush=True)
+    part = lambda key, f: sum(ranges.get(f"ge2tb.{p}", {}).get(f, 0)  # noqa: E731
+                              for p in key)
+    pan_busy = part(("qr_panel", "lq_panel"), "busy_ms")
+    upd_busy = part(("qr_update", "lq_update"), "busy_ms")
+    share = pan_busy / max(pan_busy + upd_busy, 1e-9)
+    print(f"  ge2tb panel share of ge2tb's device busy time {share:.3f} (panels "
+          f"{pan_busy:.3f} ms in {part(('qr_panel', 'lq_panel'), 'launches')} launches, host "
+          f"{part(('qr_panel', 'lq_panel'), 'host_ms'):.1f} ms; trailing updates {upd_busy:.3f} "
+          f"ms in {part(('qr_update', 'lq_update'), 'launches')} launches); warm svd "
+          f"{t_warm:.3f} s, profiled {t_prof:.3f} s wall", flush=True)
+    return {"ranges": ranges, "ge2tb_panel_share": share, "warm_s": t_warm}
+
+
 def _profile_call(label, fn, pieces=None) -> None:
     """torch.profiler's device time by kernel over one call of fn and the
     host wall time of that same call, then the operator table.
@@ -2952,6 +3118,7 @@ def main() -> int:
         return 2
     profile_only = "--profile" in sys.argv[1:]
     eig_only = "--eig" in sys.argv[1:]
+    svd_only = "--svd" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2982,11 +3149,6 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
-    if profile_only:
-        print("profile: posv, gesv, CALU gesv and gels, float64", flush=True)
-        profile(stt, gen, dev)
-        print(smi)
-        return 0
     if eig_only:
         metrics.on()
         if profile_only:
@@ -2995,6 +3157,21 @@ def main() -> int:
         else:
             print("phase 15: the Hermitian eigensolvers", flush=True)
             eig_main(stt, pk, ck, metrics, gen, dev)
+        print(smi)
+        return 0
+    if svd_only:
+        metrics.on()
+        if profile_only:
+            print("profile: svd, float64 (8192, 2048)", flush=True)
+            svd_profile(stt, gen, dev)
+        else:
+            print("phase 16: the SVD", flush=True)
+            svd_main(stt, pk, qf, metrics, gen, dev)
+        print(smi)
+        return 0
+    if profile_only:
+        print("profile: posv, gesv, CALU gesv and gels, float64", flush=True)
+        profile(stt, gen, dev)
         print(smi)
         return 0
     t_start = time.perf_counter()
@@ -3098,6 +3275,8 @@ def main() -> int:
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     print("phase 15: the Hermitian eigensolvers", flush=True)
     eres = eig_main(stt, pk, ck, metrics, gen, dev)
+    print("phase 16: the SVD", flush=True)
+    svres = svd_main(stt, pk, qf, metrics, gen, dev)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -3137,7 +3316,7 @@ def main() -> int:
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
                                       "serve": sres, "band_indefinite": bres,
-                                      "eig": eres,
+                                      "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]
                                                            for d in DTYPES},

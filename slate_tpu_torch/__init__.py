@@ -112,6 +112,7 @@ from .drivers.mixed import gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_
 from .drivers.band import gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf, pbtrs, tbsm
 from .drivers.indefinite import hesv, hetrf, hetrs
 from .drivers.eig import he2hb, heev, hegst, hegv, stedc, steqr, sterf, sygv, unmtr_he2hb
+from .drivers.svd import bdsqr, ge2tb, svd, tb2bd, unmbr_ge2tb_left, unmbr_ge2tb_right
 from .types import Pivots, TriangularFactors
 
 # matgen (reference: include/slate/generate_matrix.hh)
@@ -127,6 +128,7 @@ from . import refine
 from . import serve
 from .convert import (
     factor_entry_from_reference,
+    ge2tb_from_reference,
     geqrf_from_reference,
     he2hb_from_reference,
     getrf_from_reference,

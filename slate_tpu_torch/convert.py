@@ -26,7 +26,9 @@ made.  ``geqrf_from_reference`` does the same for a ``geqrf`` result (the
 factor's tile array and the T stack), for ``unmqr``, ``gels_solve_from_global``
 and the LQ drivers.  ``he2hb_from_reference`` takes a ``he2hb`` result
 (the band's, V's tile arrays and the T stack), so this package's
-``unmtr_he2hb`` can apply the JAX package's reflectors.
+``unmtr_he2hb`` can apply the JAX package's reflectors, and
+``ge2tb_from_reference`` a ``ge2tb`` result (the band's, both reflector
+sets' tile arrays and both T stacks) for ``unmbr_ge2tb_left`` / ``_right``.
 ``factor_entry_from_reference`` takes one entry of
 the JAX package's serve factor cache (its numpy factor, permutation,
 bucket key and n, read by attribute) and returns this package's
@@ -157,6 +159,22 @@ def he2hb_from_reference(band_data: np.ndarray, V_data: np.ndarray, T: np.ndarra
                                  kind="HermitianBandMatrix", uplo=uplo, kd=nb, device=device)
     V = matrix_from_reference(V_data, m=n, n=n, mb=nb, nb=nb, p=p, q=q, device=device)
     return band, V, TriangularFactors(torch.tensor(np.asarray(T), device=band.device))
+
+
+def ge2tb_from_reference(band_data: np.ndarray, UV_data: np.ndarray, UT: np.ndarray,
+                         VV_data: np.ndarray, VT: np.ndarray, *, m: int, n: int, nb: int,
+                         p: int = 1, q: int = 1, device: Union[str, torch.device] = "cuda:0"):
+    """(TriangularBandMatrix, UV Matrix, UT, VV Matrix, VT) of this
+    package for a JAX package ``ge2tb`` result: the upper band's (kd =
+    nb) and the left reflectors' m x n storage-order tile arrays, the
+    right reflectors' n x n one (tiles of nb), and the two
+    TriangularFactors' (num_panels, nb, nb) stacks."""
+    band = matrix_from_reference(band_data, m=m, n=n, mb=nb, nb=nb, p=p, q=q,
+                                 kind="TriangularBandMatrix", uplo="Upper", kd=nb, device=device)
+    UV = matrix_from_reference(UV_data, m=m, n=n, mb=nb, nb=nb, p=p, q=q, device=device)
+    VV = matrix_from_reference(VV_data, m=n, n=n, mb=nb, nb=nb, p=p, q=q, device=device)
+    UT, VT = (TriangularFactors(torch.tensor(np.asarray(T), device=band.device)) for T in (UT, VT))
+    return band, UV, UT, VV, VT
 
 
 def factor_entry_from_reference(entry, device: Union[str, torch.device] = "cuda:0"):

@@ -127,18 +127,19 @@ def _gathered_band_eig(band_2d: torch.Tensor, vectors: bool):
     return eigh_accurate(band_2d, vectors=vectors)
 
 
-def _hb2st(W: torch.Tensor, n: int, b: int):
+def _hb2st(W: torch.Tensor, n: int, b: int, prefix: str = "heev"):
     """Stage 2 on the route the data allows: the native host chaser for
     real float64 when its library builds (its reflectors uploaded to
     W's device as they complete), the device wavefront otherwise.
-    Counts the route in ``heev.hb2st.host`` / ``heev.hb2st.device``."""
+    Counts the route in ``<prefix>.hb2st.host`` / ``<prefix>.hb2st.device``
+    (``heev`` here, ``svd`` for the SVD's Jordan-Wielandt chase)."""
     if not W.is_complex() and W.dtype == torch.float64 and native.hb2st_available():
-        metrics.inc("heev.hb2st.host")
+        metrics.inc(f"{prefix}.hb2st.host")
         if W.is_cuda:
             metrics.inc("transfer.d2h_bytes", W.numel() * W.element_size())
         d, e, VS, TAUS = native.hb2st_host_device(W, n, b, W.device)
         return d, e, torch.ones(n, dtype=W.dtype, device=W.device), VS, TAUS
-    metrics.inc("heev.hb2st.device")
+    metrics.inc(f"{prefix}.hb2st.device")
     return bulge.hb2st(W, n, b)
 
 

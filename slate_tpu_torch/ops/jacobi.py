@@ -11,8 +11,8 @@ sweep.
 
 ``eigh_accurate`` / ``svd_accurate`` polish the library result on a
 CUDA device, as the JAX package polishes off the CPU; on the CPU they
-return the library result.  The SVD half has no caller yet (ROADMAP.md
-Queue 1 item 6b).
+return the library result.  ``svd_accurate`` solves the SVD's gathered
+band where the Jordan-Wielandt chase does not apply (drivers/svd.py).
 """
 
 from __future__ import annotations

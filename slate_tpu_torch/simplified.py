@@ -5,9 +5,8 @@ least_squares_solve, ...), the verbs of the slices this package carries.
 A thin overload layer over the drivers, dispatching on matrix kind like
 the reference's C++ overload set.  Functional: outputs are returned.
 The band verbs dispatch on the band kinds (gbmm/hbmm, tbsm, gbsv/gbtrs,
-pbtrf/pbsv/pbtrs), the indefinite verbs call hetrf/hesv/hetrs and the
-eigenvalue verbs heev; the SVD verbs come with their slice (ROADMAP.md,
-Queue 1 item 6b).
+pbtrf/pbsv/pbtrs), the indefinite verbs call hetrf/hesv/hetrs, the
+eigenvalue verbs heev and the SVD verbs svd.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from .drivers import indefinite as _indef
 from .drivers import lu as _lu
 from .drivers import mixed as _mixed
 from .drivers import qr as _qr
+from .drivers import svd as _svd
 from .enums import Side
 from .exceptions import NumericalError
 from .matrix.matrix import (
@@ -209,7 +209,7 @@ def multiply_by_q(side, op, fac, T, C, from_lq=False, opts=None):
     return _qr.unmqr(side, op, fac, T, C, opts)
 
 
-# ----- eigen ---------------------------------------------------------------
+# ----- eigen / svd ---------------------------------------------------------
 
 
 def eig(A: HermitianMatrix, opts=None):
@@ -221,3 +221,14 @@ def eig_vals(A: HermitianMatrix, opts=None):
     """Eigenvalues only (simplified_api.hh eig_vals)."""
     w, _ = _eig.heev(A, opts, vectors=False)
     return w
+
+
+def svd(A: Matrix, opts=None):
+    """Singular values and vectors (simplified_api.hh svd): (s, U, VH)."""
+    return _svd.svd(A, opts, vectors=True)
+
+
+def svd_vals(A: Matrix, opts=None):
+    """Singular values only (simplified_api.hh svd_vals)."""
+    s, _, _ = _svd.svd(A, opts, vectors=False)
+    return s

@@ -1354,3 +1354,118 @@ def test_heev_float32_raises_under_tf32(dev):
             stt.heev(A)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _svd_card_and_cpu(dev, a, nb):
+    """svd of a with vectors on the card (its hb2st route counts and
+    kernel launches) and on the CPU, as float64 numpy."""
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.aux import metrics
+
+    metrics.on()
+    with metrics.deltas() as d:
+        s, U, Vh = stt.svd(stt.Matrix.from_global(a, nb, grid=stt.ProcessGrid.single()),
+                           vectors=True)
+        counts = {c: d.get(f"svd.hb2st.{c}") for c in ("host", "device")}
+    launches = dict(pk.LAUNCHES)
+    card = [x.cpu().double().numpy() for x in (s, U.to_global(), Vh.to_global())]
+    cpu = stt.ProcessGrid.single("cpu")
+    sc, Uc, Vhc = stt.svd(stt.Matrix.from_global(a, nb, grid=cpu), vectors=True)
+    return card, [x.double().numpy() for x in (sc, Uc.to_global(), Vhc.to_global())], counts, \
+        launches
+
+
+def _svd_bounds(a, s, u, vh, eps):
+    """(values error / (max(m, n) eps ||A||_1) against float64 numpy,
+    ||A - U S V^H||_1 / (||A||_1 max(m, n) eps), ||U^H U - I||_1 / (k eps),
+    ||V^H V - I||_1 / (k eps))."""
+    m, n = a.shape
+    k, mx = min(m, n), max(m, n)
+    n1 = lambda x: np.abs(x).sum(axis=0).max()  # noqa: E731
+    a64 = a.astype(np.float64)
+    serr = np.abs(s - np.linalg.svd(a64, compute_uv=False)).max() / (mx * eps * n1(a64))
+    rec = n1(a64 - (u * s) @ vh) / (n1(a64) * mx * eps)
+    return (serr, rec, n1(u.T @ u - np.eye(k)) / (k * eps), n1(vh @ vh.T - np.eye(k)) / (k * eps))
+
+
+def _same_left_vectors(s, u, uc, a, eps):
+    """U of the card against U of the CPU, up to sign, on the singular
+    values separated by more than 1e-2 ||A||_1."""
+    k = u.shape[1]
+    a1 = np.abs(a.astype(np.float64)).sum(axis=0).max()
+    gaps = np.abs(np.diff(s))
+    gap = np.minimum(np.concatenate([[np.inf], gaps]), np.concatenate([gaps, [np.inf]]))
+    sep = gap > 1e-2 * a1
+    p = np.abs(u.T @ uc)[np.ix_(sep, sep)]
+    np.testing.assert_allclose(p, np.eye(int(sep.sum())), rtol=0, atol=1e3 * k * eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,dtype", [(400, 400, np.float64), (400, 400, np.float32),
+                                       (900, 300, np.float64)])
+def test_svd_on_the_card_matches_the_cpu(dev, m, n, dtype):
+    """svd with vectors at (400, 400) and (900, 300) (the tall
+    pre-reduction) with tiles of 64, where the band stage is
+    ``svd_accurate`` (n <= 4 (2 nb + 1)): no hb2st chase, no kernel (the
+    library QR below n = 2048); values within 10 max(m, n) eps ||A||_1
+    of float64 numpy and of the CPU's, reconstruction and orthogonality
+    <= 100, U up to sign where the spectrum is separated."""
+    a = _rand(np.random.default_rng(61), m, n, dtype)
+    (s, u, vh), (sc, uc, _), counts, launches = _svd_card_and_cpu(dev, a, 64)
+    assert counts == {"host": 0, "device": 0}, counts
+    assert all(v == 0 for v in launches.values()), launches
+    eps = np.finfo(dtype).eps
+    serr, rec, ou, ov = _svd_bounds(a, s, u, vh, eps)
+    assert serr <= 10 and rec <= 100 and ou <= 100 and ov <= 100, (serr, rec, ou, ov)
+    np.testing.assert_allclose(s, sc, rtol=0, atol=10 * max(m, n) * eps
+                               * np.abs(a.astype(np.float64)).sum(axis=0).max())
+    _same_left_vectors(sc, u, uc, a, eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,dtype,route", [(400, 400, np.float64, "host"),
+                                             (400, 400, np.float32, "device"),
+                                             (900, 300, np.float64, "host")])
+def test_svd_jw_route_on_the_card_matches_the_cpu(dev, m, n, dtype, route):
+    """The same shapes with tiles of 32, so that both take the
+    Jordan-Wielandt route (n > 4 (2 nb + 1) = 260): the float64 chase
+    on the native host chaser, the float32 chase on the device wavefront
+    (counted in svd.hb2st.*); larft launched as the QR route resolves
+    (the library QR below n = 2048: none), no other kernel; the bounds
+    as above, U up to sign where the spectrum is separated.  The JW
+    tridiagonals (2n = 800, 600) are padded in stedc, whose padding
+    poles must not widen its deflation tolerance (ROADMAP.md Queue 3)."""
+    from slate_tpu_torch.ops import qr_fast as qf
+
+    nb = 32
+    a = _rand(np.random.default_rng(61), m, n, dtype)
+    (s, u, vh), (sc, uc, _), counts, launches = _svd_card_and_cpu(dev, a, nb)
+    assert counts == {"host": int(route == "host"), "device": int(route == "device")}, counts
+    tall_route = qf.resolve_qr_schedule(-(-m // nb) * nb, -(-n // nb) * nb,
+                                        torch.float64 if dtype == np.float64 else torch.float32,
+                                        "auto", dev) if m >= 2 * n else None
+    expect = qf.geqrf_kernel_launches(n) if tall_route == "pallas" else 0
+    assert launches["larft"] == expect, (launches, tall_route)
+    assert all(v == 0 for c, v in launches.items() if c != "larft"), launches
+    eps = np.finfo(dtype).eps
+    serr, rec, ou, ov = _svd_bounds(a, s, u, vh, eps)
+    assert serr <= 10 and rec <= 100 and ou <= 100 and ov <= 100, (serr, rec, ou, ov)
+    np.testing.assert_allclose(s, sc, rtol=0, atol=10 * max(m, n) * eps
+                               * np.abs(a.astype(np.float64)).sum(axis=0).max())
+    _same_left_vectors(sc, u, uc, a, eps)
+
+
+@pytest.mark.cuda
+def test_svd_float32_raises_under_tf32(dev):
+    """A float32 svd on the card raises while TF32 is on, as heev does."""
+    import slate_tpu_torch as stt
+
+    a = _rand(np.random.default_rng(67), 300, 300, np.float32)
+    A = stt.Matrix.from_global(a, 32, grid=stt.ProcessGrid.single())
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="tf32"):
+            stt.svd(A)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

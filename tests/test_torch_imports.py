@@ -70,6 +70,7 @@ import slate_tpu_torch.ops.stedc
 import slate_tpu_torch.ops.stein
 import slate_tpu_torch.ops.jacobi
 import slate_tpu_torch.drivers.eig
+import slate_tpu_torch.drivers.svd
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -107,7 +108,7 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "serve/api.py", "ops/band_kernels.py", "ops/aasen.py", "drivers/band.py",
             "drivers/indefinite.py", "native/__init__.py", "parallel/band_gather.py",
             "ops/bulge.py", "ops/stedc.py", "ops/stein.py", "ops/jacobi.py",
-            "drivers/eig.py"} <= names
+            "drivers/eig.py", "drivers/svd.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -197,15 +197,13 @@ def test_verb_is_its_driver_and_matches_jax(verb, grid11):
 
 
 def test_verbs_cover_the_landed_slices():
-    """Every verb of the JAX package is here except those of the SVD
-    slice, which come with it (the band, indefinite and eigenvalue verbs
-    landed with their slices)."""
+    """Every verb of the JAX package is here (the band, indefinite,
+    eigenvalue and SVD verbs landed with their slices)."""
     def verbs(mod):
         return {n for n in dir(mod) if not n.startswith("_") and callable(getattr(mod, n))
                 and getattr(getattr(mod, n), "__module__", "") == mod.__name__}
 
-    later = {"svd", "svd_vals"}
-    assert verbs(tsimp) == verbs(jsimp) - later
+    assert verbs(tsimp) == verbs(jsimp)
 
 
 # ---------------------------------------------------------------------------

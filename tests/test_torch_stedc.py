@@ -105,3 +105,23 @@ def test_stedc_batches_each_level():
         ts.stedc(torch.from_numpy(rng.standard_normal(16)),
                  torch.from_numpy(rng.standard_normal(15)))
     assert calls == [8, 4, 2, 1]
+
+
+@pytest.mark.parametrize("n", [80, 160, 300, 600])
+def test_stedc_padding_keeps_the_residual(n):
+    """A non-power-of-two n is padded to N = 2^k with decoupled poles.
+    Their magnitude enters every merge's deflation tolerance, so the
+    port keeps them within 3 bound: each eigenvector's residual stays
+    within 10 n eps ||T||_1, as for a power-of-two n.  With the JAX
+    package's pads, up to (N - n + 1) bound, these cases exceed it."""
+    rng = np.random.default_rng(n)
+    d, e = rng.standard_normal(n), rng.standard_normal(n - 1)
+    w, Q = tstedc(torch.from_numpy(d), torch.from_numpy(e))
+    w, Q = w.numpy(), Q.numpy()
+    T = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    eps = np.finfo(np.float64).eps
+    col = np.abs(T @ Q - Q * w[None, :]).sum(0) / (np.abs(T).sum(0).max() * n * eps)
+    assert col.max() <= 10, col.max()
+    assert np.abs(Q.T @ Q - np.eye(n)).sum(0).max() / (n * eps) <= 10
+    np.testing.assert_allclose(w, np.linalg.eigvalsh(T), rtol=0,
+                               atol=50 * eps * np.abs(T).sum(0).max())
