@@ -5,6 +5,7 @@
     python3 chip_smoke.py --eig      # build + phase 15 alone (with --profile: its profile alone)
     python3 chip_smoke.py --svd      # build + phase 16 alone (with --profile: a warm float64
                                      # SVD of case (a) by stage, svd_profile)
+    python3 chip_smoke.py --restore  # build + phase 17 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -169,6 +170,32 @@ Phases, each for float64 and float32 unless stated:
      ``svdvals`` as yardsticks.  ``--svd --profile`` profiles one warm
      case (a) by stage: device busy time, launches and idle share of each
      ``svd.*`` range, ge2tb's panels against its trailing updates.
+ 17. restore, replicas and integrity, at phase 13's shapes (n = 4096,
+     tiles of 64, nrhs = 16, batch point 4): (a) float64 cold start: a
+     two-lane service with an artifact store warms gesv / posv; a fresh
+     interpreter of the port alone (no nvcc on its PATH) restores it:
+     every entry restored, none compiled, the kernel library opened from
+     the store, no nvcc run, ``wait_ready()`` True, a 20-request stream
+     with no cold build; one flipped byte in one stored kernel library
+     is caught by its sha256 before the library is opened (a second
+     fresh interpreter counts ``serve.artifact_corrupt``, opens the
+     library from the build, solves, and the store's copy is rewritten
+     clean); one flipped byte in one artifact is counted
+     ``serve.artifact_corrupt``, rebuilt and re-saved clean; each artifact
+     fault site armed once is caught by its counter; restore time against
+     phase 1's build.  (b) ``replicas=2`` on cuda:0: a factor-cache hit
+     stream and a full-phase stream (dispatches a lane), ``add_replica``
+     (no cold build on traffic), ``remove_replica`` (its queue re-homed,
+     nothing lost).  (c) ``integrity="full,abft"``, two lanes: every
+     delivery certified, the ABFT buckets' launches equal the factor's
+     mirror (``getrf_kernel_launches`` / ``chol_kernel_launches``, a
+     dispatch's batch point times; the drivers' solves in a full-phase
+     core are library triangular solves, so no trsm launch), ``sdc_solve`` and
+     ``sdc_factor`` once each caught and recovered, a lane quarantined
+     and probed back, a delayed dispatch's queue hedged to the other
+     lane; the ABFT dispatch against the plain one (CUDA events, rounds
+     of the two interleaved, and a profile of one of each: device time by
+     op), the host certificate, requests/s with the plane on and off.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -192,6 +219,7 @@ are printed on a line of their own before that.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -2229,6 +2257,617 @@ def serve_full_stream(stt, serve, pk, ck, metrics, dtype, gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: restore, replicas and integrity
+# ---------------------------------------------------------------------------
+
+SERVE17_BATCH = 4
+STREAM17 = 12  # requests of phase 17's replica and integrity streams
+
+# A fresh interpreter of the port alone: restore a two-lane service from
+# the store (argv: manifest, store, n, nrhs, batch point, requests), then
+# serve a float64 stream of that many requests; one JSON line out.
+_RESTORE_CHILD = r"""
+import json, sys, time
+t_start = time.perf_counter()
+import numpy as np, torch
+from slate_tpu_torch.aux import metrics
+from slate_tpu_torch.ops.hopper import panel_kernels as pk
+from slate_tpu_torch.serve import ExecutableCache, PlacementPolicy, SolverService
+
+man, store, n, nrhs, bm, count = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:7])
+metrics.on()
+dev = torch.device("cuda:0")
+t0 = time.perf_counter()
+svc = SolverService(cache=ExecutableCache(manifest_path=man, artifact_dir=store),
+                    placement=PlacementPolicy(replicas=2), factor_cache=False,
+                    batch_max=bm, batch_window_s=0.002)
+ready = svc.wait_ready(600)
+t_restore = time.perf_counter() - t0
+restore = svc.health()["restore"]
+gen = torch.Generator(device=dev)
+gen.manual_seed(17)
+ops = []
+for i in range(4):
+    G = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    if i % 2:
+        A = G @ G.T
+        A.diagonal().add_(n)
+    else:
+        A = G
+        A.diagonal().add_(2 * n ** 0.5)
+    ops.append((("gesv", "posv")[i % 2], A))
+Bs = [torch.randn(n, nrhs, generator=gen, device=dev, dtype=torch.float64) for _ in range(5)]
+ops_np = [(r, A.cpu().numpy()) for r, A in ops]
+Bs_np = [B.cpu().numpy() for B in Bs]
+with metrics.deltas() as d:
+    t1 = time.perf_counter()
+    futs = [svc.submit(ops_np[i % 4][0], ops_np[i % 4][1], Bs_np[i % 5]) for i in range(count)]
+    Xs = [f.result(timeout=600) for f in futs]
+    t_stream = time.perf_counter() - t1
+    cold = d.get("jit.compilations")
+    lanes = {r: d.get(f"serve.replica.{r}.dispatched") for r in ("0", "1")}
+n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))
+res = max(n1(ops[i % 4][1] @ torch.from_numpy(X).to(dev) - Bs[i % 5])
+          / (n1(ops[i % 4][1]) * n1(torch.from_numpy(X)) * n * torch.finfo(torch.float64).eps)
+          for i, X in enumerate(Xs))
+svc.stop()
+print(json.dumps({
+    "ready": ready, "restore": restore, "restore_s": t_restore,
+    "process_to_ready_s": t0 - t_start + t_restore, "cold_builds": cold, "lanes": lanes,
+    "requests": count, "stream_s": t_stream, "requests_per_s": count / t_stream,
+    "max_residual": res,
+    "nvcc_runs": pk.NVCC_RUNS, "loaded_from": str(pk.LOADED_FROM),
+    "artifact": {k: v for k, v in metrics.counters().items()
+                 if k.startswith("serve.artifact_")},
+    "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "slate_tpu"))}))
+"""
+
+
+def _restore_child(man: str, store: str, label: str, count: int = 20) -> dict:
+    """Run _RESTORE_CHILD in a fresh interpreter with no nvcc on its PATH
+    and no CUDA_HOME, so a kernel build there could only fail."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here, "CUDA_HOME": "/nonexistent",
+           "PATH": os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                                   if "cuda" not in p.lower())}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _RESTORE_CHILD, man, store, str(N_SERVE),
+                          str(NRHS_SERVE), str(SERVE17_BATCH), str(count)], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"restore child ({label}) exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["process_wall_s"] = wall
+    return got
+
+
+def _ops(n, dt, gen, dev, count=4):
+    """``count`` operands, gesv and posv alternating (host numpy too)."""
+    out = []
+    for i in range(count):
+        routine = ("gesv", "posv")[i % 2]
+        if routine == "posv":
+            A = spd(n, dt, gen, dev)
+        else:
+            A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+            A.diagonal().add_(2 * n**0.5)
+        out.append((routine, A, A.cpu().numpy()))
+    return out
+
+
+def _rhs(n, dt, gen, dev, count=5):
+    Bs = [torch.randn(n, NRHS_SERVE, generator=gen, device=dev, dtype=dt) for _ in range(count)]
+    return Bs, [B.cpu().numpy() for B in Bs]
+
+
+def _idle(svc, timeout: float = 120.0) -> None:
+    """Wait until every lane is empty and idle (a hedge twin that lost
+    may still be running after its request was delivered)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        with svc._cond:
+            if all(not r.q and not r.inflight for r in svc._replicas):
+                return
+        time.sleep(0.005)
+    fail("serve lanes never went idle")
+
+
+def _stream(svc, ops, Bs, Bs_np, count, dev):
+    """``count`` requests over the operands and right sides, submitted at
+    once; returns (seconds, max scaled residual)."""
+    t0 = time.perf_counter()
+    futs = [svc.submit(ops[i % len(ops)][0], ops[i % len(ops)][2], Bs_np[i % len(Bs)])
+            for i in range(count)]
+    Xs = [f.result(timeout=900) for f in futs]
+    dt = time.perf_counter() - t0
+    res = max(scaled_residual(ops[i % len(ops)][1], torch.from_numpy(X).to(dev),
+                              Bs[i % len(Bs)]) for i, X in enumerate(Xs))
+    return dt, res
+
+
+def cold_start_leg(serve, faults, metrics, dev, gen, t_build) -> dict:
+    """(a) float64: warm a two-lane service with a store, restore it in a
+    fresh interpreter, then here with one flipped byte, and arm each
+    artifact site once."""
+    import os
+    import tempfile
+
+    from slate_tpu_torch.serve import artifacts as sart
+
+    n, bm = N_SERVE, SERVE17_BATCH
+    dt = torch.float64
+    with tempfile.TemporaryDirectory() as tmp:
+        man, store = os.path.join(tmp, "m.json"), os.path.join(tmp, "store")
+        ops = _ops(n, dt, gen, dev, 2)
+        Bs, Bs_np = _rhs(n, dt, gen, dev, 2)
+        svc = serve.SolverService(cache=serve.ExecutableCache(manifest_path=man,
+                                                              artifact_dir=store),
+                                  replicas=2, factor_cache=False, batch_max=bm,
+                                  batch_window_s=0.002)
+        try:
+            t0 = time.perf_counter()
+            for (routine, A, A_np), B, B_np in zip(ops, Bs, Bs_np):
+                X = svc.submit(routine, A_np, B_np).result(timeout=900)
+                check(scaled_residual(A, torch.from_numpy(X).to(dev), B) <= 3,
+                      f"restore warm {routine}: residual > 3")
+            svc.warmup()
+            t_warm = time.perf_counter() - t0
+        finally:
+            svc.stop()
+        st = sart.ArtifactStore(store)
+        keys = [(serve.bucket_for(r, n, n, NRHS_SERVE, np.float64), b)
+                for r in ("gesv", "posv") for b in (1, bm)]
+        check(len(st.entries()) == 4, f"store holds {len(st.entries())} entries, expected 4")
+        kdir = st.kernels_dir()
+        from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+        libs = sorted(p.name for p in pk.check_copy(kdir, pk.library_digest()))
+        check(libs == sorted(pk.library_names()), f"store kernels {libs}")
+        clean = _restore_child(man, store, "clean")
+        print(f"  cold start (fresh interpreter, 2 lanes on cuda:0): ready "
+              f"{clean['ready']}, restore {clean['restore']} in {clean['restore_s']:.3f} s "
+              f"({clean['process_to_ready_s']:.3f} s from interpreter start; phase 1 built "
+              f"the library in {t_build:.2f} s, warming the store took {t_warm:.3f} s), "
+              f"nvcc runs {clean['nvcc_runs']}, library from {clean['loaded_from']}; "
+              f"20-request stream {clean['stream_s']:.3f} s = "
+              f"{clean['requests_per_s']:.2f} requests/s, cold builds {clean['cold_builds']}, "
+              f"lanes {clean['lanes']}, max residual {clean['max_residual']:.3e}", flush=True)
+        check(clean["ready"], "restore child: wait_ready() False")
+        check(clean["restore"] == {"entries": 4, "restored": 4, "compiled": 0, "failed": 0,
+                                   "skipped": 0}, f"restore child: {clean['restore']}")
+        check(clean["nvcc_runs"] == 0, "restore child ran nvcc")
+        check(clean["loaded_from"].startswith(st.root), "restore child: the library was "
+              f"opened from {clean['loaded_from']}, not the store")
+        check(clean["cold_builds"] == 0, f"restore child: {clean['cold_builds']} cold builds")
+        check(clean["max_residual"] <= 3, "restore child: residual > 3")
+        check(clean["jax_modules"] == [], f"restore child imported {clean['jax_modules']}")
+        # one flipped byte in one stored kernel library: its sha256 fails
+        # before any CDLL, so a second fresh interpreter opens the build's
+        # library, rebuilds the entry and rewrites the store's copy
+        so = os.path.join(kdir, pk.library_names()[0])
+        with open(so, "rb") as f:
+            blob = bytearray(f.read())
+        blob[len(blob) // 2] ^= 0x01
+        with open(so, "wb") as f:
+            f.write(blob)
+        try:
+            pk.check_copy(kdir, pk.library_digest())
+            fail("a flipped byte in a stored kernel library passed its sha256")
+        except pk.LibraryCorrupt:
+            pass
+        lib = _restore_child(man, store, "library byte", 4)
+        art = lib["artifact"]
+        print(f"  flipped byte in {os.path.basename(so)} (fresh interpreter): restore "
+              f"{lib['restore']}, serve.artifact_corrupt {art.get('serve.artifact_corrupt')}, "
+              f"hits {art.get('serve.artifact_hit')}, nvcc runs {lib['nvcc_runs']}, library "
+              f"from {lib['loaded_from']}; {lib['requests']} requests after it, cold builds "
+              f"{lib['cold_builds']}, max residual {lib['max_residual']:.3e}", flush=True)
+        check(lib["ready"] and lib["restore"]["restored"] == 3
+              and lib["restore"]["compiled"] == 1 and art.get("serve.artifact_corrupt") == 1,
+              f"library byte: restore {lib['restore']}, counters {art}")
+        check(not lib["loaded_from"].startswith(st.root), "library byte: the flipped copy "
+              f"was opened ({lib['loaded_from']})")
+        check(lib["cold_builds"] == 0 and lib["max_residual"] <= 3,
+              f"library byte: cold builds {lib['cold_builds']}, residual {lib['max_residual']}")
+        check(len(pk.check_copy(kdir, pk.library_digest())) == len(pk.library_names()),
+              "library byte: the store's copy was not rewritten")
+        # one flipped byte in one artifact: counted, rebuilt, re-saved
+        key, b = keys[1]
+        path = st.path_for(key, b)
+        with open(path, "rb") as f:
+            blob = f.read()
+        with open(path, "wb") as f:
+            f.write(sart.ArtifactStore._flip_byte(blob))
+        svc = serve.SolverService(cache=serve.ExecutableCache(manifest_path=man,
+                                                              artifact_dir=store),
+                                  replicas=2, factor_cache=False, batch_max=bm,
+                                  batch_window_s=0.002)
+        try:
+            with metrics.deltas() as d:
+                check(svc.wait_ready(600), "flipped byte: wait_ready() False")
+                got = svc.health()["restore"]
+                corrupt = d.get("serve.artifact_corrupt")
+                _t, res = _stream(svc, ops, Bs, Bs_np, 4, dev)
+        finally:
+            svc.stop()
+        flipped = {"restore": got, "corrupt": corrupt, "max_residual": res}
+        print(f"  flipped byte in {os.path.basename(path)}: restore {got}, "
+              f"serve.artifact_corrupt {corrupt}; 4 requests after it, max residual "
+              f"{res:.3e}", flush=True)
+        check(corrupt == 1, f"flipped byte: serve.artifact_corrupt {corrupt}")
+        check(got["restored"] == 3 and got["compiled"] == 1, f"flipped byte: restore {got}")
+        check(res <= 3, "flipped byte: residual > 3")
+        with metrics.deltas() as d:
+            healed = sart.ArtifactStore(store).load(key, b, dev)
+            check(healed and d.get("serve.artifact_hit") == 1,
+                  "the flipped artifact was not re-saved clean")
+        sites = {}
+        for site, rung in (("artifact_corrupt", "corrupt"), ("artifact_stale", "stale"),
+                           ("artifact_load_fail", "load_fail")):
+            c = serve.ExecutableCache(manifest_path=man, artifact_dir=store)
+            faults.arm(site, once=True)
+            faults.on()
+            with metrics.deltas() as d:
+                got = c.restore(batch_max=1, devices=[dev])
+                fired, counted = d.get(f"faults.injected.{site}"), d.get(f"serve.artifact_{rung}")
+            faults.reset()
+            check(fired == 1 and counted == 1 and got["restored"] == 1 and got["compiled"] == 1,
+                  f"{site}: fired {fired}, serve.artifact_{rung} {counted}, restore {got}")
+            sites[site] = {"fired": fired, "counted": counted, "restore": got}
+        print("  artifact sites armed once each (restore of the b1 entries): " + "; ".join(
+            f"{s}: fired {v['fired']}, counted {v['counted']}, restore {v['restore']}"
+            for s, v in sites.items()), flush=True)
+    return {"build_s": t_build, "warm_store_s": t_warm, "clean": clean,
+            "library_byte": lib, "flipped": flipped, "sites": sites}
+
+
+def replica_leg(serve, metrics, dtype, gen, dev) -> dict:
+    """(b) replicas=2 on cuda:0: a factor-cache hit stream, a full-phase
+    stream, add_replica (warm, no cold build on traffic) and
+    remove_replica (its queue re-homed, nothing lost)."""
+    dt = getattr(torch, dtype)
+    n, bm = N_SERVE, SERVE17_BATCH
+    ops = _ops(n, dt, gen, dev)
+    Bs, Bs_np = _rhs(n, dt, gen, dev)
+    out = {}
+    svc = serve.SolverService(replicas=2, factor_cache=serve.FactorCache(max_entries=4),
+                              batch_max=bm, batch_window_s=0.002)
+    try:
+        svc.submit("gesv", ops[0][2], Bs_np[0]).result(timeout=900)  # the miss
+        svc.warmup()
+        with metrics.deltas() as d:
+            t, res = _stream(svc, ops[:1], Bs, Bs_np, STREAM17, dev)
+            lanes = {r: d.get(f"serve.replica.{r}.dispatched") for r in ("0", "1")}
+            hits, cold = d.get("serve.factor_cache.hit"), d.get("jit.compilations")
+        print(f"  replicas {dtype} hit stream: {STREAM17} in {t:.3f} s = {STREAM17 / t:.2f} "
+              f"requests/s, "
+              f"hits {hits}, cold builds {cold}, dispatched a lane {lanes}, max residual "
+              f"{res:.3e}", flush=True)
+        check(hits == STREAM17 and cold == 0 and res <= 3, f"replicas {dtype} hit stream")
+        out["hit_stream"] = {"requests_per_s": STREAM17 / t, "lanes": lanes,
+                             "max_residual": res}
+    finally:
+        svc.stop()
+    svc = serve.SolverService(replicas=2, factor_cache=False, batch_max=bm,
+                              batch_window_s=0.002)
+    try:
+        for routine, _A, A_np in ops[:2]:
+            svc.submit(routine, A_np, Bs_np[0]).result(timeout=900)
+        svc.warmup()
+        with metrics.deltas() as d:
+            t, res = _stream(svc, ops, Bs, Bs_np, 12, dev)
+            lanes = {r: d.get(f"serve.replica.{r}.dispatched") for r in ("0", "1")}
+            cold = d.get("jit.compilations")
+        print(f"  replicas {dtype} full-phase stream: 12 in {t:.3f} s = {12 / t:.2f} "
+              f"requests/s, cold builds {cold}, dispatched a lane {lanes}, max residual "
+              f"{res:.3e}", flush=True)
+        check(all(v > 0 for v in lanes.values()) and cold == 0 and res <= 3,
+              f"replicas {dtype} full-phase stream: lanes {lanes}, cold {cold}")
+        out["full_stream"] = {"requests_per_s": 12 / t, "lanes": lanes, "max_residual": res}
+        with metrics.deltas() as d:
+            t0 = time.perf_counter()
+            name = svc.add_replica()
+            t_add = time.perf_counter() - t0
+            t, res = _stream(svc, ops, Bs, Bs_np, 12, dev)
+            cold = d.get("jit.compilations")
+            new = d.get(f"serve.replica.{name}.dispatched")
+        print(f"  add_replica {dtype}: lane {name} in {t_add:.3f} s, then 12 in {t:.3f} s, "
+              f"cold builds {cold}, the new lane dispatched {new}, max residual {res:.3e}",
+              flush=True)
+        check(cold == 0 and new > 0 and res <= 3, f"add_replica {dtype}: cold {cold}, new {new}")
+        with metrics.deltas() as d:
+            futs = [svc.submit(ops[i % 4][0], ops[i % 4][2], Bs_np[i % 5]) for i in range(12)]
+            removed = svc.remove_replica(name)
+            Xs = [f.result(timeout=900) for f in futs]
+            moved = d.get("scale.requests_rehomed")
+        res = max(scaled_residual(ops[i % 4][1], torch.from_numpy(X).to(dev), Bs[i % 5])
+                  for i, X in enumerate(Xs))
+        rows = {r["name"]: r["state"] for r in svc.health()["replicas"]}
+        print(f"  remove_replica {dtype}: lane {removed} removed with {moved} requests "
+              f"re-homed, 12 of 12 delivered, lanes {rows}, max residual {res:.3e}", flush=True)
+        check(len(Xs) == 12 and res <= 3 and rows.get(name) == "removed",
+              f"remove_replica {dtype}: rows {rows}")
+        out["add_remove"] = {"add_s": t_add, "rehomed": moved, "max_residual": res}
+    finally:
+        svc.stop()
+    return out
+
+
+def _abft_mirror(ck, lk, routine, n, items) -> dict:
+    """The kernel launches of ``items`` full-phase (ABFT) cores at bucket
+    n: the factor's mirror.  The drivers' own solves (``getrs``,
+    ``potrs`` through ``blas3.trsm``) are library triangular solves, as
+    in the JAX package; the trsm pair runs on the solve-phase (hit)
+    buckets."""
+    one = (ck.chol_kernel_launches(n) if routine == "posv"
+           else {"panel_lu": lk.getrf_kernel_launches(n, 256, 1)})
+    return {k: v * items for k, v in one.items() if v}
+
+
+def integrity_leg(serve, faults, pk, ck, lk, metrics, dtype, gen, dev) -> dict:
+    """(c) integrity="full,abft", replicas=2: every delivery certified, the
+    ABFT buckets' launches equal the mirrors, sdc_solve and sdc_factor
+    caught and recovered, quarantine and its probe, a straggler hedged,
+    and the plane's costs (dispatch, host certificate, requests/s)."""
+    from slate_tpu_torch.exceptions import SlateError
+    from slate_tpu_torch.integrity import abft
+    from slate_tpu_torch.serve import factor_cache as sfc
+    from slate_tpu_torch.serve import service as ssvc
+
+    dt = getattr(torch, dtype)
+    n, bm = N_SERVE, SERVE17_BATCH
+    ops = _ops(n, dt, gen, dev)
+    Bs, Bs_np = _rhs(n, dt, gen, dev)
+    out = {}
+    svc = serve.SolverService(replicas=2, factor_cache=False, integrity="full,abft,hedge=0",
+                              batch_max=bm, batch_window_s=0.002)
+    try:
+        for routine, _A, A_np in ops[:2]:
+            svc.submit(routine, A_np, Bs_np[0]).result(timeout=900)
+        svc.warmup()
+        keys = {r: serve.bucket_for(r, n, n, NRHS_SERVE, ops[0][2].dtype, tag=abft.ABFT_TAG)
+                for r in ("gesv", "posv")}
+        runs0 = {(r, b): _serve_runs_at(metrics, keys[r].label, b) for r in keys
+                 for b in (1, bm)}
+        pk.reset_launches()  # counts of the certified stream only
+        with metrics.deltas() as d:
+            t_on, res = _stream(svc, ops, Bs, Bs_np, STREAM17, dev)
+            _idle(svc)  # the twins of hedged stragglers finish too
+            checked, failed = d.get("serve.integrity.checked"), d.get("serve.integrity.fail")
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        expect = {}
+        for (r, b), r0 in runs0.items():
+            items = (_serve_runs_at(metrics, keys[r].label, b) - r0) * b
+            for k, v in _abft_mirror(ck, lk, r, n, items).items():
+                expect[k] = expect.get(k, 0) + v
+        print(f"  integrity {dtype} full,abft,hedge=0 stream: {STREAM17} in {t_on:.3f} s = "
+              f"{STREAM17 / t_on:.2f} requests/s, certified {checked}, failed {failed}, launches "
+              f"{launches} (mirrors {expect}), max residual {res:.3e}", flush=True)
+        check(checked == STREAM17 and failed == 0, f"integrity {dtype}: certified {checked}, "
+              f"failed {failed}")
+        check(launches == expect, f"integrity {dtype}: launches {launches} != {expect}")
+        check(res <= 3, f"integrity {dtype}: residual {res:.3f} > 3")
+        faults.arm("sdc_solve", once=True)
+        faults.on()
+        with metrics.deltas() as d:
+            X = svc.submit("gesv", ops[0][2], Bs_np[1]).result(timeout=900)
+            _idle(svc)
+            sdc_s = {k: d.get(f"serve.{k}") for k in ("integrity.fail", "integrity.recovered",
+                                                      "hedge.sent", "hedge.won")}
+            fired = d.get("faults.injected.sdc_solve")
+        faults.reset()
+        r = scaled_residual(ops[0][1], torch.from_numpy(X).to(dev), Bs[1])
+        print(f"  integrity {dtype} sdc_solve once: fired {fired}, {sdc_s}, residual "
+              f"{r:.3e}", flush=True)
+        check(fired == 1 and sdc_s["integrity.fail"] == 1 and sdc_s["integrity.recovered"] == 1
+              and r <= 3, f"integrity {dtype} sdc_solve: {sdc_s}, residual {r:.3f}")
+        out["sdc_solve"] = {**sdc_s, "residual": r}
+        # the plane's costs: one ABFT dispatch against the plain core on
+        # the same operands, and the host certificates of one request
+        costs = {}
+        for routine, A, A_np in ops[:2]:
+            k = keys[routine]
+            plain = svc.cache.executable(dataclasses.replace(k, tag=""), 1)
+            core = svc.cache.executable(k, 1)
+            A1, B1 = A[None], torch.nn.functional.pad(Bs[0], (0, k.nrhs - NRHS_SERVE))[None]
+            ab, pl = _interleaved_ms(lambda: core(A1, B1), lambda: plain(A1, B1))
+            t_abft, t_plain = statistics.median(ab), statistics.median(pl)
+            ratios = sorted(a / p - 1 for a, p in zip(ab, pl))
+            prof = _abft_profile(lambda: core(A1, B1), lambda: plain(A1, B1))
+            X = core(A1, B1)[0][0, :, :NRHS_SERVE].cpu().numpy()
+            t_cert = _host_s(lambda: abft.checksum_certificate(A_np, Bs_np[0], X))
+            t_res = _host_s(lambda: sfc.residual_ok(A_np, Bs_np[0], X, routine))
+            req = ssvc._Request(routine=routine, key=k, A=A_np, B=Bs_np[0], m=n, n=n,
+                                nrhs=NRHS_SERVE)
+            t_op = _host_s(lambda: ssvc._cert_operand(req))
+            costs[routine] = {"abft_dispatch_ms": t_abft, "plain_dispatch_ms": t_plain,
+                              "overhead": t_abft / t_plain - 1,
+                              "overhead_rounds": [ratios[0], statistics.median(ratios),
+                                                  ratios[-1]],
+                              "profile": prof,
+                              "model_overhead": abft.overhead_ratio(k),
+                              "checksum_certificate_host_ms": t_cert * 1e3,
+                              "cert_operand_host_ms": t_op * 1e3,
+                              "residual_ok_host_ms": t_res * 1e3}
+            print(f"  integrity {dtype} {routine} b1 dispatch, median of {ABFT_ROUNDS} "
+                  f"interleaved rounds: abft {t_abft:.3f} ms, plain {t_plain:.3f} ms "
+                  f"({(t_abft / t_plain - 1) * 100:.1f} %; a round's overhead min / median "
+                  f"/ max {ratios[0] * 100:.1f} / {statistics.median(ratios) * 100:.1f} / "
+                  f"{ratios[-1] * 100:.1f} %; model {abft.overhead_ratio(k) * 100:.2f} %)",
+                  flush=True)
+            print(f"  integrity {dtype} {routine} profiled b1 dispatch: device busy abft "
+                  f"{prof['abft_busy_ms']:.3f} ms of {prof['abft_wall_ms']:.3f} ms wall, plain "
+                  f"{prof['plain_busy_ms']:.3f} ms of {prof['plain_wall_ms']:.3f} ms; device "
+                  "time the ABFT core adds, by op: " + ", ".join(
+                      f"{key[:48]} {ms:+.3f} ms" for key, ms in prof["added_by_op"]), flush=True)
+            print(f"  integrity {dtype} {routine} host a request: "
+                  f"checksum_certificate {t_cert * 1e3:.2f} ms, its operand "
+                  f"{t_op * 1e3:.2f} ms, residual_ok {t_res * 1e3:.2f} ms", flush=True)
+        out["costs"] = costs
+    finally:
+        svc.stop()
+    # the same stream with the plane off
+    svc = serve.SolverService(replicas=2, factor_cache=False, integrity=False,
+                              batch_max=bm, batch_window_s=0.002)
+    try:
+        for routine, _A, A_np in ops[:2]:
+            svc.submit(routine, A_np, Bs_np[0]).result(timeout=900)
+        svc.warmup()
+        t_off, res = _stream(svc, ops, Bs, Bs_np, STREAM17, dev)
+        check(res <= 3, f"integrity off {dtype}: residual {res:.3f} > 3")
+    finally:
+        svc.stop()
+    print(f"  integrity {dtype}: {STREAM17}-request stream, requests/s on (hedge=0) "
+          f"{STREAM17 / t_on:.2f}, off {STREAM17 / t_off:.2f}", flush=True)
+    out["requests_per_s"] = {"on": STREAM17 / t_on, "off": STREAM17 / t_off}
+    # sdc_factor on the factor path (the factor cache excludes ABFT)
+    svc = serve.SolverService(replicas=2, factor_cache=serve.FactorCache(max_entries=4),
+                              integrity="full,abft", batch_max=bm, batch_window_s=0.002)
+    try:
+        faults.arm("sdc_factor", once=True)
+        faults.on()
+        with metrics.deltas() as d:
+            X = svc.submit("posv", ops[1][2], Bs_np[2]).result(timeout=900)
+            _idle(svc)
+            sdc_f = {k: d.get(f"serve.{k}") for k in ("integrity.fail", "integrity.recovered",
+                                                      "factor_cache.stale", "hedge.sent")}
+            fired = d.get("faults.injected.sdc_factor")
+        faults.reset()
+        r = scaled_residual(ops[1][1], torch.from_numpy(X).to(dev), Bs[2])
+        print(f"  integrity {dtype} sdc_factor once: fired {fired}, {sdc_f}, residual "
+              f"{r:.3e}", flush=True)
+        check(fired == 1 and sdc_f["integrity.fail"] >= 1 and sdc_f["integrity.recovered"] >= 1
+              and r <= 3, f"integrity {dtype} sdc_factor: {sdc_f}, residual {r:.3f}")
+        out["sdc_factor"] = {**sdc_f, "residual": r}
+    finally:
+        svc.stop()
+    # quarantine: every execution corrupted until a lane trips, then clean
+    # traffic after the cooldown probes it back
+    svc = serve.SolverService(replicas=2, factor_cache=False, batch_max=1,
+                              integrity="full,abft,hedge=0,cooldown=0.3,retries=1")
+    try:
+        faults.arm("sdc_solve", every=1)
+        faults.on()
+        refused = 0
+        for i in range(3):
+            try:
+                svc.submit("gesv", ops[0][2], Bs_np[i]).result(timeout=900)
+            except SlateError:
+                refused += 1
+        faults.reset()
+        quarantined = svc.health()["integrity"]["quarantined"]
+        qn = metrics.counters().get("serve.integrity.quarantined", 0)
+        time.sleep(0.35)
+        with metrics.deltas() as d:
+            Xs = [svc.submit("gesv", ops[0][2], Bs_np[i]).result(timeout=900) for i in range(4)]
+            back = d.get("serve.integrity.unquarantined")
+        res = max(scaled_residual(ops[0][1], torch.from_numpy(X).to(dev), Bs[i])
+                  for i, X in enumerate(Xs))
+        after = svc.health()["integrity"]["quarantined"]
+        print(f"  integrity {dtype} quarantine: 3 corrupted requests refused {refused}, "
+              f"quarantined {quarantined}; after the cooldown 4 clean requests, "
+              f"unquarantined {back}, quarantined {after}, max residual {res:.3e}", flush=True)
+        check(quarantined and qn >= 1 and back >= 1 and not after and res <= 3,
+              f"integrity {dtype} quarantine: {quarantined}, {back}, {after}")
+        out["quarantine"] = {"quarantined": quarantined, "refused": refused,
+                             "unquarantined": back}
+    finally:
+        faults.reset()
+        svc.stop()
+    # a straggler: one dispatch delayed 1.5 s, the requests queued behind it
+    # are cloned to the other lane (hedging needs a p99 of this bucket)
+    n2 = N_SERVE // 2
+    ops2 = _ops(n2, dt, gen, dev, 1)
+    B2, B2_np = _rhs(n2, dt, gen, dev, 6)
+    svc = serve.SolverService(replicas=2, factor_cache=False, batch_max=1,
+                              integrity="full,abft")
+    try:
+        for i in range(4):  # the bucket's latency history
+            svc.submit("gesv", ops2[0][2], B2_np[i]).result(timeout=900)
+        faults.arm("latency", once=True, ms=1500)
+        faults.on()
+        with metrics.deltas() as d:
+            t, res = _stream(svc, ops2, B2, B2_np, 6, dev)
+            _idle(svc)
+            hedge = {k: d.get(f"serve.hedge.{k}") for k in ("sent", "won", "wasted")}
+        faults.reset()
+        print(f"  integrity {dtype} straggler: 6 requests with one dispatch delayed 1.5 s in "
+              f"{t:.3f} s, hedges {hedge}, max residual {res:.3e}", flush=True)
+        check(hedge["sent"] >= 1 and hedge["won"] >= 1 and res <= 3,
+              f"integrity {dtype} straggler: hedges {hedge}")
+        out["straggler"] = {**hedge, "stream_s": t}
+    finally:
+        faults.reset()
+        svc.stop()
+    return out
+
+
+ABFT_ROUNDS = 15  # interleaved rounds of the ABFT and the plain b1 dispatch
+
+
+def _interleaved_ms(fa, fb, rounds: int = ABFT_ROUNDS):
+    """CUDA-event ms of fa and fb, one call each a round, interleaved so
+    clock or neighbour drift falls on both alike (after a warm call)."""
+    fa(), fb()
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(cuda_ms(fa, reps=1, warm=0))
+        b.append(cuda_ms(fb, reps=1, warm=0))
+    return a, b
+
+
+def _abft_profile(fa, fb, top: int = 6) -> dict:
+    """torch.profiler's device time by op of one warm ABFT dispatch (fa)
+    and one plain (fb): each one's busy and wall ms and the ``top`` ops
+    whose device time the ABFT core adds most."""
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
+    out, by_op = {}, {}
+    for tag, fn in (("abft", fa), ("plain", fb)):
+        with torch.profiler.profile(activities=act) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+        by_op[tag] = {e.key: dev_us(e) / 1e3 for e in rows}
+        out[f"{tag}_busy_ms"] = sum(by_op[tag].values())
+        out[f"{tag}_wall_ms"] = wall * 1e3
+    keys = set(by_op["abft"]) | set(by_op["plain"])
+    added = sorted(((k, by_op["abft"].get(k, 0.0) - by_op["plain"].get(k, 0.0)) for k in keys),
+                   key=lambda kv: -kv[1])
+    out["added_by_op"] = added[:top]
+    return out
+
+
+def _serve_runs_at(metrics, label: str, batch: int) -> int:
+    """Dispatches of one bucket at one batch point so far (its cold build
+    and its warm runs)."""
+    t = metrics.timers()
+    return sum(int(t.get(f"serve.{label}.b{batch}.{part}", {"count": 0})["count"])
+               for part in ("compile", "run"))
+
+
+def restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build) -> dict:
+    t17 = time.perf_counter()
+    out = {"cold_start_float64": cold_start_leg(serve, faults, metrics, dev, gen, t_build)}
+    torch.cuda.empty_cache()
+    for d in DTYPES:
+        out[d] = {"replicas": replica_leg(serve, metrics, d, gen, dev)}
+        torch.cuda.empty_cache()
+        out[d]["integrity"] = integrity_leg(serve, faults, pk, ck, lk, metrics, d, gen, dev)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t17
+    print(f"  phase 17: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: band and indefinite
 # ---------------------------------------------------------------------------
 
@@ -3119,6 +3758,7 @@ def main() -> int:
     profile_only = "--profile" in sys.argv[1:]
     eig_only = "--eig" in sys.argv[1:]
     svd_only = "--svd" in sys.argv[1:]
+    restore_only = "--restore" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3132,7 +3772,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sos, log = pk.build(verbose=True)
     pk._load()
-    print(f"  built {', '.join(so.name for so in sos)} in {time.perf_counter() - t0:.2f} s "
+    t_build = time.perf_counter() - t0
+    print(f"  built {', '.join(so.name for so in sos)} in {t_build:.2f} s "
           f"(one nvcc a source, in parallel)", flush=True)
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -3167,6 +3808,13 @@ def main() -> int:
         else:
             print("phase 16: the SVD", flush=True)
             svd_main(stt, pk, qf, metrics, gen, dev)
+        print(smi)
+        return 0
+    if restore_only:
+        metrics.on()
+        print("phase 17: restore, replicas and integrity", flush=True)
+        rsres = restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build)
+        print("main path: " + json.dumps({"serve_restore": rsres}))
         print(smi)
         return 0
     if profile_only:
@@ -3277,6 +3925,9 @@ def main() -> int:
     eres = eig_main(stt, pk, ck, metrics, gen, dev)
     print("phase 16: the SVD", flush=True)
     svres = svd_main(stt, pk, qf, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    print("phase 17: restore, replicas and integrity", flush=True)
+    rsres = restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -3315,7 +3966,8 @@ def main() -> int:
     print("main path: " + json.dumps({"posv": strip(mres), "gesv": strip(lres),
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
-                                      "serve": sres, "band_indefinite": bres,
+                                      "serve": sres, "serve_restore": rsres,
+                                      "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,
                                       "tile_norms_kinds": {d: kres[d]["tile_norms"]["kinds"]

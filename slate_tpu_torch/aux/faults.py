@@ -1,8 +1,8 @@
 """Deterministic, seedable fault injection: the part of the JAX
 package's ``aux/faults.py`` that the mixed-precision drivers and the
-serve tier use.  The artifact, session, SDC, lock and fleet sites
-belong to the serve planes that are not ported yet (ROADMAP.md Queue 1
-items 4b and 7).
+serve tier use.  The session, lock, tenant and fleet sites belong to
+the serve planes that are not ported yet (ROADMAP.md Queue 1 items 7b
+and 7c).
 
 Sites (:data:`SITES`) and where they are checked:
 
@@ -23,6 +23,16 @@ Sites (:data:`SITES`) and where they are checked:
                        element is silently wrong (finite): the hit
                        path's residual validation must catch it
                        (``serve.service`` solve-phase dispatch)
+    ``artifact_corrupt``   one byte of an artifact flipped as it is read
+    ``artifact_stale``     an artifact's fingerprint read as another
+                           runtime's
+    ``artifact_load_fail`` a verified artifact fails to load
+                           (``serve.artifacts.ArtifactStore.load``)
+    ``sdc_factor``     a fresh factor's first element silently wrong
+                       (``serve.service`` factor path)
+    ``sdc_solve``      a delivered gesv/posv X's first element silently
+                       wrong (``cache.run``): only delivery certification
+                       (``integrity/``) can catch either
 
 Triggers (exactly one per site): probability ``p=0.2`` (seeded RNG per
 site, so the fire pattern is a pure function of ``seed`` and the call
@@ -52,7 +62,7 @@ import random
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +70,46 @@ import torch
 from ..exceptions import SlateError
 from . import metrics
 
-SITES = ("compile", "execute", "result_corrupt", "latency", "worker_death",
-         "info_nonzero", "factor_stale")
+
+
+@dataclass(frozen=True)
+class SiteSpec:
+    """One fault site's contract: the counter families whose sum is its
+    recovery signal (what absorbed the injection), and whether a zero
+    recovery is legitimate (``informational``).  The JAX package's
+    registry, restricted to the sites ported."""
+
+    name: str
+    recovery: Tuple[str, ...] = ()
+    informational: bool = False
+
+
+SITE_SPECS: Tuple[SiteSpec, ...] = (
+    SiteSpec("compile", recovery=("serve.fallbacks", "serve.retries")),
+    SiteSpec("execute", recovery=("serve.retries", "serve.fallbacks", "serve.breaker_open")),
+    SiteSpec("result_corrupt", recovery=("serve.corrupt_result", "serve.fallbacks")),
+    SiteSpec("latency", recovery=("serve.deadline_miss_late",), informational=True),
+    SiteSpec("worker_death", recovery=("serve.worker_restarts",)),
+    SiteSpec("info_nonzero", recovery=("serve.numerical_errors",)),
+    # detection == containment for the artifact load ladder: a counted
+    # rung means the bad artifact was rebuilt, not served
+    SiteSpec("artifact_corrupt", recovery=("serve.artifact_corrupt",)),
+    SiteSpec("artifact_stale", recovery=("serve.artifact_stale",)),
+    SiteSpec("artifact_load_fail", recovery=("serve.artifact_load_fail",)),
+    SiteSpec("factor_stale", recovery=("serve.factor_cache.stale",)),
+    # a counted certificate failure means the wrong X was re-executed,
+    # never delivered; hits on a factor poisoned by sdc_factor land on
+    # the factor cache's residual fence (stale)
+    SiteSpec("sdc_factor", recovery=("serve.integrity.fail", "serve.integrity.recovered",
+                                     "serve.factor_cache.stale")),
+    SiteSpec("sdc_solve", recovery=("serve.integrity.fail", "serve.integrity.recovered",
+                                    "serve.factor_cache.stale")),
+)
+
+SITE_REGISTRY: Dict[str, SiteSpec] = {s.name: s for s in SITE_SPECS}
+
+#: site names in declaration order (derived from SITE_SPECS)
+SITES: Tuple[str, ...] = tuple(s.name for s in SITE_SPECS)
 
 
 class FaultInjected(SlateError):
@@ -239,8 +287,8 @@ def corrupt(site: str, a):
 
 def perturb(site: str, a):
     """``a`` with its first element perturbed to a finite wrong value
-    (x -> 2x + 1) when the site fires (factor_stale), unchanged
-    otherwise."""
+    (x -> 2x + 1) when the site fires (factor_stale, sdc_factor,
+    sdc_solve), unchanged otherwise."""
     if not _enabled or fire(site) is None:
         return a
     return _with_first(a, lambda v: v * 2 + 1)

@@ -6,7 +6,7 @@ JAX package's lattice, so percentiles agree bucket for bucket), the
 capped key families (:class:`CappedKeys`), the :class:`phase` timer and
 the counter-delta window (:class:`deltas`, with windowed histograms).
 The JSONL exporter, the event timeline and the cost registry wait for
-the serve planes (ROADMAP.md Queue 1 item 7).
+the serve planes (ROADMAP.md Queue 1 item 7b).
 
 Zero overhead when off: every entry point starts with one module-level
 bool check.  The JAX package's ``gated_jit`` (a metrics-gated jit of

@@ -4,7 +4,7 @@ call (``is_on``, ``now``, trace ids, ``start``/``end`` for spans held
 across threads, ``record`` for measured intervals, ``event``, the
 ``span`` block, ``current``, ``annotate``) with a bounded ring of
 completed spans.  The flight recorder's Chrome export and pressure
-report come with the serve planes (ROADMAP.md Queue 1 item 7).
+report come with the serve planes (ROADMAP.md Queue 1 item 7b).
 
 Zero overhead off: every entry point starts with one module-level bool
 check; OFF is the default.  A span lands on the ring when it ends; an

@@ -7,7 +7,7 @@ package's lock-order checker keys on, kept here so the call sites read
 the same.  ``guarded``, ``hb_publish`` and ``hb_receive`` are no-ops.
 The checked runtime (lock-order graph, lockset and happens-before
 probes, ``SLATE_TPU_SYNC_CHECK``) waits for the serve planes
-(ROADMAP.md Queue 1 item 7).
+(ROADMAP.md Queue 1 item 7b).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ single-device part of the JAX package's ``drivers/aux.py``.
 ``norm`` of a general matrix takes its per-tile statistics from the
 Hopper ``tile_norms`` kernel on a CUDA device; the Hermitian, symmetric
 and triangular norms reduce with plain tensor operations, as in the JAX
-package.  ``redistribute`` (meshes, ROADMAP.md Queue 1 item 14) and
+package.  ``redistribute`` (meshes, ROADMAP.md Queue 1 item 8) and
 ``print_matrix`` come later.
 """
 

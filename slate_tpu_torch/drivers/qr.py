@@ -12,7 +12,7 @@ through the Hopper ``larft`` kernel.  ``gels_solve_from_global`` is the
 solve-only entry point of a factor cache hit over the serve tier's
 packed factor.
 
-Not ported yet: the mesh path (``spmd_qr``, ROADMAP.md Queue 1 item 14).
+Not ported yet: the mesh path (``spmd_qr``, ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations

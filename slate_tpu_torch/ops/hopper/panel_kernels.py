@@ -9,7 +9,11 @@ tile_geadd, tile_transpose).  Each is
 compiled with its own ``nvcc``, all at once, at first use into
 ``build/slate_tpu_torch/`` beside the package (a shared library with a
 plain C interface each, loaded with ctypes) and rebuilt when the
-source's hash changes.
+source's hash changes.  An artifact store (``serve/artifacts.py``)
+keeps a copy of the built set under its ``kernels/<digest>/``, with a
+record of each file's sha256: :func:`open_from` checks those bytes and
+then opens that copy instead, so a restored process runs no ``nvcc``.
+A process never holds two copies of the library.
 
 Every wrapper dispatches on the device of its tensors: on the CPU it
 runs the plain version; on a CUDA device it launches the kernel for
@@ -24,10 +28,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -51,9 +57,20 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+#: serve lanes sharing a device launch from several threads (ctypes drops
+#: the GIL in the call): the counts are added under a lock
+_launches_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str, k: int = 1) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += k
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +85,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 _libs: Optional[List[ctypes.CDLL]] = None
+#: the library digest of ``_libs`` and the directory they were opened
+#: from (``BUILD_DIR``, or an artifact store's copy); None until loaded
+_libs_digest: Optional[str] = None
+LOADED_FROM: Optional[Path] = None
+#: set when a store's copy failed in ``_open`` after the dynamic loader
+#: may have mapped some of it: no second copy is loaded after that
+_half_open: Optional[Path] = None
+#: ``nvcc`` processes this process has started
+NVCC_RUNS = 0
 
 
 def _nvcc() -> str:
@@ -85,6 +111,18 @@ def _library(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 
+def library_names() -> List[str]:
+    """File names of the library set built from the current sources."""
+    return [_library(src).name for src in SOURCES]
+
+
+def library_digest() -> str:
+    """Digest of the library set: a hash over each library's tag (its
+    source's bytes and the flags).  Keys an artifact store's copy of the
+    libraries and the runtime half of an artifact's fingerprint."""
+    return hashlib.sha256(" ".join(library_names()).encode()).hexdigest()[:16]
+
+
 def build(verbose: bool = False) -> Tuple[List[Path], str]:
     """Compile every source that has no library for its hash yet, one
     ``nvcc`` each, all started together.  Returns (the libraries, the
@@ -95,6 +133,7 @@ def build(verbose: bool = False) -> Tuple[List[Path], str]:
 
 
 def _build_locked(verbose: bool) -> Tuple[List[Path], str]:
+    global NVCC_RUNS
     sos = [_library(src) for src in SOURCES]
     jobs = []
     try:
@@ -107,6 +146,7 @@ def _build_locked(verbose: bool) -> Tuple[List[Path], str]:
                    "-o", str(tmp), str(src)]
             jobs.append((so, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            NVCC_RUNS += 1
         logs = []
         for so, tmp, proc in jobs:
             out, err = proc.communicate()
@@ -152,10 +192,89 @@ def _load() -> List[ctypes.CDLL]:
 
 
 def _load_locked() -> List[ctypes.CDLL]:
-    global _libs
+    global _libs, _libs_digest, LOADED_FROM
+    if _half_open is not None:
+        raise RuntimeError(f"the kernel library copy in {_half_open} failed to open after "
+                           "loading; a second copy is not loaded beside it")
     sos, _ = build()
     _libs = _open(sos)
+    _libs_digest, LOADED_FROM = library_digest(), BUILD_DIR
     return _libs
+
+
+#: the record of a library copy: each file's sha256, and its own
+LIBRARY_RECORD = "library.json"
+
+
+class LibraryCorrupt(ValueError):
+    """A library copy whose record or bytes fail their sha256."""
+
+
+def _record_sha(digest: str, files: Dict[str, str]) -> str:
+    return hashlib.sha256(json.dumps({"digest": digest, "files": files},
+                                     sort_keys=True).encode()).hexdigest()
+
+
+def library_record(digest: str, files: Dict[str, str]) -> bytes:
+    """The record of a library copy of ``digest`` whose files (by name)
+    have the sha256 ``files``; written after the files."""
+    return json.dumps({"digest": digest, "files": files,
+                       "sha256": _record_sha(digest, files)}, sort_keys=True).encode()
+
+
+def check_copy(directory, digest: str) -> List[Path]:
+    """The files of the library copy of ``digest`` in ``directory``, each
+    checked against the record's sha256 (no ``CDLL``).  Raises
+    ``FileNotFoundError`` when the record or a file is missing and
+    :class:`LibraryCorrupt` when a checksum or the record fails."""
+    directory = Path(directory)
+    blob = (directory / LIBRARY_RECORD).read_bytes()
+    try:
+        rec = json.loads(blob.decode())
+        files = rec["files"]
+        ok = rec["digest"] == digest and rec["sha256"] == _record_sha(digest, files)
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+        raise LibraryCorrupt(f"unreadable library record in {directory}: {e}") from None
+    if not ok or sorted(files) != sorted(library_names()):
+        raise LibraryCorrupt(f"library record in {directory} fails its checksum")
+    sos = [directory / name for name in library_names()]
+    for so in sos:
+        if hashlib.sha256(so.read_bytes()).hexdigest() != files[so.name]:
+            raise LibraryCorrupt(f"{so} fails its sha256")
+    return sos
+
+
+def open_from(directory, digest: str) -> str:
+    """Open the library set from ``directory``, a copy keyed ``digest``
+    (an artifact store's), after :func:`check_copy`, through the same
+    signatures and tile checks as a build.  Returns ``"opened"``;
+    ``"loaded"`` when this process already holds the libraries of that
+    digest (no second ``CDLL``); ``"stale"`` when ``digest`` is not the
+    current sources' or the process holds libraries of another digest.
+    Raises when the copy is missing, fails its checksums or does not
+    open; once it failed past the checks, :func:`_load` raises too."""
+    global _libs, _libs_digest, LOADED_FROM, _half_open
+    if digest != library_digest():
+        return "stale"
+    with build_lock:
+        if _libs is not None:
+            return "loaded" if _libs_digest == digest else "stale"
+        if _half_open is not None:
+            raise RuntimeError(f"the kernel library copy in {_half_open} failed to open")
+        sos = check_copy(directory, digest)
+        try:
+            _libs = _open(sos)
+        except Exception:
+            _half_open = Path(directory)
+            raise
+        _libs_digest, LOADED_FROM = digest, Path(directory)
+        return "opened"
+
+
+def library_files() -> List[Path]:
+    """The files of the loaded library set (loading it first)."""
+    _load()
+    return [LOADED_FROM / name for name in library_names()]
 
 
 def _open(sos: List[Path]) -> List[ctypes.CDLL]:
@@ -188,7 +307,7 @@ def _launch(name: str, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[name] += 1
+    _count(name)
 
 
 # ---------------------------------------------------------------------------
@@ -623,7 +742,7 @@ def _trsm(name: str, T, B, lower: bool, unit: bool, transposed: bool):
     X = torch.empty((n, nrhs), dtype=B.dtype, device=B.device)
     if n and nrhs:
         err, launched = _trsm_sweep(T, B, X, lower, unit, transposed, _trsm_plan_array(n, lower))
-        LAUNCHES[name] += launched  # the launches made, also on an error
+        _count(name, launched)  # the launches made, also on an error
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return X

@@ -1,17 +1,21 @@
 """slate_tpu_torch.serve — the batching solver service above the
-drivers, on the card (the JAX package's ``serve`` in its default form).
+drivers, on the card (the JAX package's ``serve``).
 
 Shape-bucketed dispatch (`buckets`), an executable cache with a
-persistent warmup manifest (`cache`, ``SLATE_TPU_WARMUP=/path.json``),
-a one-lane placement (`placement`), a factor-once/solve-many cache
-dispatching trsm-only executables on repeated-A traffic
-(`factor_cache`, ``SLATE_TPU_FACTOR_CACHE``), the deadline-aware
-batching service (`service`) and thin sync wrappers (`api`):
-``serve.gesv/posv/gels``, ``serve.submit``, ``serve.warmup``.
+persistent warmup manifest (`cache`, ``SLATE_TPU_WARMUP=/path.json``)
+and an artifact store a fresh process restores from (`artifacts`,
+``SLATE_TPU_ARTIFACTS=/dir``), a replica placement over the device
+pool (`placement`), a factor-once/solve-many cache dispatching
+trsm-only executables on repeated-A traffic (`factor_cache`,
+``SLATE_TPU_FACTOR_CACHE``), the deadline-aware batching service with
+its replica pool, readiness phases and integrity plane (`service`,
+``SLATE_TPU_INTEGRITY``) and thin sync wrappers (`api`):
+``serve.gesv/posv/gels``, ``serve.submit``, ``serve.warmup``,
+``serve.restore``, ``serve.wait_ready``.
 
-Not ported yet (ROADMAP.md Queue 1 items 4b and 7): the artifact store
-and ``restore``, replicas, the admission and integrity planes (each
-raises when configured), ``get_fleet``, ``get_arena`` and ``session``.
+Not ported yet (ROADMAP.md Queue 1 items 7b, 7c and 8): the admission
+plane (raises when configured), ``get_fleet``, ``get_arena``,
+``session`` and the sharded lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.
@@ -22,26 +26,30 @@ from __future__ import annotations
 import importlib
 
 _API = (
-    "gesv", "posv", "gels", "submit", "warmup", "wait_ready", "configure", "shutdown",
+    "gesv", "posv", "gels", "submit", "warmup", "restore", "wait_ready", "configure",
+    "shutdown",
     "get_service", "get_cache", "health", "InvalidInput",
     "get_factor_cache", "factor_fingerprint", "invalidate", "invalidate_all",
     "update_factor",
 )
 _SERVICE = (
     "SolverService", "Rejected", "DeadlineExceeded", "Shed", "decorrelated_backoff",
-    "PHASE_COLD", "PHASE_RESTORING", "PHASE_READY",
+    "PHASE_COLD", "PHASE_RESTORING", "PHASE_READY", "LANE_LIVE", "LANE_DRAINING",
+    "LANE_REMOVED",
 )
 _CACHE = ("ExecutableCache", "direct_call", "WARMUP_ENV")
+_ARTIFACTS = ("ArtifactStore", "ARTIFACTS_ENV", "store_from_env", "runtime_fields")
 _BUCKETS = (
     "BucketKey", "Breaker", "bucket_for", "bucket_dim", "halving_bucket",
     "size_bucket_runs", "batch_bucket",
 )
-_PLACEMENT = ("PlacementPolicy",)
+_PLACEMENT = ("PlacementPolicy", "LEAST_LOADED", "ROUND_ROBIN")
 _FACTOR = ("FactorCache", "FactorEntry", "matrix_fingerprint", "FACTOR_CACHE_ENV")
-_SUBMODULES = ("api", "buckets", "cache", "service", "placement", "factor_cache",
-               "admission")
+_SUBMODULES = ("api", "buckets", "cache", "artifacts", "service", "placement",
+               "factor_cache", "admission")
 _HOMES = {**{n: ".api" for n in _API}, **{n: ".service" for n in _SERVICE},
-          **{n: ".cache" for n in _CACHE}, **{n: ".buckets" for n in _BUCKETS},
+          **{n: ".cache" for n in _CACHE}, **{n: ".artifacts" for n in _ARTIFACTS},
+          **{n: ".buckets" for n in _BUCKETS},
           **{n: ".placement" for n in _PLACEMENT}, **{n: ".factor_cache" for n in _FACTOR}}
 
 __all__ = list(_HOMES) + list(_SUBMODULES)

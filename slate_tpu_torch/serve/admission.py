@@ -8,7 +8,7 @@ way with the plane off.  :meth:`AdmissionControl.from_options` returns
 None when no tenant and no adaptive window are configured — the
 service then keeps its plain per-lane queue — and raises when either
 is, because tenancy, quotas, priority shedding and the adaptive batch
-window are not ported yet (ROADMAP.md Queue 1 item 7).  Nothing is
+window are not ported yet (ROADMAP.md Queue 1 item 7b).  Nothing is
 silently ignored.
 """
 
@@ -73,5 +73,5 @@ class AdmissionControl:
             return None
         raise NotImplementedError(
             "serve admission plane (tenants, quotas, priority shedding, adaptive "
-            "batch window) is not ported yet: ROADMAP.md Queue 1 item 7"
+            "batch window) is not ported yet: ROADMAP.md Queue 1 item 7b"
         )

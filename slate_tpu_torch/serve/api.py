@@ -1,6 +1,6 @@
 """Thin sync serving API over one process-wide :class:`SolverService`
 (the JAX package's ``serve/api.py`` without the fleet tier, the device
-factor arena, sessions and restore, ROADMAP.md Queue 1 items 4b and 7).
+factor arena and sessions, ROADMAP.md Queue 1 item 7c).
 
 Usage::
 
@@ -112,8 +112,29 @@ def warmup(path: Optional[str] = None, verbose: bool = False) -> int:
     return get_service().warmup(path=path, verbose=verbose)
 
 
+def restore(verbose: bool = False, timeout: Optional[float] = None) -> dict:
+    """Bring the warmed set live artifact-first (each manifest entry
+    restored from the ``SLATE_TPU_ARTIFACTS`` store where a verified
+    entry exists, built otherwise, and primed on every lane's device).
+    Returns the restore summary ``{"entries", "restored", "compiled",
+    "failed", "skipped"}``.  A service with a store runs this on start;
+    that pass is waited out first (bounded by ``timeout``), and a pass
+    still running at the bound raises TimeoutError rather than start a
+    second one beside it."""
+    svc = get_service()
+    if not svc.wait_ready(timeout):
+        h = svc.health()
+        if h["phase"] == "restoring":
+            raise TimeoutError(
+                f"start-time restore still running after {timeout:g}s "
+                f"(restore_stuck_s={h['restore_stuck_s']}); not starting a "
+                "concurrent pass")
+    return svc.restore(verbose=verbose)
+
+
 def wait_ready(timeout: Optional[float] = None) -> bool:
-    """Whether the process service has reached the ``ready`` phase."""
+    """Block until the process service reaches the ``ready`` phase (its
+    start-time restore pass finished); False on timeout."""
     return get_service().wait_ready(timeout)
 
 

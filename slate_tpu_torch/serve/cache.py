@@ -1,6 +1,6 @@
-"""Executable cache + on-disk warmup manifest (the JAX package's
-``serve/cache.py`` without its artifact store, ROADMAP.md Queue 1
-item 4b, and without the device-monitor cost capture, item 7).
+"""Executable cache + on-disk warmup manifest + artifact store (the JAX
+package's ``serve/cache.py`` without the device-monitor cost capture,
+ROADMAP.md Queue 1 item 7b).
 
 PyTorch runs eagerly, so an "executable" here is the closure that
 :func:`_build_core` returns for one ``(BucketKey, batch)``, over padded
@@ -23,12 +23,23 @@ the batch's padded right-hand sides are concatenated along columns
 into one ``(Mb, batch * nrhs_b)`` operand and solved by ONE
 ``potrs_from_global`` / ``getrs_from_global`` /
 ``gels_solve_from_global`` call, then split by columns — the
-counterpart of the JAX package's ``vmap(in_axes=(None, 0))``.
+counterpart of the JAX package's ``vmap(in_axes=(None, 0))``.  ABFT
+keys (``tag == "abft"``) run ``integrity/abft.build_core``: the plain
+pipeline plus the checksum relations, the verdict in ``info``.
 
 Only two batch points exist per key (1 and batch_max,
 ``buckets.batch_bucket``), and every built ``(key, batch)`` lands in
 the manifest (``SLATE_TPU_WARMUP=/path.json`` or an explicit path), so
 ``warmup()`` can bring a deployment's whole bucket set live at start.
+
+With ``SLATE_TPU_ARTIFACTS=/dir`` (or ``artifact_dir``) the cache
+consults an :class:`~slate_tpu_torch.serve.artifacts.ArtifactStore`
+before every build (a verified entry is "restored": on a CUDA device the
+kernel library opens from the store, no ``nvcc``) and persists every
+cold build back to it, the library included, so a fresh process pointed
+at the same directory restores the warmed set (``restore()``) instead
+of rebuilding it.  ``warmup()``, ``restore()`` and ``prime()`` share one
+loop (``_bring_live``) that differs only in its error policy.
 Results come back to the host as numpy: that copy is the
 synchronisation point of a dispatch.
 """
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Set, Tuple
@@ -44,12 +56,12 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ..aux import faults, metrics, sync
+from ..aux import faults, metrics, spans, sync
 from ..exceptions import NumericalError
+from .artifacts import ArtifactStore, store_from_env
 from .buckets import BucketKey, manifest_dumps, manifest_loads, solve_factor_shape
 
 WARMUP_ENV = "SLATE_TPU_WARMUP"
-ARTIFACTS_ENV = "SLATE_TPU_ARTIFACTS"
 
 #: manifest paths already warned about this process (warn once a path)
 _warned_manifests: Set[str] = set()
@@ -105,12 +117,14 @@ def _build_core(key: BucketKey) -> Callable:
             return _solve_batched(lambda F, B: _qr.gels_solve_from_global(F, B, key.m, nb))
         raise ValueError(f"solve-phase serving supports gesv/posv/gels, not {key.routine!r}")
 
-    if key.tag == "abft":
-        raise NotImplementedError(
-            f"bucket {key.label}: checksummed (ABFT) cores belong to the integrity "
-            "plane (ROADMAP.md Queue 1 item 7)")
+    if key.tag == "abft" and key.routine in ("gesv", "posv"):
+        # checksummed bucket: the same driver pipeline plus the checksum
+        # relations, whose verdict rides out as info = ABFT_BAD (< 0)
+        from ..integrity import abft as _abft
 
-    if key.precision == "mixed":
+        core1 = _abft.build_core(key.routine, nb, key.schedule)
+
+    elif key.precision == "mixed":
         # low-precision factor + refinement (drivers/mixed.serve_mixed_core);
         # non-converged items come back NaN and the service re-solves them
         from ..drivers import mixed as _mixed
@@ -181,14 +195,16 @@ def direct_call(routine: str, A: np.ndarray, B: np.ndarray, device=None) -> np.n
         if int(info) != 0:
             raise NumericalError(f"gesv: singular U({int(info)})",
                                  int(info)).with_context(routine=routine)
-        return X.to_global().cpu().numpy()
+        # sdc_solve on the direct path too: the fallback / re-execution
+        # lane is hardware like any other
+        return faults.perturb("sdc_solve", X.to_global().cpu().numpy())
     if routine == "posv":
         X, _L, info = _chol.posv(HermitianMatrix.from_global(A, nb, grid=g, uplo=Uplo.Lower),
                                  Matrix.from_global(B, nb, grid=g))
         if int(info) != 0:
             raise NumericalError(f"posv: not SPD at {int(info)}",
                                  int(info)).with_context(routine=routine)
-        return X.to_global().cpu().numpy()
+        return faults.perturb("sdc_solve", X.to_global().cpu().numpy())
     if routine == "gels":
         nbm = min(64, max(A.shape))
         X = _qr.gels(Matrix.from_global(A, nbm, grid=g), Matrix.from_global(B, nbm, grid=g))
@@ -217,21 +233,27 @@ def _dev_id(device) -> str:
 
 
 class ExecutableCache:
-    """(BucketKey, batch) -> core closure, with manifest persistence and
-    the per-device cold-build record.  Thread-safe: the lane worker and
-    ``warmup()`` may race on a first run."""
+    """(BucketKey, batch) -> core closure, with manifest persistence, the
+    per-device cold-build record and (``artifact_dir`` /
+    ``SLATE_TPU_ARTIFACTS``) an artifact store consulted before every
+    build.  Thread-safe: the lane workers, ``warmup()`` and ``restore()``
+    may race on a first run."""
 
-    def __init__(self, manifest_path: Optional[str] = None):
-        if os.environ.get(ARTIFACTS_ENV):
-            raise NotImplementedError(
-                f"{ARTIFACTS_ENV}: the executable artifact store is not ported yet "
-                "(ROADMAP.md Queue 1 item 4b)")
+    def __init__(self, manifest_path: Optional[str] = None,
+                 artifact_dir: Optional[str] = None):
         self._lock = sync.RLock(name="cache.ExecutableCache._lock")
         self._exes: Dict[Tuple[BucketKey, int], Callable] = {}  # guarded by: _lock
         self._entries: Set[Tuple[BucketKey, int]] = set()  # guarded by: _lock
+        # how each core came to be: "artifact" (a verified entry) or
+        # "compile" (built here); restore() reports it
+        self._origin: Dict[Tuple[BucketKey, int], str] = {}  # guarded by: _lock
         # device ids each entry has run on: the first run on a device is
         # its cold build
         self._primed: Dict[Tuple[BucketKey, int], Set[str]] = {}  # guarded by: _lock
+        # single-flight builds: one thread loads the artifact (one
+        # counted rung) while the others wait
+        self._building: Dict[Tuple[BucketKey, int], threading.Event] = {}  # guarded by: _lock
+        self.artifacts: Optional[ArtifactStore] = store_from_env(artifact_dir)
         self.manifest_path = (manifest_path if manifest_path is not None
                               else os.environ.get(WARMUP_ENV) or None)
         if self.manifest_path and os.path.exists(self.manifest_path):
@@ -295,18 +317,41 @@ class ExecutableCache:
         with self._lock:
             return bool(self._primed.get((key, batch)))
 
-    def executable(self, key: BucketKey, batch: int) -> Callable:
-        """The core closure of one (key, batch); building it records the
-        entry in the manifest.  The ``compile`` fault site fires here, on
-        a build only."""
-        with self._lock:
-            exe = self._exes.get((key, batch))
-            if exe is not None:
-                return exe
-        faults.check("compile")
+    def executable(self, key: BucketKey, batch: int, device=None) -> Callable:
+        """The core closure of one (key, batch): memory, then the
+        artifact store (a verified entry is "restored"), then a build
+        (the ``compile`` fault site fires on builds only).  A build
+        records the entry in the manifest; its first run persists it to
+        the store (:meth:`run`)."""
+        while True:
+            with self._lock:
+                exe = self._exes.get((key, batch))
+                if exe is not None:
+                    return exe
+                ev = self._building.get((key, batch))
+                if ev is None:
+                    ev = self._building[(key, batch)] = threading.Event()
+                    break  # this thread builds
+            ev.wait()  # a failed build leaves the entry absent: take over
+        try:
+            return self._build(key, batch, device)
+        finally:
+            with self._lock:
+                self._building.pop((key, batch), None)
+            ev.set()
+
+    def _build(self, key: BucketKey, batch: int, device) -> Callable:
+        origin = "compile"
+        if self.artifacts is not None and self.artifacts.load(key, batch, device):
+            origin = "artifact"
+        else:
+            # every rung but a hit rebuilds from the sources: the store's
+            # library copy is opened only by a verified hit
+            faults.check("compile")
         exe = _build_core(key)
         with self._lock:
             exe = self._exes.setdefault((key, batch), exe)
+            self._origin.setdefault((key, batch), origin)
             if (key, batch) not in self._entries:
                 self._entries.add((key, batch))
                 self._flush_locked()
@@ -315,22 +360,26 @@ class ExecutableCache:
     def run(self, key: BucketKey, A_batch, B_batch, device=None):
         """Execute one padded batch on ``device`` (default ``cuda:0``);
         returns host numpy (X_batch, info_batch).  A and B may be numpy
-        (uploaded here) or tensors already on the device.
+        (uploaded here) or tensors already on the device.  The first run
+        of a built (not restored) entry saves it to the artifact store.
 
         Fault sites (one bool each when off): ``latency`` sleeps before
         dispatch, ``execute`` raises in place of the dispatch,
-        ``result_corrupt`` NaN-poisons item 0 of X, ``info_nonzero``
-        forces item 0's info nonzero."""
+        ``result_corrupt`` NaN-poisons item 0 of X, ``sdc_solve``
+        perturbs item 0 of a gesv/posv X to a finite wrong value,
+        ``info_nonzero`` forces item 0's info nonzero."""
         faults.sleep("latency")
         faults.check("execute")
         device = torch.device(device) if device is not None else _grid(None).device
         # the batch point: A's leading axis for the full family, B's for
         # the solve family (whose factor operand is unbatched)
         batch = B_batch.shape[0] if key.phase == "solve" else A_batch.shape[0]
-        exe = self.executable(key, batch)
+        exe = self.executable(key, batch, device)
         did = _dev_id(device)
         with self._lock:
-            cold = did not in self._primed.get((key, batch), ())
+            primed = self._primed.get((key, batch), ())
+            cold, first = did not in primed, not primed
+            save = first and self._origin.get((key, batch)) == "compile"
         t0 = time.perf_counter()
         A = torch.as_tensor(A_batch, device=device)
         B = torch.as_tensor(B_batch, device=device)
@@ -346,45 +395,162 @@ class ExecutableCache:
             metrics.observe(f"{name}.run", dt)
         with self._lock:
             self._primed.setdefault((key, batch), set()).add(did)
+        if save and self.artifacts is not None:
+            self.artifacts.save(key, batch, device)
         X = faults.corrupt("result_corrupt", X)
+        if key.routine in ("gesv", "posv"):
+            # a device returning finite garbage: invisible to the
+            # finiteness fence, caught only by delivery certification
+            X = faults.perturb("sdc_solve", X)
         info = faults.poison_info("info_nonzero", np.atleast_1d(info))
         return X, info
 
-    # -- warmup --------------------------------------------------------------
+    # -- warmup / restore / prime (one loop, per-caller error policy) ------
+
+    def _live_todo(self, batch_max: Optional[int] = None, extra_path: Optional[str] = None):
+        """The sorted (key, batch) work list of :meth:`warmup` and
+        :meth:`restore`: the manifest's entries (plus an extra manifest
+        file's), minus batch points past ``batch_max`` and minus mesh
+        entries, which no process of the port can serve yet (counted
+        ``serve.mesh_unfit_skipped``).  Returns ``(todo, mesh_count)``."""
+        with self._lock:
+            todo = list(self._entries)
+        if extra_path is not None and os.path.exists(extra_path):
+            with open(extra_path) as f:
+                todo += [e for e in manifest_loads(f.read()) if e not in todo]
+        todo.sort(key=lambda e: (e[0].label, e[1]))
+        out = []
+        unfit = 0
+        for key, batch in todo:
+            if key.mesh:
+                unfit += 1
+                metrics.inc("serve.mesh_unfit_skipped")
+                continue
+            if batch_max is not None and batch > batch_max:
+                continue
+            out.append((key, batch))
+        return out, unfit
+
+    def _bring_live(self, todo, devices=None, on_error: Optional[Callable] = None,
+                    stop_check: Optional[Callable[[], bool]] = None, verbose: bool = False,
+                    tag: str = "warmup"):
+        """The one loop behind :meth:`warmup`, :meth:`restore` and
+        :meth:`prime`: bring each entry live (artifact-first, through
+        :meth:`run`) with one dummy dispatch on every device of
+        ``devices`` (default ``[cuda:0]``) it has not run on yet.
+
+        ``on_error=None`` propagates the first failure (warmup); a
+        callable receives ``(key, batch, exc)`` and the entry is reported
+        ``failed`` (restore, prime).  ``stop_check`` is polled between
+        entries; True abandons the rest (``serve.restore_stopped``).
+
+        Yields ``(key, batch, outcome, origin)`` with outcome
+        ``restored`` (a verified artifact), ``compiled`` (built),
+        ``skipped`` (already live on every device asked for; devices it
+        still had to prime count ``serve.device_primes``) or ``failed``."""
+        devs = list(dict.fromkeys(_dev_id(d) for d in (devices or [_grid(None).device])))
+        for key, batch in todo:
+            if stop_check is not None and stop_check():
+                metrics.inc("serve.restore_stopped")
+                break
+            with self._lock:
+                primed = set(self._primed.get((key, batch), ()))
+            live = bool(primed)
+            need = [d for d in devs if d not in primed]
+            if not need:
+                yield key, batch, "skipped", None
+                continue
+            t0 = time.perf_counter()
+            sp = (spans.start(tag, lane=tag, bucket=key.label, batch=batch)
+                  if spans.is_on() else None)
+            try:
+                for d in need:
+                    A, B = _warm_inputs(key, batch, d)
+                    self.run(key, A, B, device=d)
+            except Exception as e:  # noqa: BLE001 — the policy decides
+                spans.end(sp, outcome="failed", error=type(e).__name__)
+                if on_error is None:
+                    raise
+                on_error(key, batch, e)
+                yield key, batch, "failed", None
+                continue
+            with self._lock:
+                origin = self._origin.get((key, batch), "compile")
+            if live:
+                outcome, primes = "skipped", len(need)
+            else:
+                outcome = "restored" if origin == "artifact" else "compiled"
+                primes = len(need) - 1
+            if primes:
+                metrics.inc("serve.device_primes", primes)
+            spans.end(sp, outcome=outcome, origin=origin, primes=primes)
+            if verbose:
+                print(f"[serve.{tag}] {key.label} b{batch}: "
+                      f"{'primed' if live else origin}"
+                      f"{f' +{primes} device prime(s)' if primes else ''} "
+                      f"{time.perf_counter() - t0:.2f}s")
+            yield key, batch, outcome, origin
 
     def warmup(self, path: Optional[str] = None, batch_max: Optional[int] = None,
                devices=None, verbose: bool = False) -> int:
         """Cold-build every manifest entry (plus ``path``'s entries) on
         every device of ``devices`` (default ``[cuda:0]``) it has not run
-        on yet.  Returns the number of entries built for the first time.
-        Errors propagate.  The pass lands in the ``serve.warmup`` timer
-        and the ``serve.warmup_s`` gauge."""
-        with self._lock:
-            todo = list(self._entries)
-        if path is not None and os.path.exists(path):
-            with open(path) as f:
-                todo += [e for e in manifest_loads(f.read()) if e not in todo]
-        todo.sort(key=lambda e: (e[0].label, e[1]))
-        devs = list(dict.fromkeys(_dev_id(d) for d in (devices or [_grid(None).device])))
+        on yet.  Returns the number of entries built (restored entries
+        are not counted).  Errors propagate.  The pass lands in the
+        ``serve.warmup`` timer and the ``serve.warmup_s`` gauge."""
+        todo, _unfit = self._live_todo(batch_max=batch_max, extra_path=path)
         compiled = 0
         with metrics.phase("serve.warmup", always=True) as ph:
-            for key, batch in todo:
-                if batch_max is not None and batch > batch_max:
-                    continue
-                with self._lock:
-                    primed = set(self._primed.get((key, batch), ()))
-                need = [d for d in devs if d not in primed]
-                if not need:
-                    continue
-                t0 = time.perf_counter()
-                for d in need:
-                    A, B = _warm_inputs(key, batch, d)
-                    self.run(key, A, B, device=d)
-                if not primed:
-                    compiled += 1
-                if verbose:
-                    print(f"[serve.warmup] {key.label} b{batch}: "
-                          f"{time.perf_counter() - t0:.2f}s")
+            for _k, _b, outcome, _o in self._bring_live(todo, devices=devices,
+                                                         verbose=verbose, tag="warmup"):
+                compiled += outcome == "compiled"
         metrics.gauge("serve.warmup_s", ph.seconds)
         metrics.inc("serve.warmup_compiles", compiled)
         return compiled
+
+    def _summary(self, todo, failed_counter: str, tag: str, **kw) -> Dict[str, int]:
+        """One counting pass of :meth:`_bring_live` that never raises:
+        ``{"entries", "restored", "compiled", "failed", "skipped"}`` with
+        ``entries == restored + compiled + failed + skipped``; a failed
+        entry counts ``failed_counter``.  The pass lands in the
+        ``serve.<tag>`` timer and the ``serve.<tag>_s`` gauge."""
+        out = {"entries": 0, "restored": 0, "compiled": 0, "failed": 0, "skipped": 0}
+
+        def on_error(key, batch, exc):
+            metrics.inc(failed_counter)
+
+        with metrics.phase(f"serve.{tag}", always=True) as ph:
+            for _k, _b, outcome, _o in self._bring_live(todo, on_error=on_error, tag=tag,
+                                                         **kw):
+                out["entries"] += 1
+                out[outcome] += 1
+        metrics.gauge(f"serve.{tag}_s", ph.seconds)
+        return out
+
+    def restore(self, batch_max: Optional[int] = None, verbose: bool = False,
+                stop_check: Optional[Callable[[], bool]] = None,
+                devices=None) -> Dict[str, int]:
+        """Bring every manifest entry live, artifact-first, primed on every
+        device of ``devices``: the cold-start pass of a fresh process.
+        Per-entry failures are counted (``serve.restore_failed``) and
+        skipped, never raised.  Returns the :meth:`_summary`, plus
+        ``mesh_unfit`` when mesh entries were skipped.  ``stop_check`` is
+        polled between entries."""
+        todo, unfit = self._live_todo(batch_max=batch_max)
+        out = self._summary(todo, "serve.restore_failed", "restore", devices=devices,
+                            stop_check=stop_check, verbose=verbose)
+        if unfit:
+            out["mesh_unfit"] = unfit
+        metrics.inc("serve.restore_restored", out["restored"])
+        metrics.inc("serve.restore_compiled", out["compiled"])
+        return out
+
+    def prime(self, devices=None, batch_max: Optional[int] = None, verbose: bool = False,
+              stop_check: Optional[Callable[[], bool]] = None) -> Dict[str, int]:
+        """Bring the manifest live, artifact-first, on ``devices``: the
+        warm path of a joining replica (``SolverService.add_replica``).
+        Failures are counted (``serve.prime_failed``) and skipped.
+        Returns the :meth:`_summary`."""
+        todo, _unfit = self._live_todo(batch_max=batch_max)
+        return self._summary(todo, "serve.prime_failed", "prime", devices=devices,
+                             stop_check=stop_check, verbose=verbose)

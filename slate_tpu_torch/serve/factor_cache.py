@@ -378,7 +378,7 @@ class FactorCache:
             entry = self._entries.get(fp)
             if entry is not None and entry.routine == "gels":
                 raise ValueError("update: gels factors are row-streamed, not rank-k "
-                                 "updated (ROADMAP.md Queue 1 item 7)")
+                                 "updated (ROADMAP.md Queue 1 item 7c)")
             entry = self._entries.pop(fp, None)
             if entry is not None:
                 self._bytes -= entry.nbytes

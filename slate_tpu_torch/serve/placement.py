@@ -1,13 +1,18 @@
-"""Placement policy of the serve tier in its default form: one replica
-lane on one device, no mesh (the JAX package's ``serve/placement.py``
-with ``replicas=1`` and no ``ServeMesh``).
+"""Placement policy of the serve tier: replica lanes over a device pool
+(the JAX package's ``serve/placement.py`` without the sharded tier).
+
+The policy answers which replica takes a request
+(:meth:`PlacementPolicy.select_replica`): least-loaded (queue depth +
+in-flight) with round-robin tie breaking, or plain round-robin; replicas
+whose breaker for the bucket is cooling down, or that are quarantined
+by the integrity plane, are excluded while a healthy one exists.
 
 ``devices`` defaults to ``[cuda:0]``; a CPU device is used only when the
 caller passes it, and a policy with no CUDA device and no explicit
-device raises.  More than one replica raises (replica scale-out is
-ROADMAP.md Queue 1 item 7), and so does a mesh (sharded serving waits
-for the distributed drivers, item 8).  :meth:`mesh_for` is always
-``""``: every request takes the replicated lane.
+device raises.  Replica ``i`` pins its dispatches to ``devices[i %
+len(devices)]``: on one H100 every lane pins ``cuda:0``.  A mesh raises
+(sharded serving needs the distributed drivers, ROADMAP.md Queue 1 item
+8), and :meth:`mesh_for` is always ``""``.
 """
 
 from __future__ import annotations
@@ -21,25 +26,41 @@ from ..exceptions import DistributedException
 from ..options import Options, get_option
 from .buckets import DEFAULT_SHARD_THRESHOLD, check_mesh
 
+#: replica-selection strategies
+LEAST_LOADED = "least_loaded"
+ROUND_ROBIN = "round_robin"
+
+
 class PlacementPolicy:
-    """One replica lane pinned to ``devices[0]``."""
+    """Replica lanes pinned to a device pool.
+
+    Parameters
+    ----------
+    replicas: replica worker count (default 1); with more replicas than
+        devices the assignment wraps.
+    mesh: must be ``""`` (a sharded submesh raises: item 8).
+    shard_threshold: kept for the JAX package's signature.
+    strategy: ``"least_loaded"`` (default) or ``"round_robin"``.
+    devices: the device pool; default ``[cuda:0]``.
+    """
 
     def __init__(self, replicas: int = 1, mesh: str = "",
                  shard_threshold: int = DEFAULT_SHARD_THRESHOLD,
-                 devices: Optional[Sequence] = None):
-        if int(replicas) > 1:
-            raise NotImplementedError(
-                f"{replicas} serve replicas: replica scale-out is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
+                 strategy: str = LEAST_LOADED, devices: Optional[Sequence] = None):
         if check_mesh(mesh):
             raise NotImplementedError(
                 f"serve mesh {mesh!r}: sharded serving needs the distributed "
-                "drivers (ROADMAP.md Queue 1 items 7 and 8)")
-        self.replicas = 1
+                "drivers (ROADMAP.md Queue 1 item 8)")
+        if strategy not in (LEAST_LOADED, ROUND_ROBIN):
+            raise ValueError(f"unknown placement strategy {strategy!r} "
+                             f"({LEAST_LOADED}|{ROUND_ROBIN})")
+        self.replicas = max(int(replicas), 1)
         self.mesh = ""
         self.shard_threshold = max(int(shard_threshold), 0)
+        self.strategy = strategy
         self._devices = ([torch.device(d) for d in devices]
                          if devices is not None else None)
+        self._rr = 0  # round-robin cursor (ties and pure round-robin)
 
     @staticmethod
     def from_options(opts: Optional[Options] = None, **kw) -> "PlacementPolicy":
@@ -52,6 +73,8 @@ class PlacementPolicy:
         cfg.update({k: v for k, v in kw.items() if v is not None})
         return PlacementPolicy(**cfg)
 
+    # -- devices -------------------------------------------------------------
+
     def devices(self) -> List[torch.device]:
         """The device pool: the caller's, else ``[cuda:0]``."""
         if self._devices is None:
@@ -63,12 +86,47 @@ class PlacementPolicy:
         return self._devices
 
     def device_for(self, replica: int) -> torch.device:
-        """The device the (only) lane pins its dispatches to."""
-        return self.devices()[0]
+        """The device replica ``replica`` pins its dispatches to."""
+        devs = self.devices()
+        return devs[int(replica) % len(devs)]
 
     def replica_devices(self) -> List[torch.device]:
-        return [self.device_for(0)]
+        """One entry per replica: what warmup and restore prime."""
+        return [self.device_for(i) for i in range(self.replicas)]
+
+    def set_replicas(self, n: int) -> int:
+        """Resize the replica set (``add_replica`` / ``remove_replica``
+        keep it at the live lane count).  Clamped to >= 1; returns the
+        count applied."""
+        self.replicas = max(int(n), 1)
+        return self.replicas
+
+    # -- routing -------------------------------------------------------------
 
     def mesh_for(self, routine: str, n: int, sharded: Optional[bool] = None) -> str:
         """``""``: no mesh is configured, every request is replicated."""
         return ""
+
+    def select_replica(self, loads: Sequence[int],
+                       open_breaker: Optional[Sequence[bool]] = None) -> int:
+        """The replica index for one request.  ``loads`` is per-replica
+        pending work (queue depth + in-flight); ``open_breaker`` flags
+        replicas to exclude while any other exists (when all are flagged
+        the least-loaded one takes it anyway).  Ties break round-robin."""
+        n = len(loads)
+        if n == 0:
+            raise ValueError("no replicas to select from")
+        cand = list(range(n))
+        if open_breaker is not None:
+            healthy = [i for i in cand if not open_breaker[i]]
+            if healthy:
+                cand = healthy
+        if self.strategy == ROUND_ROBIN:
+            pick = cand[self._rr % len(cand)]
+            self._rr += 1
+            return pick
+        lo = min(loads[i] for i in cand)
+        tied = [i for i in cand if loads[i] == lo]
+        pick = tied[self._rr % len(tied)]
+        self._rr += 1
+        return pick

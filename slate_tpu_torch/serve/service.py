@@ -1,26 +1,29 @@
-"""SolverService: bounded admission, same-bucket batch coalescing, a
-factor cache, deadlines, retries with backoff and circuit-breaker
-recovery — the JAX package's ``serve/service.py`` in its default form:
-one replica lane on one device, with the admission, integrity,
-sharding, artifact and autoscaling planes off.
+"""SolverService: bounded admission, a replica pool, same-bucket batch
+coalescing, a factor cache, deadlines, retries with backoff,
+circuit-breaker recovery, the artifact restore and the integrity plane
+— the JAX package's ``serve/service.py`` with the admission, sharding
+and autoscaling planes off (ROADMAP.md Queue 1 items 7b, 7c and 8).
 
 Execution model:
 
 * ``submit()`` validates (non-finite A/B -> immediate
   :class:`~slate_tpu_torch.exceptions.InvalidInput` before any queue or
   build cost; ``validate=False`` opts out), buckets the request
-  (``buckets.bucket_for``) and enqueues it on the lane.  A full queue
-  (``max_queue``) rejects immediately with :class:`Rejected`.
-* The lane's worker thread runs inside ``torch.cuda.device(lane
+  (``buckets.bucket_for``) and enqueues it on a replica lane chosen by
+  the placement policy (least-loaded or round-robin, excluding lanes
+  whose breaker for the bucket is cooling down or that the integrity
+  plane has quarantined).  A full service (the total queued across
+  lanes at ``max_queue``) rejects immediately with :class:`Rejected`.
+* Each lane's worker thread runs inside ``torch.cuda.device(lane
   device)``, so every launch lands on the lane's device and on that
-  thread's current stream.  It pops the oldest eligible request (one
-  whose retry backoff has elapsed), waits up to ``batch_window_s`` for
-  company, then coalesces every queued request with the same BucketKey
-  (and factor fingerprint) up to ``batch_max`` into one batch padded to
-  the fixed batch point (``buckets.batch_bucket``), so only two
-  executables exist per bucket and a warmed steady state never makes a
-  cold build.
-* Supervision: the worker runs under a guard that catches any death
+  thread's current stream (on one H100 every lane pins ``cuda:0``).  It
+  pops the oldest eligible request (one whose retry backoff has
+  elapsed), waits up to ``batch_window_s`` for company, then coalesces
+  every queued request with the same BucketKey (and factor
+  fingerprint) up to ``batch_max`` into one batch padded to the fixed
+  batch point (``buckets.batch_bucket``), so only two executables exist
+  per bucket and a warmed steady state never makes a cold build.
+* Supervision: every worker runs under a guard that catches any death
   (including the ``worker_death`` fault site), re-enqueues its
   in-flight requests that still have retry budget, fails the rest fast
   with a typed error, respawns itself and counts
@@ -29,27 +32,51 @@ Execution model:
   with :class:`DeadlineExceeded` (``serve.deadline_miss_queued``); one
   that finishes late is delivered and counted
   (``serve.deadline_miss_late``); ``serve.deadline_miss`` is the sum.
-* Failures: an executable exception re-enqueues the batch's requests
-  while they have ``retries`` left, each delayed by decorrelated-jitter
-  backoff (:func:`decorrelated_backoff`, seeded); past the budget each
-  falls back to the direct driver on the same device
+* Failures: an executable exception re-enqueues the batch's requests on
+  their lane while they have ``retries`` left, each delayed by
+  decorrelated-jitter backoff (:func:`decorrelated_backoff`, seeded);
+  past the budget each falls back to the direct driver
   (``serve.fallbacks``).  A kernel that fails to build or launch takes
   this chain too; nothing moves to the CPU.
-* Circuit breaker (``buckets.Breaker``, per BucketKey): ``degrade_after``
-  consecutive batched failures open it (requests go direct), after
-  ``breaker_cooldown_s`` it half-opens and the next batch probes; one
-  healthy probe closes it.
+* Circuit breaker (``buckets.Breaker``, per BucketKey per lane):
+  ``degrade_after`` consecutive batched failures open it (the lane's
+  requests go direct and admission steers new ones to healthy lanes),
+  after ``breaker_cooldown_s`` it half-opens and the next batch probes;
+  one healthy probe closes it.
 * A nonzero per-item ``info`` raises
   :class:`~slate_tpu_torch.exceptions.NumericalError` on that item only;
   a non-finite solution for finite inputs (``result_corrupt``) is
   re-solved direct, counted ``serve.corrupt_result``.
 * Factor cache (``serve/factor_cache.py``, off by default): eligible
   requests are fingerprinted at admission; a hit dispatches the
-  trsm-only ``phase="solve"`` bucket against the cached factor on the
-  device (only B is uploaded), a miss factors once through the drivers
-  and caches the factor.  Every hit is residual-checked on the host: a
+  trsm-only ``phase="solve"`` bucket against the cached factor (routed
+  to the lane that owns it, or to a healthy lane while the owner's
+  solve bucket cools down), a miss factors once through the drivers and
+  caches the factor.  Every hit is residual-checked on the host: a
   factor that no longer matches A (``factor_stale``) is dropped and the
   request re-solved, never a wrong X.
+* Readiness (``health()["phase"]``: ``cold`` -> ``restoring`` ->
+  ``ready``): a service whose cache has an artifact store
+  (``SLATE_TPU_ARTIFACTS``) restores every manifest entry on
+  :meth:`start` in a background thread, priming every lane's device,
+  before it reports ``ready`` (:meth:`wait_ready`).  Requests submitted
+  while restoring are still served.
+* Replica pool: :meth:`add_replica` brings a lane live warm (its device
+  primed through ``ExecutableCache.prime`` before its worker spawns);
+  :meth:`remove_replica` takes a lane out of admission, re-homes its
+  queue to the survivors and drains its worker.  Lane names are
+  monotonic and never reused; removed lanes keep a terminal row in
+  ``health()["replicas"]``.
+* Integrity plane (``slate_tpu_torch/integrity``, off by default): with
+  an ``integrity=`` / ``SLATE_TPU_INTEGRITY`` / ``Option.ServeIntegrity``
+  policy, delivered gesv/posv solves are certified (the residual fence,
+  or the checksum relation for ABFT buckets, whose cores also fold an
+  on-device verdict into ``info``).  A failed certificate never reaches
+  the client: the request re-executes, hedged to another lane when one
+  exists.  Each lane's :class:`IntegrityScore` quarantines it at
+  admission after repeated failures and probes it back; queued
+  requests older than their bucket's p99 are duplicated onto a second
+  lane, first correct result wins.
 
 Results are numpy arrays: the copy to the host is a dispatch's
 synchronisation point, and ``info`` is read once an item.  Every
@@ -57,8 +84,9 @@ exception set on a future carries ``routine``/``bucket``/``attempt``
 context (:meth:`SlateError.with_context`).
 
 Metrics (JAX package names): ``serve.queue_depth``,
-``serve.replica.0.{queue_depth,dispatched,oldest_queued_s}``,
-``serve.requests``, ``serve.replicated_dispatch``, ``serve.batched``,
+``serve.replica.<i>.{queue_depth,dispatched,oldest_queued_s,breaker_open,
+breaker_closed,quarantined,unquarantined,removed}``, ``serve.requests``,
+``serve.replicated_dispatch``, ``serve.batched``,
 ``serve.batched_requests``, ``serve.batch_pad``,
 ``serve.bucket_pad_waste``, ``serve.deadline_miss`` (+ ``_queued`` /
 ``_late``), ``serve.rejected``, ``serve.invalid_input``,
@@ -66,16 +94,16 @@ Metrics (JAX package names): ``serve.queue_depth``,
 ``serve.fallbacks``, ``serve.direct_only``, ``serve.worker_restarts``,
 ``serve.breaker_open`` / ``half_open`` / ``closed`` (and
 ``serve.degraded``), ``serve.numerical_errors``,
-``serve.corrupt_result``, ``serve.factor_cache.*``, the
-``serve.latency.<bucket>.{queued,execute,total}`` and
-``serve.latency.replica.0.total`` histograms, and the
+``serve.corrupt_result``, ``serve.factor_cache.*``,
+``serve.integrity.{checked,fail,recovered,abandoned,quarantined,
+unquarantined}``, ``serve.hedge.{sent,won,wasted}``,
+``serve.restore_crashed``, ``scale.replicas_added`` /
+``scale.replicas_removed`` / ``scale.requests_rehomed`` /
+``scale.prime_*``, the ``serve.latency.<bucket>.{queued,execute,total}``
+and ``serve.latency.replica.<i>.total`` histograms, and the
 ``serve.slo_burn.*`` tiers.  With ``aux/spans`` on, every request
 carries a trace id and a ``request`` -> ``admit``/``queued``/
 ``coalesce``/``execute`` | ``direct``/``factor``/``backoff`` chain.
-
-Not ported yet (ROADMAP.md Queue 1 items 4b and 7): replicas
-(``add_replica``/``remove_replica``), restore and artifacts, tenant
-floods, certification, hedging and the sharded lane.
 """
 
 from __future__ import annotations
@@ -86,7 +114,7 @@ import functools
 import random
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Union
@@ -96,6 +124,7 @@ import torch
 
 from ..aux import faults, metrics, spans, sync
 from ..exceptions import InvalidInput, NumericalError, SlateError
+from ..integrity import abft as _abft
 from ..integrity import policy as _integ
 from . import admission as _adm
 from . import buckets as _bk
@@ -125,19 +154,24 @@ class DeadlineExceeded(SlateError):
 
 class Shed(SlateError):
     """Load shed under sustained overload (the admission plane's refusal;
-    raised only once that plane is ported, ROADMAP.md Queue 1 item 7)."""
+    raised only once that plane is ported, ROADMAP.md Queue 1 item 7b)."""
 
 
 #: ceiling for one decorrelated-jitter backoff step, seconds
 BACKOFF_CAP_S = 2.0
 
-#: readiness phases (health()["phase"]); without an artifact store a
-#: started service is ready at once
+#: readiness phases (health()["phase"]): cold = constructed; restoring =
+#: the start-time restore pass is running; ready = it finished (or there
+#: was nothing to restore)
 PHASE_COLD = "cold"
 PHASE_RESTORING = "restoring"
 PHASE_READY = "ready"
 
+#: lane states (health()["replicas"]): draining = remove_replica() is
+#: quiescing the lane; removed = gone (the row stays)
 LANE_LIVE = "live"
+LANE_DRAINING = "draining"
+LANE_REMOVED = "removed"
 
 
 def decorrelated_backoff(rng: random.Random, prev_s: float, base_s: float,
@@ -170,6 +204,14 @@ class _Request:
     # request factors through _factor_direct instead of the batched path)
     factor_fp: Optional[str] = None
     factor_miss: bool = False
+    # integrity plane (defaults when off): certificate failures so far,
+    # whether the current re-execution was hedged to another lane, and
+    # (straggler hedging) whether this request is the duplicate and the
+    # first-result-wins pairing it shares with its twin
+    cert_fails: int = 0
+    reexec_hedged: bool = False
+    is_hedge: bool = False
+    hedge_group: Optional["_HedgeGroup"] = None
     # tracing (all None when spans are off): trace id, root span, the
     # live "queued" span
     trace: Optional[str] = None
@@ -181,23 +223,60 @@ class _Request:
                 and (now if now is not None else time.monotonic()) > self.deadline)
 
 
+class _HedgeGroup:
+    """First-correct-result-wins pairing of a straggler and its hedge
+    (Dean & Barroso, "The Tail at Scale"): the twins share one Future;
+    whichever lane delivers first resolves it, the loser's work counts
+    ``serve.hedge.wasted``, and an exception resolves the future only
+    once every member has failed."""
+
+    def __init__(self, members: int = 2):
+        self.lock = sync.Lock(name="service._HedgeGroup.lock")
+        self.members = members
+        self.delivered = False  # guarded by: lock
+        self.failed = 0  # guarded by: lock
+
+    def first_result(self) -> bool:
+        """Claim the win; False when a twin already delivered."""
+        with self.lock:
+            if self.delivered:
+                return False
+            self.delivered = True
+            return True
+
+    def member_failed(self) -> bool:
+        """Record one member's failure; True when it was the last live
+        member and nothing delivered (only then may the caller set the
+        exception)."""
+        with self.lock:
+            self.failed += 1
+            return not self.delivered and self.failed >= self.members
+
+
 class _Replica:
     """One serving lane: a queue, a supervised worker, per-bucket
-    breakers and the device its dispatches run on.  Its mutable state
-    is owned by the service's condition lock."""
+    breakers, the device its dispatches run on and (integrity plane on)
+    its quarantine score.  Its mutable state is owned by the service's
+    condition lock."""
 
     def __init__(self, name: str, device: torch.device):
         self.name = name
         self.device = device
+        self.score: Optional[_integ.IntegrityScore] = None  # self-locked
         self.q: Deque[_Request] = deque()  # guarded by: _cond
         self.inflight: List[_Request] = []  # guarded by: _cond
         self.breakers: Dict[_bk.BucketKey, _bk.Breaker] = {}  # guarded by: _cond
+        # remove_replica() sets it; the worker loop exits on it
+        self.stopping = False  # guarded by: _cond
         self.thread: Optional[threading.Thread] = None
         self.restarts = 0
         self.dispatched = 0
         self.q_gauge = f"serve.replica.{name}.queue_depth"
         self.dispatched_counter = f"serve.replica.{name}.dispatched"
         self.oldest_gauge = f"serve.replica.{name}.oldest_queued_s"
+        self.quar_counter = f"serve.replica.{name}.quarantined"
+        self.unquar_counter = f"serve.replica.{name}.unquarantined"
+        self.removed_counter = f"serve.replica.{name}.removed"
         self.lat_hist = f"serve.latency.replica.{name}.total"
         self.lane = f"replica-{name}"
 
@@ -206,12 +285,12 @@ class _Replica:
 
 
 class SolverService:
-    """Batching solver service over the driver stack, one lane.
+    """Batching solver service over the driver stack.
 
     Parameters (the JAX package's; None reads the Serve* Option default)
     ----------
-    cache: :class:`ExecutableCache` (built from ``SLATE_TPU_WARMUP`` when
-        omitted).
+    cache: :class:`ExecutableCache` (built from ``SLATE_TPU_WARMUP`` and
+        ``Option.ServeArtifacts`` / ``SLATE_TPU_ARTIFACTS`` when omitted).
     max_queue: admission limit; ``submit`` past it raises Rejected.
     batch_max: coalesced batch point.
     batch_window_s: how long the worker lingers for company.
@@ -223,16 +302,28 @@ class SolverService:
     schedule: factorization schedule of the bucket cores (part of the
         BucketKey).
     precision: "full" | "mixed" solve path of the bucket cores.
-    placement: :class:`PlacementPolicy` — one lane on ``cuda:0`` unless
-        its ``devices`` name another (the tests pass the CPU).
-    replicas: must be 1 (replica scale-out is not ported yet).
+    placement: :class:`PlacementPolicy` — its replica lanes pin
+        ``cuda:0`` unless its ``devices`` name others (the tests pass the
+        CPU).
+    replicas: shorthand for ``placement.replicas`` when no explicit
+        policy is passed.
     factor_cache: :class:`FactorCache`, or None to resolve
         ``SLATE_TPU_FACTOR_CACHE`` / ``Option.ServeFactorCache*`` (off
         by default), or False to disable it over the env.
     tenants / adaptive: the admission plane; set, it raises (not ported
-        yet).  integrity: likewise.
+        yet, ROADMAP.md Queue 1 item 7b).
+    integrity: :class:`~slate_tpu_torch.integrity.policy.IntegrityPolicy`,
+        a spec string (``off | sample=<p> | full`` with ``,abft`` and
+        tuning keys), or False to disable it over the env; None resolves
+        ``SLATE_TPU_INTEGRITY`` then ``Option.ServeIntegrity`` (off by
+        default: one ``is None`` branch a delivery).
     faults_spec: aux/faults grammar; arms and enables injection, which
         the service owns and disarms on :meth:`stop`.
+    restore_on_start: run the cache's restore pass in a background thread
+        on :meth:`start` (phase ``restoring`` until it ends); None =
+        exactly when the cache has an artifact store.
+    restore_stuck_after_s: past this age a still-restoring phase is
+        reported in ``health()["restore_stuck_s"]``.
     start: False builds paused (tests; call :meth:`start`).
     """
 
@@ -259,6 +350,8 @@ class SolverService:
         adaptive: Optional[bool] = None,
         integrity=None,
         faults_spec: Optional[str] = None,
+        restore_on_start: Optional[bool] = None,
+        restore_stuck_after_s: float = 60.0,
         start: bool = True,
     ):
         from ..enums import Option, Schedule
@@ -269,8 +362,9 @@ class SolverService:
 
         self.placement = (placement if placement is not None
                           else PlacementPolicy.from_options(replicas=replicas))
-        lane_device = self.placement.device_for(0)  # raises without a device
-        self.cache = cache if cache is not None else ExecutableCache()
+        lane_devices = self.placement.replica_devices()  # raises without a device
+        self.cache = (cache if cache is not None else ExecutableCache(
+            artifact_dir=get_option(None, Option.ServeArtifacts) or None))
         self.max_queue = int(opt(max_queue, Option.ServeQueueLimit))
         self.batch_max = int(opt(batch_max, Option.ServeBatchMax))
         self.batch_window_s = float(opt(batch_window_s, Option.ServeBatchWindow))
@@ -291,9 +385,11 @@ class SolverService:
         self.factor_cache = (None if factor_cache is False
                              else factor_cache if factor_cache is not None
                              else cache_from_options())
-        # the planes that are not ported raise when configured, else None
+        # the admission plane is not ported: it raises when configured
         _adm.AdmissionControl.from_options(tenants=tenants, adaptive=adaptive)
-        _integ.from_options(integrity)
+        # the integrity plane: None unless configured (one `is None`
+        # branch a delivery and a sweep)
+        self._integrity = _integ.from_options(integrity)
         if faults_spec is None:
             faults_spec = get_option(None, Option.Faults) or ""
         # injection is process-global; the arming service disarms on stop()
@@ -301,12 +397,26 @@ class SolverService:
         if faults_spec:
             faults.configure(faults_spec)
             faults.on()
+        self._restore_on_start = restore_on_start
         self._phase = PHASE_COLD
+        self._restore_result: Optional[Dict[str, int]] = None
+        self._restore_thread: Optional[threading.Thread] = None
+        self.restore_stuck_after_s = float(restore_stuck_after_s)
+        self._restore_started: Optional[float] = None
         self._rng = random.Random(retry_seed)
         self._cond = sync.Condition(name="service.SolverService._cond")
         self._running = False
         self._stopped = False  # stop() called; submit() rejects until start()
-        self._replicas: List[_Replica] = [_Replica("0", lane_device)]
+        self._replicas: List[_Replica] = [_Replica(str(i), d)
+                                          for i, d in enumerate(lane_devices)]
+        if self._integrity is not None:
+            for rep in self._replicas:
+                rep.score = self._integrity.new_score()
+        self._hedge_last_sweep = 0.0  # guarded by: _cond
+        # lane names are monotonic ordinals, never reused; removed lanes
+        # keep a terminal row
+        self._next_replica = len(self._replicas)  # guarded by: _cond
+        self._terminal: "OrderedDict[str, dict]" = OrderedDict()  # guarded by: _cond
         self._restarts = 0
         self._recent_fail: Deque[float] = deque(maxlen=256)
         self._seen_labels: set = set()  # labels health() reports latency for
@@ -343,22 +453,67 @@ class SolverService:
                 return self
             self._running = True
             self._stopped = False
-            self._phase = PHASE_READY  # nothing to restore without a store
             self._cond.notify_all()
         for rep in self._replicas:
             self._spawn_worker(rep)
+        self._begin_restore()
         return self
 
-    def wait_ready(self, timeout: Optional[float] = None) -> bool:
-        """True once the service is ready.  Without an artifact store
-        there is no restore pass to wait for: a started service is ready
-        at once, and one built paused and never started returns False at
-        once (``timeout`` is accepted for the JAX package's signature)."""
+    def _begin_restore(self) -> None:
+        """Start the one-time restore pass (cold -> restoring -> ready).
+        A stop()/start() cycle keeps an already-ready phase."""
+        want = (self._restore_on_start if self._restore_on_start is not None
+                else self.cache.artifacts is not None)
         with self._cond:
-            return self._phase == PHASE_READY
+            if self._phase != PHASE_COLD:
+                return
+            if not want:
+                self._phase = PHASE_READY
+                self._cond.notify_all()
+                return
+            self._phase = PHASE_RESTORING
+            self._restore_started = time.monotonic()
+            t = threading.Thread(target=self._run_restore, name="slate-serve-restore",
+                                 daemon=True)
+            self._restore_thread = t
+        t.start()
+
+    def restore(self, verbose: bool = False, stop_check=None) -> Dict[str, int]:
+        """The cache's restore pass for this service's lanes (every lane
+        device primed); returns its summary.  The start-time pass and
+        ``serve.restore()`` both call it."""
+        return self.cache.restore(batch_max=self.batch_max, stop_check=stop_check,
+                                  devices=self.placement.replica_devices(), verbose=verbose)
+
+    def _run_restore(self) -> None:
+        try:
+            result = self.restore(stop_check=lambda: self._stopped)
+        except Exception:  # noqa: BLE001 — a broken store must not block ready
+            metrics.inc("serve.restore_crashed")
+            result = {"entries": 0, "restored": 0, "compiled": 0, "failed": 0,
+                      "skipped": 0, "crashed": True}
+        with self._cond:
+            self._restore_result = result
+            self._phase = PHASE_READY
+            self._cond.notify_all()
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until the phase reaches ``ready`` (True) or ``timeout``
+        elapses (False).  A service built paused and never started
+        returns False at once: nothing will advance its phase."""
+        deadline = time.monotonic() + timeout if timeout is not None else None
+        with self._cond:
+            while self._phase != PHASE_READY:
+                if not self._running and self._phase == PHASE_COLD:
+                    return False
+                left = deadline - time.monotonic() if deadline is not None else 0.1
+                if deadline is not None and left <= 0:
+                    return False
+                self._cond.wait(min(left, 0.1) if left > 0 else 0.1)
+            return True
 
     def warmup(self, path: Optional[str] = None, verbose: bool = False) -> int:
-        """Cold-build the manifest's executables on the lane's device;
+        """Cold-build the manifest's executables on every lane's device;
         returns the number built."""
         return self.cache.warmup(path=path, batch_max=self.batch_max,
                                  devices=self.placement.replica_devices(), verbose=verbose)
@@ -418,6 +573,11 @@ class SolverService:
             for rep, t in zip(self._replicas, threads):
                 if rep.thread is t:
                     rep.thread = None
+            rt = self._restore_thread
+        # the restore thread polls _stopped between entries; a bounded
+        # join so faults.reset() below never runs under a live pass
+        if rt is not None and rt.is_alive():
+            rt.join(max(0.0, deadline - time.monotonic()))
         for r in leftovers:
             _resolve_exc(r.future, Rejected("service stopped"), req=r)
         if self._owns_faults:
@@ -430,6 +590,124 @@ class SolverService:
     def __exit__(self, *exc) -> bool:
         self.stop()
         return False
+
+    # -- the replica pool ----------------------------------------------------
+
+    def _rehome_queue_locked(self, rep: _Replica) -> int:
+        """Move every request queued on ``rep`` (already out of
+        ``self._replicas``) to the surviving lanes; caller holds
+        ``_cond``.  Returns the count moved."""
+        pending = list(rep.q)
+        if not pending:
+            return 0
+        rep.q.clear()
+        for r in pending:
+            self._pick_replica_locked(r.key).q.append(r)
+        metrics.inc("scale.requests_rehomed", len(pending))
+        metrics.gauge(rep.q_gauge, 0)
+        self._gauge_queues_locked()
+        self._cond.notify_all()
+        return len(pending)
+
+    def _prime_lane(self, rep: _Replica) -> Dict[str, int]:
+        """Warm a joining lane's device before it takes traffic: the whole
+        manifest through ``ExecutableCache.prime``, artifact-first."""
+        counts = self.cache.prime(devices=[rep.device], batch_max=self.batch_max,
+                                  stop_check=lambda: self._stopped)
+        for k in ("restored", "compiled", "failed", "skipped"):
+            if counts.get(k):
+                metrics.inc(f"scale.prime_{k}", counts[k])
+        return counts
+
+    def add_replica(self, warm: bool = True) -> str:
+        """Bring one new lane live; ``warm`` primes its device through
+        the manifest first, so its first steady-state request makes no
+        cold build.  Returns the lane's name (a monotonic ordinal, never
+        reused).  Raises RuntimeError when the service is not running."""
+        with self._cond:
+            if self._stopped or not self._running:
+                raise RuntimeError("add_replica: service is not running")
+            name = str(self._next_replica)
+            self._next_replica += 1
+            idx = len(self._replicas)
+            self.placement.set_replicas(idx + 1)
+            device = self.placement.device_for(idx)
+        rep = _Replica(name, device)
+        warmed: Dict[str, int] = {}
+        if warm:
+            # outside _cond: priming runs the cores
+            warmed = self._prime_lane(rep)
+        with self._cond:
+            if self._stopped or not self._running:
+                self.placement.set_replicas(len(self._replicas))
+                raise RuntimeError("add_replica: service stopped while priming")
+            if self._integrity is not None:
+                rep.score = self._integrity.new_score()
+            self._replicas.append(rep)
+            self.placement.set_replicas(len(self._replicas))
+            fleet = len(self._replicas)
+            self._cond.notify_all()
+        self._spawn_worker(rep)
+        metrics.inc("scale.replicas_added")
+        metrics.gauge("scale.fleet", fleet)
+        spans.event("replica_added", lane=rep.lane, restored=warmed.get("restored", 0),
+                    compiled=warmed.get("compiled", 0))
+        return name
+
+    def remove_replica(self, name: Optional[str] = None, drain_timeout: float = 30.0) -> str:
+        """Take one lane (default: the newest) out of admission, re-home
+        its queue to the survivors, let its worker finish its in-flight
+        batch (bounded by ``drain_timeout``) and re-home its factor-cache
+        entries.  Its health row moves to the terminal table (draining ->
+        removed).  Raises ValueError for the last lane or an unknown
+        name."""
+        with self._cond:
+            if len(self._replicas) <= 1:
+                raise ValueError("remove_replica: cannot remove the last lane")
+            if name is None:
+                rep = self._replicas[-1]
+            else:
+                rep = next((r for r in self._replicas if r.name == name), None)
+                if rep is None:
+                    raise ValueError(f"remove_replica: no lane named {name!r}")
+            self._replicas.remove(rep)
+            self.placement.set_replicas(len(self._replicas))
+            rep.stopping = True
+            self._terminal[rep.name] = {
+                "name": rep.name, "state": LANE_DRAINING, "device": str(rep.device),
+                "dispatched": rep.dispatched, "restarts": rep.restarts}
+            moved = self._rehome_queue_locked(rep)
+            self._cond.notify_all()
+            t = rep.thread
+            survivor = self._replicas[0]
+        spans.event("drain", lane=rep.lane, rehomed=moved)
+        if t is not None:
+            t.join(max(float(drain_timeout), 0.0))
+        # outside _cond: the factor cache is self-locked
+        refactored = (self.factor_cache.rehome(rep.name, survivor.name)
+                      if self.factor_cache is not None else 0)
+        with self._cond:
+            # anything that still landed here (a requeue racing the join)
+            self._rehome_queue_locked(rep)
+            if rep.thread is t:
+                rep.thread = None
+            row = self._terminal.get(rep.name, {"name": rep.name})
+            row.update({"state": LANE_REMOVED, "dispatched": rep.dispatched,
+                        "restarts": rep.restarts, "factor_rehomed": refactored,
+                        "drain_timed_out": bool(t is not None and t.is_alive())})
+            self._terminal[rep.name] = row
+            while len(self._terminal) > 64:  # a bounded terminal table
+                self._terminal.popitem(last=False)
+            fleet = len(self._replicas)
+        metrics.inc("scale.replicas_removed")
+        metrics.inc(rep.removed_counter)
+        metrics.gauge("scale.fleet", fleet)
+        metrics.gauge(rep.q_gauge, 0)
+        metrics.gauge(rep.oldest_gauge, 0.0)
+        if refactored:
+            metrics.inc("scale.factors_rehomed", refactored)
+        spans.event("replica_removed", lane=rep.lane, factor_rehomed=refactored)
+        return rep.name
 
     # -- admission ---------------------------------------------------------
 
@@ -488,11 +766,18 @@ class SolverService:
         if sharded:
             raise ValueError(f"{routine}: sharded routing unavailable (no mesh "
                              "configured, or the routine has no sharded path)")
+        # ABFT bucket routing: with the integrity plane's abft flag on,
+        # eligible requests bucket under tag="abft" (the checksummed
+        # cores).  Excluded with the factor cache on: its traffic keeps
+        # the residual-fenced hit path and the certified miss path
+        use_abft = (self._integrity is not None and self._integrity.abft
+                    and self.factor_cache is None and routine in ("gesv", "posv")
+                    and prec == "full")
         key: Optional[_bk.BucketKey] = None
         if not (routine == "gels" and m < n):
             key = _bk.bucket_for(routine, m, n, nrhs, A.dtype, floor=self.dim_floor,
                                  nrhs_floor=self.nrhs_floor, schedule=self.schedule,
-                                 precision=prec)
+                                 precision=prec, tag=_abft.ABFT_TAG if use_abft else "")
         # factor cache (one branch when disabled): classify hit / miss
         fc = self.factor_cache
         fp: Optional[str] = None
@@ -526,20 +811,31 @@ class SolverService:
                 metrics.inc("serve.rejected")
                 raise Rejected(f"queue full ({self.max_queue}); retry with backoff"
                                ).with_context(routine=routine)
-            rep = self._replicas[0]
+            rep = self._pick_replica_locked(key)
             if hit is not None:
+                # a hit routes to the lane that owns the factor, unless
+                # that lane's solve bucket is cooling down: then a healthy
+                # selected lane serves the same factor through its own
+                # solve bucket (cross-lane hit), or, with no healthy
+                # other lane, the request spills off the batched solve
+                # executable onto the direct factor path — never a
+                # dispatch into a known-sick path
                 own = next((r for r in self._replicas if r.name == hit.replica), None)
-                b = own.breakers.get(key) if own is not None else None
-                if b is not None and b.cooling_down(time.monotonic(),
-                                                    self.breaker_cooldown_s):
-                    # the owning lane's solve bucket is cooling down: spill
-                    # off the batched solve executable onto the direct
-                    # factor path, which reuses the healthy factor
-                    # (residual-fenced) or refactors — never a dispatch
-                    # into a known-sick path
-                    _fc_record("spill", fp=fp, label=full_key.label)
-                    req.key = key = full_key
-                    req.factor_miss = True
+                if own is not None:
+                    now_cl = time.monotonic()
+                    b = own.breakers.get(key)
+                    if b is not None and b.cooling_down(now_cl, self.breaker_cooldown_s):
+                        alt_b = rep.breakers.get(key)
+                        if rep is not own and not (
+                                alt_b is not None
+                                and alt_b.cooling_down(now_cl, self.breaker_cooldown_s)):
+                            _fc_record("cross_lane_hit", fp=fp, label=key.label)
+                        else:
+                            _fc_record("spill", fp=fp, label=full_key.label)
+                            req.key = key = full_key
+                            req.factor_miss = True
+                    else:
+                        rep = own
             if _root is not None:
                 req.qspan = spans.start("queued", trace=_trace, parent=_root,
                                         lane=rep.lane)
@@ -551,6 +847,26 @@ class SolverService:
         metrics.inc("serve.requests")
         return req.future
 
+    def _pick_replica_locked(self, key: Optional[_bk.BucketKey]) -> _Replica:
+        """Admission-side lane selection through the placement policy,
+        excluding lanes quarantined and cooling down (integrity plane)
+        and lanes whose breaker for this bucket is cooling down, while a
+        healthy lane exists."""
+        if len(self._replicas) == 1:
+            return self._replicas[0]
+        loads = [len(r.q) + len(r.inflight) for r in self._replicas]
+        now = time.monotonic()
+        flags = None
+        if self._integrity is not None:
+            flags = [r.score is not None and r.score.excluded(now) for r in self._replicas]
+        if key is not None:
+            br = []
+            for r in self._replicas:
+                b = r.breakers.get(key)
+                br.append(b is not None and b.cooling_down(now, self.breaker_cooldown_s))
+            flags = br if flags is None else [a or b for a, b in zip(flags, br)]
+        return self._replicas[self.placement.select_replica(loads, flags)]
+
     def queue_depth(self) -> int:
         with self._cond:
             return sum(len(rep.q) for rep in self._replicas)
@@ -558,13 +874,19 @@ class SolverService:
     # -- health ------------------------------------------------------------
 
     def health(self) -> dict:
-        """Liveness/readiness snapshot: queue depth vs limit, worker
-        liveness, restarts, dispatch counts, breaker states, the age of
-        the oldest queued request, the recent failure rate (last 60 s)
-        and, with metrics on, per-bucket p50/p95/p99 total latency
-        (``latency``) and the deadline-budget burn tiers (``slo_burn``)."""
+        """Liveness/readiness snapshot: queue depth vs limit, the
+        readiness phase and the restore summary, per-lane worker
+        liveness, restarts, dispatch counts, breaker states and the age
+        of the oldest queued request (``replicas``, removed lanes
+        included with their terminal state), the integrity plane's
+        policy and per-lane quarantine scores (``integrity``, None when
+        off), the recent failure rate (last 60 s) and, with metrics on,
+        per-bucket p50/p95/p99 total latency (``latency``) and the
+        deadline-budget burn tiers (``slo_burn``).  The top-level
+        ``breakers`` map merges the lanes' tables, worst state wins."""
         now = time.monotonic()
         window_s = 60.0
+        rank = {_bk.BREAKER_OPEN: 2, _bk.BREAKER_HALF_OPEN: 1, _bk.BREAKER_CLOSED: 0}
         with self._cond:
             depth = sum(len(rep.q) for rep in self._replicas)
             alive = all(rep.alive() for rep in self._replicas)
@@ -575,7 +897,9 @@ class SolverService:
             lanes = []
             for rep in self._replicas:
                 states = {k.label: b.state for k, b in rep.breakers.items()}
-                merged.update(states)
+                for lbl, st in states.items():
+                    if rank[st] > rank.get(merged.get(lbl), -1):
+                        merged[lbl] = st
                 lanes.append({
                     "name": rep.name, "state": LANE_LIVE, "device": str(rep.device),
                     "queue_depth": len(rep.q), "inflight": len(rep.inflight),
@@ -584,9 +908,31 @@ class SolverService:
                     "worker_alive": rep.alive(), "restarts": rep.restarts,
                     "dispatched": rep.dispatched, "breakers": states,
                 })
+            terminal = [dict(row) for row in self._terminal.values()]
             recent = [t for t in self._recent_fail if now - t <= window_s]
             phase = self._phase
+            restore_result = dict(self._restore_result) if self._restore_result else None
             seen_labels = sorted(self._seen_labels)
+            scored = [(rep.name, rep.score) for rep in self._replicas
+                      if rep.score is not None]
+        for row in terminal:
+            lanes.append({"queue_depth": 0, "inflight": 0, "oldest_queued_s": 0.0,
+                          "worker_alive": False, "breakers": {}, **row})
+        restore_stuck_s = None
+        if phase == PHASE_RESTORING and self._restore_started is not None:
+            age = now - self._restore_started
+            if age > self.restore_stuck_after_s:
+                restore_stuck_s = round(age, 3)
+        integrity = None
+        if self._integrity is not None:
+            # scores are self-locked leaves: read outside _cond
+            scores = {name: sc.snapshot(now) for name, sc in scored}
+            integrity = {
+                "policy": self._integrity.describe(), "abft": self._integrity.abft,
+                "replicas": scores,
+                "quarantined": sorted(n for n, v in scores.items()
+                                      if v["state"] == _integ.SCORE_QUARANTINED),
+            }
         latency: Dict[str, dict] = {}
         slo_burn: Dict[str, int] = {}
         if metrics.is_on():
@@ -601,6 +947,9 @@ class SolverService:
             "ok": running and alive,
             "phase": phase,
             "ready": bool(running and alive and phase == PHASE_READY),
+            "restore": restore_result,
+            "restore_stuck_s": restore_stuck_s,
+            "integrity": integrity,
             "running": running,
             "worker_alive": alive,
             "worker_restarts": restarts,
@@ -644,6 +993,9 @@ class SolverService:
             rep.restarts += 1
             self._restarts += 1
             running = self._running
+            # a draining lane is never respawned; its retried work is
+            # re-homed by remove_replica's final sweep
+            respawn = running and not rep.stopping
         self._note_failure()
         for r in inflight:
             if r.future.done():
@@ -653,7 +1005,7 @@ class SolverService:
             else:
                 _resolve_exc(r.future, SlateError(f"worker died mid-batch: {exc!r}"),
                              req=r)
-        if running:
+        if respawn:
             self._spawn_worker(rep)
 
     # -- worker ------------------------------------------------------------
@@ -688,7 +1040,7 @@ class SolverService:
         expired: List[_Request] = []
         with self._cond:
             first: Optional[_Request] = None
-            while self._running:
+            while self._running and not rep.stopping:
                 now = time.monotonic()
                 # deadline sweep of the whole queue before eligibility: a
                 # request backing off is still cancelled when its deadline
@@ -700,6 +1052,12 @@ class SolverService:
                     expired.extend(dead)
                 if expired:
                     break  # cancel outside the lock, then come back
+                if (self._integrity is not None and self._integrity.hedge_factor > 0
+                        and len(self._replicas) > 1 and metrics.is_on()):
+                    # deadline-risk stragglers of every lane (a wedged
+                    # lane cannot sweep its own queue) get a duplicate on
+                    # another lane
+                    self._hedge_stragglers_locked(now)
                 first = self._pop_eligible_locked(rep, now)
                 if first is not None:
                     break
@@ -708,6 +1066,11 @@ class SolverService:
                     self._cond.wait(min(max(wake, 0.001), 0.05))
                 else:
                     self._cond.wait(0.05)
+            if rep.stopping and self._running:
+                # a lane leaving a running service: stragglers (a
+                # supervisor requeue, a hedge clone) re-home to survivors
+                self._rehome_queue_locked(rep)
+                return None
             if not self._running:
                 # anything the failure path re-enqueued after stop()
                 # drained the queue resolves here: futures never strand
@@ -756,8 +1119,12 @@ class SolverService:
         return live
 
     def _miss_queued(self, req: _Request) -> None:
-        """Deadline passed while still queued: cancel, never start."""
-        if req.future.done():
+        """Deadline passed while still queued: cancel, never start.  A
+        hedge twin (or a primary whose twin delivered) only resolves its
+        member: the logical request is accounted once, by its primary."""
+        if req.is_hedge or req.future.done():
+            _resolve_exc(req.future, DeadlineExceeded(f"{req.routine}: hedge twin expired"),
+                         req=req)
             return
         metrics.inc("serve.deadline_miss")
         metrics.inc("serve.deadline_miss_queued")
@@ -767,7 +1134,12 @@ class SolverService:
 
     @staticmethod
     def _miss_late(req: Optional[_Request] = None) -> None:
-        """Finished past the deadline: result still delivered, counted."""
+        """Finished past the deadline: result still delivered, counted —
+        once a logical request (never for a hedge twin, nor for a hedged
+        primary whose twin already delivered)."""
+        if req is not None and (req.is_hedge
+                                or (req.hedge_group is not None and req.future.done())):
+            return
         metrics.inc("serve.deadline_miss")
         metrics.inc("serve.deadline_miss_late")
 
@@ -915,7 +1287,8 @@ class SolverService:
             info = int(info_b[i]) if i < len(info_b) else 0
             if info > 0:
                 # the drivers' numerical contract (singular U, non-SPD):
-                # deterministic, never retried
+                # deterministic, never retried (negative info is the ABFT
+                # bad flag, read by the certification below)
                 if late:
                     self._miss_late(r)
                 self._observe_total(rep, key.label, r, now)
@@ -923,6 +1296,7 @@ class SolverService:
                 deliver.append(functools.partial(
                     _resolve_exc, r.future, NumericalError(f"{r.routine}: info={info}", info), r))
                 continue
+            abft_bad = info < 0
             X = _bk.crop_result(key, X_b[i], r.n, r.nrhs)
             mixed = key.precision == "mixed"
             if (self.validate or mixed) and not np.all(np.isfinite(X)):
@@ -937,6 +1311,19 @@ class SolverService:
                         metrics.inc("serve.refine_demoted")
                     self._note_failure()
                     corrupt += 1
+                deliver.append(functools.partial(self._direct, r))
+                continue
+            # delivery certification (one branch when the plane is off):
+            # a finite wrong X (sdc_solve / sdc_factor, a flaky device)
+            # never reaches the client.  ABFT buckets carry the on-device
+            # verdict for free; the host certificate covers the
+            # device-to-host leg.  A failed certificate re-executes.
+            if self._integrity is not None and r.routine in ("gesv", "posv"):
+                if not self._certify(rep, r, X, key, abft_bad):
+                    deliver.append(functools.partial(self._cert_reexecute, rep, r))
+                    continue
+            elif abft_bad:
+                # a flagged X from a checksummed core is never delivered
                 deliver.append(functools.partial(self._direct, r))
                 continue
             if late:
@@ -1062,14 +1449,20 @@ class SolverService:
                             fc.invalidate(fp)
                             entry, X = None, None
                     if entry is None:
+                        # sdc_factor: a silently wrong fresh factor; this
+                        # request's X goes wrong (certification catches it)
+                        # and the poisoned entry is cached (later hits fall
+                        # to the residual fence)
                         if req.routine == "gels":
                             factor = gels_factor_pack(req.A, fkey, schedule=self.schedule,
                                                       device=rep.device)
+                            factor = faults.perturb("sdc_factor", factor)
                             perm = None
                         else:
                             raw, perm = factor_only(req.routine, req.A,
                                                     schedule=self.schedule,
                                                     device=rep.device)
+                            raw = faults.perturb("sdc_factor", raw)
                             factor = pad_square_t(raw, fkey.n)
                         entry = FactorEntry(fp=fp, routine=req.routine, key=fkey,
                                             factor=factor, perm=perm, n=req.n)
@@ -1081,6 +1474,11 @@ class SolverService:
                 spans.annotate(outcome="ok")
         except Exception as e:  # noqa: BLE001 — futures carry the error
             _resolve_exc(req.future, e, req=req)
+            return
+        # delivery certification: the factor path is where sdc_factor
+        # bites (a finite wrong X no finiteness fence sees)
+        if self._integrity is not None and not self._certify(rep, req, X, req.key, False):
+            self._cert_reexecute(rep, req)
             return
         now = time.monotonic()
         if req.deadline is not None and now > req.deadline:
@@ -1100,8 +1498,12 @@ class SolverService:
     def _observe_total(self, rep: Optional[_Replica], label: str, req: _Request,
                        now: float) -> None:
         """Total (admit -> deliver) latency into the per-bucket and
-        per-lane histograms, plus the deadline-budget burn tiers."""
+        per-lane histograms, plus the deadline-budget burn tiers.  One
+        total a logical request: hedge twins, and a hedged primary whose
+        twin already delivered, are skipped."""
         if not metrics.is_on():
+            return
+        if req.is_hedge or (req.hedge_group is not None and req.future.done()):
             return
         total = now - req.t_submit
         metrics.observe_hist(f"serve.latency.{label}.total", total)
@@ -1139,6 +1541,12 @@ class SolverService:
                 e.__context__ = batched_error
             _resolve_exc(req.future, e, req=req)
             return
+        # the direct path is hardware like any other: sdc_solve fires
+        # here too, and the re-execution fallback re-certifies
+        if (self._integrity is not None and req.routine in ("gesv", "posv")
+                and not self._certify(None, req, X, req.key, False)):
+            self._cert_reexecute(None, req)
+            return
         now = time.monotonic()
         if req.deadline is not None and now > req.deadline:
             self._miss_late(req)
@@ -1148,6 +1556,220 @@ class SolverService:
                 self._seen_labels.add(lbl)
         self._observe_total(None, lbl, req, now)
         _resolve(req.future, X, req)
+
+    # -- integrity: certification, quarantine, hedged re-execution ---------
+
+    def _certify(self, rep: Optional[_Replica], req: _Request, X: np.ndarray,
+                 key: Optional[_bk.BucketKey], abft_bad: bool) -> bool:
+        """One delivery's certificate (the plane is on); True to deliver,
+        False to re-execute.  The verdict: the on-device ABFT flag, then,
+        by the policy's gate (always for a re-execution and for a
+        quarantined lane), the host check — the checksum relation for
+        ABFT buckets, the residual fence otherwise.  Every verdict feeds
+        the lane's score; the transitions are counted per lane."""
+        integ = self._integrity
+        if abft_bad:
+            ok = False
+        elif (req.cert_fails or (rep is not None and rep.score is not None
+                                 and rep.score.suspect())
+              or integ.should_check()):
+            A = _cert_operand(req)
+            ok = (_abft.checksum_certificate(A, req.B, X)
+                  if key is not None and key.tag == _abft.ABFT_TAG
+                  else residual_ok(A, req.B, X, routine=req.routine))
+        else:
+            return True  # an unsampled delivery: no verdict, no score move
+        metrics.inc("serve.integrity.checked")
+        if rep is not None and rep.score is not None:
+            ev = rep.score.observe(ok, time.monotonic())
+            if ev == "quarantined":
+                metrics.inc("serve.integrity.quarantined")
+                metrics.inc(rep.quar_counter)
+                spans.event("quarantined", trace=req.trace, lane=rep.lane, replica=rep.name)
+            elif ev == "recovered":
+                metrics.inc("serve.integrity.unquarantined")
+                metrics.inc(rep.unquar_counter)
+                spans.event("unquarantined", trace=req.trace, lane=rep.lane,
+                            replica=rep.name)
+        if ok:
+            if req.cert_fails:
+                # a previously failed request delivered a passing result
+                metrics.inc("serve.integrity.recovered")
+                if req.reexec_hedged:
+                    metrics.inc("serve.hedge.won")
+                    req.reexec_hedged = False
+            return True
+        metrics.inc("serve.integrity.fail")
+        self._note_failure()
+        if req.trace is not None:
+            spans.event("cert_fail", trace=req.trace,
+                        lane=rep.lane if rep is not None else "direct",
+                        bucket=key.label if key is not None else None, abft=abft_bad)
+        return False
+
+    def _cert_reexecute(self, rep: Optional[_Replica], req: _Request) -> None:
+        """A failed certificate never reaches the client.  While the
+        policy's retry budget lasts the request is hedged to another lane
+        (``serve.hedge.sent``), or with no other lane re-runs on the
+        direct driver (which re-certifies).  Past the budget: one
+        last-resort direct solve behind the residual fence, delivered
+        only when it passes, else a typed NumericalError
+        (``serve.integrity.abandoned``)."""
+        integ = self._integrity
+        req.cert_fails += 1
+        if req.future.done():
+            # a hedge twin already delivered: nothing to re-execute for
+            _resolve_exc(req.future, NumericalError(
+                f"{req.routine}: certificate-failed result discarded; hedge twin "
+                "already delivered"), req=req)
+            return
+        if req.is_hedge:
+            # a straggler clone is never re-executed: its primary keeps
+            # the ladder
+            _resolve_exc(req.future, NumericalError(
+                f"{req.routine}: hedge result failed certification"), req=req)
+            return
+        if req.cert_fails <= integ.cert_retry_max:
+            other = None
+            if len(self._replicas) > 1:
+                excluded = self._quarantined_names()
+                with self._cond:
+                    if not (self._stopped or not self._running):
+                        other = self._least_loaded_other_locked(rep, excluded)
+                    if other is not None:
+                        metrics.inc("serve.hedge.sent")
+                        req.reexec_hedged = True
+                        req.not_before = 0.0
+                        # the queued histogram observed it at its first
+                        # dispatch; the re-enqueue must not observe it twice
+                        req.attempt = max(req.attempt, 1)
+                        if req.span is not None and spans.is_on():
+                            req.qspan = spans.start("queued", trace=req.trace,
+                                                    parent=req.span, lane=other.lane,
+                                                    hedge=True)
+                        other.q.appendleft(req)
+                        self._gauge_queues_locked()
+                        self._cond.notify_all()
+            if other is not None:
+                if req.trace is not None:
+                    spans.event("hedge", trace=req.trace, lane=other.lane,
+                                reason="certificate", attempt=req.cert_fails)
+                return
+            # one lane: the direct driver is the path off the suspect
+            # executable; _direct re-certifies
+            self._direct(req)
+            return
+        try:
+            with metrics.phase(f"serve.direct.{req.routine}"):
+                X = direct_call(req.routine, req.A, req.B, device=self._replicas[0].device)
+        except Exception as e:  # noqa: BLE001 — futures carry the error
+            _resolve_exc(req.future, e, req=req)
+            return
+        if residual_ok(_cert_operand(req), req.B, X, routine=req.routine):
+            metrics.inc("serve.integrity.recovered")
+            if req.reexec_hedged:
+                metrics.inc("serve.hedge.won")
+                req.reexec_hedged = False
+            now = time.monotonic()
+            if req.deadline is not None and now > req.deadline:
+                self._miss_late(req)
+            self._observe_total(rep, self._lat_label(req), req, now)
+            _resolve(req.future, X, req)
+            return
+        # the last-resort fence caught corruption too: a detection
+        # beside the refusal
+        metrics.inc("serve.integrity.fail")
+        metrics.inc("serve.integrity.abandoned")
+        _resolve_exc(req.future, NumericalError(
+            f"{req.routine}: result failed integrity certification {req.cert_fails}x "
+            "across re-executions; refusing to deliver an uncertified X"), req=req)
+
+    def _quarantined_names(self) -> set:
+        """Lanes quarantine-excluded now (scores are self-locked leaves)."""
+        now = time.monotonic()
+        return {r.name for r in self._replicas
+                if r.score is not None and r.score.excluded(now)}
+
+    def _least_loaded_other_locked(self, rep: Optional[_Replica],
+                                   excluded: set) -> Optional[_Replica]:
+        """The least-loaded lane other than ``rep``, preferring lanes not
+        in ``excluded`` and falling back to one that is: the hedge target
+        of the certificate re-execution and the straggler sweep."""
+        best = best_ex = None
+        load_b = load_ex = 0
+        for r in self._replicas:
+            if r is rep:
+                continue
+            load = len(r.q) + len(r.inflight)
+            if r.name in excluded:
+                if best_ex is None or load < load_ex:
+                    best_ex, load_ex = r, load
+            elif best is None or load < load_b:
+                best, load_b = r, load
+        return best if best is not None else best_ex
+
+    def _hedge_stragglers_locked(self, now: float) -> None:
+        """Any queued request older than ``hedge_factor`` x its bucket's
+        p99 total latency gets a duplicate on the least-loaded healthy
+        other lane; the first correct result wins the shared Future.
+        Rate-limited to one sweep a ``hedge_min_age_s`` across the
+        service.  Caller holds ``_cond``; the plane is on, there are two
+        lanes or more and metrics are on (the p99 source)."""
+        integ = self._integrity
+        if now - self._hedge_last_sweep < max(integ.hedge_min_age_s, 0.01):
+            return
+        self._hedge_last_sweep = now
+        excluded: Optional[set] = None
+        p99s: dict = {}
+        hedged = False
+        for rep in self._replicas:
+            for r in list(rep.q):
+                if (r.is_hedge or r.hedge_group is not None or r.key is None
+                        or r.attempt or r.cert_fails):
+                    continue
+                age = now - r.t_submit
+                if age < integ.hedge_min_age_s:
+                    continue
+                lbl = r.key.label
+                if lbl not in p99s:
+                    p99s[lbl] = metrics.percentile(f"serve.latency.{lbl}.total", 99)
+                p99 = p99s[lbl]
+                if p99 is None or age < integ.hedge_factor * p99:
+                    continue
+                if excluded is None:
+                    excluded = self._quarantined_names()
+                tgt = self._least_loaded_other_locked(rep, excluded)
+                if tgt is None:
+                    continue
+                grp = _HedgeGroup()
+                r.hedge_group = grp
+                clone = _Request(routine=r.routine, key=r.key, A=r.A, B=r.B, m=r.m, n=r.n,
+                                 nrhs=r.nrhs, future=r.future, deadline=r.deadline,
+                                 retries=0, factor_fp=r.factor_fp,
+                                 factor_miss=r.factor_miss, is_hedge=True, hedge_group=grp)
+                # attempt=1: no second queued observation; the twin keeps
+                # the primary's clock
+                clone.attempt = 1
+                clone.t_submit = r.t_submit
+                metrics.inc("serve.hedge.sent")
+                if r.trace is not None:
+                    spans.event("hedge", trace=r.trace, lane=tgt.lane, reason="straggler",
+                                age_s=round(age, 4))
+                tgt.q.appendleft(clone)
+                hedged = True
+        if hedged:
+            # wake the targets only when something was enqueued
+            self._cond.notify_all()
+
+
+def _cert_operand(req: _Request) -> np.ndarray:
+    """The operand a certificate checks against: gesv reads all of A,
+    posv only its lower triangle (symmetrized here, as ``posv_check``
+    does on the device)."""
+    if req.routine != "posv":
+        return req.A
+    A = np.asarray(req.A)
+    return np.tril(A) + np.conj(np.tril(A, -1)).T
 
 
 # -- delivery taps ----------------------------------------------------------
@@ -1195,6 +1817,18 @@ def _resolve(fut: Future, value, req: Optional[_Request] = None) -> None:
     if _delivery_taps and req is not None:
         _fire_delivery_taps(req, "ok")
     sync.hb_publish(fut)
+    g = req.hedge_group if req is not None else None
+    if g is not None:
+        # the first correct result wins the shared future; the loser's
+        # work is the hedge's cost
+        if g.first_result():
+            if not fut.done():
+                fut.set_result(value)
+            if req.is_hedge:
+                metrics.inc("serve.hedge.won")
+        else:
+            metrics.inc("serve.hedge.wasted")
+        return
     if not fut.done():
         fut.set_result(value)
 
@@ -1208,5 +1842,11 @@ def _resolve_exc(fut: Future, exc: Exception, req: Optional[_Request] = None) ->
         exc.with_context(routine=req.routine,
                          bucket=req.key.label if req.key is not None else None,
                          attempt=req.attempt)
+    g = req.hedge_group if req is not None else None
+    if g is not None:
+        # a hedged pair fails only as a whole
+        if g.member_failed() and not fut.done():
+            fut.set_exception(exc)
+        return
     if not fut.done():
         fut.set_exception(exc)

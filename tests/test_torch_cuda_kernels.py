@@ -1469,3 +1469,227 @@ def test_svd_float32_raises_under_tf32(dev):
             stt.svd(A)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _serve_mirror(routine, n, items):
+    """The kernel launches of ``items`` full-phase bucket cores at bucket
+    n, tiles of 64: the factor's mirror (the drivers' own solves are
+    library triangular solves; the trsm pair runs on hit buckets)."""
+    from slate_tpu_torch.ops import chol_kernels as ck
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    one = (ck.chol_kernel_launches(n) if routine == "posv"
+           else {"panel_lu": lk.getrf_kernel_launches(n, 256, 1)})
+    return {k: v * items for k, v in one.items() if v}
+
+
+def _scaled_residual(A, X, B):
+    return np.linalg.norm(A @ X - B, 1) / (np.linalg.norm(A, 1) * np.linalg.norm(X, 1)
+                                           * A.shape[0] * np.finfo(np.float64).eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("routine", ["gesv", "posv"])
+def test_integrity_abft_bucket_launches_the_mirror(dev, routine):
+    """An ABFT bucket at n = 2100 (bucket 4096, tiles of 64) on the card:
+    certified with no failure, info 0, and exactly the kernels of the
+    factor's mirror; a corrupted factor entry flags the on-device
+    checksum relation."""
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.integrity import abft
+    from slate_tpu_torch.serve import SolverService, bucket_for
+
+    n, nrhs = 2100, 16
+    rng = np.random.default_rng(6)
+    G = rng.standard_normal((n, n))
+    A = G @ G.T + n * np.eye(n) if routine == "posv" else G + 2 * np.sqrt(n) * np.eye(n)
+    B = rng.standard_normal((n, nrhs))
+    key = bucket_for(routine, n, n, nrhs, np.float64, tag=abft.ABFT_TAG)
+    was_on = metrics.is_on()
+    metrics.on()
+    s = SolverService(integrity="full,abft,hedge=0", factor_cache=False, batch_max=1)
+    try:
+        with metrics.deltas() as d:
+            X = s.submit(routine, A, B).result(timeout=600)
+            assert d.get("serve.integrity.checked") == 1 and d.get("serve.integrity.fail") == 0
+        assert _scaled_residual(A, X, B) <= 3
+        launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+        assert launched == _serve_mirror(routine, key.n, 1), launched
+        core = s.cache.executable(key, 1)
+        Ap = torch.zeros((1, key.n, key.n), dtype=torch.float64, device=dev)
+        Ap[0, :n, :n] = torch.from_numpy(A)
+        Ap[0, n:, n:].diagonal().fill_(1)
+        Bp = torch.zeros((1, key.n, key.nrhs), dtype=torch.float64, device=dev)
+        Bp[0, :n, :nrhs] = torch.from_numpy(B)
+        Xb, info = core(Ap, Bp)
+        assert int(info[0]) == 0
+        Ag, Bg, Xg = Ap[0], Bp[0], Xb[0]
+        if routine == "gesv":
+            from slate_tpu_torch.serve.factor_cache import factor_only
+
+            F, perm = factor_only("gesv", Ag.cpu().numpy(), device=dev)
+            assert not bool(abft.gesv_check(Ag, Bg, F, perm, Xg))
+            F[5, 9] = F[5, 9] * 2 + 1
+            assert bool(abft.gesv_check(Ag, Bg, F, perm, Xg))
+        else:
+            L = torch.linalg.cholesky(Ag)
+            assert not bool(abft.posv_check(Ag, Bg, L, Xg))
+            L[9, 5] = L[9, 5] * 2 + 1
+            assert bool(abft.posv_check(Ag, Bg, L, Xg))
+    finally:
+        s.stop()
+        if not was_on:
+            metrics.off()
+
+
+@pytest.mark.cuda
+def test_artifact_restore_from_a_store_on_the_card(dev, tmp_path):
+    """A store warmed on the card holds the kernel library under its
+    digest; a second cache restores every entry from it (no build), and
+    a flipped byte is counted corrupt, rebuilt and re-saved."""
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.serve import ArtifactStore, ExecutableCache, SolverService
+
+    n, nrhs = 512, 4
+    rng = np.random.default_rng(8)
+    A = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    B = rng.standard_normal((n, nrhs))
+    man, store = str(tmp_path / "m.json"), str(tmp_path / "store")
+    was_on = metrics.is_on()
+    metrics.on()
+    s = SolverService(cache=ExecutableCache(manifest_path=man, artifact_dir=store),
+                      factor_cache=False, batch_max=2)
+    try:
+        assert s.wait_ready(60)
+        X = s.submit("gesv", A, B).result(timeout=600)
+        assert _scaled_residual(A, X, B) <= 3
+        s.warmup()
+    finally:
+        s.stop()
+    st = ArtifactStore(store)
+    libdir = tmp_path / "store" / "kernels" / pk.library_digest()
+    assert sorted(p.name for p in pk.check_copy(libdir, pk.library_digest())) \
+        == sorted(pk.library_names())
+    assert len(st.entries()) == 2
+    with metrics.deltas() as d:
+        got = ExecutableCache(manifest_path=man, artifact_dir=store).restore(devices=[dev])
+        assert got == {"entries": 2, "restored": 2, "compiled": 0, "failed": 0, "skipped": 0}
+        assert d.get("serve.artifact_hit") == 2
+    path = st.entries()[0]["path"]
+    blob = open(path, "rb").read()
+    open(path, "wb").write(ArtifactStore._flip_byte(blob))
+    with metrics.deltas() as d:
+        got = ExecutableCache(manifest_path=man, artifact_dir=store).restore(devices=[dev])
+        assert got["restored"] == 1 and got["compiled"] == 1
+        assert d.get("serve.artifact_corrupt") == 1
+    assert open(path, "rb").read().split(b"\n", 1)[1] == blob.split(b"\n", 1)[1]
+    if not was_on:
+        metrics.off()
+
+
+_RESTORE_CHILD = r"""
+import json, sys, torch
+from slate_tpu_torch.aux import metrics
+from slate_tpu_torch.ops.hopper import panel_kernels as pk
+from slate_tpu_torch.serve import ExecutableCache
+metrics.on()
+got = ExecutableCache(manifest_path=sys.argv[1], artifact_dir=sys.argv[2]).restore(
+    devices=[torch.device("cuda:0")])
+print(json.dumps({"restore": got, "loaded_from": str(pk.LOADED_FROM), "nvcc": pk.NVCC_RUNS,
+                  "counters": {k: v for k, v in metrics.counters().items()
+                               if k.startswith("serve.artifact_")}}))
+"""
+
+
+@pytest.mark.cuda
+def test_artifact_flipped_library_byte_on_the_card(dev, tmp_path):
+    """A flipped byte in a stored kernel library fails its sha256 before
+    the library is opened: a fresh interpreter counts the entry corrupt,
+    runs the library built from the sources, and rewrites the store's
+    copy, which then restores clean."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.serve import ExecutableCache, SolverService
+
+    n, nrhs = 512, 4
+    rng = np.random.default_rng(10)
+    A = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    B = rng.standard_normal((n, nrhs))
+    man, store = str(tmp_path / "m.json"), str(tmp_path / "store")
+    was_on = metrics.is_on()
+    metrics.on()
+    s = SolverService(cache=ExecutableCache(manifest_path=man, artifact_dir=store),
+                      factor_cache=False, batch_max=2)
+    try:
+        assert _scaled_residual(A, s.submit("gesv", A, B).result(timeout=600), B) <= 3
+        s.warmup()
+    finally:
+        s.stop()
+        if not was_on:
+            metrics.off()
+    libdir = tmp_path / "store" / "kernels" / pk.library_digest()
+    so = libdir / pk.library_names()[0]
+    blob = bytearray(so.read_bytes())
+    blob[len(blob) // 2] ^= 0x01
+    so.write_bytes(bytes(blob))
+    with pytest.raises(pk.LibraryCorrupt):
+        pk.check_copy(libdir, pk.library_digest())
+    repo = str(Path(__file__).resolve().parents[1])
+
+    def child():
+        out = subprocess.run([sys.executable, "-c", _RESTORE_CHILD, man, store], cwd=repo,
+                             env={**os.environ, "PYTHONPATH": repo},
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    got = child()
+    assert got["restore"] == {"entries": 2, "restored": 1, "compiled": 1, "failed": 0,
+                              "skipped": 0}, got
+    assert got["counters"].get("serve.artifact_corrupt") == 1, got
+    assert got["loaded_from"] == str(pk.BUILD_DIR), got
+    pk.check_copy(libdir, pk.library_digest())  # rewritten clean
+    got = child()
+    assert got["restore"]["restored"] == 2 and got["loaded_from"] == str(libdir), got
+
+
+@pytest.mark.cuda
+def test_replicas_share_one_card(dev):
+    """Two lanes on cuda:0: both serve a full-phase stream, every X meets
+    the residual bound, and a lane added warm takes traffic with no cold
+    build."""
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.serve import SolverService
+
+    n, nrhs = 1024, 8
+    rng = np.random.default_rng(9)
+    probs = [(rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n),
+              rng.standard_normal((n, nrhs))) for _ in range(4)]
+    was_on = metrics.is_on()
+    metrics.on()
+    s = SolverService(replicas=2, factor_cache=False, batch_max=2, batch_window_s=0.002)
+    try:
+        assert [str(r.device) for r in s._replicas] == ["cuda:0", "cuda:0"]
+        with metrics.deltas() as d:
+            futs = [s.submit("gesv", *probs[i % 4]) for i in range(12)]
+            for i, f in enumerate(futs):
+                assert _scaled_residual(*probs[i % 4][:1], f.result(timeout=600),
+                                        probs[i % 4][1]) <= 3
+            assert d.get("serve.replica.0.dispatched") > 0
+            assert d.get("serve.replica.1.dispatched") > 0
+        s.warmup()
+        s.add_replica()
+        with metrics.deltas() as d:
+            futs = [s.submit("gesv", *probs[i % 4]) for i in range(8)]
+            for f in futs:
+                f.result(timeout=600)
+            assert d.get("jit.compilations") == 0
+    finally:
+        s.stop()
+        if not was_on:
+            metrics.off()

@@ -50,7 +50,10 @@ import slate_tpu_torch.aux.faults
 import slate_tpu_torch.aux.spans
 import slate_tpu_torch.aux.sync
 import slate_tpu_torch.aux.metrics
+import slate_tpu_torch.integrity
 import slate_tpu_torch.integrity.policy
+import slate_tpu_torch.integrity.abft
+import slate_tpu_torch.serve.artifacts
 import slate_tpu_torch.serve
 import slate_tpu_torch.serve.buckets
 import slate_tpu_torch.serve.admission
@@ -103,6 +106,7 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py",
             "internal/norm1est.py", "func.py", "simplified.py", "drivers/chol.py",
             "drivers/blas3.py", "ops/chol_kernels.py", "aux/sync.py", "integrity/policy.py",
+            "integrity/abft.py", "serve/artifacts.py",
             "serve/buckets.py", "serve/admission.py", "serve/placement.py",
             "serve/factor_cache.py", "serve/cache.py", "serve/service.py",
             "serve/api.py", "ops/band_kernels.py", "ops/aasen.py", "drivers/band.py",

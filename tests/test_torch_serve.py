@@ -677,7 +677,8 @@ def test_cross_package_repeated_A_stream():
 def test_fault_spec_grammar_and_triggers():
     faults.configure("execute:p=0.5,seed=3; latency:once,after=4,ms=2.5 ;worker_death:every=4")
     assert set(faults.stats()) == {"execute", "latency", "worker_death"}
-    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "artifact_corrupt:once"):
+    # tenant_flood belongs to the admission plane, not ported (item 7b)
+    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "tenant_flood:once"):
         with pytest.raises(ValueError):
             faults.configure(bad)
     faults.on()
@@ -874,19 +875,23 @@ def test_histograms_bin_as_the_jax_package():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(tenants="gold:weight=4"), "item 7"), (dict(adaptive=True), "item 7"),
-    (dict(integrity="full"), "item 7"), (dict(replicas=2, placement=None), "item 7"),
+    # the admission plane still raises beside the ported integrity plane
+    # and replica pool (ROADMAP.md Queue 1 item 7b)
+    (dict(tenants="gold:weight=4", integrity="full"), "item 7"),
+    (dict(adaptive=True, placement=PlacementPolicy(replicas=2, devices=["cpu"])), "item 7"),
 ])
 def test_planes_not_ported_raise_naming_their_item(shared_cache, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _svc(shared_cache, **kw)
 
 
-def test_mesh_and_artifacts_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="items 7 and 8"):
+def test_mesh_and_artifacts_raise(monkeypatch, tmp_path):
+    """A mesh still raises naming item 8; the artifact store is ported
+    (item 4b): the env builds one."""
+    with pytest.raises(NotImplementedError, match="item 8"):
         PlacementPolicy(mesh="2x2")
-    monkeypatch.setenv("SLATE_TPU_ARTIFACTS", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="4b"):
-        ExecutableCache()
+    monkeypatch.setenv("SLATE_TPU_ARTIFACTS", str(tmp_path / "store"))
+    assert ExecutableCache().artifacts.root == str(tmp_path / "store")
     key = bk.BucketKey("gesv", 16, 16, 4, "float64", 16, mesh="2x2")
     from slate_tpu_torch.serve.cache import _build_core
 
