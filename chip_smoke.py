@@ -6,6 +6,7 @@
     python3 chip_smoke.py --svd      # build + phase 16 alone (with --profile: a warm float64
                                      # SVD of case (a) by stage, svd_profile)
     python3 chip_smoke.py --restore  # build + phase 17 alone
+    python3 chip_smoke.py --admission  # build + phase 18 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -196,6 +197,31 @@ Phases, each for float64 and float32 unless stated:
      lane; the ABFT dispatch against the plain one (CUDA events, rounds
      of the two interleaved, and a profile of one of each: device time by
      op), the host certificate, requests/s with the plane on and off.
+ 18. the admission plane, the checked runtime and the device monitor, at
+     phase 13's width (n = 4096, tiles of 64, nrhs = 16, batch point 4,
+     cuda:0): (a) fairness, f64 and f32: the victim's eight gesv alone
+     set the budget (twice their p99, 30 ms injected into every dispatch
+     after warmup); then tenant ``abuser`` (low, ``rate=10,burst=4,
+     share=0.25``) floods 48 gesv at n = 2048 before the victim ``good``
+     (``weight=4``, high) submits its eight: the static service (f64;
+     planes off, tags inert) misses the budget, the adaptive one
+     (``adaptive=True, latency_budget_s=budget``) holds it, and
+     tight-deadline abuser traffic raises the overload level and ends in
+     typed Sheds beside quota rejections; its JSONL passes
+     ``tools/tenant_report.py`` and is read by ``tools/latency_report.py``.
+     (b) ``tenant_flood`` armed by env in a fresh interpreter: one real
+     request, the 24-request burst refused and counted,
+     ``tools/chaos_report.py`` exit 0.  (c) a fresh interpreter with
+     ``SLATE_TPU_SYNC_CHECK=1,seed=7,yield=0.2``: two lanes, tenants,
+     certification and hedging, 40 gesv / posv requests, a lane removed
+     half way: no lock-order or lockset violation, ``tools/race_report.py``
+     exit 0, requests/s against the same stream unchecked here.  (d) the
+     device monitor: the ``cuda:0`` row (bytes in use, the peak, the
+     limit), a cost row a warmed core (``flops_model`` = ``phase_flops``,
+     a measured ``peak_bytes``), each core's warm rate against the
+     ``h100`` peaks row, and a fresh interpreter that restores the rows
+     from the manifest with no second measurement.  (e) every stream's
+     launches equal the mirror of the cores it ran, every residual <= 3.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2868,6 +2894,517 @@ def restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the admission plane, the checked runtime and the device monitor
+# ---------------------------------------------------------------------------
+
+N18_ABUSE = 2048  # the abuser's gesv bucket
+SERVE18_BATCH = 4
+FLOOD18, VICTIMS18 = 48, 8
+STREAM18 = 40  # requests of the checked-runtime stream
+TENANTS18 = "good:weight=4;abuser:rate=10,burst=4,share=0.25"
+SYNC18 = "1,seed=7,yield=0.2"
+
+
+def _tool(name: str, *args) -> subprocess.CompletedProcess:
+    """One of the repo's report tools, in a subprocess (they import
+    neither the port nor the JAX package)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, os.path.join(here, "tools", name), *args],
+                          cwd=here, capture_output=True, text=True, timeout=120)
+
+
+def _gesv_ops(n, dt, gen, dev, count):
+    """``count`` gesv operands (normal A + 2 sqrt(n) I) with a right side
+    each, on the card and as host numpy."""
+    out = []
+    for _ in range(count):
+        A = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
+        A.diagonal().add_(2 * n**0.5)
+        B = torch.randn(n, NRHS_SERVE, generator=gen, device=dev, dtype=dt)
+        out.append((A, B, A.cpu().numpy(), B.cpu().numpy()))
+    return out
+
+
+def _runs18(metrics, labels) -> dict:
+    return {(lbl, b): _serve_runs_at(metrics, lbl, b) for lbl in labels
+            for b in (1, SERVE18_BATCH)}
+
+
+def _mirror18(ck, lk, metrics, runs0: dict, routines: dict) -> dict:
+    """The kernel launches of the full-phase cores run since ``runs0``:
+    each dispatch's batch point times its factor's mirror (the drivers'
+    own solves are library solves)."""
+    expect = {}
+    for (lbl, b), r0 in runs0.items():
+        routine, n = routines[lbl]
+        items = (_serve_runs_at(metrics, lbl, b) - r0) * b
+        for k, v in _abft_mirror(ck, lk, routine, n, items).items():
+            expect[k] = expect.get(k, 0) + v
+    return expect
+
+
+def _fairness_stream(serve, svc, victims, abuser, dev, adaptive: bool) -> dict:
+    """The JAX package's two-leg stream (``run_tests.py``'s adaptive gate)
+    on ``svc``: ``FLOOD18`` low-priority requests from tenant ``abuser``,
+    then ``VICTIMS18`` high-priority ones from ``good``; adaptive, then
+    tight-deadline abuser traffic until a Shed.  Every future resolves;
+    every delivered X's scaled residual is returned."""
+    from slate_tpu_torch.exceptions import SlateError
+
+    futs, refused = [], {"Shed": 0, "Rejected": 0}
+    A_a, B_a, A_np, B_np = abuser
+
+    def abuse(**kw):
+        try:
+            futs.append((svc.submit("gesv", A_np, B_np, tenant="abuser", priority="low", **kw),
+                         A_a, B_a))
+        except (serve.Shed, serve.Rejected) as e:
+            refused[type(e).__name__] += 1
+
+    t0 = time.perf_counter()
+    for _ in range(FLOOD18):
+        abuse()
+    for A, B, A_n, B_n in victims:
+        futs.append((svc.submit("gesv", A_n, B_n, tenant="good", priority="high", deadline=10.0),
+                     A, B))
+    if adaptive:
+        time.sleep(0.4)
+        for _ in range(8):
+            abuse(deadline=0.02)
+        end = time.monotonic() + 10.0
+        while refused["Shed"] == 0 and time.monotonic() < end:
+            time.sleep(0.05)
+            abuse(deadline=0.02)
+    res, typed = [], 0
+    for f, A, B in futs:
+        try:
+            res.append(scaled_residual(A, torch.from_numpy(f.result(timeout=600)).to(dev), B))
+        except SlateError:
+            typed += 1
+    _idle(svc)
+    return {"stream_s": time.perf_counter() - t0, "admitted": len(futs), "delivered": len(res),
+            "typed": typed, "refused": refused, "max_residual": max(res)}
+
+
+def fairness_leg(serve, faults, ck, lk, pk, metrics, dtype, gen, dev, static: bool,
+                 tmp: str) -> dict:
+    """(a) one dtype: the victim's p99 alone sets the budget (twice it);
+    the static service (planes off, tags inert) must miss it, the
+    adaptive one must hold it and end in Sheds and quota rejections; the
+    adaptive leg's JSONL passes tools/tenant_report.py and is read by
+    tools/latency_report.py."""
+    import os
+
+    dt = getattr(torch, dtype)
+    victims = _gesv_ops(N_SERVE, dt, gen, dev, VICTIMS18)
+    abuser = _gesv_ops(N18_ABUSE, dt, gen, dev, 1)[0]
+    kv = serve.bucket_for("gesv", N_SERVE, N_SERVE, NRHS_SERVE, victims[0][2].dtype)
+    ka = serve.bucket_for("gesv", N18_ABUSE, N18_ABUSE, NRHS_SERVE, victims[0][2].dtype)
+    routines = {kv.label: ("gesv", kv.n), ka.label: ("gesv", ka.n)}
+    cache = serve.ExecutableCache(manifest_path=None)
+    for k in (kv, ka):
+        cache.ensure_manifest(k, (1, SERVE18_BATCH))
+    kw = dict(cache=cache, factor_cache=False, batch_max=SERVE18_BATCH, batch_window_s=0.01)
+    out = {}
+
+    def serve_leg(name, **extra):
+        # each leg's registry holds that leg alone: its p99s are the
+        # histograms' own, clamped to the largest latency observed
+        metrics.reset()
+        svc = serve.SolverService(**kw, **extra)
+        try:
+            svc.warmup()
+            faults.configure("latency:every=1,ms=30")  # armed after warmup
+            faults.on()
+            runs0 = _runs18(metrics, routines)
+            pk.reset_launches()
+            if name == "alone":
+                t0 = time.perf_counter()
+                futs = [svc.submit("gesv", a, b, tenant="good", priority="high")
+                        for _A, _B, a, b in victims]
+                res = max(scaled_residual(A, torch.from_numpy(f.result(timeout=600)).to(dev),
+                                          B) for f, (A, B, _a, _b) in zip(futs, victims))
+                _idle(svc)
+                got = {"stream_s": time.perf_counter() - t0, "admitted": len(futs),
+                       "delivered": len(futs), "typed": 0, "max_residual": res}
+            else:
+                got = _fairness_stream(serve, svc, victims, abuser, dev, name == "adaptive")
+            h = svc.health()
+            c = metrics.counters()
+            got["p99_victim_bucket"] = metrics.percentile(f"serve.latency.{kv.label}.total",
+                                                          99)
+            got["fallbacks"] = c.get("serve.fallbacks", 0)
+            got["rejected_quota"] = c.get("serve.rejected_quota", 0)
+            got["shed"] = c.get("serve.shed", 0)
+        finally:
+            faults.reset()
+            svc.stop()
+        got["launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+        got["mirror"] = _mirror18(ck, lk, metrics, runs0, routines)
+        check(got["launches"] == got["mirror"] and got["fallbacks"] == 0,
+              f"fairness {dtype} {name}: launches {got['launches']} != the cores' mirror "
+              f"{got['mirror']} (fallbacks {got['fallbacks']})")
+        check(got["max_residual"] <= 3, f"fairness {dtype} {name}: residual "
+              f"{got['max_residual']:.3f} > 3")
+        check(got["delivered"] + got["typed"] == got["admitted"],
+              f"fairness {dtype} {name}: a future did not resolve")
+        return got, h
+
+    alone, _h = serve_leg("alone")
+    budget = 2 * alone["p99_victim_bucket"]
+    out["alone"] = alone
+    out["budget_s"] = budget
+    print(f"  fairness {dtype}: the victim alone ({VICTIMS18} gesv at n = {N_SERVE}, 30 ms "
+          f"injected a dispatch): p99 {alone['p99_victim_bucket'] * 1e3:.1f} ms -> budget "
+          f"{budget * 1e3:.1f} ms; launches {alone['launches']} (mirror)", flush=True)
+    if static:
+        st, h = serve_leg("static")
+        out["static"] = st
+        print(f"  fairness {dtype} static (planes off, tags inert): victim p99 "
+              f"{st['p99_victim_bucket'] * 1e3:.1f} ms against the {budget * 1e3:.1f} ms budget "
+              f"({'missed' if st['p99_victim_bucket'] > budget else 'held'}); "
+              f"{st['delivered']} delivered, {st['typed']} typed in {st['stream_s']:.3f} s; "
+              f"plane-off launches {st['launches']} = the cores' mirror", flush=True)
+        check(h["tenants"] is None and h["admission"] is None, "static leg has a plane")
+        check(st["p99_victim_bucket"] > budget,
+              f"fairness {dtype}: the static leg held the budget ({st['p99_victim_bucket']:.3f}"
+              f" <= {budget:.3f} s)")
+    ad, h = serve_leg("adaptive", tenants=TENANTS18, adaptive=True, latency_budget_s=budget)
+    p99_good = metrics.percentile("serve.latency.tenant.good.total", 99)
+    ad["p99_good"] = p99_good
+    ad["health_tenants"] = h["tenants"]
+    ad["admission"] = h["admission"]
+    out["adaptive"] = ad
+    print(f"  fairness {dtype} adaptive: victim p99 {p99_good * 1e3:.1f} ms against the "
+          f"{budget * 1e3:.1f} ms budget ({'held' if p99_good <= budget else 'missed'}); abuser "
+          f"shed {ad['refused']['Shed']}, quota-rejected {ad['rejected_quota']} (refused "
+          f"{ad['refused']}), overload level {h['admission']['overload_level']}, windows "
+          f"{h['admission']['windows']}; {ad['delivered']} delivered, {ad['typed']} typed in "
+          f"{ad['stream_s']:.3f} s; launches {ad['launches']} = the cores' mirror", flush=True)
+    check(p99_good is not None and p99_good <= budget,
+          f"fairness {dtype}: the adaptive leg missed the budget ({p99_good} > {budget:.3f} s)")
+    check(ad["refused"]["Shed"] > 0 and ad["rejected_quota"] > 0,
+          f"fairness {dtype}: abuser shed {ad['refused']}, quota {ad['rejected_quota']}")
+    check(h["tenants"]["abuser"]["shed"] == ad["refused"]["Shed"]
+          and h["admission"]["overload_level"] >= 1, f"fairness {dtype}: health {h['admission']}")
+    jsonl = metrics.dump(os.path.join(tmp, f"adaptive_{dtype}.jsonl"))
+    tr = _tool("tenant_report.py", jsonl, "--p99-budget", repr(budget), "--well-behaved",
+               "good", "--abusive", "abuser")
+    lr = _tool("latency_report.py", jsonl)
+    print("  tools/tenant_report.py:\n" + "\n".join("    " + ln for ln in
+                                                     tr.stdout.strip().splitlines()), flush=True)
+    print("  tools/latency_report.py:\n" + "\n".join("    " + ln for ln in
+                                                      lr.stdout.strip().splitlines()[:8]),
+          flush=True)
+    check(tr.returncode == 0, f"tenant_report {dtype} exited {tr.returncode}: {tr.stderr[-500:]}")
+    check(lr.returncode == 0, f"latency_report {dtype} exited {lr.returncode}: {lr.stderr[-500:]}")
+    out["tenant_report_rc"], out["latency_report_rc"] = tr.returncode, lr.returncode
+    return out
+
+
+# A fresh interpreter of the port alone for phase 18 (argv: mode, path).
+# "flood": tenant_flood armed by env, one real request; "sync": the
+# checked runtime armed by env, a two-lane stream; "restore": devmon armed
+# by env, restore the store and read the cost rows.  One JSON line out.
+_CHILD18 = r"""
+import json, sys
+import chip_smoke as cs
+print(json.dumps(cs.child18(sys.argv[1], sys.argv[2])))
+"""
+
+
+def _run_child18(mode: str, path: str, env_extra: dict) -> dict:
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here, **env_extra}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _CHILD18, mode, path], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"phase 18 child ({mode}) exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["process_wall_s"] = time.perf_counter() - t0
+    return got
+
+
+def _sync_stream(serve, metrics, ck, lk, pk, gen, dev) -> dict:
+    """(c)'s stream: two lanes on cuda:0 with tenants, certification and
+    hedging; gesv / posv alternating at n = 4096, ``STREAM18`` requests,
+    the second lane removed half way."""
+    ops = _ops(N_SERVE, torch.float64, gen, dev)
+    Bs, Bs_np = _rhs(N_SERVE, torch.float64, gen, dev)
+    labels = {serve.bucket_for(r, N_SERVE, N_SERVE, NRHS_SERVE, np.float64).label: (r, N_SERVE)
+              for r in ("gesv", "posv")}
+    svc = serve.SolverService(replicas=2, factor_cache=False, tenants="gold:weight=4;free",
+                              integrity="full", batch_max=SERVE18_BATCH, batch_window_s=0.002)
+    try:
+        for routine, _A, A_np in ops[:2]:
+            svc.submit(routine, A_np, Bs_np[0]).result(timeout=900)
+        svc.warmup()
+        runs0 = _runs18(metrics, labels)
+        pk.reset_launches()
+        with metrics.deltas() as d:
+            t0 = time.perf_counter()
+            futs = []
+            for i in range(STREAM18):
+                routine, _A, A_np = ops[i % 4]
+                futs.append(svc.submit(routine, A_np, Bs_np[i % 5],
+                                       tenant=("gold", "free")[i % 2]))
+                if i == STREAM18 // 2:
+                    removed = svc.remove_replica()
+            Xs = [f.result(timeout=900) for f in futs]
+            t = time.perf_counter() - t0
+            _idle(svc)
+            checked, hedges = d.get("serve.integrity.checked"), d.get("serve.hedge.sent")
+            rehomed, fallbacks = d.get("scale.requests_rehomed"), d.get("serve.fallbacks")
+    finally:
+        svc.stop()
+    res = max(scaled_residual(ops[i % 4][1], torch.from_numpy(X).to(dev), Bs[i % 5])
+              for i, X in enumerate(Xs))
+    return {"requests": STREAM18, "stream_s": t, "requests_per_s": STREAM18 / t,
+            "max_residual": res, "checked": checked, "hedges": hedges, "removed": removed,
+            "rehomed": rehomed, "fallbacks": fallbacks,
+            "launches": {k: v for k, v in pk.LAUNCHES.items() if v},
+            "mirror": _mirror18(ck, lk, metrics, runs0, labels)}
+
+
+def child18(mode: str, path: str) -> dict:
+    """The phase 18 child's work (see _CHILD18); runs in a fresh
+    interpreter whose env armed the plane under test."""
+    import os
+
+    from slate_tpu_torch import serve
+    from slate_tpu_torch.aux import devmon, metrics, sync
+    from slate_tpu_torch.ops import chol_kernels as ck
+    from slate_tpu_torch.ops import lu_kernels as lk
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    metrics.on()
+    out = {"jax_modules": sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("jax", "slate_tpu"))}
+    if mode == "sync":
+        out["armed"] = sync.is_on()
+        out["stream"] = _sync_stream(serve, metrics, ck, lk, pk, gen, dev)
+        rep = sync.report()
+        out["violations"] = [{k: v[k] for k in ("kind", "detail")} for v in rep["violations"]]
+        out["edges"], out["field_names"] = rep["edges"], rep["field_names"]
+        sync.dump(path)
+    elif mode == "flood":
+        A, B, A_np, B_np = _gesv_ops(N_SERVE, torch.float64, gen, dev, 1)[0]
+        label = serve.bucket_for("gesv", N_SERVE, N_SERVE, NRHS_SERVE, np.float64).label
+        routines = {label: ("gesv", N_SERVE)}
+        svc = serve.SolverService(factor_cache=False, batch_max=SERVE18_BATCH)
+        try:
+            out["plane"] = svc.health()["admission"]
+            runs0 = _runs18(metrics, routines)
+            pk.reset_launches()
+            X = svc.submit("gesv", A_np, B_np, tenant="good").result(timeout=900)
+            _idle(svc)
+            out["residual"] = scaled_residual(A, torch.from_numpy(X).to(dev), B)
+            out["tenants"] = svc.health()["tenants"]
+        finally:
+            svc.stop()
+        out["launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+        out["mirror"] = _mirror18(ck, lk, metrics, runs0, routines)
+        out["counters"] = {k: v for k, v in metrics.counters().items()
+                           if k.startswith(("faults.", "serve.shed", "serve.rejected",
+                                            "serve.tenant."))}
+        metrics.dump(path)
+    elif mode == "restore":
+        man, store = os.path.join(path, "m.json"), os.path.join(path, "store")
+        out["armed"] = devmon.is_on()
+        svc = serve.SolverService(cache=serve.ExecutableCache(manifest_path=man,
+                                                              artifact_dir=store),
+                                  factor_cache=False, batch_max=SERVE18_BATCH)
+        try:
+            out["ready"] = svc.wait_ready(600)
+            h = svc.health()
+            out["restore"], out["devices"] = h["restore"], h["devices"]
+            out["registry"] = {f"{k.label}.b{b}": v for (k, b), v in
+                               svc.cache.cost_registry().items()}
+        finally:
+            svc.stop()
+        out["costs"] = metrics.costs()
+        out["counters"] = {k: v for k, v in metrics.counters().items()
+                           if k.startswith(("serve.cost", "jit.", "serve.artifact_hit"))}
+    return out
+
+
+def sync_leg(serve, metrics, ck, lk, pk, gen, dev, tmp: str) -> dict:
+    """(c) the checked runtime in a fresh interpreter armed by
+    SLATE_TPU_SYNC_CHECK, the same stream unchecked here."""
+    import os
+
+    dump = os.path.join(tmp, "sync.json")
+    got = _run_child18("sync", dump, {"SLATE_TPU_SYNC_CHECK": SYNC18})
+    st = got["stream"]
+    rr = _tool("race_report.py", dump, "--quiet")
+    print(f"  checked runtime (fresh interpreter, SLATE_TPU_SYNC_CHECK={SYNC18}): "
+          f"{st['requests']} requests in {st['stream_s']:.3f} s = {st['requests_per_s']:.3f} "
+          f"requests/s, certified {st['checked']}, hedges {st['hedges']}, lane {st['removed']} "
+          f"removed ({st['rehomed']} re-homed), violations {len(got['violations'])}, order edges "
+          f"{len(got['edges'])}, probed fields {got['field_names']}; launches {st['launches']} "
+          f"(mirror {st['mirror']}), max residual {st['max_residual']:.3e}", flush=True)
+    print("  tools/race_report.py: " + " / ".join(rr.stdout.strip().splitlines()), flush=True)
+    check(got["armed"] and got["jax_modules"] == [], f"sync child: armed {got['armed']}, "
+          f"imported {got['jax_modules']}")
+    check(got["violations"] == [], f"checked runtime: violations {got['violations']}")
+    check(rr.returncode == 0, f"race_report exited {rr.returncode}")
+    check(st["launches"] == st["mirror"] and st["fallbacks"] == 0 and st["max_residual"] <= 3
+          and st["checked"] >= st["requests"], f"sync stream checked: {st}")
+    un = _sync_stream(serve, metrics, ck, lk, pk, gen, dev)
+    check(un["launches"] == un["mirror"] and un["fallbacks"] == 0 and un["max_residual"] <= 3,
+          f"sync stream unchecked: {un}")
+    print(f"  the same stream unchecked (this process): {un['requests_per_s']:.3f} requests/s "
+          f"(checked / unchecked {st['requests_per_s'] / un['requests_per_s']:.3f}), launches "
+          f"{un['launches']} = mirror, max residual {un['max_residual']:.3e}", flush=True)
+    return {"checked": st, "unchecked": un, "violations": got["violations"],
+            "edges": len(got["edges"]), "field_names": got["field_names"],
+            "race_report_rc": rr.returncode, "child_wall_s": got["process_wall_s"]}
+
+
+def flood_leg(tmp: str) -> dict:
+    """(b) tenant_flood armed by env: one real request, the burst refused
+    and counted; tools/chaos_report.py joins the injection to the
+    refusals."""
+    import os
+
+    jsonl = os.path.join(tmp, "flood.jsonl")
+    got = _run_child18("flood", jsonl, {"SLATE_TPU_TENANTS": "flood:rate=1,burst=2,share=0.1",
+                                         "SLATE_TPU_FAULTS": "tenant_flood:once,burst=24"})
+    c = got["counters"]
+    refused = c.get("serve.shed", 0) + c.get("serve.rejected", 0)
+    cr = _tool("chaos_report.py", jsonl)
+    print(f"  tenant_flood (fresh interpreter, armed by env): injected "
+          f"{c.get('faults.injected.tenant_flood')}, burst refused {refused} (shed "
+          f"{c.get('serve.shed', 0)}, rejected {c.get('serve.rejected', 0)}, quota "
+          f"{c.get('serve.rejected_quota', 0)}, share {c.get('serve.rejected_share', 0)}), flood "
+          f"admitted {c.get('serve.tenant.flood.admitted', 0)}; the real request's residual "
+          f"{got['residual']:.3e}; launches {got['launches']} (mirror {got['mirror']}); "
+          f"chaos_report exit {cr.returncode}", flush=True)
+    check(got["plane"] is not None and got["jax_modules"] == [], f"flood child: {got}")
+    check(c.get("faults.injected.tenant_flood") == 1 and refused >= 1
+          and c.get("serve.tenant.good.admitted") == 1, f"tenant_flood counters {c}")
+    check(got["residual"] <= 3 and got["launches"] == got["mirror"], f"tenant_flood: {got}")
+    check(cr.returncode == 0, f"chaos_report exited {cr.returncode}: {cr.stdout[-800:]}")
+    return {"counters": c, "refused": refused, "residual": got["residual"],
+            "launches": got["launches"], "chaos_report_rc": cr.returncode}
+
+
+def devmon_leg(serve, metrics, devmon, pk, gen, dev, tmp: str) -> dict:
+    """(d) SLATE_TPU_DEVMON's plane on cuda:0: the device row, a cost row a
+    warmed (key, batch) with the phase_flops model and a measured peak,
+    the roofline of each against the h100 row, and a fresh interpreter
+    that restores the rows from the manifest with no second measurement."""
+    import os
+
+    d18 = os.path.join(tmp, "devmon")
+    man, store = os.path.join(d18, "m.json"), os.path.join(d18, "store")
+    os.makedirs(d18, exist_ok=True)
+    devmon.on()
+    ops = _ops(N_SERVE, torch.float64, gen, dev, 2)
+    Bs, Bs_np = _rhs(N_SERVE, torch.float64, gen, dev, 2)
+    keys = [(serve.bucket_for(r, N_SERVE, N_SERVE, NRHS_SERVE, np.float64), b)
+            for r in ("gesv", "posv") for b in (1, SERVE18_BATCH)]
+    svc = serve.SolverService(cache=serve.ExecutableCache(manifest_path=man, artifact_dir=store),
+                              factor_cache=False, batch_max=SERVE18_BATCH, batch_window_s=0.002)
+    try:
+        with metrics.deltas() as d:
+            for k, b in keys:
+                svc.cache.ensure_manifest(k, (b,))
+            svc.warmup()
+            captured = d.get("serve.cost_captured")
+        # two measured warm runs of each core on real operands: the rates
+        roof = {}
+        pkk = devmon.peaks_for()
+        for (k, b), (_routine, A, A_np) in zip(keys, [ops[0], ops[0], ops[1], ops[1]]):
+            Ap, Bp = serve.buckets.pad_request(k, A_np, Bs_np[0])
+            Ab, Bb = np.stack([Ap] * b), np.stack([Bp] * b)
+            name = f"serve.{k.label}.b{b}"
+            t0 = metrics.timers().get(f"{name}.run", {"count": 0, "total_s": 0.0})
+            for _ in range(2):
+                X, info = svc.cache.run(k, Ab, Bb, device=dev)
+            t1 = metrics.timers()[f"{name}.run"]
+            mean = (t1["total_s"] - t0["total_s"]) / (t1["count"] - t0["count"])
+            r = scaled_residual(A, torch.from_numpy(X[0, :N_SERVE, :NRHS_SERVE]).to(dev), Bs[0])
+            check(r <= 3 and int(info[0]) == 0, f"devmon {name}: residual {r}, info {info}")
+            c = svc.cache.cost(k, b)
+            rl = devmon.roofline(c["flops_model"], c["bytes_accessed"], mean, pkk)
+            roof[f"{k.label}.b{b}"] = {"run_s": mean, "achieved_flops": rl["achieved_flops"],
+                                       "frac_of_h100": rl["achieved_flops"] / pkk["flops"],
+                                       "bound": rl["bound"], "intensity": rl["intensity"],
+                                       "frac_of_roof": rl["frac_of_roof"]}
+        h = svc.health()
+    finally:
+        svc.stop()
+        devmon.off()
+    rows = {f"{k.label}.b{b}": svc.cache.cost(k, b) for k, b in keys}
+    [row] = [r for r in h["devices"] if r["device"] == str(dev)]
+    print(f"  devmon {dev}: bytes_in_use {row['bytes_in_use']}, peak "
+          f"{row['peak_bytes_in_use']}, limit {row['bytes_limit']} ({row['kind']}); warmup "
+          f"captured {captured} cost rows; peaks row {pkk['kind']!r} ({pkk['source']}): "
+          f"{pkk['flops']:.3g} FLOP/s, {pkk['bytes_per_s']:.3g} B/s", flush=True)
+    for lbl, c in rows.items():
+        rl = roof[lbl]
+        print(f"  devmon {lbl}: flops_model {c['flops_model']:.4g}, bytes_accessed "
+              f"{c['bytes_accessed']:.4g} (operands + results), peak_bytes {c['peak_bytes']} "
+              f"({c['peak_bytes'] / c['bytes_accessed']:.2f} x the operands + results); warm run "
+              f"{rl['run_s'] * 1e3:.2f} ms = {rl['achieved_flops'] / 1e12:.3f} TFLOP/s, "
+              f"{rl['frac_of_h100'] * 100:.2f} % of the h100 row ({rl['bound']} bound, "
+              f"{rl['frac_of_roof'] * 100:.2f} % of its roof)", flush=True)
+    check(row["bytes_in_use"] > 0 and row["peak_bytes_in_use"] >= row["bytes_in_use"]
+          and row["bytes_limit"] == torch.cuda.mem_get_info(dev)[1], f"devmon row {row}")
+    check(captured == len(keys), f"devmon: warmup captured {captured} rows of {len(keys)}")
+    for (k, b) in keys:
+        c = rows[f"{k.label}.b{b}"]
+        check(c["flops_model"] == serve.buckets.phase_flops(k, b) and c["peak_bytes"] > 0,
+              f"devmon cost row {k.label}.b{b}: {c}")
+    got = _run_child18("restore", d18, {"SLATE_TPU_DEVMON": "1"})
+    cc = got["counters"]
+    print(f"  devmon restore (fresh interpreter, SLATE_TPU_DEVMON=1): restore {got['restore']}, "
+          f"cost rows read {len(got['registry'])} and recorded {len(got['costs'])}, measured "
+          f"again {cc.get('serve.cost_captured', 0)}, artifact hits "
+          f"{cc.get('serve.artifact_hit', 0)}", flush=True)
+    check(got["armed"] and got["ready"] and got["restore"]["restored"] == len(keys)
+          and got["restore"]["compiled"] == 0, f"devmon restore child: {got['restore']}")
+    check(cc.get("serve.cost_captured", 0) == 0 and got["registry"] == rows
+          and sorted(got["costs"]) == sorted(f"serve.{lbl}" for lbl in rows),
+          f"devmon restore: the rows were measured again or lost: {cc}")
+    return {"device": row, "rows": rows, "roofline": roof, "restore": got["restore"],
+            "restore_counters": cc}
+
+
+def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
+    import tempfile
+
+    from slate_tpu_torch.aux import devmon
+
+    t18 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in DTYPES:
+            out[f"fairness_{d}"] = fairness_leg(serve, faults, ck, lk, pk, metrics, d, gen, dev,
+                                                d == "float64", tmp)
+            torch.cuda.empty_cache()
+        metrics.reset()
+        out["tenant_flood"] = flood_leg(tmp)
+        out["sync"] = sync_leg(serve, metrics, ck, lk, pk, gen, dev, tmp)
+        torch.cuda.empty_cache()
+        out["devmon"] = devmon_leg(serve, metrics, devmon, pk, gen, dev, tmp)
+    out["phase_s"] = time.perf_counter() - t18
+    print(f"  phase 18: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: band and indefinite
 # ---------------------------------------------------------------------------
 
@@ -3759,6 +4296,7 @@ def main() -> int:
     eig_only = "--eig" in sys.argv[1:]
     svd_only = "--svd" in sys.argv[1:]
     restore_only = "--restore" in sys.argv[1:]
+    admission_only = "--admission" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3815,6 +4353,13 @@ def main() -> int:
         print("phase 17: restore, replicas and integrity", flush=True)
         rsres = restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build)
         print("main path: " + json.dumps({"serve_restore": rsres}))
+        print(smi)
+        return 0
+    if admission_only:
+        metrics.on()
+        print("phase 18: admission, the checked runtime and the device monitor", flush=True)
+        adres = admission_main(serve, faults, pk, ck, lk, metrics, gen, dev)
+        print("main path: " + json.dumps({"serve_admission": adres}))
         print(smi)
         return 0
     if profile_only:
@@ -3928,6 +4473,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 17: restore, replicas and integrity", flush=True)
     rsres = restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build)
+    torch.cuda.empty_cache()
+    print("phase 18: admission, the checked runtime and the device monitor", flush=True)
+    adres = admission_main(serve, faults, pk, ck, lk, metrics, gen, dev)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -3967,6 +4515,7 @@ def main() -> int:
                                       "gesv_rbt": strip(rres), "gels": strip(qres),
                                       "dense_drivers": xres, "mixed": mixed,
                                       "serve": sres, "serve_restore": rsres,
+                                      "serve_admission": adres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

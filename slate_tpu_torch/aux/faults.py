@@ -1,8 +1,8 @@
 """Deterministic, seedable fault injection: the part of the JAX
-package's ``aux/faults.py`` that the mixed-precision drivers and the
-serve tier use.  The session, lock, tenant and fleet sites belong to
-the serve planes that are not ported yet (ROADMAP.md Queue 1 items 7b
-and 7c).
+package's ``aux/faults.py`` that the drivers and the serve tier use.
+The streaming-session and fleet sites (``session_update``,
+``host_death``, ``host_partition``, ``rpc_timeout``) belong to the
+planes not ported yet (ROADMAP.md Queue 1 item 7c).
 
 Sites (:data:`SITES`) and where they are checked:
 
@@ -33,6 +33,14 @@ Sites (:data:`SITES`) and where they are checked:
     ``sdc_solve``      a delivered gesv/posv X's first element silently
                        wrong (``cache.run``): only delivery certification
                        (``integrity/``) can catch either
+    ``lock_contend``   injected sleep inside checked lock acquisitions
+                       (``aux/sync``, armed by ``SLATE_TPU_SYNC_CHECK``),
+                       ``ms=`` spec key; inert while the checker is off
+    ``tenant_flood``   a burst of ``burst=`` low-priority requests from
+                       tenant ``"flood"`` cloning the triggering
+                       request, injected at admission on a
+                       tenancy-enabled service (``service._submit``):
+                       quotas and shedding must refuse it
 
 Triggers (exactly one per site): probability ``p=0.2`` (seeded RNG per
 site, so the fire pattern is a pure function of ``seed`` and the call
@@ -53,6 +61,7 @@ Spec grammar (``SLATE_TPU_FAULTS`` / ``Option.Faults`` / :func:`configure`)::
     site_spec := site ':' item (',' item)*
     item      := 'p=<float>' | 'every=<int>' | 'once'
                | 'after=<int>' | 'seed=<int>' | 'ms=<float>' | 'info=<int>'
+               | 'burst=<int>'
 """
 
 from __future__ import annotations
@@ -104,6 +113,13 @@ SITE_SPECS: Tuple[SiteSpec, ...] = (
                                      "serve.factor_cache.stale")),
     SiteSpec("sdc_solve", recovery=("serve.integrity.fail", "serve.integrity.recovered",
                                     "serve.factor_cache.stale")),
+    # added lock-hold time violates nothing by itself: deadline traffic
+    # surfaces it as late misses, and a run without deadlines is a
+    # legitimate zero-signal outcome
+    SiteSpec("lock_contend", recovery=("serve.deadline_miss_late",), informational=True),
+    # a flood is absorbed when the admission plane refused (some of) it
+    SiteSpec("tenant_flood", recovery=("serve.shed", "serve.rejected_quota",
+                                       "serve.rejected_share", "serve.rejected")),
 )
 
 SITE_REGISTRY: Dict[str, SiteSpec] = {s.name: s for s in SITE_SPECS}
@@ -133,6 +149,7 @@ class _Site:
     seed: int = 0
     ms: float = 1.0  # latency-site sleep duration
     info: int = 1  # info_nonzero-site injected value
+    burst: int = 8  # tenant_flood-site synthetic request count
     calls: int = 0
     fired: int = 0
     rng: random.Random = field(default_factory=random.Random)
@@ -167,7 +184,8 @@ def reset() -> None:
 
 
 def arm(site: str, p: float = 0.0, every: int = 0, once: bool = False,
-        after: int = 1, seed: int = 0, ms: float = 1.0, info: int = 1) -> None:
+        after: int = 1, seed: int = 0, ms: float = 1.0, info: int = 1,
+        burst: int = 8) -> None:
     """Arm one site with exactly one trigger (p / every / once).  Does
     NOT enable injection — call :func:`on`."""
     if site not in SITES:
@@ -175,7 +193,7 @@ def arm(site: str, p: float = 0.0, every: int = 0, once: bool = False,
     if sum((p > 0, every > 0, bool(once))) != 1:
         raise ValueError(f"{site}: exactly one trigger of p=/every=/once required")
     s = _Site(name=site, p=float(p), every=int(every), once=bool(once), after=int(after),
-              seed=int(seed), ms=float(ms), info=int(info))
+              seed=int(seed), ms=float(ms), info=int(info), burst=int(burst))
     # per-site stream: the same seed arms several sites independently
     s.rng = random.Random(f"{s.seed}:{site}")
     with _lock:
@@ -210,7 +228,7 @@ def configure(spec: str) -> None:
                 raise ValueError(f"fault spec item {item!r} in {part!r}")
             if k in ("p", "ms"):
                 kw[k] = float(v)
-            elif k in ("every", "after", "seed", "info"):
+            elif k in ("every", "after", "seed", "info", "burst"):
                 kw[k] = int(v)
             else:
                 raise ValueError(f"unknown fault spec key {k!r} in {part!r}")

@@ -3,8 +3,11 @@
 call (``is_on``, ``now``, trace ids, ``start``/``end`` for spans held
 across threads, ``record`` for measured intervals, ``event``, the
 ``span`` block, ``current``, ``annotate``) with a bounded ring of
-completed spans.  The flight recorder's Chrome export and pressure
-report come with the serve planes (ROADMAP.md Queue 1 item 7b).
+completed spans: the flight recorder, whose eviction pressure
+(:func:`pressure`, :func:`evicted`) the service's ``health()`` reports
+and whose Chrome trace-event export (:func:`export_chrome`, the JAX
+package's event schema) Perfetto and ``tools/trace_stitch.py`` read.
+The ring's capacity is the fixed :data:`RING`.
 
 Zero overhead off: every entry point starts with one module-level bool
 check; OFF is the default.  A span lands on the ring when it ends; an
@@ -20,11 +23,12 @@ instant event lands at once::
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 #: capacity of the ring of completed spans (oldest evicted)
 RING = 4096
@@ -32,6 +36,8 @@ RING = 4096
 _enabled = False
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=RING)
+_evicted = 0
+_t0: Optional[float] = None
 _ids = itertools.count(1)  # span ids (next() is atomic under the GIL)
 _trace_ids = itertools.count(1)
 _tls = threading.local()  # per-thread stack of context-managed spans
@@ -69,8 +75,11 @@ class Span:
 
 def on() -> None:
     """Enable span recording."""
-    global _enabled
-    _enabled = True
+    global _enabled, _t0
+    with _lock:
+        if _t0 is None:
+            _t0 = now()
+        _enabled = True
 
 
 def off() -> None:
@@ -82,9 +91,37 @@ def is_on() -> bool:
     return _enabled
 
 
+def capacity() -> int:
+    return RING
+
+
 def clear() -> None:
+    global _evicted, _t0
     with _lock:
         _ring.clear()
+        _evicted = 0
+        _t0 = now() if _enabled else None
+
+
+def evicted() -> int:
+    """Completed spans the bounded ring has dropped (oldest first)."""
+    return _evicted
+
+
+def pressure() -> dict:
+    """The flight recorder's eviction pressure: capacity, fill,
+    lifetime evictions and the coverage window (newest end minus oldest
+    start across the ring).  A nonzero ``evicted`` with a short
+    ``window_s`` means a recording taken now is already truncated."""
+    with _lock:
+        size = len(_ring)
+        window = 0.0
+        if size:
+            newest = _ring[-1]
+            window = ((newest.t_end if newest.t_end is not None else newest.t_start)
+                      - _ring[0].t_start)
+        return {"capacity": RING, "size": size, "evicted": _evicted,
+                "window_s": round(max(window, 0.0), 6)}
 
 
 def new_trace() -> str:
@@ -93,7 +130,10 @@ def new_trace() -> str:
 
 
 def _push(sp: Span) -> None:
+    global _evicted
     with _lock:
+        if len(_ring) == RING:
+            _evicted += 1
         _ring.append(sp)
 
 
@@ -212,3 +252,61 @@ def snapshot() -> List[Span]:
     """The ring's completed spans, oldest first."""
     with _lock:
         return list(_ring)
+
+
+def by_trace() -> Dict[str, List[Span]]:
+    """Ring spans grouped by trace id (spans without one are dropped):
+    a delivered request's trace holds a completed ``request`` root and
+    its lifecycle children."""
+    out: Dict[str, List[Span]] = {}
+    for sp in snapshot():
+        if sp.trace is not None:
+            out.setdefault(sp.trace, []).append(sp)
+    return out
+
+
+def export_chrome(path: str, process_name: Optional[str] = None) -> str:
+    """Write the ring as Chrome trace-event JSON (``traceEvents``; open
+    in Perfetto or chrome://tracing).  Spans with a ``lane`` share a
+    named tid, lane-less spans get one tid an OS thread; ``args`` carry
+    the ``trace`` / ``span`` / ``parent`` ids and the attrs; instants
+    are ``"ph": "i"``, intervals ``"ph": "X"`` with ``dur`` in µs.
+    ``process_name`` labels the pid track (what ``tools/trace_stitch.py``
+    shows for each host)."""
+    pid = os.getpid()
+    tids: Dict[str, int] = {}
+
+    def tid_for(sp: Span) -> int:
+        key = sp.lane if sp.lane is not None else f"thread-{sp.thread}"
+        if key not in tids:
+            tids[key] = len(tids)
+        return tids[key]
+
+    items = snapshot()
+    t0 = min((sp.t_start for sp in items), default=_t0 or 0.0)
+    evs = []
+    for sp in items:
+        args = {"span": sp.sid}
+        if sp.trace is not None:
+            args["trace"] = sp.trace
+        if sp.parent is not None:
+            args["parent"] = sp.parent
+        args.update(sp.attrs)
+        ev = {"name": sp.name, "cat": sp.kind, "pid": pid, "tid": tid_for(sp),
+              "ts": round((sp.t_start - t0) * 1e6, 3), "args": args}
+        if sp.kind == "instant":
+            ev["ph"] = "i"
+            ev["s"] = "p"
+        else:
+            ev["ph"] = "X"
+            ev["dur"] = round(((sp.t_end or sp.t_start) - sp.t_start) * 1e6, 3)
+        evs.append(ev)
+    evs.sort(key=lambda e: e["ts"])
+    meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid, "args": {"name": key}}
+            for key, tid in sorted(tids.items(), key=lambda kv: kv[1])]
+    if process_name is not None:
+        meta.insert(0, {"name": "process_name", "ph": "M", "pid": pid,
+                        "args": {"name": str(process_name)}})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": meta + evs, "displayTimeUnit": "ms"}, f)
+    return path

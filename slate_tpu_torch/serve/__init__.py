@@ -9,13 +9,16 @@ pool (`placement`), a factor-once/solve-many cache dispatching
 trsm-only executables on repeated-A traffic (`factor_cache`,
 ``SLATE_TPU_FACTOR_CACHE``), the deadline-aware batching service with
 its replica pool, readiness phases and integrity plane (`service`,
-``SLATE_TPU_INTEGRITY``) and thin sync wrappers (`api`):
-``serve.gesv/posv/gels``, ``serve.submit``, ``serve.warmup``,
-``serve.restore``, ``serve.wait_ready``.
+``SLATE_TPU_INTEGRITY``), the admission plane: tenant fairness and
+quotas, priority shedding and an AIMD-adaptive batch window
+(`admission`, ``SLATE_TPU_TENANTS`` / ``SLATE_TPU_ADAPTIVE``), and thin
+sync wrappers (`api`): ``serve.gesv/posv/gels``, ``serve.submit``,
+``serve.warmup``, ``serve.restore``, ``serve.wait_ready``,
+``serve.health``.
 
-Not ported yet (ROADMAP.md Queue 1 items 7b, 7c and 8): the admission
-plane (raises when configured), ``get_fleet``, ``get_arena``,
-``session`` and the sharded lane.
+Not ported yet (ROADMAP.md Queue 1 items 7c and 8): ``get_fleet``,
+``get_arena``, ``session``, the elastic capacity plane and the sharded
+lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.
@@ -45,12 +48,17 @@ _BUCKETS = (
 )
 _PLACEMENT = ("PlacementPolicy", "LEAST_LOADED", "ROUND_ROBIN")
 _FACTOR = ("FactorCache", "FactorEntry", "matrix_fingerprint", "FACTOR_CACHE_ENV")
+_ADMISSION = (
+    "AdmissionControl", "TenantConfig", "parse_tenants", "FairQueue", "AdaptiveWindow",
+    "OverloadController", "TokenBucket", "TENANTS_ENV", "ADAPTIVE_ENV",
+)
 _SUBMODULES = ("api", "buckets", "cache", "artifacts", "service", "placement",
                "factor_cache", "admission")
 _HOMES = {**{n: ".api" for n in _API}, **{n: ".service" for n in _SERVICE},
           **{n: ".cache" for n in _CACHE}, **{n: ".artifacts" for n in _ARTIFACTS},
           **{n: ".buckets" for n in _BUCKETS},
-          **{n: ".placement" for n in _PLACEMENT}, **{n: ".factor_cache" for n in _FACTOR}}
+          **{n: ".placement" for n in _PLACEMENT}, **{n: ".factor_cache" for n in _FACTOR},
+          **{n: ".admission" for n in _ADMISSION}}
 
 __all__ = list(_HOMES) + list(_SUBMODULES)
 

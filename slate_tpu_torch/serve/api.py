@@ -15,8 +15,12 @@ as numpy: the serving boundary is arrays, the bucket decides the tile
 layout.  ``posv`` solves with the lower triangle of A; ``gels`` with
 m < n is served by the direct driver.  A nonzero driver ``info`` raises
 NumericalError from ``.result()``; deadline misses raise
-DeadlineExceeded; a full queue raises Rejected and non-finite operands
-raise InvalidInput from ``submit`` itself.
+DeadlineExceeded; a full queue (or, with tenants configured, a tenant's
+quota or queue share) raises Rejected, the overload controller's
+refusal raises Shed, and non-finite operands raise InvalidInput from
+``submit`` itself.  ``tenant=`` / ``priority=`` tag a request for the
+admission plane (``SLATE_TPU_TENANTS`` / ``SLATE_TPU_ADAPTIVE``, or
+``configure(tenants=..., adaptive=...)``).
 
 The default service reads the Serve* Option defaults; ``configure()``
 overrides them per process (``configure(placement=PlacementPolicy(
@@ -71,6 +75,7 @@ def _make_service(opts: Optional[Options], **kw) -> SolverService:
     _unset = object()
     for name, key, conv in (("tenants", Option.ServeTenantQuota, lambda v: v),
                             ("adaptive", Option.ServeAdaptiveWindow, bool),
+                            ("latency_budget_s", Option.ServeLatencyBudget, float),
                             ("integrity", Option.ServeIntegrity, lambda v: v or False)):
         v = get_option(opts, key, _unset)
         cfg[name] = None if v is _unset else conv(v)
@@ -183,7 +188,10 @@ def gels(A, B, deadline: Optional[float] = None, retries: int = 0,
 
 def health() -> dict:
     """Liveness/readiness snapshot of the process service (see
-    :meth:`SolverService.health`)."""
+    :meth:`SolverService.health`): with the admission plane on, its
+    ``tenants`` and ``admission`` sections; with the device monitor on
+    (``SLATE_TPU_DEVMON=1``), ``devices`` and ``cost``; with tracing on,
+    ``trace_ring``."""
     return get_service().health()
 
 

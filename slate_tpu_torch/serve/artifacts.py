@@ -74,8 +74,13 @@ LOCK_TIMEOUT_S = 10.0
 
 
 def _device(device) -> torch.device:
+    """The device an entry is fingerprinted for: ``None`` is the default
+    grid's (``cuda:0``; raises DistributedException without CUDA, never
+    a quiet move to the CPU)."""
     if device is None:
-        return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+        from ..parallel.grid import default_grid
+
+        return default_grid().device
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -268,10 +273,11 @@ class ArtifactStore:
 
     def save(self, key: BucketKey, batch: int, device=None) -> bool:
         """Persist one built entry (and, on a CUDA device, the library
-        its kernels come from).  Returns whether it was written; never
-        raises."""
+        its kernels come from).  Returns whether it was written; a
+        persistence failure never raises (a device that does not resolve
+        does: ``None`` without CUDA)."""
+        dev = _device(device)
         try:
-            dev = _device(device)
             names = []
             if dev.type == "cuda":
                 from ..ops.hopper import panel_kernels as pk
@@ -304,7 +310,9 @@ class ArtifactStore:
         """Verify one entry; True when the caller may bring it live as
         restored (on a CUDA device the library is then open, from the
         store unless the process already held it), False when it must
-        rebuild.  Each rung is counted; none raises."""
+        rebuild.  Each rung is counted; none raises (a device that does
+        not resolve does)."""
+        dev = _device(device)
         path = self.path_for(key, batch)
         try:
             with open(path, "rb") as f:
@@ -334,7 +342,6 @@ class ArtifactStore:
             # overwrites the file
             self._count(key, batch, "corrupt")
             return False
-        dev = _device(device)
         fp, _fields = self.fingerprint(key, batch, dev)
         if faults.fire("artifact_stale") is not None:
             fp += "!stale"  # as if another runtime had written it

@@ -626,10 +626,9 @@ def manifest_loads(text):
 def manifest_cost_loads(text):
     """Parse the per-entry ``"cost"`` records out of a warmup manifest
     (JSON text or parsed doc): ``{(BucketKey, batch): cost-record}``.
-    Entries without the field (older manifests, or a writer without
-    cost capture, as this package's cache is until the device monitor
-    is ported) simply yield nothing; tools/warmup_report.py flags them
-    ``no-cost``."""
+    Entries without the field (older manifests, or a cache that ran
+    with the device monitor off) simply yield nothing;
+    tools/warmup_report.py flags them ``no-cost``."""
     doc = _manifest_doc(text)
     out = {}
     for e in doc.get("entries", []):

@@ -1,6 +1,5 @@
-"""Executable cache + on-disk warmup manifest + artifact store (the JAX
-package's ``serve/cache.py`` without the device-monitor cost capture,
-ROADMAP.md Queue 1 item 7b).
+"""Executable cache + on-disk warmup manifest + artifact store + the
+device monitor's cost registry (the JAX package's ``serve/cache.py``).
 
 PyTorch runs eagerly, so an "executable" here is the closure that
 :func:`_build_core` returns for one ``(BucketKey, batch)``, over padded
@@ -42,6 +41,15 @@ of rebuilding it.  ``warmup()``, ``restore()`` and ``prime()`` share one
 loop (``_bring_live``) that differs only in its error policy.
 Results come back to the host as numpy: that copy is the
 synchronisation point of a dispatch.
+
+With ``SLATE_TPU_DEVMON=1`` (``aux/devmon``) a core's first run on a
+device (its cold build, or its first run after a verified artifact
+restore) is measured by ``devmon.capture_run``: the ``phase_flops``
+model, the operand and result bytes and the allocator's peak, recorded
+as ``serve.<label>.b<batch>`` in the metrics cost registry and persisted
+in the manifest entry's ``"cost"`` field, so a restarted process reads
+the row instead of measuring again (:meth:`cost`,
+:meth:`costs_by_label`, ``health()["cost"]``).
 """
 
 from __future__ import annotations
@@ -56,10 +64,17 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ..aux import faults, metrics, spans, sync
+from ..aux import devmon, faults, metrics, spans, sync
 from ..exceptions import NumericalError
 from .artifacts import ArtifactStore, store_from_env
-from .buckets import BucketKey, manifest_dumps, manifest_loads, solve_factor_shape
+from .buckets import (
+    BucketKey,
+    manifest_cost_loads,
+    manifest_dumps,
+    manifest_loads,
+    phase_flops,
+    solve_factor_shape,
+)
 
 WARMUP_ENV = "SLATE_TPU_WARMUP"
 
@@ -253,13 +268,18 @@ class ExecutableCache:
         # single-flight builds: one thread loads the artifact (one
         # counted rung) while the others wait
         self._building: Dict[Tuple[BucketKey, int], threading.Event] = {}  # guarded by: _lock
+        # the device monitor's cost rows, persisted beside each manifest
+        # entry ("cost"), so a restarted process never measures again
+        self._costs: Dict[Tuple[BucketKey, int], dict] = {}  # guarded by: _lock
         self.artifacts: Optional[ArtifactStore] = store_from_env(artifact_dir)
         self.manifest_path = (manifest_path if manifest_path is not None
                               else os.environ.get(WARMUP_ENV) or None)
         if self.manifest_path and os.path.exists(self.manifest_path):
             try:
                 with open(self.manifest_path) as f:
-                    self._entries.update(manifest_loads(json.load(f)))
+                    doc = json.load(f)
+                self._entries.update(manifest_loads(doc))
+                self._costs.update(manifest_cost_loads(doc))
             except (OSError, ValueError, KeyError, TypeError) as e:
                 # a corrupt manifest never blocks serving, but is counted
                 # and warned about once a path
@@ -292,7 +312,7 @@ class ExecutableCache:
         tmp = f"{self.manifest_path}.tmp.{os.getpid()}"
         try:
             with open(tmp, "w") as f:
-                f.write(manifest_dumps(self._entries) + "\n")
+                f.write(manifest_dumps(self._entries, self._costs) + "\n")
             os.replace(tmp, self.manifest_path)
         except OSError:
             try:
@@ -308,6 +328,65 @@ class ExecutableCache:
                 self.manifest_path = path
             self._flush_locked()
             return self.manifest_path
+
+    # -- cost/memory registry (aux/devmon capture) -------------------------
+
+    def cost(self, key: BucketKey, batch: int) -> Optional[dict]:
+        """The cost row of one core, or None when the device monitor never
+        measured it (off, or a manifest without the field)."""
+        with self._lock:
+            c = self._costs.get((key, int(batch)))
+            return dict(c) if c else None
+
+    def cost_registry(self) -> Dict[Tuple[BucketKey, int], dict]:
+        with self._lock:
+            return {k: dict(v) for k, v in self._costs.items()}
+
+    def costs_by_label(self) -> Dict[str, Dict[int, dict]]:
+        """The registry as ``{bucket label: {batch: row}}``, the shape
+        ``health()`` and the report tools read."""
+        out: Dict[str, Dict[int, dict]] = {}
+        with self._lock:
+            for (key, batch), c in self._costs.items():
+                out.setdefault(key.label, {})[int(batch)] = dict(c)
+        return out
+
+    def _first_run(self, key: BucketKey, batch: int, device: torch.device, name: str, go):
+        """A core's first run on a device, measured by the device monitor
+        (one bool when it is off).  A row already known for this device
+        kind (a cost-bearing manifest) is recorded into this process's
+        registry without measuring; a row from another device kind is
+        measured again (``serve.cost_foreign_recaptured``); a failed
+        measured run counts ``serve.cost_capture_failed``."""
+        if not devmon.is_on():
+            return go()
+        kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else device.type).lower()
+        with self._lock:
+            known = self._costs.get((key, batch))
+        if known is not None and known.get("device_kind") in (None, kind):
+            metrics.record_cost(name, known)
+            return go()
+        if known is not None:
+            metrics.inc("serve.cost_foreign_recaptured")
+        try:
+            out, cost = devmon.capture_run(go, None, phase_flops(key, batch), None, device,
+                                           record=False)
+        except Exception:
+            # the measured run is the core's first: its failure is the
+            # build's, and propagates; the row is never written
+            metrics.inc("serve.cost_capture_failed")
+            raise
+        (Xd, infod), (A, B) = out
+        cost["argument_bytes"] = int(A.nbytes + B.nbytes)
+        cost["output_bytes"] = int(Xd.nbytes + infod.nbytes)
+        cost["bytes_accessed"] = float(cost["argument_bytes"] + cost["output_bytes"])
+        metrics.record_cost(name, cost)
+        metrics.inc("serve.cost_captured")
+        with self._lock:
+            self._costs[(key, batch)] = cost
+            self._flush_locked()
+        return out
 
     # -- executables -------------------------------------------------------
 
@@ -380,13 +459,17 @@ class ExecutableCache:
             primed = self._primed.get((key, batch), ())
             cold, first = did not in primed, not primed
             save = first and self._origin.get((key, batch)) == "compile"
+        name = f"serve.{key.label}.b{batch}"
+
+        def go():
+            A = torch.as_tensor(A_batch, device=device)
+            B = torch.as_tensor(B_batch, device=device)
+            return exe(A, B), (A, B)
+
         t0 = time.perf_counter()
-        A = torch.as_tensor(A_batch, device=device)
-        B = torch.as_tensor(B_batch, device=device)
-        Xd, infod = exe(A, B)
+        (Xd, infod), _ops = self._first_run(key, batch, device, name, go) if cold else go()
         X, info = Xd.cpu().numpy(), infod.cpu().numpy()  # the sync point
         dt = time.perf_counter() - t0
-        name = f"serve.{key.label}.b{batch}"
         if cold:
             metrics.inc("jit.compilations")
             metrics.inc(f"{name}.compilations")

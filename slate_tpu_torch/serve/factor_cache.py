@@ -295,6 +295,7 @@ class FactorCache:
         None.  Counts neither hit nor miss: the service counts those at
         the dispatch that serves (or misses) the factor."""
         with self._lock:
+            sync.guarded(self, "_entries")
             entry = self._entries.get(fp)
             if entry is not None:
                 self._entries.move_to_end(fp)
@@ -310,6 +311,7 @@ class FactorCache:
             record("uncacheable", fp=entry.fp, label=entry.key.label)
             return False
         with self._lock:
+            sync.guarded(self, "_entries")
             old = self._entries.pop(entry.fp, None)
             if old is not None:
                 self._bytes -= old.nbytes
@@ -356,6 +358,7 @@ class FactorCache:
         untouched); returns the count moved."""
         moved = 0
         with self._lock:
+            sync.guarded(self, "_entries")
             for entry in self._entries.values():
                 if entry.replica == old_replica:
                     entry.replica = new_replica

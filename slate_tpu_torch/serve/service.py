@@ -1,8 +1,9 @@
 """SolverService: bounded admission, a replica pool, same-bucket batch
 coalescing, a factor cache, deadlines, retries with backoff,
-circuit-breaker recovery, the artifact restore and the integrity plane
-— the JAX package's ``serve/service.py`` with the admission, sharding
-and autoscaling planes off (ROADMAP.md Queue 1 items 7b, 7c and 8).
+circuit-breaker recovery, the artifact restore, the integrity plane and
+the admission plane -- the JAX package's ``serve/service.py`` without
+the sharded lane, the elastic capacity plane and the device factor
+arena (ROADMAP.md Queue 1 items 7c and 8).
 
 Execution model:
 
@@ -77,6 +78,21 @@ Execution model:
   admission after repeated failures and probes it back; queued
   requests older than their bucket's p99 are duplicated onto a second
   lane, first correct result wins.
+* Admission plane (``serve/admission.py``, off by default): with a
+  tenant spec (``tenants=`` / ``SLATE_TPU_TENANTS`` /
+  ``Option.ServeTenantQuota``) or the adaptive window (``adaptive=`` /
+  ``SLATE_TPU_ADAPTIVE`` / ``Option.ServeAdaptiveWindow``) each request
+  carries ``tenant`` / ``priority``; the lane queues become per-tenant
+  weighted-fair queues, token-bucket quotas and queue-share caps make
+  :class:`Rejected` per-tenant, the overload controller refuses
+  lowest-priority-first with a typed :class:`Shed` under sustained
+  deadline burn, and an AIMD controller sets each bucket's coalesce
+  window against ``latency_budget_s``.  Off, the service pays one
+  ``is None`` branch a submit and keeps plain deque lanes.
+* Race plane (``aux/sync``, ``SLATE_TPU_SYNC_CHECK``): the service's
+  locks come from the checked factories and its ``# guarded by:``
+  fields carry lockset probes; off, they are plain ``threading``
+  objects and one bool a probe.
 
 Results are numpy arrays: the copy to the host is a dispatch's
 synchronisation point, and ``info`` is read once an item.  Every
@@ -97,7 +113,14 @@ breaker_closed,quarantined,unquarantined,removed}``, ``serve.requests``,
 ``serve.corrupt_result``, ``serve.factor_cache.*``,
 ``serve.integrity.{checked,fail,recovered,abandoned,quarantined,
 unquarantined}``, ``serve.hedge.{sent,won,wasted}``,
-``serve.restore_crashed``, ``scale.replicas_added`` /
+``serve.restore_crashed``, the admission plane's ``serve.shed``,
+``serve.rejected_quota`` / ``serve.rejected_share``, the capped
+``serve.tenant.<id>.{admitted,shed,rejected,slo_burn.*}`` and
+``serve.latency.tenant.<id>.total`` (``serve.tenant_overflow`` past the
+cap), ``serve.overload.{level,enter,exit}`` and
+``serve.adaptive.<bucket>.{window_s,widen,shrink}``,
+``serve.adaptive.changes``, the device monitor's
+``serve.device.<i>.bytes_in_use[_peak]``, ``scale.replicas_added`` /
 ``scale.replicas_removed`` / ``scale.requests_rehomed`` /
 ``scale.prime_*``, the ``serve.latency.<bucket>.{queued,execute,total}``
 and ``serve.latency.replica.<i>.total`` histograms, and the
@@ -122,7 +145,7 @@ from typing import Callable, Deque, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..aux import faults, metrics, spans, sync
+from ..aux import devmon, faults, metrics, spans, sync
 from ..exceptions import InvalidInput, NumericalError, SlateError
 from ..integrity import abft as _abft
 from ..integrity import policy as _integ
@@ -145,7 +168,10 @@ from .placement import PlacementPolicy
 
 
 class Rejected(SlateError):
-    """Queue-full backpressure: the request was never admitted."""
+    """Queue-full backpressure: the request was never admitted.  On a
+    tenancy-enabled service it is per-tenant: a token-bucket quota or
+    queue-share violation rejects the hot tenant's request while its
+    neighbours keep being admitted."""
 
 
 class DeadlineExceeded(SlateError):
@@ -153,8 +179,11 @@ class DeadlineExceeded(SlateError):
 
 
 class Shed(SlateError):
-    """Load shed under sustained overload (the admission plane's refusal;
-    raised only once that plane is ported, ROADMAP.md Queue 1 item 7b)."""
+    """Load shed under sustained overload: the burn EWMA crossed a shed
+    tier and this request's priority class is refused at admission
+    (lowest-priority-first, ``admission.OverloadController``).  Unlike
+    :class:`Rejected` the queue may have room; back off and retry, or
+    resubmit at a higher priority."""
 
 
 #: ceiling for one decorrelated-jitter backoff step, seconds
@@ -200,6 +229,12 @@ class _Request:
     backoff_s: float = 0.0  # last backoff delay (jitter state)
     not_before: float = 0.0  # monotonic eligibility time after a retry
     t_submit: float = field(default_factory=time.monotonic)
+    # admission-plane identity (defaults when the plane is off; tenanted
+    # marks a request admitted through the plane, so error context and
+    # the control loop engage only where tenancy is real)
+    tenant: str = _bk.DEFAULT_TENANT
+    priority: int = _bk.PRIO_NORMAL
+    tenanted: bool = False
     # factor cache: fingerprint of A, and whether admission missed (the
     # request factors through _factor_direct instead of the batched path)
     factor_fp: Optional[str] = None
@@ -239,6 +274,7 @@ class _HedgeGroup:
     def first_result(self) -> bool:
         """Claim the win; False when a twin already delivered."""
         with self.lock:
+            sync.guarded(self, "delivered")
             if self.delivered:
                 return False
             self.delivered = True
@@ -249,6 +285,7 @@ class _HedgeGroup:
         member and nothing delivered (only then may the caller set the
         exception)."""
         with self.lock:
+            sync.guarded(self, "failed")
             self.failed += 1
             return not self.delivered and self.failed >= self.members
 
@@ -263,6 +300,7 @@ class _Replica:
         self.name = name
         self.device = device
         self.score: Optional[_integ.IntegrityScore] = None  # self-locked
+        # a plain deque, or the admission plane's FairQueue (same surface)
         self.q: Deque[_Request] = deque()  # guarded by: _cond
         self.inflight: List[_Request] = []  # guarded by: _cond
         self.breakers: Dict[_bk.BucketKey, _bk.Breaker] = {}  # guarded by: _cond
@@ -310,8 +348,18 @@ class SolverService:
     factor_cache: :class:`FactorCache`, or None to resolve
         ``SLATE_TPU_FACTOR_CACHE`` / ``Option.ServeFactorCache*`` (off
         by default), or False to disable it over the env.
-    tenants / adaptive: the admission plane; set, it raises (not ported
-        yet, ROADMAP.md Queue 1 item 7b).
+    tenants: the admission plane's tenant spec (the grammar string of
+        ``serve/admission.py``, e.g. ``"gold:weight=4;free:rate=20,
+        share=0.25"``, or a parsed ``{name: TenantConfig}``); None
+        resolves ``Option.ServeTenantQuota`` then ``SLATE_TPU_TENANTS``.
+        Any tenant turns the plane on: weighted-fair lanes, per-tenant
+        quotas and queue shares, priority shedding.
+    adaptive: the AIMD coalesce window (ceiling ``batch_window_s``);
+        None resolves ``Option.ServeAdaptiveWindow`` then
+        ``SLATE_TPU_ADAPTIVE``.
+    latency_budget_s: the service-wide p99 budget the controllers judge
+        requests without a deadline against (``Option.ServeLatencyBudget``
+        or the ``SLATE_TPU_ADAPTIVE`` budget when None).
     integrity: :class:`~slate_tpu_torch.integrity.policy.IntegrityPolicy`,
         a spec string (``off | sample=<p> | full`` with ``,abft`` and
         tuning keys), or False to disable it over the env; None resolves
@@ -348,6 +396,7 @@ class SolverService:
         factor_cache: Union[FactorCache, bool, None] = None,
         tenants=None,
         adaptive: Optional[bool] = None,
+        latency_budget_s: Optional[float] = None,
         integrity=None,
         faults_spec: Optional[str] = None,
         restore_on_start: Optional[bool] = None,
@@ -385,8 +434,12 @@ class SolverService:
         self.factor_cache = (None if factor_cache is False
                              else factor_cache if factor_cache is not None
                              else cache_from_options())
-        # the admission plane is not ported: it raises when configured
-        _adm.AdmissionControl.from_options(tenants=tenants, adaptive=adaptive)
+        # the admission plane (tenancy, priority shedding, the adaptive
+        # window): None unless configured -- one `is None` branch a
+        # submit, plain deque lanes
+        self._admission = _adm.AdmissionControl.from_options(
+            tenants=tenants, adaptive=adaptive, budget_s=latency_budget_s,
+            ceiling_s=self.batch_window_s)
         # the integrity plane: None unless configured (one `is None`
         # branch a delivery and a sweep)
         self._integrity = _integ.from_options(integrity)
@@ -409,6 +462,9 @@ class SolverService:
         self._stopped = False  # stop() called; submit() rejects until start()
         self._replicas: List[_Replica] = [_Replica(str(i), d)
                                           for i, d in enumerate(lane_devices)]
+        if self._admission is not None:
+            for rep in self._replicas:
+                rep.q = self._admission.new_queue()
         if self._integrity is not None:
             for rep in self._replicas:
                 rep.score = self._integrity.new_score()
@@ -560,6 +616,7 @@ class SolverService:
             self._stopped = True
             leftovers: List[_Request] = []
             for rep in self._replicas:
+                sync.guarded(rep, "q")
                 leftovers.extend(rep.q)
                 rep.q.clear()
             self._gauge_queues_locked()
@@ -602,7 +659,9 @@ class SolverService:
             return 0
         rep.q.clear()
         for r in pending:
-            self._pick_replica_locked(r.key).q.append(r)
+            tgt = self._pick_replica_locked(r.key)
+            sync.guarded(tgt, "q")
+            tgt.q.append(r)
         metrics.inc("scale.requests_rehomed", len(pending))
         metrics.gauge(rep.q_gauge, 0)
         self._gauge_queues_locked()
@@ -641,6 +700,8 @@ class SolverService:
             if self._stopped or not self._running:
                 self.placement.set_replicas(len(self._replicas))
                 raise RuntimeError("add_replica: service stopped while priming")
+            if self._admission is not None:
+                rep.q = self._admission.new_queue()
             if self._integrity is not None:
                 rep.score = self._integrity.new_score()
             self._replicas.append(rep)
@@ -672,6 +733,7 @@ class SolverService:
                     raise ValueError(f"remove_replica: no lane named {name!r}")
             self._replicas.remove(rep)
             self.placement.set_replicas(len(self._replicas))
+            sync.guarded(rep, "stopping")
             rep.stopping = True
             self._terminal[rep.name] = {
                 "name": rep.name, "state": LANE_DRAINING, "device": str(rep.device),
@@ -721,10 +783,13 @@ class SolverService:
         ``deadline`` is seconds from now; ``retries`` re-runs the batched
         path (with backoff) on executable failure before falling back.
         ``precision`` ("full"|"mixed") overrides the service's solve path
-        for gesv/posv.  ``sharded=True`` raises (no mesh); ``tenant`` /
-        ``priority`` are validated (the admission plane that acts on them is
-        not ported).  Raises :class:`Rejected` on a full
-        queue and :class:`InvalidInput` on non-finite operands."""
+        for gesv/posv.  ``sharded=True`` raises (no mesh).  ``tenant`` /
+        ``priority`` ("high" | "normal" | "low", default "normal") tag the
+        request for the admission plane (inert, but validated, when the
+        plane is off).  Raises :class:`Rejected` when the queue (or, tenancy
+        on, this tenant's quota or queue share) is full, :class:`Shed` when
+        the overload controller refuses this priority class, and
+        :class:`InvalidInput` on non-finite operands."""
         if not spans.is_on():
             return self._submit(routine, A, B, deadline, retries, precision, sharded,
                                 tenant, priority)
@@ -745,14 +810,43 @@ class SolverService:
                 retries: int = 0, precision: Optional[str] = None,
                 sharded: Optional[bool] = None, tenant: Optional[str] = None,
                 priority=None, _trace: Optional[str] = None,
-                _root: Optional[spans.Span] = None) -> Future:
-        _adm.resolve_identity(tenant, priority)  # a bad tag fails as with the plane on
+                _root: Optional[spans.Span] = None, _synthetic: bool = False) -> Future:
+        adm = self._admission
+        # one normaliser for both plane states: a tag the plane would
+        # refuse fails the same way with the plane off
+        tname, prio = _adm.resolve_identity(tenant, priority)
         A = np.asarray(A)
         B = np.asarray(B)
         if B.ndim == 1:
             B = B[:, None]
         if A.ndim != 2 or B.ndim != 2 or A.shape[0] != B.shape[0]:
             raise ValueError(f"{routine}: bad shapes A{A.shape} B{B.shape}")
+        if adm is not None:
+            # the admission plane, before the O(n^2) finiteness scan: a
+            # refusal under overload must cost O(1)
+            if not _synthetic and adm.tenancy and faults.is_on():
+                # tenant_flood: a synthetic low-priority burst from tenant
+                # "flood" cloning this request (tenancy-gated: on an
+                # adaptive-only plane the burst would admit wholesale)
+                s = faults.fire("tenant_flood")
+                if s is not None:
+                    self._flood_burst(routine, A, B, s.burst)
+            # anti-latch: an idle EWMA decays before the shed decision
+            adm.tick(time.monotonic())
+            if adm.sheds(prio):
+                adm.tenant_event(tname, "shed")
+                metrics.inc("serve.shed")
+                # the level is read without the plane's lock: a stale
+                # value in a span attr or a message is harmless, and the
+                # refusal path stays O(1)
+                level = adm.overload.level
+                if spans.is_on():
+                    spans.event("shed", trace=_trace, lane="client", tenant=tname,
+                                priority=_bk.priority_name(prio), level=level)
+                raise Shed(f"{routine}: overload level {level} is shedding "
+                           f"{_bk.priority_name(prio)}-priority traffic; back off or "
+                           "raise priority").with_context(
+                    routine=routine, tenant=tname, priority=_bk.priority_name(prio))
         if self.validate:
             bad = ("A" if not np.all(np.isfinite(A))
                    else "B" if not np.all(np.isfinite(B)) else None)
@@ -796,12 +890,16 @@ class SolverService:
         req = _Request(
             routine=routine, key=key, A=A, B=B, m=m, n=n, nrhs=nrhs,
             deadline=time.monotonic() + deadline if deadline is not None else None,
-            retries=int(retries), factor_fp=fp,
-            factor_miss=bool(fp is not None and hit is None), trace=_trace, span=_root,
+            retries=int(retries), tenant=tname, priority=prio, tenanted=adm is not None,
+            factor_fp=fp, factor_miss=bool(fp is not None and hit is None), trace=_trace,
+            span=_root,
         )
         if _root is not None:
             spans.annotate(_root, bucket=key.label if key is not None else None,
                            sharded=False)
+            if adm is not None:
+                spans.annotate(_root, tenant=tname, priority=_bk.priority_name(prio))
+        pname = _bk.priority_name(prio) if adm is not None else None
         with self._cond:
             if self._stopped:
                 metrics.inc("serve.rejected")
@@ -809,8 +907,33 @@ class SolverService:
                                ).with_context(routine=routine)
             if sum(len(rep.q) for rep in self._replicas) >= self.max_queue:
                 metrics.inc("serve.rejected")
+                if adm is not None:
+                    adm.tenant_event(tname, "rejected")
                 raise Rejected(f"queue full ({self.max_queue}); retry with backoff"
-                               ).with_context(routine=routine)
+                               ).with_context(routine=routine,
+                                              tenant=tname if adm is not None else None,
+                                              priority=pname)
+            if adm is not None and adm.config_for(tname).share < 1.0:
+                # the per-tenant queue-share cap: a bursty tenant fills its
+                # slice of the bounded queue, not its neighbours'
+                limit = adm.share_limit(tname, self.max_queue)
+                if sum(rep.q.depth(tname) for rep in self._replicas) >= limit:
+                    metrics.inc("serve.rejected")
+                    metrics.inc("serve.rejected_share")
+                    adm.tenant_event(tname, "rejected")
+                    raise Rejected(f"tenant {tname!r} queue share full ({limit} of "
+                                   f"{self.max_queue}); retry with backoff").with_context(
+                        routine=routine, tenant=tname, priority=pname)
+            if adm is not None and not adm.quota_take(tname, time.monotonic()):
+                # the token bucket is the last check: only a request that is
+                # admitted consumes a token, so refusals caused by others (a
+                # full shared queue) never drain this tenant's quota
+                adm.tenant_event(tname, "rejected")
+                metrics.inc("serve.rejected")
+                metrics.inc("serve.rejected_quota")
+                raise Rejected(f"tenant {tname!r} token-bucket quota exhausted "
+                               f"({adm.config_for(tname).rate:g}/s); retry with backoff"
+                               ).with_context(routine=routine, tenant=tname, priority=pname)
             rep = self._pick_replica_locked(key)
             if hit is not None:
                 # a hit routes to the lane that owns the factor, unless
@@ -839,13 +962,29 @@ class SolverService:
             if _root is not None:
                 req.qspan = spans.start("queued", trace=_trace, parent=_root,
                                         lane=rep.lane)
+            sync.guarded(rep, "q")
             rep.q.append(req)
             self._gauge_queues_locked()
             self._cond.notify_all()
         if key is not None:
             metrics.inc("serve.replicated_dispatch")
         metrics.inc("serve.requests")
+        if adm is not None:
+            adm.tenant_event(tname, "admitted")
         return req.future
+
+    def _flood_burst(self, routine: str, A, B, count: int) -> None:
+        """The ``tenant_flood`` fault site: ``count`` synthetic
+        low-priority requests from tenant ``"flood"`` cloning the
+        triggering request, each through the normal admission path (no
+        recursive flood check), so quota rejections and sheds are counted
+        where they happen; admitted ones resolve like any other."""
+        for _ in range(max(int(count), 0)):
+            try:
+                self._submit(routine, A, B, retries=0, tenant="flood", priority="low",
+                             _synthetic=True)
+            except SlateError:
+                pass  # shed or rejected: the point, counted at the raise
 
     def _pick_replica_locked(self, key: Optional[_bk.BucketKey]) -> _Replica:
         """Admission-side lane selection through the placement policy,
@@ -880,9 +1019,15 @@ class SolverService:
         of the oldest queued request (``replicas``, removed lanes
         included with their terminal state), the integrity plane's
         policy and per-lane quarantine scores (``integrity``, None when
-        off), the recent failure rate (last 60 s) and, with metrics on,
-        per-bucket p50/p95/p99 total latency (``latency``) and the
-        deadline-budget burn tiers (``slo_burn``).  The top-level
+        off), the admission plane's per-tenant depth / quota / counts /
+        burn (``tenants``) and controller state (``admission``; both None
+        when off), the recent failure rate (last 60 s) and, with metrics
+        on, per-bucket p50/p95/p99 total latency (``latency``) and the
+        deadline-budget burn tiers (``slo_burn``).  With tracing on, the
+        span ring's eviction pressure (``trace_ring``); with the device
+        monitor on, the cost rows by bucket (``cost``), each latency row's
+        ``peak_bytes`` and a memory snapshot of each lane device
+        (``devices``; None byte fields on the CPU).  The top-level
         ``breakers`` map merges the lanes' tables, worst state wins."""
         now = time.monotonic()
         window_s = 60.0
@@ -915,6 +1060,14 @@ class SolverService:
             seen_labels = sorted(self._seen_labels)
             scored = [(rep.name, rep.score) for rep in self._replicas
                       if rep.score is not None]
+            lane_devices = list(dict.fromkeys(rep.device for rep in self._replicas))
+            tenant_depths: Optional[Dict[str, int]] = None
+            if self._admission is not None:
+                # merge the lanes' per-tenant depth maps (no request scan)
+                tenant_depths = {}
+                for rep in self._replicas:
+                    for t, dq in rep.q.depths().items():
+                        tenant_depths[t] = tenant_depths.get(t, 0) + dq
         for row in terminal:
             lanes.append({"queue_depth": 0, "inflight": 0, "oldest_queued_s": 0.0,
                           "worker_alive": False, "breakers": {}, **row})
@@ -943,6 +1096,18 @@ class SolverService:
             slo_burn = {name.rsplit(".", 1)[1]: int(v)
                         for name, v in metrics.counters().items()
                         if name.startswith("serve.slo_burn.")}
+        trace_ring = spans.pressure() if spans.is_on() else None
+        cost = devices = None
+        if devmon.is_on():
+            cost = self.cache.costs_by_label() or None
+            for lbl, ent in latency.items():
+                per = (cost or {}).get(lbl)
+                if per:
+                    pk = max((c.get("peak_bytes") or 0) for c in per.values())
+                    if pk:
+                        ent["peak_bytes"] = int(pk)
+            devices = devmon.sample_devices(lane_devices)
+        adm = self._admission
         return {
             "ok": running and alive,
             "phase": phase,
@@ -961,8 +1126,14 @@ class SolverService:
             "replicas": lanes,
             "latency": latency,
             "slo_burn": slo_burn,
+            "trace_ring": trace_ring,
+            "cost": cost,
+            "devices": devices,
             "factor_cache": (self.factor_cache.stats()
                              if self.factor_cache is not None else None),
+            "tenants": (adm.tenants_health(tenant_depths, now=now)
+                        if adm is not None else None),
+            "admission": adm.snapshot() if adm is not None else None,
             "failures_60s": len(recent),
             "failure_rate_60s": len(recent) / window_s,
             "uptime_s": now - self._t_started,
@@ -989,6 +1160,7 @@ class SolverService:
         rest fast with a typed error, and respawn the worker."""
         metrics.inc("serve.worker_restarts")
         with self._cond:
+            sync.guarded(rep, "inflight")
             inflight, rep.inflight = rep.inflight, []
             rep.restarts += 1
             self._restarts += 1
@@ -1018,15 +1190,21 @@ class SolverService:
             if not batch:
                 continue
             with self._cond:
+                sync.guarded(rep, "inflight")
                 rep.inflight = batch
             faults.check("worker_death")  # in flight: supervision must cover
             self._execute(rep, batch)
             with self._cond:
+                sync.guarded(rep, "inflight")
                 rep.inflight = []
 
-    @staticmethod
-    def _pop_eligible_locked(rep: _Replica, now: float) -> Optional[_Request]:
-        """Oldest request whose retry backoff has elapsed."""
+    def _pop_eligible_locked(self, rep: _Replica, now: float) -> Optional[_Request]:
+        """Oldest request whose retry backoff has elapsed -- or, admission
+        plane on, the weighted-fair choice across tenants (FIFO within a
+        tenant, exactly FIFO with one)."""
+        sync.guarded(rep, "q")
+        if self._admission is not None:
+            return rep.q.pop_eligible(now)
         for i, r in enumerate(rep.q):
             if r.not_before <= now:
                 del rep.q[i]
@@ -1096,11 +1274,15 @@ class SolverService:
             return (r.key == first.key and r.factor_fp == first.factor_fp
                     and r.not_before <= now)
 
-        if self.batch_max > 1 and self.batch_window_s > 0:
+        # the coalesce window: static, or (admission plane on) the
+        # bucket's AIMD window times the overload shrink factor
+        win = (self.batch_window_s if self._admission is None
+               else self._admission.window_for(first.key.label))
+        if self.batch_max > 1 and win > 0:
             with self._cond:
                 now = time.monotonic()
                 if not any(company(r, now) for r in rep.q):
-                    self._cond.wait(self.batch_window_s)
+                    self._cond.wait(win)
         batch = [first]
         with self._cond:
             now = time.monotonic()
@@ -1128,6 +1310,14 @@ class SolverService:
             return
         metrics.inc("serve.deadline_miss")
         metrics.inc("serve.deadline_miss_queued")
+        if self._admission is not None:
+            # a queued cancel is an SLO exhaustion: the overload controller
+            # sees its actual overrun (deliveries are not the only signal)
+            now = time.monotonic()
+            self._admission.observe_finish(
+                self._lat_label(req), req.tenant, req.priority, now - req.t_submit,
+                req.deadline - req.t_submit if req.deadline is not None else None,
+                now, trace=req.trace, windowed=req.key is not None)
         _resolve_exc(req.future, DeadlineExceeded(
             f"{req.routine} {req.m}x{req.n}: deadline passed after "
             f"{time.monotonic() - req.t_submit:.3f}s in queue"), req=req)
@@ -1240,6 +1430,7 @@ class SolverService:
             if r.span is not None and spans.is_on():
                 r.qspan = spans.start("queued", trace=r.trace, parent=r.span,
                                       lane=rep.lane, retry=True)
+            sync.guarded(rep, "q")
             rep.q.appendleft(r)
             self._cond.notify_all()
 
@@ -1360,6 +1551,10 @@ class SolverService:
         # factor_stale: a finite wrong factor, perturbed on its own device;
         # only the residual check below can catch it
         F = faults.perturb("factor_stale", entry.factor)
+        if devmon.is_on():
+            # the lane device's memory gauges at each hit dispatch (the
+            # pressure signal a device factor arena would spill on)
+            devmon.sample_devices([rep.device])
         Bs = [_bk.pad_rhs(np.asarray(r.B), key.m, key.nrhs) for r in batch]
         while len(Bs) < bb:  # repeat-pad to the fixed batch point
             Bs.append(Bs[0])
@@ -1498,28 +1693,35 @@ class SolverService:
     def _observe_total(self, rep: Optional[_Replica], label: str, req: _Request,
                        now: float) -> None:
         """Total (admit -> deliver) latency into the per-bucket and
-        per-lane histograms, plus the deadline-budget burn tiers.  One
-        total a logical request: hedge twins, and a hedged primary whose
-        twin already delivered, are skipped."""
-        if not metrics.is_on():
-            return
+        per-lane histograms, plus the deadline-budget burn tiers, and,
+        admission plane on, the control loop (per-tenant burn, the
+        overload EWMA, the bucket's AIMD window), which runs with metrics
+        on or off.  One total a logical request: hedge twins, and a hedged
+        primary whose twin already delivered, are skipped."""
         if req.is_hedge or (req.hedge_group is not None and req.future.done()):
             return
         total = now - req.t_submit
-        metrics.observe_hist(f"serve.latency.{label}.total", total)
-        if rep is not None:
-            metrics.observe_hist(rep.lat_hist, total)
-        if req.deadline is not None:
-            budget = req.deadline - req.t_submit
-            if budget > 0:
-                burn = total / budget
-                metrics.inc("serve.slo_burn.requests")
-                if burn > 1.0:
-                    metrics.inc("serve.slo_burn.exhausted")
-                elif burn > 0.8:
-                    metrics.inc("serve.slo_burn.over_80")
-                elif burn > 0.5:
-                    metrics.inc("serve.slo_burn.over_50")
+        if metrics.is_on():
+            metrics.observe_hist(f"serve.latency.{label}.total", total)
+            if rep is not None:
+                metrics.observe_hist(rep.lat_hist, total)
+            if req.deadline is not None:
+                budget = req.deadline - req.t_submit
+                if budget > 0:
+                    burn = total / budget
+                    metrics.inc("serve.slo_burn.requests")
+                    if burn > 1.0:
+                        metrics.inc("serve.slo_burn.exhausted")
+                    elif burn > 0.8:
+                        metrics.inc("serve.slo_burn.over_80")
+                    elif burn > 0.5:
+                        metrics.inc("serve.slo_burn.over_50")
+        if self._admission is not None:
+            self._admission.observe_finish(
+                label, req.tenant, req.priority, total,
+                req.deadline - req.t_submit if req.deadline is not None else None,
+                now, trace=req.trace, lane=rep.lane if rep is not None else None,
+                windowed=req.key is not None)
 
     def _direct(self, req: _Request, batched_error: Optional[Exception] = None) -> None:
         """The direct driver on the lane's device: keyless requests, and
@@ -1647,6 +1849,7 @@ class SolverService:
                             req.qspan = spans.start("queued", trace=req.trace,
                                                     parent=req.span, lane=other.lane,
                                                     hedge=True)
+                        sync.guarded(other, "q")
                         other.q.appendleft(req)
                         self._gauge_queues_locked()
                         self._cond.notify_all()
@@ -1745,7 +1948,8 @@ class SolverService:
                 r.hedge_group = grp
                 clone = _Request(routine=r.routine, key=r.key, A=r.A, B=r.B, m=r.m, n=r.n,
                                  nrhs=r.nrhs, future=r.future, deadline=r.deadline,
-                                 retries=0, factor_fp=r.factor_fp,
+                                 retries=0, tenant=r.tenant, priority=r.priority,
+                                 tenanted=r.tenanted, factor_fp=r.factor_fp,
                                  factor_miss=r.factor_miss, is_hedge=True, hedge_group=grp)
                 # attempt=1: no second queued observation; the twin keeps
                 # the primary's clock
@@ -1755,6 +1959,7 @@ class SolverService:
                 if r.trace is not None:
                     spans.event("hedge", trace=r.trace, lane=tgt.lane, reason="straggler",
                                 age_s=round(age, 4))
+                sync.guarded(tgt, "q")
                 tgt.q.appendleft(clone)
                 hedged = True
         if hedged:
@@ -1816,6 +2021,8 @@ def _resolve(fut: Future, value, req: Optional[_Request] = None) -> None:
     _finish_spans(req, "ok")
     if _delivery_taps and req is not None:
         _fire_delivery_taps(req, "ok")
+    # the worker's writes to the result happen-before any thread that
+    # reads it off the future (one bool when the race plane is off)
     sync.hb_publish(fut)
     g = req.hedge_group if req is not None else None
     if g is not None:
@@ -1837,11 +2044,15 @@ def _resolve_exc(fut: Future, exc: Exception, req: Optional[_Request] = None) ->
     _finish_spans(req, type(exc).__name__)
     if _delivery_taps and req is not None:
         _fire_delivery_taps(req, type(exc).__name__)
-    sync.hb_publish(fut)
+    sync.hb_publish(fut)  # hand-off edge, as in _resolve
     if req is not None and isinstance(exc, SlateError):
+        # tenant identity only where tenancy is real: the plane-off error
+        # strings stay as they were
         exc.with_context(routine=req.routine,
                          bucket=req.key.label if req.key is not None else None,
-                         attempt=req.attempt)
+                         attempt=req.attempt,
+                         tenant=req.tenant if req.tenanted else None,
+                         priority=_bk.priority_name(req.priority) if req.tenanted else None)
     g = req.hedge_group if req is not None else None
     if g is not None:
         # a hedged pair fails only as a whole

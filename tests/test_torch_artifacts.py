@@ -231,6 +231,23 @@ def test_save_never_raises_and_load_never_raises(tmp_path):
     assert st.load(_key(), 1, CPU) is False and _count("miss") == 1
 
 
+def test_no_device_without_cuda_raises(tmp_path, monkeypatch):
+    """No quiet move to the CPU: an entry with no device is the default
+    grid's (cuda:0), and without CUDA that raises."""
+    from slate_tpu_torch.exceptions import DistributedException
+    from slate_tpu_torch.parallel import grid as tgrid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tgrid, "_default_grid", None)
+    st = art.ArtifactStore(str(tmp_path / "s"))
+    for call in (lambda: st.save(_key(), 1), lambda: st.load(_key(), 1),
+                 lambda: st.fingerprint(_key(), 1), lambda: art.runtime_fields()):
+        with pytest.raises(DistributedException):
+            call()
+    assert not os.path.exists(st.path_for(_key(), 1))
+    assert st.save(_key(), 1, CPU) and st.load(_key(), 1, CPU)
+
+
 def test_env_activation_and_store_errors(tmp_path, monkeypatch):
     monkeypatch.setenv(art.ARTIFACTS_ENV, str(tmp_path / "envstore"))
     c = ExecutableCache(manifest_path=None)

@@ -1693,3 +1693,46 @@ def test_replicas_share_one_card(dev):
         s.stop()
         if not was_on:
             metrics.off()
+
+
+@pytest.mark.cuda
+def test_devmon_on_the_card(dev, tmp_path):
+    """The device monitor on cuda:0: a memory row with bytes in use, a
+    peak at or above them and the card's total as the limit; each warmed
+    core's cost row with the model FLOPs and a measured peak; a tenancy
+    service's health() with its devices, cost and tenants sections."""
+    from slate_tpu_torch.aux import devmon, metrics
+    from slate_tpu_torch.serve import ExecutableCache, SolverService
+    from slate_tpu_torch.serve import buckets as bk
+
+    was = metrics.is_on(), devmon.is_on()
+    metrics.on()
+    devmon.on()
+    n, nrhs = 512, 4
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    B = rng.standard_normal((n, nrhs))
+    s = SolverService(cache=ExecutableCache(manifest_path=str(tmp_path / "m.json")),
+                      factor_cache=False, batch_max=2, tenants="gold:weight=4")
+    try:
+        X = s.submit("gesv", A, B, tenant="gold").result(timeout=600)
+        assert _scaled_residual(A, X, B) <= 3
+        h = s.health()
+        [row] = h["devices"]
+        assert row["device"] == "cuda:0" and row["platform"] == "gpu"
+        assert row["bytes_in_use"] > 0 and row["peak_bytes_in_use"] >= row["bytes_in_use"]
+        assert row["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+        assert devmon.bytes_in_use() == torch.cuda.memory_stats(0)["allocated_bytes.all.current"]
+        key = bk.bucket_for("gesv", n, n, nrhs, np.float64)
+        cost = s.cache.cost(key, 1)
+        assert cost["flops_model"] == bk.phase_flops(key, 1) and cost["peak_bytes"] > 0
+        assert cost["device_kind"] == torch.cuda.get_device_name(0).lower()
+        assert h["cost"][key.label][1] == cost and h["tenants"]["gold"]["admitted"] == 1
+        if "h100" in torch.cuda.get_device_name(0).lower():
+            assert devmon.peaks_for()["flops"] == 6.7e13  # the port's h100 row
+    finally:
+        s.stop()
+        if not was[0]:
+            metrics.off()
+        if not was[1]:
+            devmon.off()

@@ -50,6 +50,7 @@ import slate_tpu_torch.aux.faults
 import slate_tpu_torch.aux.spans
 import slate_tpu_torch.aux.sync
 import slate_tpu_torch.aux.metrics
+import slate_tpu_torch.aux.devmon
 import slate_tpu_torch.integrity
 import slate_tpu_torch.integrity.policy
 import slate_tpu_torch.integrity.abft
@@ -105,7 +106,8 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "drivers/lu.py", "ops/householder.py", "ops/qr_fast.py", "drivers/qr.py",
             "drivers/aux.py", "internal/norms.py", "internal/tile_ops.py",
             "internal/norm1est.py", "func.py", "simplified.py", "drivers/chol.py",
-            "drivers/blas3.py", "ops/chol_kernels.py", "aux/sync.py", "integrity/policy.py",
+            "drivers/blas3.py", "ops/chol_kernels.py", "aux/sync.py", "aux/devmon.py",
+            "aux/metrics.py", "aux/spans.py", "aux/faults.py", "integrity/policy.py",
             "integrity/abft.py", "serve/artifacts.py",
             "serve/buckets.py", "serve/admission.py", "serve/placement.py",
             "serve/factor_cache.py", "serve/cache.py", "serve/service.py",

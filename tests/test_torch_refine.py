@@ -456,7 +456,7 @@ def test_factor_fault_exercises_fallback(site, spd):
 
 def test_fault_triggers_and_arming():
     with pytest.raises(ValueError):
-        faults.arm("tenant_flood", once=True)  # an admission-plane site, not ported
+        faults.arm("host_death", once=True)  # a fleet site, not ported (item 7c)
     with pytest.raises(ValueError):
         faults.arm("info_nonzero", p=0.5, every=2)
     t = torch.arange(4.0)

@@ -677,10 +677,14 @@ def test_cross_package_repeated_A_stream():
 def test_fault_spec_grammar_and_triggers():
     faults.configure("execute:p=0.5,seed=3; latency:once,after=4,ms=2.5 ;worker_death:every=4")
     assert set(faults.stats()) == {"execute", "latency", "worker_death"}
-    # tenant_flood belongs to the admission plane, not ported (item 7b)
-    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "tenant_flood:once"):
+    # the admission plane's site takes the burst= key; a session site of
+    # the planes not ported (item 7c) is refused
+    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "session_update:once"):
         with pytest.raises(ValueError):
             faults.configure(bad)
+    faults.configure("tenant_flood:once,burst=5")
+    assert faults._sites["tenant_flood"].burst == 5
+    faults.disarm("tenant_flood")
     faults.on()
     assert [faults.fire("latency") is not None for _ in range(6)] == \
         [False, False, False, True, False, False]
@@ -875,14 +879,28 @@ def test_histograms_bin_as_the_jax_package():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(tenants="gold:weight=4"), "item 7"), (dict(adaptive=True), "item 7"),
-    # the admission plane still raises beside the ported integrity plane
-    # and replica pool (ROADMAP.md Queue 1 item 7b)
+    # the admission plane (item 7b) beside the integrity plane and the
+    # replica pool
     (dict(tenants="gold:weight=4", integrity="full"), "item 7"),
     (dict(adaptive=True, placement=PlacementPolicy(replicas=2, devices=["cpu"])), "item 7"),
 ])
 def test_planes_not_ported_raise_naming_their_item(shared_cache, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _svc(shared_cache, **kw)
+    """The configurations that raised while the admission plane was not
+    ported now build it, on every lane, and serve."""
+    from slate_tpu_torch.serve.admission import FairQueue
+
+    s = _svc(shared_cache, **kw)
+    try:
+        adm = s._admission
+        assert adm is not None
+        assert adm.tenancy == ("tenants" in kw) and adm.adaptive == ("adaptive" in kw)
+        assert all(isinstance(rep.q, FairQueue) for rep in s._replicas)
+        A, B = _gesv_prob(10, seed=31)
+        X = s.submit("gesv", A, B, tenant="gold", priority="high").result(timeout=120)
+        assert _rel(X, np.linalg.solve(A, B)) < _tol(np.float64, 10)
+        assert s.health()["admission"]["tenancy"] == adm.tenancy
+    finally:
+        s.stop()
 
 
 def test_mesh_and_artifacts_raise(monkeypatch, tmp_path):
