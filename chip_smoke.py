@@ -7,6 +7,7 @@
                                      # SVD of case (a) by stage, svd_profile)
     python3 chip_smoke.py --restore  # build + phase 17 alone
     python3 chip_smoke.py --admission  # build + phase 18 alone
+    python3 chip_smoke.py --fabric   # build + phase 19 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -143,11 +144,15 @@ Phases, each for float64 and float32 unless stated:
      host chaser, counted in ``heev.hb2st.host``) and float32 (the device
      wavefront), values only in float64 (the Sturm bisection); ``hegv``
      itype 1 in float64 with B = X X^T + n I (the Cholesky kernels at
-     ``chol_kernel_launches``); complex128 ``heev`` at n = 1024 (the
-     device wavefront, no kernel).  Gates: eigenvalues within
-     10 n eps ||A||_1 of ``eigvalsh``, ||AZ - Z Lambda||_1 / (||A||_1 n eps)
-     and ||Z^H Z - I||_1 / (n eps) <= 100, hegv's
-     ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) <= 100, the route.
+     ``chol_kernel_launches``), and itype 3 with B stored Upper at
+     n = 1024 (below the crossover: no kernel); complex128 ``heev`` at
+     n = 1024 (the device wavefront, no kernel).  Gates: eigenvalues
+     within 10 n eps ||A||_1 of ``eigvalsh``, ||AZ - Z Lambda||_1 /
+     (||A||_1 n eps) and ||Z^H Z - I||_1 / (n eps) <= 100, hegv's
+     ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) (itype 1) and
+     ||BAX - X Lambda||_1 / (||A||_1 ||B||_1 ||X||_1 n eps) (itype 3)
+     <= 100 with its eigenvalues within 10 n eps max|w| of the library
+     route's, the route.
      Stage times, peak memory and the library yardsticks (``eigh``,
      ``eigvalsh``, cholesky + solve_triangular + eigh).  ``--profile``
      adds a profiled float64 heev: device busy time and launches by
@@ -222,6 +227,24 @@ Phases, each for float64 and float32 unless stated:
      ``h100`` peaks row, and a fresh interpreter that restores the rows
      from the manifest with no second measurement.  (e) every stream's
      launches equal the mirror of the cores it ran, every residual <= 3.
+ 19. the factor fabric (``slate_tpu_torch/fabric``), f64 and f32, the JAX
+     gate's stream (``run_tests.py:600-640``) at the serve tier's gels
+     width: A (8192, 4096), tiles of 64, nrhs = 16, one lane on cuda:0.
+     The armed leg (``factor_arena=FactorArena()``): one miss (larft at
+     ``geqrf_kernel_launches``), ``warmup()``, 20 pristine
+     ``FactorSession`` solves (every one a factor-cache hit, no cold
+     build, no kernel launch, ``serve.arena.upload_avoided_bytes`` > 0),
+     an append of 64 rows (the O(k n^2) fold on the card) and one
+     streamed solve (normal-equations residual <= 3, against
+     ``torch.linalg.lstsq``); ``tools/factor_report.py`` exits 0 on its
+     metrics dump.  The unarmed leg (``factor_arena=False``): the same
+     operands give a byte-identical X stream and move no
+     ``serve.arena.*`` counter.  Timed (CUDA events, submit to result,
+     medians): a resident hit, a hit after ``spill`` (the pack
+     re-uploaded; devmon's bytes in use before and after the spill,
+     which must free the pack), an unarmed hit and a refactoring miss,
+     each with the bytes it moved host to device; an append of 64 rows
+     against a ``refactor``.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -3405,6 +3428,221 @@ def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the factor fabric (device factor arena and streaming gels sessions)
+# ---------------------------------------------------------------------------
+
+SESSION19 = 20  # warmed pristine session solves, every one a factor-cache hit
+APPEND19 = 64  # rows of the streamed append
+ROUNDS19 = 5  # rounds of each hit-dispatch timing (medians)
+MISS_ROUNDS19 = 3  # rounds of the refactoring miss and of append / refactor
+
+
+def _event_ms(fn) -> float:
+    """One call's elapsed time on the card's clock (CUDA events on the
+    default stream, which the service's lane also runs on)."""
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def _arena_moves(d) -> dict:
+    return {k: v for k, v in d.all().items() if k.startswith("serve.arena.") and v}
+
+
+def fabric_leg(serve, fabric, pk, qf, metrics, ops, armed: bool, dtype, dev) -> dict:
+    """One leg of the JAX gate's stream (``run_tests.py:600-640``) at the
+    serve tier's gels width: one miss (larft at the
+    ``geqrf_kernel_launches`` mirror), ``warmup()``, SESSION19 pristine
+    session solves (all hits, no cold build, no kernel launch), an append
+    of APPEND19 rows and one streamed solve.  Returns the X stream and,
+    armed, the timings; the service is kept for the caller's rounds."""
+    A, A_np, Bs, Bs_np, C_np, B2, B2_np = ops
+    m, n = A.shape
+    tag = f"fabric {dtype} {'armed' if armed else 'unarmed'}"
+    svc = serve.SolverService(factor_cache=serve.FactorCache(max_entries=4),
+                              factor_arena=fabric.FactorArena() if armed else False,
+                              batch_max=SERVE_BATCH, batch_window_s=0.002)
+    check((svc.arena is not None) == armed, f"{tag}: arena {svc.arena}")
+    metrics.reset()
+    pk.reset_launches()  # counts of the miss only
+    t0 = time.perf_counter()
+    X0 = svc.submit("gels", A_np, Bs_np[0]).result(timeout=900)
+    t_miss = time.perf_counter() - t0
+    miss = {k: v for k, v in pk.LAUNCHES.items() if v}
+    expect = qf.geqrf_kernel_launches(n, NB_SWITCH)
+    check(miss == {"larft": expect}, f"{tag} miss: launches {miss}, expected larft {expect}")
+    svc.warmup()
+    sess = fabric.FactorSession(svc, A_np)
+    check(sess.device == dev, f"{tag}: the session's device {sess.device}")
+    pk.reset_launches()
+    with metrics.deltas() as d:
+        t0 = time.perf_counter()
+        Xs = [sess.solve(Bs_np[i % len(Bs_np)]) for i in range(SESSION19)]
+        t_stream = time.perf_counter() - t0
+        hits, cold = d.get("serve.factor_cache.hit"), d.get("jit.compilations")
+        avoided, moved = d.get("serve.arena.upload_avoided_bytes"), _arena_moves(d)
+    launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+    check(hits == SESSION19 and cold == 0, f"{tag}: hits {hits}, cold builds {cold}")
+    check(launches == {}, f"{tag}: the hit path launched {launches}")
+    if armed:
+        check(avoided > 0, f"{tag}: upload_avoided_bytes {avoided}")
+    else:
+        check(moved == {}, f"{tag}: serve.arena.* counters moved: {moved}")
+    res = max([ls_residual(A, torch.from_numpy(X0).to(dev), Bs[0])]
+              + [ls_residual(A, torch.from_numpy(X).to(dev), Bs[i % len(Bs)])
+                 for i, X in enumerate(Xs)])
+    check(res <= 3, f"{tag}: residual {res:.3f} > 3")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.append(C_np)
+    torch.cuda.synchronize()
+    t_append = time.perf_counter() - t0
+    with metrics.deltas() as d:
+        X2 = sess.solve(B2_np)
+        fence = {k: d.get(f"fabric.session.{k}") for k in ("solve", "refactor", "fence_fail")}
+    A2 = torch.cat([A, torch.from_numpy(C_np).to(dev)])
+    r2 = ls_residual(A2, torch.from_numpy(X2).to(dev), B2)
+    Xl = torch.linalg.lstsq(A2, B2).solution
+    rl = ls_residual(A2, Xl, B2)
+    dl = float((torch.from_numpy(X2).to(dev) - Xl).abs().max() / Xl.abs().max())
+    print(f"  {tag} ({m}, {n}), nrhs {Bs[0].shape[1]}: miss {t_miss:.3f} s, larft "
+          f"{miss.get('larft')} (expected {expect}); {SESSION19} session solves in "
+          f"{t_stream:.3f} s, hits {hits}, cold builds {cold}, hit launches {launches}, "
+          f"serve.arena.* {moved}, max residual {res:.3e}; append of {APPEND19} rows "
+          f"{t_append:.3f} s; streamed solve residual {r2:.3e}, fence {fence}, against "
+          f"torch.linalg.lstsq (residual {rl:.3e}) max rel diff {dl:.3e}", flush=True)
+    check(r2 <= 3, f"{tag}: streamed solve residual {r2:.3f} > 3")
+    check(fence["fence_fail"] == 0, f"{tag}: fence {fence}")
+    out = {"miss_s": t_miss, "miss_launches": miss, "stream_s": t_stream, "hits": hits,
+           "cold_builds": cold, "upload_avoided_bytes": avoided, "max_residual": res,
+           "append_s": t_append, "streamed_residual": r2, "lstsq_residual": rl,
+           "streamed_vs_lstsq": dl}
+    return svc, sess, np.stack([X0, *Xs]), X2, out
+
+
+def _dispatch_rounds(svc, metrics, A_np, B_np, rounds, before=None) -> tuple:
+    """Medians over ``rounds`` requests (CUDA events, submit to result)
+    and the host-to-device bytes each one moved: the factor bytes the
+    arena uploaded (``serve.arena.upload_bytes``) plus the padded B batch
+    (batch point 1)."""
+    ms, up = [], []
+    for _ in range(rounds):
+        if before is not None:
+            before()
+        with metrics.deltas() as d:
+            ms.append(_event_ms(lambda: svc.submit("gels", A_np, B_np).result(timeout=900)))
+            up.append(d.get("serve.arena.upload_bytes"))
+    return statistics.median(ms), statistics.median(up)
+
+
+def fabric_main(serve, pk, qf, metrics, gen, dev) -> dict:
+    """Phase 19, f64 and f32 at (8192, 4096), tiles of 64, nrhs = 16: the
+    armed leg, the unarmed leg (byte-identical X, no arena counter), the
+    report tool on the armed leg's dump, and the timings."""
+    import os
+    import tempfile
+
+    from slate_tpu_torch import fabric
+    from slate_tpu_torch.aux import devmon
+
+    t19 = time.perf_counter()
+    out = {}
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        m, n, nrhs = 2 * N_SERVE, N_SERVE, NRHS_SERVE
+        A = torch.randn(m, n, generator=gen, device=dev, dtype=dt)
+        Bs = [torch.randn(m, nrhs, generator=gen, device=dev, dtype=dt) for _ in range(4)]
+        C = torch.randn(APPEND19, n, generator=gen, device=dev, dtype=dt)
+        B2 = torch.randn(m + APPEND19, nrhs, generator=gen, device=dev, dtype=dt)
+        ops = (A, A.cpu().numpy(), Bs, [B.cpu().numpy() for B in Bs], C.cpu().numpy(), B2,
+               B2.cpu().numpy())
+        A_np, B0_np = ops[1], ops[3][0]
+        b_bytes = m * nrhs * A.element_size()  # the padded B of one request, batch point 1
+        row = {}
+        svc, sess, Xa, x2a, row["armed"] = fabric_leg(serve, fabric, pk, qf, metrics, ops,
+                                                      True, dtype, dev)
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = metrics.dump(os.path.join(tmp, "fabric.jsonl"))
+                rep = _tool("factor_report.py", path)
+            check(rep.returncode == 0, f"fabric {dtype}: factor_report.py exited "
+                  f"{rep.returncode}: {rep.stdout[-2000:]} {rep.stderr[-2000:]}")
+            check("arena (device-resident factors)" in rep.stdout,
+                  f"fabric {dtype}: factor_report.py shows no arena section")
+            lane = svc._replicas[0].lane
+            fp = serve.matrix_fingerprint(A_np, "gels", schedule=svc.schedule)
+            pack = svc.factor_cache.get(fp).nbytes
+            t_res, up_res = _dispatch_rounds(svc, metrics, A_np, B0_np, ROUNDS19)
+            spill_mem = []
+
+            def spill():
+                torch.cuda.synchronize()
+                b = devmon.bytes_in_use(dev)
+                svc.arena.spill(lane, keep_frac=0.0)
+                spill_mem.append((b, devmon.bytes_in_use(dev)))
+
+            t_up, up_up = _dispatch_rounds(svc, metrics, A_np, B0_np, ROUNDS19, spill)
+            freed = min(b - a for b, a in spill_mem)
+            check(up_res == 0 and up_up == pack, f"fabric {dtype}: uploads resident {up_res}, "
+                  f"after spill {up_up} (pack {pack})")
+            check(freed >= pack, f"fabric {dtype}: spill freed {freed} bytes < pack {pack}")
+
+            def invalidate():
+                svc.factor_cache.invalidate(fp)
+                svc.arena.drop(fp)
+
+            t_miss, _ = _dispatch_rounds(svc, metrics, A_np, B0_np, MISS_ROUNDS19, invalidate)
+            t_app, t_ref = [], []
+            for _ in range(MISS_ROUNDS19):
+                Cn = torch.randn(APPEND19, n, generator=gen, device=dev, dtype=dt).cpu().numpy()
+                t_app.append(_event_ms(lambda: sess.append(Cn)))
+                t_ref.append(_event_ms(sess.refactor))
+        finally:
+            svc.stop()
+        del sess
+        torch.cuda.empty_cache()
+        svc, sess, Xu, x2u, row["unarmed"] = fabric_leg(serve, fabric, pk, qf, metrics, ops,
+                                                        False, dtype, dev)
+        try:
+            t_unarmed, up_un = _dispatch_rounds(svc, metrics, A_np, B0_np, ROUNDS19)
+        finally:
+            svc.stop()
+        del sess
+        same = (Xa.dtype == Xu.dtype and Xa.tobytes() == Xu.tobytes()
+                and x2a.tobytes() == x2u.tobytes())
+        check(same, f"fabric {dtype}: the unarmed X stream is not byte-identical to the armed")
+        b_mb = b_bytes / 1e6
+        row.update({
+            "pack_bytes": pack,
+            "resident_hit_ms": t_res, "resident_hit_h2d_bytes": up_res + b_bytes,
+            "reupload_hit_ms": t_up, "reupload_hit_h2d_bytes": up_up + b_bytes,
+            "unarmed_hit_ms": t_unarmed, "unarmed_hit_h2d_bytes": up_un + b_bytes,
+            "miss_ms": t_miss, "miss_h2d_bytes": A_np.nbytes + b_bytes,
+            "append_ms": statistics.median(t_app), "refactor_ms": statistics.median(t_ref),
+            "spill_bytes_in_use": spill_mem[0], "byte_identical": same,
+            "report_rc": rep.returncode})
+        print(f"  fabric {dtype} dispatches (CUDA events, submit to result, medians): "
+              f"resident hit {t_res:.3f} ms ({(up_res + b_bytes) / 1e6:.1f} MB host to device), "
+              f"after spill {t_up:.3f} ms ({(up_up + b_bytes) / 1e6:.1f} MB), unarmed hit "
+              f"{t_unarmed:.3f} ms ({b_mb:.1f} MB), miss {t_miss:.3f} ms "
+              f"({(A_np.nbytes + b_bytes) / 1e6:.1f} MB); pack {pack / 1e6:.1f} MB; devmon "
+              f"bytes in use before / after spill {spill_mem[0][0] / 1e9:.3f} / "
+              f"{spill_mem[0][1] / 1e9:.3f} GB; append of {APPEND19} rows "
+              f"{row['append_ms']:.1f} ms against refactor {row['refactor_ms']:.1f} ms; "
+              f"armed and unarmed X byte-identical {same}; factor_report.py exit "
+              f"{rep.returncode}", flush=True)
+        out[dtype] = row
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t19
+    print(f"  phase 19: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: band and indefinite
 # ---------------------------------------------------------------------------
 
@@ -3796,6 +4034,7 @@ def band_complex_phase(stt, pk, gen, dev) -> dict:
 
 N_EIG, NB_EIG = 4096, 128  # the JAX package's on-chip heev size (tools/validate_onchip.py)
 N_EIG_C128 = 1024  # complex128: the device wavefront, cut for time
+N_HEGV3 = 1024  # hegv itype 3 with an Upper B: the LAPACK formulas on the card
 EIG_BOUND = 100  # tools/validate_onchip.py:151: residual and orthogonality <= 100
 STAGES = ("he2hb+gather", "hb2st", "stedc+unmtr_hb2st", "eigvals", "unmtr_he2hb")
 
@@ -3869,44 +4108,56 @@ def heev_phase(stt, pk, metrics, dtype, n, gen, dev, vectors=True) -> dict:
             "library_ms": t_lib}
 
 
-def hegv_phase(stt, pk, ck, metrics, gen, dev) -> dict:
-    """hegv itype 1 at n = 4096, float64: A = (G + G^T)/2, B = X X^T + n I;
-    potrf(B) launches the Cholesky kernels at ``chol_kernel_launches``;
-    ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) <= 100; against
-    cuSOLVER's route: cholesky + two solve_triangular + eigh + one
-    solve_triangular."""
-    n, dt = N_EIG, torch.float64
+def hegv_phase(stt, pk, ck, metrics, gen, dev, itype=1, upper=False, n=N_EIG) -> dict:
+    """hegv at n, float64: A = (G + G^T)/2, B = X X^T + n I stored Lower,
+    or Upper (B = U^T U); potrf(B) launches the Cholesky kernels at
+    ``chol_kernel_launches`` from the crossover up; the scaled residual of
+    the itype, ||AX - BX Lambda||_1 / (||A||_1 ||X||_1 n eps) (itype 1) or
+    ||BAX - X Lambda||_1 / (||A||_1 ||B||_1 ||X||_1 n eps) (itype 3), <= 100;
+    the eigenvalues against cuSOLVER's route: cholesky, the reduction
+    (two solve_triangular for itype 1, two products for itype 3), eigh
+    and the back-transform."""
+    dt = torch.float64
     A = _herm(n, dt, gen, dev)
     X0 = torch.randn(n, n, generator=gen, device=dev, dtype=dt)
     B = X0 @ X0.T
     B.diagonal().add_(n)
     del X0
-    Am, Bm = stt.HermitianMatrix.from_global(A, NB_EIG), stt.HermitianMatrix.from_global(B, NB_EIG)
+    uplo = stt.Uplo.Upper if upper else stt.Uplo.Lower
+    Am = stt.HermitianMatrix.from_global(A, NB_EIG)
+    Bm = stt.HermitianMatrix.from_global(B, NB_EIG, uplo=uplo)
     (w, X, info), t, stages, route, launches, peak = _eig_run(
-        pk, metrics, lambda: stt.hegv(1, Am, Bm))
+        pk, metrics, lambda: stt.hegv(itype, Am, Bm))
     Xg = X.to_global()
     n1 = lambda M: float(torch.linalg.matrix_norm(M, ord=1))  # noqa: E731
     eps = torch.finfo(dt).eps
-    r = n1(A @ Xg - (B @ Xg) * w[None, :]) / (n1(A) * n1(Xg) * n * eps)
+    if itype == 1:
+        r = n1(A @ Xg - (B @ Xg) * w[None, :]) / (n1(A) * n1(Xg) * n * eps)
+    else:
+        r = n1(B @ (A @ Xg) - Xg * w[None, :]) / (n1(A) * n1(B) * n1(Xg) * n * eps)
 
     def library():
         L = torch.linalg.cholesky(B)
-        C = torch.linalg.solve_triangular(L, torch.linalg.solve_triangular(L, A, upper=False).mH,
-                                          upper=False).mH
-        wl, Y = torch.linalg.eigh(C)
-        return wl, torch.linalg.solve_triangular(L.mH, Y, upper=True)
+        if itype == 1:
+            C = torch.linalg.solve_triangular(
+                L, torch.linalg.solve_triangular(L, A, upper=False).mH, upper=False).mH
+            wl, Y = torch.linalg.eigh(C)
+            return wl, torch.linalg.solve_triangular(L.mH, Y, upper=True)
+        wl, Y = torch.linalg.eigh(L.mH @ A @ L)
+        return wl, L @ Y
 
     t_lib = cuda_ms(library, reps=1)
     wl, _ = library()
     werr = float((w - wl).abs().max()) / (n * eps * float(wl.abs().max()))
-    expect = {k: v for k, v in ck.chol_kernel_launches(n).items() if v}
-    label = f"hegv float64 n={n} itype 1"
+    expect = ({k: v for k, v in ck.chol_kernel_launches(n).items() if v}
+              if n >= ck.RECURSIVE_MIN_N else {})
+    label = f"hegv float64 n={n} itype {itype}{' Upper B' if upper else ''}"
     print(f"  {label}: {t:.3f} s host clock, heev stages "
           + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
           + f"; residual {r:.3e}, info {int(info)}, eigenvalues vs the library route "
           f"{werr:.3e} n eps max|w|; hb2st route {route}; launches {launches} (expected "
-          f"{expect}); peak {peak:.2f} GB; cholesky + solve_triangular x 3 + eigh "
-          f"{t_lib:.3f} ms (yardstick)", flush=True)
+          f"{expect}); peak {peak:.2f} GB; the library route {t_lib:.3f} ms (yardstick)",
+          flush=True)
     check(int(info) == 0, f"{label}: info {int(info)}")
     check(r <= EIG_BOUND, f"{label}: residual {r:.3e} > {EIG_BOUND}")
     check(werr <= 10, f"{label}: eigenvalues differ from the library route by {werr:.3e}")
@@ -3919,8 +4170,8 @@ def hegv_phase(stt, pk, ck, metrics, gen, dev) -> dict:
 def eig_main(stt, pk, ck, metrics, gen, dev) -> dict:
     """Phase 15: heev with vectors at n = 4096 in float64 (the host
     chaser) and float32 (the device wavefront), values only in float64
-    (the Sturm bisection), hegv in float64, complex128 heev at n = 1024,
-    then the profile of a float64 heev."""
+    (the Sturm bisection), hegv in float64 (itype 1 at n = 4096, itype 3
+    with an Upper B at n = 1024), complex128 heev at n = 1024."""
     t15 = time.perf_counter()
     eres = {}
     for d in DTYPES:
@@ -3930,6 +4181,8 @@ def eig_main(stt, pk, ck, metrics, gen, dev) -> dict:
                                              vectors=False)
     eres["hegv_float64"] = hegv_phase(stt, pk, ck, metrics, gen, dev)
     torch.cuda.empty_cache()
+    eres[f"hegv_itype3_upper_float64_{N_HEGV3}"] = hegv_phase(
+        stt, pk, ck, metrics, gen, dev, itype=3, upper=True, n=N_HEGV3)
     eres[f"heev_complex128_{N_EIG_C128}"] = heev_phase(stt, pk, metrics, "complex128",
                                                        N_EIG_C128, gen, dev)
     torch.cuda.empty_cache()
@@ -4297,6 +4550,7 @@ def main() -> int:
     svd_only = "--svd" in sys.argv[1:]
     restore_only = "--restore" in sys.argv[1:]
     admission_only = "--admission" in sys.argv[1:]
+    fabric_only = "--fabric" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4360,6 +4614,13 @@ def main() -> int:
         print("phase 18: admission, the checked runtime and the device monitor", flush=True)
         adres = admission_main(serve, faults, pk, ck, lk, metrics, gen, dev)
         print("main path: " + json.dumps({"serve_admission": adres}))
+        print(smi)
+        return 0
+    if fabric_only:
+        metrics.on()
+        print("phase 19: the factor fabric", flush=True)
+        fbres = fabric_main(serve, pk, qf, metrics, gen, dev)
+        print("main path: " + json.dumps({"serve_fabric": fbres}))
         print(smi)
         return 0
     if profile_only:
@@ -4476,6 +4737,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 18: admission, the checked runtime and the device monitor", flush=True)
     adres = admission_main(serve, faults, pk, ck, lk, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    print("phase 19: the factor fabric", flush=True)
+    fbres = fabric_main(serve, pk, qf, metrics, gen, dev)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -4516,6 +4780,7 @@ def main() -> int:
                                       "dense_drivers": xres, "mixed": mixed,
                                       "serve": sres, "serve_restore": rsres,
                                       "serve_admission": adres,
+                                      "serve_fabric": fbres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

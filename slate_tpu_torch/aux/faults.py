@@ -1,8 +1,7 @@
 """Deterministic, seedable fault injection: the part of the JAX
 package's ``aux/faults.py`` that the drivers and the serve tier use.
-The streaming-session and fleet sites (``session_update``,
-``host_death``, ``host_partition``, ``rpc_timeout``) belong to the
-planes not ported yet (ROADMAP.md Queue 1 item 7c).
+The fleet sites (``host_death``, ``host_partition``, ``rpc_timeout``)
+belong to the plane not ported yet (ROADMAP.md Queue 1 item 7c3).
 
 Sites (:data:`SITES`) and where they are checked:
 
@@ -23,6 +22,11 @@ Sites (:data:`SITES`) and where they are checked:
                        element is silently wrong (finite): the hit
                        path's residual validation must catch it
                        (``serve.service`` solve-phase dispatch)
+    ``session_update`` a streaming session's Householder update of R
+                       silently wrong (finite) after the fold
+                       (``fabric.session.FactorSession.append``): the
+                       per-solve residual fence must catch it and pay a
+                       counted refactor
     ``artifact_corrupt``   one byte of an artifact flipped as it is read
     ``artifact_stale``     an artifact's fingerprint read as another
                            runtime's
@@ -106,6 +110,10 @@ SITE_SPECS: Tuple[SiteSpec, ...] = (
     SiteSpec("artifact_stale", recovery=("serve.artifact_stale",)),
     SiteSpec("artifact_load_fail", recovery=("serve.artifact_load_fail",)),
     SiteSpec("factor_stale", recovery=("serve.factor_cache.stale",)),
+    # the per-solve residual fence catches a poisoned R update and the
+    # counted refactor rebuilds it from A, never a silent wrong X
+    SiteSpec("session_update", recovery=("fabric.session.fence_fail",
+                                         "fabric.session.refactor")),
     # a counted certificate failure means the wrong X was re-executed,
     # never delivered; hits on a factor poisoned by sdc_factor land on
     # the factor cache's residual fence (stale)

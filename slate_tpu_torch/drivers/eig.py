@@ -33,7 +33,7 @@ from torch.profiler import record_function
 from .. import native
 from ..aux import metrics
 from ..aux.metrics import instrumented
-from ..enums import MethodEig, Op, Option, Side
+from ..enums import MethodEig, Op, Option, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.precision import check_f32_precision, hdot
 from ..matrix.base import conj_transpose
@@ -279,17 +279,32 @@ def stedc(d: torch.Tensor, e: torch.Tensor, vectors: bool = True):
     return _stedc_dc(_real(d), _real(e))
 
 
+def _lower_factor(L: TriangularMatrix) -> torch.Tensor:
+    """The lower factor F of B = F F^H as a global tensor: the stored
+    triangle of a Lower L, or U^H for the Upper U that ``chol.potrf``
+    returns for an Upper B (B = U^H U).  The other triangle is zeroed."""
+    G = L._with(op=Op.NoTrans).to_global()
+    return torch.tril(G) if L.uplo == Uplo.Lower else torch.triu(G).mH
+
+
 @instrumented("hegst")
 def hegst(itype: int, A: HermitianMatrix, L: TriangularMatrix,
           opts: Optional[Options] = None) -> HermitianMatrix:
     """Reduce the generalized problem to standard form (reference:
-    src/hegst.cc): itype 1: C = L^-1 A L^-H through two library
-    triangular solves; itype 2/3: C = L^H A L."""
+    src/hegst.cc, LAPACK zhegst).  With B = L L^H (Lower) itype 1 forms
+    C = L^-1 A L^-H through two library triangular solves and itype 2/3
+    C = L^H A L; with B = U^H U (Upper) itype 1 forms C = U^-H A U^-1
+    and itype 2/3 C = U A U^H.  A is read from its own triangle, which
+    may differ from B's.
+
+    Deviation from the JAX package: its hegst applies the Lower
+    formulas to an Upper factor; this one takes the factor's uplo."""
+    slate_assert(itype in (1, 2, 3), f"hegst: itype must be 1, 2 or 3, got {itype}")
     Ag = A.full_global()
-    Lg = L._with(op=Op.NoTrans).to_global()
+    Lg = _lower_factor(L)  # U^H for an Upper factor: the Upper formulas follow
     if itype == 1:
-        Y = blas2d.trsm2d(Side.Left, L.uplo, Op.NoTrans, L.diag, 1.0, Lg, Ag)
-        Ch = blas2d.trsm2d(Side.Right, L.uplo, Op.ConjTrans, L.diag, 1.0, Lg, Y)
+        Y = blas2d.trsm2d(Side.Left, Uplo.Lower, Op.NoTrans, L.diag, 1.0, Lg, Ag)
+        Ch = blas2d.trsm2d(Side.Right, Uplo.Lower, Op.ConjTrans, L.diag, 1.0, Lg, Y)
     else:
         Ch = hdot(hdot(Lg.mH, Ag), Lg)
     return HermitianMatrix.from_global(Ch, A.layout.mb, A.layout.nb, grid=A.grid,
@@ -300,14 +315,24 @@ def hegst(itype: int, A: HermitianMatrix, L: TriangularMatrix,
 def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts: Optional[Options] = None,
          vectors: bool = True):
     """Generalized Hermitian-definite eigenproblem (reference:
-    src/hegv.cc: potrf(B) + hegst + heev + triangular back-transform).
-    itype 1: A x = lambda B x.  Returns (Lambda, X or None, info)."""
+    src/hegv.cc, LAPACK zhegv: potrf(B) + hegst + heev + triangular
+    back-transform).  itype 1: A x = lambda B x; 2: A B x = lambda x;
+    3: B A x = lambda x.  The eigenvectors are x = L^-H y (itype 1, 2)
+    and x = L y (itype 3) for a Lower B, x = U^-1 y and x = U^H y for an
+    Upper one.  Returns (Lambda, X or None, info).
+
+    Deviation from the JAX package: its back-transform is x = L^-H y
+    for every itype and uplo."""
     L, info = chol.potrf(B, opts)
     C = hegst(itype, A, L, opts)
     w, Z = heev(C, opts, vectors=vectors)
     if not vectors:
         return w, None, info
-    X = blas3.trsm(Side.Left, 1.0, conj_transpose(L), Z, opts)  # x = L^-H y
+    lower = L.uplo == Uplo.Lower
+    if itype == 3:
+        X = blas3.trmm(Side.Left, 1.0, L if lower else conj_transpose(L), Z, opts)
+    else:
+        X = blas3.trsm(Side.Left, 1.0, conj_transpose(L) if lower else L, Z, opts)
     return w, X, info
 
 

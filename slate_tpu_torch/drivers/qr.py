@@ -38,9 +38,10 @@ from . import blas3, chol
 
 def _padded_global_splice(A: BaseMatrix) -> torch.Tensor:
     """A's global tensor padded to whole tiles (P mb, Q nb), with ones on
-    the padding diagonal."""
+    the padding diagonal; a transposed view pads in its resolved layout."""
+    A = A.resolved()
     lay = A.layout
-    G = A.resolved().to_global()
+    G = A.to_global()
     mp, npd = lay.P * lay.mb, lay.Q * lay.nb
     Gp = torch.nn.functional.pad(G, (0, npd - lay.n, 0, mp - lay.m))
     idx = torch.arange(min(lay.m, lay.n), min(mp, npd), device=Gp.device)
@@ -53,7 +54,9 @@ def geqrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     """Householder QR: A = Q R (reference: src/geqrf.cc).
 
     Returns (factored, T): factored stores V below the diagonal and R on
-    and above; T holds the per-tile-panel compact-WY factors."""
+    and above; T holds the per-tile-panel compact-WY factors.  A
+    transposed view factors op(A) (the JAX package raises)."""
+    A = A.resolved()
     slate_assert(A.layout.mb == A.layout.nb, "geqrf requires square tiles")
     lay = A.layout
     nb = lay.nb
@@ -137,7 +140,9 @@ def gelqf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     QR on A^H: A^H = Qr R, so A = R^H Qr^H = L Q.
 
     Returns (factored, T): factored stores L on and below the diagonal
-    and the dual's reflectors V^H above it; T is the dual's T stack."""
+    and the dual's reflectors V^H above it; T is the dual's T stack.  A
+    transposed view factors op(A) (the JAX package raises)."""
+    A = A.resolved()
     facH, T = geqrf(_as_matrix(conj_transpose(A).resolved(), A.grid), opts)
     fac = conj_transpose(facH).resolved()
     return A._with(data=fac.data, layout=fac.layout), T
@@ -197,7 +202,12 @@ def gels(A: Matrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     MethodGels QR | CholQR; gels_qr.cc, gels_cholqr.cc).
 
     Overdetermined (m >= n): X = argmin ||A X - B||; underdetermined: the
-    minimum-norm solution through the LQ dual.  Returns X (n x nrhs)."""
+    minimum-norm solution through the LQ dual.  Returns X (n x nrhs).
+    As in SLATE, a transposed or conjugate-transposed view solves with
+    op(A): the views are resolved once here, and the shape, the layout
+    and the tall / wide branch come from op(A) (the JAX package raises).
+    """
+    A, B = A.resolved(), B.resolved()
     method = get_option(opts, Option.MethodGels, MethodGels.Auto)
     if isinstance(method, str):
         method = MethodGels.from_string(method)

@@ -14,11 +14,12 @@ quotas, priority shedding and an AIMD-adaptive batch window
 (`admission`, ``SLATE_TPU_TENANTS`` / ``SLATE_TPU_ADAPTIVE``), and thin
 sync wrappers (`api`): ``serve.gesv/posv/gels``, ``serve.submit``,
 ``serve.warmup``, ``serve.restore``, ``serve.wait_ready``,
-``serve.health``.
+``serve.health``, and the factor fabric's ``serve.get_arena`` (the
+device factor arena, ``SLATE_TPU_FACTOR_ARENA``) and ``serve.session``
+(streaming least-squares sessions).
 
-Not ported yet (ROADMAP.md Queue 1 items 7c and 8): ``get_fleet``,
-``get_arena``, ``session``, the elastic capacity plane and the sharded
-lane.
+Not ported yet (ROADMAP.md Queue 1 items 7c2, 7c3 and 8): the elastic
+capacity plane, ``get_fleet`` and the sharded lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.
@@ -33,7 +34,7 @@ _API = (
     "shutdown",
     "get_service", "get_cache", "health", "InvalidInput",
     "get_factor_cache", "factor_fingerprint", "invalidate", "invalidate_all",
-    "update_factor",
+    "update_factor", "get_arena", "session",
 )
 _SERVICE = (
     "SolverService", "Rejected", "DeadlineExceeded", "Shed", "decorrelated_backoff",

@@ -1,6 +1,6 @@
 """Thin sync serving API over one process-wide :class:`SolverService`
-(the JAX package's ``serve/api.py`` without the fleet tier, the device
-factor arena and sessions, ROADMAP.md Queue 1 item 7c).
+(the JAX package's ``serve/api.py`` without the fleet tier, ROADMAP.md
+Queue 1 item 7c3).
 
 Usage::
 
@@ -20,7 +20,10 @@ quota or queue share) raises Rejected, the overload controller's
 refusal raises Shed, and non-finite operands raise InvalidInput from
 ``submit`` itself.  ``tenant=`` / ``priority=`` tag a request for the
 admission plane (``SLATE_TPU_TENANTS`` / ``SLATE_TPU_ADAPTIVE``, or
-``configure(tenants=..., adaptive=...)``).
+``configure(tenants=..., adaptive=...)``).  ``session(A)`` opens a
+streaming least-squares session (``fabric/session.py``), and
+``get_arena()`` returns the device factor arena (``fabric/arena.py``,
+``SLATE_TPU_FACTOR_ARENA`` / ``Option.ServeFactorArena``), or None.
 
 The default service reads the Serve* Option defaults; ``configure()``
 overrides them per process (``configure(placement=PlacementPolicy(
@@ -83,6 +86,18 @@ def _make_service(opts: Optional[Options], **kw) -> SolverService:
     if cfg.get("factor_cache") is None:
         # per-call opts can enable the factor cache too
         cfg["factor_cache"] = cache_from_options(opts)
+    if cfg.get("factor_arena") is None and opts:
+        # an explicit opts spec builds (or explicitly disables) the arena
+        # here; otherwise the service resolves the env and the defaults
+        fa = get_option(opts, Option.ServeFactorArena, _unset)
+        if fa is not _unset:
+            if isinstance(fa, str):
+                from ..fabric.arena import FactorArena, parse_arena_spec
+
+                spec = parse_arena_spec(fa)
+                cfg["factor_arena"] = FactorArena(**spec) if spec is not None else False
+            else:
+                cfg["factor_arena"] = fa or False
     if cfg.get("placement") is None:
         cfg["placement"] = PlacementPolicy.from_options(opts, replicas=cfg.pop("replicas", None))
     return SolverService(**cfg)
@@ -217,14 +232,22 @@ def factor_fingerprint(routine: str, A) -> str:
 
 def invalidate(fp: str) -> bool:
     """Drop one fingerprint's cached factor (the next same-A request
-    pays a counted refactor).  False when absent or the cache is off."""
-    fc = get_service().factor_cache
+    pays a counted refactor) and its device-arena residency.  False when
+    absent or the cache is off."""
+    svc = get_service()
+    if svc.arena is not None:
+        svc.arena.drop(fp)
+    fc = svc.factor_cache
     return fc.invalidate(fp) if fc is not None else False
 
 
 def invalidate_all() -> int:
-    """Drop every cached factor; the count dropped (0 when off)."""
-    fc = get_service().factor_cache
+    """Drop every cached factor and all device-arena residency; the count
+    dropped (0 when off)."""
+    svc = get_service()
+    if svc.arena is not None:
+        svc.arena.clear()
+    fc = svc.factor_cache
     return fc.invalidate_all() if fc is not None else 0
 
 
@@ -237,3 +260,32 @@ def update_factor(fp: str, A_new, U, downdate: bool = False):
     if fc is None:
         return None
     return fc.update(fp, np.asarray(A_new), np.asarray(U), downdate=downdate)
+
+
+# -- factor fabric (device arena + streaming sessions) -----------------------
+
+
+def get_arena():
+    """The process service's
+    :class:`~slate_tpu_torch.fabric.arena.FactorArena`, or None when
+    unarmed (the default; ``SLATE_TPU_FACTOR_ARENA=1`` / ``bytes=<N>`` /
+    ``Option.ServeFactorArena`` arm it, with the factor cache on)."""
+    return get_service().arena
+
+
+def session(A, routine: str = "gels", schedule: Optional[str] = None):
+    """Open a streaming factor-reuse session on the process service
+    (:class:`~slate_tpu_torch.fabric.session.FactorSession`)::
+
+        s = serve.session(A)          # min ||A x - b||, m >= n
+        x0 = s.solve(b)               # pristine: factor cache / arena path
+        s.append(rows)                # O(k n^2) Householder update of R
+        x1 = s.solve(b_grown)         # fenced CSNE against the updated R
+
+    Every streamed solve passes the residual fence or pays a counted
+    refactor (``fabric.session.refactor``), never a wrong X."""
+    from ..fabric.session import FactorSession
+
+    svc = get_service()
+    return FactorSession(svc, A, routine=routine,
+                         schedule=svc.schedule if schedule is None else schedule)

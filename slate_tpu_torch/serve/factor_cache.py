@@ -17,8 +17,12 @@ Entries: a :class:`FactorEntry` holds the factor padded to its serve
 bucket (``[[L, 0], [0, I]]`` / ``[[LU, 0], [0, I]]``, or the gels pack
 of ``buckets.solve_factor_shape``) as a tensor on the lane's device, so
 a hit uploads only B; gesv's forward row permutation rides as an int64
-tensor on the same device, and P B is a gather there.  ``nbytes`` is
-``numel × element_size`` (plus the permutation's), the numpy count.
+tensor on the same device, and P B is a gather there.  With the device
+factor arena armed (``fabric/arena.py``) the service stores
+:func:`host_entry` copies instead: factor and permutation in pinned host
+memory, ``home`` naming the device they were computed on, and the arena
+owns device residency.  ``nbytes`` is ``numel × element_size`` (plus the
+permutation's), the numpy count, wherever the entry lives.
 
 Budgets and lifecycle: an entry-count and a byte budget
 (``Option.ServeFactorCacheEntries`` / ``ServeFactorCacheBytes`` or the
@@ -37,6 +41,7 @@ bucket (``serve.factor_cache.<label>.<event>``) and per fingerprint
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 from collections import OrderedDict
@@ -118,14 +123,40 @@ class FactorEntry:
     perm: Optional[torch.Tensor]  # (n,) int64 forward row permutation (gesv)
     n: int  # true solution dimension
     replica: Optional[str] = None  # lane that factored it
+    # the device the factor was computed on, when the entry holds it on
+    # the host (an armed arena); None: the factor's own device
+    home: Optional[torch.device] = None
 
     @property
     def nbytes(self) -> int:
         return _nbytes(self.factor) + _nbytes(self.perm)
 
     @property
+    def device(self) -> torch.device:
+        """Where the entry's factor is computed and updated."""
+        return self.home if self.home is not None else self.factor.device
+
+    @property
     def solve_key(self) -> BucketKey:
         return self.key.solve_sibling()
+
+
+def _to_host(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A pinned host copy of a device tensor (the same tensor on the
+    CPU): a later ``.to(device, non_blocking=True)`` copies without
+    staging."""
+    if t is None or t.device.type == "cpu":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)  # synchronous: the device copy may be freed after it
+    return h
+
+
+def host_entry(entry: FactorEntry) -> FactorEntry:
+    """The entry an armed arena's cache stores: factor and permutation
+    copied to pinned host memory, ``home`` set to their device."""
+    return dataclasses.replace(entry, factor=_to_host(entry.factor),
+                               perm=_to_host(entry.perm), home=entry.device)
 
 
 def pad_square_t(F: torch.Tensor, S: int) -> torch.Tensor:
@@ -209,17 +240,18 @@ def gels_factor_pack(A: np.ndarray, key: BucketKey, schedule: str = "auto",
     return pack
 
 
-def solve_from_factor(entry: FactorEntry, B: np.ndarray) -> np.ndarray:
+def solve_from_factor(entry: FactorEntry, B: np.ndarray, device=None) -> np.ndarray:
     """Direct (unbatched, eager) solve from a cached entry on the
-    factor's device — the math of the solve-phase bucket executable at
-    the true size — for a request that finds the factor mid-flight and
-    for parity checks.  Returns numpy."""
+    factor's device, or on ``device`` (a host entry's factor is copied
+    there) — the math of the solve-phase bucket executable at the true
+    size — for a request that finds the factor mid-flight and for parity
+    checks.  Returns numpy."""
     from ..drivers import chol as _chol
     from ..drivers import lu as _lu
     from ..drivers import qr as _qr
 
     n = entry.n
-    F = entry.factor
+    F = entry.factor if device is None else entry.factor.to(device)
     Bt = torch.as_tensor(np.asarray(B), device=F.device)
     if entry.routine == "gels":
         # pad B rows to the bucket height (pad rows carry zeros)
@@ -227,7 +259,8 @@ def solve_from_factor(entry: FactorEntry, B: np.ndarray) -> np.ndarray:
         Bp[: Bt.shape[0]] = Bt
         X = _qr.gels_solve_from_global(F, Bp, entry.key.m, entry.key.nb)[:n]
     elif entry.routine == "gesv":
-        X = _lu.getrs_from_global(F[:n, :n], Bt[entry.perm], entry.key.schedule)
+        X = _lu.getrs_from_global(F[:n, :n], Bt[entry.perm.to(F.device)],
+                                  entry.key.schedule)
     else:
         X = _chol.potrs_from_global(F[:n, :n], Bt, entry.key.schedule)
     return X.cpu().numpy()
@@ -374,14 +407,18 @@ class FactorCache:
         up/downdate to the cached factor on its device; gesv entries, and
         a posv downdate that breaks down, refactor ``A_new``
         (``serve.factor_cache.update_refactor``).  Returns the new
-        fingerprint, or None when ``fp`` is not cached."""
+        fingerprint, or None when ``fp`` is not cached.  A host entry
+        (armed arena) is updated on its ``home`` device and stored back
+        on the host."""
         from ..ops.chol_kernels import chol_update
 
         with self._lock:
             entry = self._entries.get(fp)
             if entry is not None and entry.routine == "gels":
-                raise ValueError("update: gels factors are row-streamed, not rank-k "
-                                 "updated (ROADMAP.md Queue 1 item 7c)")
+                # rank-k A +- U U^H edits are square-matrix semantics;
+                # row-streamed least squares lives in fabric.session
+                raise ValueError("update: gels factors are row-streamed via "
+                                 "serve.session(routine='gels'), not rank-k updated")
             entry = self._entries.pop(fp, None)
             if entry is not None:
                 self._bytes -= entry.nbytes
@@ -394,7 +431,7 @@ class FactorCache:
                              f"entry holds n={entry.n}")
         new_fp = matrix_fingerprint(A_new, entry.routine, schedule=entry.key.schedule,
                                     precision=entry.key.precision)
-        dev = entry.factor.device
+        dev = entry.device
         factor = None
         perm = entry.perm
         if entry.routine == "posv":
@@ -404,7 +441,7 @@ class FactorCache:
             Up = torch.zeros((entry.factor.shape[0], U2.shape[1]), dtype=U2.dtype,
                              device=dev)
             Up[: entry.n] = U2  # pad rows untouched: I stays I
-            F = chol_update(entry.factor, Up, downdate=bool(downdate))
+            F = chol_update(entry.factor.to(dev), Up, downdate=bool(downdate))
             if bool(torch.isfinite(F).all()):
                 factor = F
                 record("update", fp=new_fp, label=entry.key.label)
@@ -415,8 +452,9 @@ class FactorCache:
             factor = pad_square_t(raw, entry.factor.shape[0])
             record("update", fp=new_fp, label=entry.key.label)
             record("update_refactor", fp=new_fp, label=entry.key.label)
-        self.put(FactorEntry(fp=new_fp, routine=entry.routine, key=entry.key,
-                             factor=factor, perm=perm, n=entry.n, replica=entry.replica))
+        new = FactorEntry(fp=new_fp, routine=entry.routine, key=entry.key,
+                          factor=factor, perm=perm, n=entry.n, replica=entry.replica)
+        self.put(host_entry(new) if entry.home is not None else new)
         return new_fp
 
 

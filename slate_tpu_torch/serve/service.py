@@ -1,9 +1,9 @@
 """SolverService: bounded admission, a replica pool, same-bucket batch
 coalescing, a factor cache, deadlines, retries with backoff,
 circuit-breaker recovery, the artifact restore, the integrity plane and
-the admission plane -- the JAX package's ``serve/service.py`` without
-the sharded lane, the elastic capacity plane and the device factor
-arena (ROADMAP.md Queue 1 items 7c and 8).
+the admission plane and the device factor arena -- the JAX package's
+``serve/service.py`` without the sharded lane (ROADMAP.md Queue 1 item
+8) and the elastic capacity plane (item 7c2).
 
 Execution model:
 
@@ -56,6 +56,15 @@ Execution model:
   caches the factor.  Every hit is residual-checked on the host: a
   factor that no longer matches A (``factor_stale``) is dropped and the
   request re-solved, never a wrong X.
+* Device factor arena (``fabric/arena.py``, off by default:
+  ``factor_arena=`` / ``SLATE_TPU_FACTOR_ARENA`` /
+  ``Option.ServeFactorArena``, with the factor cache on): the cache
+  keeps its factors in pinned host memory (a miss factors on the lane's
+  device, solves there, and stores a host copy), and a hit dispatches
+  the lane's resident device buffer, uploading it once on the lane's
+  first hit.  Spill, eviction and invalidation free device memory; the
+  next hit re-uploads, never refactors.  Chaos bypasses the arena.  Off,
+  ``self.arena is None`` and the hit path is the one above.
 * Readiness (``health()["phase"]``: ``cold`` -> ``restoring`` ->
   ``ready``): a service whose cache has an artifact store
   (``SLATE_TPU_ARTIFACTS``) restores every manifest entry on
@@ -134,6 +143,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
 import random
 import threading
 import time
@@ -158,6 +168,7 @@ from .factor_cache import (
     cache_from_options,
     factor_only,
     gels_factor_pack,
+    host_entry,
     matrix_fingerprint,
     pad_square_t,
     residual_ok,
@@ -348,6 +359,10 @@ class SolverService:
     factor_cache: :class:`FactorCache`, or None to resolve
         ``SLATE_TPU_FACTOR_CACHE`` / ``Option.ServeFactorCache*`` (off
         by default), or False to disable it over the env.
+    factor_arena: :class:`~slate_tpu_torch.fabric.arena.FactorArena`,
+        or None to resolve ``SLATE_TPU_FACTOR_ARENA`` /
+        ``Option.ServeFactorArena`` (off by default), or False to
+        disable it over the env; None without a factor cache.
     tenants: the admission plane's tenant spec (the grammar string of
         ``serve/admission.py``, e.g. ``"gold:weight=4;free:rate=20,
         share=0.25"``, or a parsed ``{name: TenantConfig}``); None
@@ -394,6 +409,7 @@ class SolverService:
         placement: Optional[PlacementPolicy] = None,
         replicas: Optional[int] = None,
         factor_cache: Union[FactorCache, bool, None] = None,
+        factor_arena=None,
         tenants=None,
         adaptive: Optional[bool] = None,
         latency_budget_s: Optional[float] = None,
@@ -434,6 +450,18 @@ class SolverService:
         self.factor_cache = (None if factor_cache is False
                              else factor_cache if factor_cache is not None
                              else cache_from_options())
+        # the device factor arena (fabric/): None unless armed, and
+        # meaningless without the host cache; the fabric package is
+        # imported only when something arms it
+        self.arena = None
+        if factor_arena is not False and self.factor_cache is not None:
+            if factor_arena is not None:
+                self.arena = factor_arena
+            elif os.environ.get("SLATE_TPU_FACTOR_ARENA") or get_option(
+                    None, Option.ServeFactorArena):
+                from ..fabric.arena import arena_from_options
+
+                self.arena = arena_from_options()
         # the admission plane (tenancy, priority shedding, the adaptive
         # window): None unless configured -- one `is None` branch a
         # submit, plain deque lanes
@@ -748,6 +776,9 @@ class SolverService:
         # outside _cond: the factor cache is self-locked
         refactored = (self.factor_cache.rehome(rep.name, survivor.name)
                       if self.factor_cache is not None else 0)
+        if self.arena is not None:
+            # residency is lane-affine: the survivors re-upload on a hit
+            self.arena.drop_lane(rep.lane)
         with self._cond:
             # anything that still landed here (a requeue racing the join)
             self._rehome_queue_locked(rep)
@@ -1131,6 +1162,9 @@ class SolverService:
             "devices": devices,
             "factor_cache": (self.factor_cache.stats()
                              if self.factor_cache is not None else None),
+            # the device factor arena (None when unarmed): per-lane
+            # residency and the byte ledger against its budget
+            "arena": self.arena.stats() if self.arena is not None else None,
             "tenants": (adm.tenants_health(tenant_depths, now=now)
                         if adm is not None else None),
             "admission": adm.snapshot() if adm is not None else None,
@@ -1548,12 +1582,15 @@ class SolverService:
             return deliver, None
         self.cache.ensure_manifest(key, (1, self.batch_max))
         bb = _bk.batch_bucket(len(batch), self.batch_max)
-        # factor_stale: a finite wrong factor, perturbed on its own device;
-        # only the residual check below can catch it
-        F = faults.perturb("factor_stale", entry.factor)
+        ar = self.arena
+        if ar is None:
+            # factor_stale: a finite wrong factor, perturbed on its own
+            # device; only the residual check below can catch it
+            F = faults.perturb("factor_stale", entry.factor)
+        else:
+            F = self._arena_factor(ar, rep, entry)
         if devmon.is_on():
-            # the lane device's memory gauges at each hit dispatch (the
-            # pressure signal a device factor arena would spill on)
+            # the lane device's memory gauges at each hit dispatch
             devmon.sample_devices([rep.device])
         Bs = [_bk.pad_rhs(np.asarray(r.B), key.m, key.nrhs) for r in batch]
         while len(Bs) < bb:  # repeat-pad to the fixed batch point
@@ -1607,10 +1644,32 @@ class SolverService:
             deliver.append(functools.partial(_resolve, r.future, X, r))
         if stale:
             fc.invalidate(entry.fp)
+            if ar is not None:
+                # the device copies go with the host entry: a stale
+                # factor must not keep serving from residency
+                ar.drop(entry.fp)
         if len(batch) > 1:
             metrics.inc("serve.batched")
             metrics.inc("serve.batched_requests", len(batch))
         return deliver, corrupt
+
+    @staticmethod
+    def _arena_factor(ar, rep: _Replica, entry: FactorEntry):
+        """The armed hit's factor operand on the lane's device: the
+        resident buffer (``hit``, or ``cross_replica`` from a peer lane),
+        else one upload of the pinned host factor, installed for the
+        hits to come (``put``; with the device monitor on, the arena
+        then checks the device's memory pressure).  Chaos bypasses the
+        arena: the ``factor_stale`` perturbation must reach the operand
+        dispatched, and a perturbed factor is never made resident."""
+        if faults.is_on():
+            return faults.perturb("factor_stale", entry.factor)
+        F = ar.get(entry.fp, rep.lane, device=rep.device)
+        if F is None:
+            F = ar.put(entry.fp, rep.lane, entry.factor, device=rep.device)
+            if devmon.is_on():
+                ar.pressure(rep.lane, rep.device)
+        return F
 
     def _factor_direct(self, rep: _Replica, req: _Request) -> None:
         """The factor-cache miss / refactor path: one direct factorization
@@ -1634,14 +1693,20 @@ class SolverService:
                     faults.sleep("latency")
                     faults.check("execute")
                     X = None
+                    armed = self.arena is not None
                     if entry is not None:
-                        X = solve_from_factor(entry, req.B)
+                        # an armed entry's factor is on the host: solve on
+                        # the lane's device
+                        X = solve_from_factor(entry, req.B,
+                                              device=rep.device if armed else None)
                         if residual_ok(req.A, req.B, X, routine=req.routine):
                             _fc_record("hit", fp=fp, label=entry.key.label)
                             spans.annotate(factor_hit=True)
                         else:
                             _fc_record("stale", fp=fp, label=entry.key.label)
                             fc.invalidate(fp)
+                            if armed:
+                                self.arena.drop(fp)
                             entry, X = None, None
                     if entry is None:
                         # sdc_factor: a silently wrong fresh factor; this
@@ -1662,7 +1727,10 @@ class SolverService:
                         entry = FactorEntry(fp=fp, routine=req.routine, key=fkey,
                                             factor=factor, perm=perm, n=req.n)
                         if fc is not None and fp:
-                            fc.put(entry, replica=rep.name)
+                            # armed: the cache keeps a pinned host copy and
+                            # this device factor is freed after the solve
+                            fc.put(host_entry(entry) if armed else entry,
+                                   replica=rep.name)
                             # the hits to come ride the warmed manifest
                             self.cache.ensure_manifest(entry.solve_key, (1, self.batch_max))
                         X = solve_from_factor(entry, req.B)

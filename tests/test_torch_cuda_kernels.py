@@ -1736,3 +1736,63 @@ def test_devmon_on_the_card(dev, tmp_path):
             metrics.off()
         if not was[1]:
             devmon.off()
+
+
+@pytest.mark.cuda
+def test_fabric_on_the_card(dev):
+    """The factor fabric on cuda:0: an armed cache keeps pinned host
+    entries (the pack and gesv's permutation) homed on the card, the
+    arena's buffers live on the card and a spill frees them; a session's
+    fold and streamed solve run on the card, the fold within 100 n eps of
+    the same fold on the CPU."""
+    from slate_tpu_torch.aux import devmon, metrics
+    from slate_tpu_torch.fabric import FactorArena, FactorSession
+    from slate_tpu_torch.fabric.session import _update_r
+    from slate_tpu_torch.serve import ExecutableCache, FactorCache, SolverService
+    from slate_tpu_torch.serve import matrix_fingerprint
+
+    was = metrics.is_on()
+    metrics.on()
+    rng = np.random.default_rng(7)
+    m, n = 512, 256
+    A = rng.standard_normal((m, n))
+    G = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    s = SolverService(cache=ExecutableCache(manifest_path=None),
+                      factor_cache=FactorCache(max_entries=8), factor_arena=FactorArena(),
+                      batch_max=2)
+    try:
+        for routine, M in (("gels", A), ("gesv", G)):
+            for _ in range(3):
+                B = rng.standard_normal((M.shape[0], 3))
+                X = s.submit(routine, M, B).result(timeout=600)
+                ref = np.linalg.lstsq(M, B, rcond=None)[0]
+                assert np.abs(X - ref).max() <= 1e-9 * max(np.abs(ref).max(), 1.0)
+            e = s.factor_cache.get(matrix_fingerprint(M, routine, schedule=s.schedule))
+            assert e.factor.device.type == "cpu" and e.factor.is_pinned()
+            assert e.home == dev and (e.perm is None or e.perm.is_pinned())
+        lane = s._replicas[0].lane
+        assert s.arena.stats()["lanes"][lane]["entries"] == 2
+        assert all(sl.buf.device == dev for sl in s.arena._lane_slots[lane].values())
+        torch.cuda.synchronize()
+        before = devmon.bytes_in_use(dev)
+        resident = s.arena.stats()["bytes"]
+        assert s.arena.spill(lane, keep_frac=0.0) == 2
+        assert before - devmon.bytes_in_use(dev) >= resident
+        sess = FactorSession(s, A)
+        assert sess.device == dev
+        C = rng.standard_normal((9, n))
+        sess.append(C)
+        B = rng.standard_normal((m + 9, 2))
+        X = sess.solve(B)
+        ref = np.linalg.lstsq(np.vstack([A, C]), B, rcond=None)[0]
+        assert np.abs(X - ref).max() <= 1e-9 * max(np.abs(ref).max(), 1.0)
+    finally:
+        s.stop()
+        if not was:
+            metrics.off()
+    R0 = np.linalg.qr(A, mode="r")
+    R, Rd = torch.from_numpy(R0.copy()), torch.from_numpy(R0.copy()).to(dev)
+    _update_r(R, torch.from_numpy(C.copy()))
+    _update_r(Rd, torch.from_numpy(C.copy()).to(dev))
+    assert np.abs(Rd.cpu().numpy() - R.numpy()).max() <= 100 * n * np.finfo(np.float64).eps * \
+        np.abs(R.numpy()).max()

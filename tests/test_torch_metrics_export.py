@@ -29,6 +29,10 @@ def _env():
     for m in (metrics, jmetrics):
         m.off()
         m.reset()
+    # the JAX package's ring is resizable and process-global: a file that
+    # ran earlier in this process may have left it at another capacity
+    # (``spans.on(ring=1024)``); this file compares at the default one
+    jspans.on(ring=jspans.DEFAULT_RING)
     for s in (spans, jspans):
         s.off()
         s.clear()

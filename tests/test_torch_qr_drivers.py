@@ -150,6 +150,52 @@ def test_gels_matches_jax_and_lstsq(case):
     np.testing.assert_allclose(x[:n], ref, rtol=0, atol=1e-8)
 
 
+
+_VIEWS = {"trans": (stt.transpose, np.transpose),
+          "conj_trans": (stt.conj_transpose, lambda a: a.conj().T)}
+
+
+@pytest.mark.parametrize("view", ["trans", "conj_trans"])
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("stored", [(50, 70), (70, 50)])  # op(A) tall, wide
+def test_gels_of_op_view_matches_lstsq(stored, complex_, view):
+    """SLATE's gels solves op(A): a transposed or conjugate-transposed
+    view of a stored-wide or stored-tall A, against numpy's lstsq on the
+    materialized op(A) (the JAX package raises here).  Least-squares
+    residual ||op(A)^H (op(A) X - B)||_1 / (||A||_1 (||A||_1 ||X||_1 +
+    ||B||_1) m eps) <= 3, as PERF.md section 2 states it."""
+    fview, fnp = _VIEWS[view]
+    a = _rand(*stored, 21, complex_)
+    opa = fnp(a)
+    m = opa.shape[0]
+    b = _rand(m, 3, 22, complex_)
+    x = tqr.gels(fview(stt.Matrix.from_global(a, 16, grid=CPU)),
+                 stt.Matrix.from_global(b, 16, grid=CPU)).to_global().numpy()
+    assert x.shape == (opa.shape[1], 3)
+    np.testing.assert_allclose(x, np.linalg.lstsq(opa, b, rcond=None)[0], rtol=0, atol=1e-10)
+    n1 = lambda M: np.abs(M).sum(0).max()  # noqa: E731
+    r = n1(opa.conj().T @ (opa @ x - b)) / (
+        n1(opa) * (n1(opa) * n1(x) + n1(b)) * m * np.finfo(np.float64).eps)
+    assert r <= 3, r
+
+
+@pytest.mark.parametrize("view", ["trans", "conj_trans"])
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("routine", ["geqrf", "gelqf"])
+def test_factor_of_op_view_matches_materialized(routine, complex_, view):
+    """geqrf / gelqf of a view equal the same routine on the
+    materialized op(A): the factored matrix (NoTrans, op(A)'s shape)
+    and the T stack."""
+    fview, fnp = _VIEWS[view]
+    fn = getattr(tqr, routine)
+    for stored in ((50, 70), (70, 50)):
+        a = _rand(*stored, 23, complex_)
+        fac, T = fn(fview(stt.Matrix.from_global(a, 16, grid=CPU)))
+        ref, Tref = fn(stt.Matrix.from_global(np.ascontiguousarray(fnp(a)), 16, grid=CPU))
+        assert fac.op == stt.Op.NoTrans and (fac.m, fac.n) == (stored[1], stored[0])
+        _close(fac.to_global().numpy(), ref.to_global().numpy(), 1e-13)
+        _close(T.T.numpy(), Tref.T.numpy(), 1e-13)
+
 def _pack(fac_global, Tstack, m, n, nb):
     """The serve tier's gels pack: V/R in rows [0, m), panel k's T in rows
     [m + k nb, m + k nb + w), columns [0, w)."""

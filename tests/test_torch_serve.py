@@ -677,9 +677,9 @@ def test_cross_package_repeated_A_stream():
 def test_fault_spec_grammar_and_triggers():
     faults.configure("execute:p=0.5,seed=3; latency:once,after=4,ms=2.5 ;worker_death:every=4")
     assert set(faults.stats()) == {"execute", "latency", "worker_death"}
-    # the admission plane's site takes the burst= key; a session site of
-    # the planes not ported (item 7c) is refused
-    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "session_update:once"):
+    # the admission plane's site takes the burst= key; a fleet site of
+    # the plane not ported (item 7c3) is refused
+    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "host_death:once"):
         with pytest.raises(ValueError):
             faults.configure(bad)
     faults.configure("tenant_flood:once,burst=5")
