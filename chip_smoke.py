@@ -8,6 +8,7 @@
     python3 chip_smoke.py --restore  # build + phase 17 alone
     python3 chip_smoke.py --admission  # build + phase 18 alone
     python3 chip_smoke.py --fabric   # build + phase 19 alone
+    python3 chip_smoke.py --soak     # build + phase 20 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -245,6 +246,34 @@ Phases, each for float64 and float32 unless stated:
      which must free the pack), an unarmed hit and a refactoring miss,
      each with the bytes it moved host to device; an append of 64 rows
      against a ``refactor``.
+ 20. the soak fabric (``slate_tpu_torch/soak``: the delivery-tap
+     recorder, open-loop replay, the health timeline), judged by
+     ``tools/soak_report.py``: (a) the JAX soak drill as written
+     (``run_tests.py:1929-2090``), f64, in a fresh interpreter
+     under ``SLATE_TPU_SYNC_CHECK=1``: n = 12 / 24, nrhs = 2, about 10^4
+     requests open loop against two lanes on cuda:0 with tenants,
+     adaptive admission, certification with hedging and a factor cache
+     of 64, under ``latency:every=97,ms=30;sdc_solve:every=211,seed=3;
+     worker_death:every=1501``; ``add_replica``, the record -> replay
+     round trip and the two-run determinism check at the gate's
+     tolerances, ``remove_replica`` with nothing dropped; the report
+     with the gate's arguments exits 0, no sync violation, the orphan
+     audit on a ring that never evicted.  (b) the escape stream
+     (integrity and factor cache off, ``sdc_solve:every=7``): wrong X
+     delivered and the report exits non-zero.  (c) the full-width drill,
+     f64 and f32: tiles of 64, batch point 4, two lanes on cuda:0, the
+     five generators at n = 2048 / 4096, nrhs = 16 (240 requests: 120
+     repeated-A gesv, 36 posv, 44 multitenant, 20 deadline storm, 20
+     flood); calibration (the warm prelude, which runs the factor
+     kernels on its misses, then 24 closed-loop requests: rate R, p50,
+     p99), then the mix open loop at 0.7 R under ``latency:every=23,
+     ms=30;sdc_solve:every=53,seed=3;worker_death:every=157`` (each
+     site fires), recorder rows = delivered + typed errors, the report
+     at 4 x the calibration p99 (0 bad results, 0 orphans, 0 sampler
+     errors); requests/s, each bucket's p50 / p99, the disruption
+     intervals, the launches by kernel (the trsm pair on the hits), the
+     idle share of a profiled slice of 40 requests, and a 60-request
+     multitenant round trip replayed twice.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -3643,6 +3672,564 @@ def fabric_main(serve, pk, qf, metrics, gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the soak fabric (record, open-loop replay, health timeline)
+# ---------------------------------------------------------------------------
+
+TENANTS20 = ("gold:weight=4;good:weight=2;free:rate=300,share=0.5;"
+             "abuser:rate=60,burst=16,share=0.25")
+INTEGRITY20 = "full,hedge=1.5,cooldown=0.25"
+FAULTS20A = "latency:every=97,ms=30;sdc_solve:every=211,seed=3;worker_death:every=1501"
+FAULTS20B = "sdc_solve:every=7,seed=5"
+FAULTS20C = "latency:every=23,ms=30;sdc_solve:every=53,seed=3;worker_death:every=157"
+SITES20 = ("latency", "sdc_solve", "worker_death")
+N20, N20_LARGE, NRHS20, BATCH20 = 2048, 4096, 16, 4
+RING20 = 262144  # above every leg's span count: the orphan audit never meets an evicting ring
+SPAN20_S = 24.0  # the full-width generators' native span, seconds (speed rescales it)
+LOAD20 = 0.7  # offered rate over the calibrated closed-loop rate R
+RT20 = 1.5  # the round trip's offered rate over R (it checks mixes, not tails)
+
+
+def _placement20(serve, dev, replicas: int = 2):
+    """Two lanes pinned to ``dev`` (cuda:0 on the card: both lanes share it)."""
+    return serve.PlacementPolicy(replicas=replicas, devices=[str(dev)])
+
+
+def _close20(a: dict, b: dict, what: str) -> None:
+    """The JAX gate's round-trip tolerance: same keys, each count within
+    max(5, 5 %)."""
+    check(set(a) == set(b), f"{what}: keys {sorted(a)} != {sorted(b)}")
+    for key in a:
+        tol = max(5, int(0.05 * a[key]))
+        check(abs(a[key] - b[key]) <= tol, f"{what}[{key}]: {a[key]} vs {b[key]}")
+
+
+def _round_trip20(record, replay, svc, rt_spec, speed, cache, device=None) -> dict:
+    """The JAX gate's phase 2: record ``rt_spec`` off the delivery tap,
+    replay the recording twice (same seed), hold the mix histograms, the
+    repeat-group structure and the delivered counts to the gate's
+    tolerances.  The recording's matrix seeds are new, so its pool
+    matrices are drawn into ``cache`` first (on ``device``, if given)."""
+    rec = record.Recorder().attach()
+    rt_res = replay.replay(svc, rt_spec, speed=speed, seed=0, cache=cache)
+    rec.detach()
+    recorded = rec.rows()
+    check(len(recorded) == rt_res["delivered"] + rt_res["typed_errors"],
+          f"recorder rows {len(recorded)} != delivered + typed of {rt_res}")
+    mix_in = record.mix_histogram(recorded)
+    for row in replay.warm_spec(recorded):
+        replay.materialize(row, seed=0, cache=cache, device=device)
+    runs = []
+    for _ in (0, 1):
+        r2 = record.Recorder().attach()
+        got = replay.replay(svc, recorded, speed=1.0, seed=0, cache=cache)
+        rows2 = r2.detach().rows()
+        check(len(rows2) == got["delivered"] + got["typed_errors"],
+              f"replay recorder rows {len(rows2)} != delivered + typed of {got}")
+        check(got["submitted"] == got["delivered"] + got["typed_errors"] + got["refused"],
+              f"replay books: {got}")
+        runs.append((got, record.mix_histogram(rows2)))
+    mix_out = runs[0][1]
+    for part in ("tenants", "priorities", "shapes"):
+        _close20(mix_in[part], mix_out[part], part)
+    # repeat groups: the fingerprints are of the regenerated bytes, so the
+    # preserved invariant is the group-size structure
+    gs_in = sorted(mix_in["repeat_groups"].values())
+    gs_out = sorted(mix_out["repeat_groups"].values())
+    check(abs(len(gs_in) - len(gs_out)) <= 1, f"repeat groups {gs_in} vs {gs_out}")
+    check(abs(sum(gs_in) - sum(gs_out)) <= max(10, int(0.05 * sum(gs_in))),
+          f"repeat group sizes {gs_in} vs {gs_out}")
+    (ra, _), (rb, _) = runs
+    tol = max(10, int(0.02 * ra["submitted"]))
+    check(abs(ra["delivered"] - rb["delivered"]) <= tol, f"determinism: {ra} vs {rb}")
+    return {"recorded": len(recorded), "recording": rt_res, "replays": [ra, rb],
+            "mix_in": mix_in["tenants"], "mix_out": mix_out["tenants"],
+            "repeat_groups": [gs_in, gs_out]}
+
+
+def soak_drill(dev) -> dict:
+    """Leg (a): ``run_tests.py``'s soak drill (``:1929-2090``) on the
+    port at its own sizes, f64: n = 12 / 24, nrhs = 2, about 10^4
+    requests, two lanes
+    on ``dev`` with every plane armed, latency / SDC / worker-death
+    faults, then a replica added, the record -> replay round trip and
+    the two-run determinism check, the replica removed.  Dumps the
+    metrics JSONL (``$SLATE_TPU_METRICS``) that ``tools/soak_report.py``
+    judges."""
+    from slate_tpu_torch import serve
+    from slate_tpu_torch.aux import faults, metrics, spans
+    from slate_tpu_torch.integrity import policy as ipol
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+    from slate_tpu_torch.soak import record, replay
+    from slate_tpu_torch.soak.timeline import TimelineSampler
+
+    metrics.on()
+    metrics.reset()
+    spans.on(ring=RING20)
+    spans.clear()
+    t0 = time.perf_counter()
+    svc = serve.SolverService(
+        cache=serve.ExecutableCache(manifest_path=None), batch_max=8, batch_window_s=0.001,
+        dim_floor=16, nrhs_floor=4, placement=_placement20(serve, dev),
+        retry_backoff_s=0.002, breaker_cooldown_s=0.02, retry_seed=0,
+        factor_cache=serve.FactorCache(max_entries=64), tenants=TENANTS20, adaptive=True,
+        latency_budget_s=0.5, integrity=ipol.parse_spec(INTEGRITY20))
+    out = {"lanes": [r["device"] for r in svc.health()["replicas"]]}
+    try:
+        for rt, n in (("gesv", 12), ("posv", 12), ("gesv", 24)):
+            k = serve.bucket_for(rt, n, n, 2, np.float64, floor=16, nrhs_floor=4)
+            svc.cache.ensure_manifest(k, (1, 8))
+            # the factor cache dispatches hits onto the solve sibling
+            svc.cache.ensure_manifest(k.solve_sibling(), (1, 8))
+        svc.warmup()
+        spec = replay.merge_specs(
+            replay.gen_repeated_a(5000, seed=2, rate_rps=240, distinct=10),
+            replay.gen_repeated_a(1500, seed=3, rate_rps=75, distinct=4, routine="posv"),
+            replay.gen_multitenant(1800, seed=1, rate_rps=88),
+            replay.gen_deadline_storm(800, seed=4, rate_rps=40),
+            replay.gen_adversarial_flood(900, seed=5, rate_rps=45),
+        )
+        rt_spec = replay.merge_specs(
+            replay.gen_multitenant(700, seed=11, rate_rps=70),
+            replay.gen_repeated_a(500, seed=12, rate_rps=60, distinct=5),
+        )
+        cache: dict = {}
+        # pool-warm both phases' factors, then zero the books: the soak
+        # measures the steady state (no cold build, a warm factor cache)
+        replay.replay(svc, replay.warm_spec(spec), seed=0, cache=cache)
+        replay.replay(svc, replay.warm_spec(rt_spec), seed=0, cache=cache)
+        metrics.reset()
+        pk.reset_launches()
+        faults.configure(FAULTS20A)
+        faults.on()
+        sampler = TimelineSampler(svc, period_s=0.05).start()
+        res = replay.replay(svc, spec, speed=1.0, seed=0, cache=cache)
+        faults.reset()
+        check(res["submitted"] == res["delivered"] + res["typed_errors"] + res["refused"],
+              f"soak main books: {res}")
+        out["main"] = res
+        out["injected"] = {s: metrics.counters().get(f"faults.injected.{s}", 0) for s in SITES20}
+        out["main_launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+        print(f"  (a) main: {res['submitted']} submitted, {res['delivered']} delivered, "
+              f"{res['typed_errors']} typed, {res['refused']} refused, {res['bad_results']} bad, "
+              f"{res['requests_per_s']} requests/s ({res['delivered_per_s']} delivered/s to the "
+              f"last resolution), p50 {(res['p50_s'] or 0) * 1e3:.1f} ms, "
+              f"p99 {(res['p99_s'] or 0) * 1e3:.1f} ms; injected {out['injected']}; launches "
+              f"{out['main_launches']}", flush=True)
+        # grow the fleet by one lane for the round trip, shrink it after
+        added = svc.add_replica()
+        with svc._cond:
+            fleet = len(svc._replicas)
+        check(fleet == 3, f"add_replica: fleet {fleet}")
+        out["round_trip"] = _round_trip20(record, replay, svc, rt_spec, 1.0, cache)
+        removed = svc.remove_replica(added, drain_timeout=120)
+        h = svc.health()
+        states = {lane["name"]: lane.get("state") for lane in h["replicas"]}
+        check(states.get(removed) == "removed", f"remove_replica: states {states}")
+        with svc._cond:
+            fleet = len(svc._replicas)
+        check(fleet == 2, f"remove_replica: fleet {fleet}")
+        term = next(lane for lane in h["replicas"] if lane["name"] == removed)
+        check(not term.get("drain_timed_out"), f"remove_replica: the drain timed out: {term}")
+        rt = out["round_trip"]
+        print(f"  (a) replica {added} added (fleet 3), round trip: {rt['recorded']} recorded, "
+              f"mixes agree; determinism {rt['replays'][0]['delivered']} vs "
+              f"{rt['replays'][1]['delivered']} delivered; replica {removed} drained and "
+              f"removed (fleet 2)", flush=True)
+        out["pressure"] = spans.pressure()
+        check(out["pressure"]["evicted"] == 0, f"span ring evicted: {out['pressure']}")
+        out["orphans"] = replay.orphan_spans()
+        sampler.stop()
+        out["sampler_errors"] = sampler.errors
+        check(sampler.errors == 0, f"timeline sampler errors: {sampler.errors}")
+        svc.stop(drain=True, drain_timeout=300)
+    finally:
+        svc.stop()
+    c = metrics.counters()
+    out["books"] = {k: c.get(k, 0) for k in ("soak.submitted", "soak.delivered",
+                                             "soak.typed_errors", "soak.refused",
+                                             "soak.bad_results", "serve.requests")}
+    check(c["serve.requests"] == c["soak.submitted"] - c.get("soak.refused", 0),
+          f"admission books: {out['books']}")
+    out["timeline_rows"] = len(metrics.timeline())
+    out["launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+    metrics.dump()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def soak_escape(dev) -> dict:
+    """Leg (b): ``run_tests.py``'s escape leg (``:2092-2129``) on the
+    port: the integrity plane and the factor cache off,
+    ``sdc_solve:every=7`` armed; wrong X must reach the client
+    (``soak.bad_results`` > 0)."""
+    from slate_tpu_torch import serve
+    from slate_tpu_torch.aux import faults, metrics, spans
+    from slate_tpu_torch.soak import replay
+    from slate_tpu_torch.soak.timeline import TimelineSampler
+
+    metrics.on()
+    metrics.reset()
+    spans.clear()
+    spans.on(ring=8192)
+    t0 = time.perf_counter()
+    svc = serve.SolverService(cache=serve.ExecutableCache(manifest_path=None), batch_max=8,
+                              batch_window_s=0.001, dim_floor=16, nrhs_floor=4,
+                              placement=_placement20(serve, dev), factor_cache=False,
+                              integrity=False)
+    try:
+        check(svc._integrity is None and svc.factor_cache is None, "escape leg: a defense is on")
+        k = serve.bucket_for("gesv", 12, 12, 2, np.float64, floor=16, nrhs_floor=4)
+        svc.cache.ensure_manifest(k, (1, 8))
+        svc.warmup()
+        metrics.reset()
+        spec = replay.gen_repeated_a(400, seed=7, rate_rps=200, distinct=4)
+        faults.configure(FAULTS20B)
+        faults.on()
+        sampler = TimelineSampler(svc, period_s=0.05).start()
+        res = replay.replay(svc, spec, speed=1.0, seed=0)
+        faults.reset()
+        sampler.stop()
+        check(spans.pressure()["evicted"] == 0, f"escape ring evicted: {spans.pressure()}")
+        orphans = replay.orphan_spans()
+        svc.stop(drain=True, drain_timeout=120)
+    finally:
+        svc.stop()
+    metrics.dump()
+    check(res["bad_results"] > 0, f"the undefended soak delivered no wrong X: {res}")
+    return {"res": res, "orphans": orphans, "sampler_errors": sampler.errors,
+            "seconds": time.perf_counter() - t0}
+
+
+# The fresh interpreter of legs (a) and (b), the port alone, under the
+# checked runtime (SLATE_TPU_SYNC_CHECK in its env, decided at lock
+# construction): argv dir, device.  One JSON line out.
+_CHILD20 = r"""
+import json, sys
+import chip_smoke as cs
+print(json.dumps(cs.child20(sys.argv[1], sys.argv[2])))
+"""
+
+
+def child20(tmp: str, device: str) -> dict:
+    """Legs (a) and (b) in one interpreter, each dumping its own JSONL."""
+    import os
+
+    from slate_tpu_torch.aux import sync
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        pk._load()
+    out = {"armed": sync.is_on()}
+    os.environ["SLATE_TPU_METRICS"] = os.path.join(tmp, "soak.jsonl")
+    out["drill"] = soak_drill(dev)
+    os.environ["SLATE_TPU_METRICS"] = os.path.join(tmp, "escape.jsonl")
+    out["escape"] = soak_escape(dev)
+    rep = sync.report()
+    out["violations"] = [{k: v[k] for k in ("kind", "detail")} for v in rep["violations"]]
+    out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "slate_tpu"))
+    return out
+
+
+def _soak_report(path: str, *args) -> subprocess.CompletedProcess:
+    return _tool("soak_report.py", path, *args)
+
+
+def _report_module():
+    """tools/soak_report.py as a module (stdlib only), for its disruption
+    intervals and bucket tails."""
+    import importlib.util
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_soak_report", os.path.join(here, "tools", "soak_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_gate_legs(dev, tmp: str) -> dict:
+    """Legs (a) and (b) in a fresh interpreter armed by
+    SLATE_TPU_SYNC_CHECK=1, judged by tools/soak_report.py with the JAX
+    gate's arguments (``run_tests.py`` ``soak_gate``)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here, "SLATE_TPU_SYNC_CHECK": "1"}
+    for var in ("SLATE_TPU_FAULTS", "SLATE_TPU_FACTOR_CACHE", "SLATE_TPU_TENANTS",
+                "SLATE_TPU_ADAPTIVE", "SLATE_TPU_INTEGRITY", "SLATE_TPU_WARMUP",
+                "SLATE_TPU_ARTIFACTS", "SLATE_TPU_METRICS"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CHILD20, tmp, str(dev)], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        print(line, flush=True)
+    check(proc.returncode == 0, f"phase 20 child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    got["process_wall_s"] = time.perf_counter() - t0
+    check(got["armed"] and got["jax_modules"] == [],
+          f"soak child: armed {got['armed']}, imported {got['jax_modules']}")
+    check(got["violations"] == [], f"soak drill: sync violations {got['violations']}")
+    dr, es = got["drill"], got["escape"]
+    check(set(dr["lanes"]) == {str(dev)} and len(dr["lanes"]) == 2, f"drill lanes {dr['lanes']}")
+    check(dr["orphans"] == 0 and dr["sampler_errors"] == 0 and dr["main"]["bad_results"] == 0,
+          f"drill: orphans {dr['orphans']}, sampler errors {dr['sampler_errors']}, "
+          f"main {dr['main']}")
+    rep = _soak_report(os.path.join(tmp, "soak.jsonl"), "--p99-budget-ms", "2000",
+                       "--tenant-p99-budget-ms", "2000", "--min-timeline-rows", "50",
+                       "--min-delivered", "5000")
+    print("  (a) tools/soak_report.py (the gate's arguments): "
+          + " / ".join(rep.stdout.strip().splitlines()), flush=True)
+    check(rep.returncode == 0, f"soak_report exited {rep.returncode} on the drill")
+    esc = _soak_report(os.path.join(tmp, "escape.jsonl"))
+    print(f"  (b) escape: {es['res']['bad_results']} wrong X delivered of "
+          f"{es['res']['delivered']} (integrity and factor cache off, {FAULTS20B}); "
+          f"soak_report.py exit {esc.returncode}", flush=True)
+    check(esc.returncode != 0, "soak_report passed the undefended escape stream")
+    print(f"  (a)+(b): sync violations {len(got['violations'])}, drill "
+          f"{dr['seconds']:.1f} s, escape {es['seconds']:.1f} s, child "
+          f"{got['process_wall_s']:.1f} s", flush=True)
+    return {"drill": dr, "escape": es, "violations": got["violations"],
+            "drill_report_rc": rep.returncode, "escape_report_rc": esc.returncode,
+            "child_wall_s": got["process_wall_s"]}
+
+
+def _width_spec(replay, dtype: str, tight_s: float) -> list:
+    """Leg (c)'s mix: the five generators at the serve tier's width, 240
+    requests in the JAX drill's proportions, each stream spread over
+    ``SPAN20_S`` seconds of native time."""
+    r = lambda k: k / SPAN20_S  # noqa: E731
+    rows = replay.merge_specs(
+        replay.gen_repeated_a(120, seed=2, rate_rps=r(120), n=N20, nrhs=NRHS20, distinct=4),
+        replay.gen_repeated_a(36, seed=3, rate_rps=r(36), n=N20, nrhs=NRHS20, distinct=2,
+                              routine="posv"),
+        replay.gen_multitenant(44, seed=1, rate_rps=r(44), n_small=N20, n_large=N20_LARGE,
+                               nrhs=NRHS20, distinct=4),
+        replay.gen_deadline_storm(20, seed=4, rate_rps=r(20), n=N20, nrhs=NRHS20,
+                                  tight_s=tight_s, slack_s=60.0),
+        replay.gen_adversarial_flood(20, seed=5, rate_rps=r(20), n_flood=N20_LARGE,
+                                     n_victim=N20, nrhs=NRHS20, distinct=4),
+    )
+    for row in rows:
+        row["dtype"] = dtype
+    return rows
+
+
+def _pct(xs, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(p / 100.0 * len(xs))))]
+
+
+def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
+    """Leg (c), one dtype: calibration (the warm prelude, then a
+    closed-loop stream of 24 rows of the mix: rate R, p50, p99), then the
+    240-request mix open loop at ``LOAD20`` R under latency / SDC /
+    worker-death faults with the recorder and the timeline on, judged by
+    tools/soak_report.py at 4 x the calibration p99; a profiled slice of
+    40 requests; the round trip of a 60-request multitenant stream."""
+    import os
+
+    from slate_tpu_torch.aux import faults, spans
+    from slate_tpu_torch.integrity import policy as ipol
+    from slate_tpu_torch.soak import record, replay
+    from slate_tpu_torch.soak.timeline import TimelineSampler
+
+    t0 = time.perf_counter()
+    np_dt = np.dtype(dtype)
+    cache = serve.ExecutableCache(manifest_path=None)
+    for rt, n in (("gesv", N20), ("posv", N20), ("gesv", N20_LARGE)):
+        k = serve.bucket_for(rt, n, n, NRHS20, np_dt)
+        cache.ensure_manifest(k, (1, BATCH20))
+        cache.ensure_manifest(k.solve_sibling(), (1, BATCH20))
+    fc = serve.FactorCache(max_entries=64)
+    ops: dict = {}  # materialize's cache, shared by every replay of this dtype
+    common = dict(cache=cache, factor_cache=fc, placement=_placement20(serve, dev),
+                  batch_max=BATCH20, batch_window_s=0.002, tenants=TENANTS20,
+                  integrity=ipol.parse_spec(INTEGRITY20), retry_backoff_s=0.002,
+                  breaker_cooldown_s=0.02)
+    rt_spec = replay.gen_multitenant(60, seed=11, rate_rps=60 / SPAN20_S, n_small=N20,
+                                     n_large=N20_LARGE, nrhs=NRHS20, distinct=4)
+    for row in rt_spec:
+        row["dtype"] = dtype
+    # calibration: a service without the adaptive plane warms every pool
+    # (the misses run the factor kernels), then a closed loop
+    cal = serve.SolverService(**common)
+    try:
+        cal.warmup()
+        spec0 = _width_spec(replay, dtype, tight_s=1.0)
+        # the card draws a large A's philox bits: the bytes of the host's
+        t_g = time.perf_counter()
+        on_card = replay.materialize(spec0[0], seed=0, device=dev)
+        t_card = time.perf_counter() - t_g
+        t_g = time.perf_counter()
+        on_host = replay.materialize(spec0[0], seed=0)
+        t_host = time.perf_counter() - t_g
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(on_card, on_host)),
+              f"{dtype}: materialize on the card differs from the host's")
+        # each pool's A, drawn once with the card's philox into the cache
+        # that every replay of this dtype reads
+        t_g = time.perf_counter()
+        pools = replay.warm_spec(spec0 + rt_spec)
+        for row in pools:
+            replay.materialize(row, seed=0, cache=ops, device=dev)
+        t_pools = time.perf_counter() - t_g
+        pk.reset_launches()
+        t_w = time.perf_counter()
+        replay.replay(cal, pools, seed=0, cache=ops)
+        t_warm = time.perf_counter() - t_w
+        warm_launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        lat = []
+        t_c = time.perf_counter()
+        for row in spec0[::10]:
+            A, B = replay.materialize(row, seed=0, cache=ops)
+            ts = time.perf_counter()
+            cal.submit(row["routine"], A, B, tenant=row["tenant"],
+                       priority=row["priority"]).result(timeout=600)
+            lat.append(time.perf_counter() - ts)
+        t_cal = time.perf_counter() - t_c
+    finally:
+        cal.stop()
+    R = len(lat) / t_cal
+    p50, p99 = _pct(lat, 50), _pct(lat, 99)
+    budget_s = 4 * p99
+    spec = _width_spec(replay, dtype, tight_s=p50 / 2)
+    native = len(spec) / max(r["t_offset"] for r in spec)
+    speed = LOAD20 * R / native
+    print(f"  (c) {dtype}: materialize of a {N20} A, bytes equal: {t_card:.3f} s with the "
+          f"card's philox, {t_host:.3f} s on the host; {len(pools)} pool matrices drawn in "
+          f"{t_pools:.1f} s; warm prelude {t_warm:.1f} s (launches "
+          f"{warm_launches}); "
+          f"calibration {len(lat)} closed-loop requests: R {R:.3f} requests/s, p50 "
+          f"{p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms; speed {speed:.4f}, offered "
+          f"{native * speed:.3f} requests/s ({LOAD20} R), budget {budget_s * 1e3:.1f} ms, "
+          f"tight deadline {p50 / 2 * 1e3:.1f} ms", flush=True)
+    svc = serve.SolverService(adaptive=True, latency_budget_s=budget_s, **common)
+    out = {"R": R, "cal_p50_s": p50, "cal_p99_s": p99, "speed": speed,
+           "materialize_s": {"card": t_card, "host": t_host, "pools": t_pools},
+           "offered_rps": native * speed, "budget_s": budget_s, "warm_s": t_warm,
+           "warm_launches": warm_launches,
+           "lanes": [r["device"] for r in svc.health()["replicas"]]}
+    path = os.path.join(tmp, f"width_{dtype}.jsonl")
+    try:
+        svc.warmup()
+        spans.on(ring=RING20)
+        spans.clear()
+        metrics.reset()
+        pk.reset_launches()
+        faults.configure(FAULTS20C)
+        faults.on()
+        rec = record.Recorder()
+        with rec, TimelineSampler(svc, period_s=0.05) as sampler:
+            res = replay.replay(svc, spec, speed=speed, seed=0, cache=ops)
+            faults.reset()
+            _idle(svc)
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        check(len(rec) == res["delivered"] + res["typed_errors"],
+              f"{dtype}: recorder rows {len(rec)} != delivered + typed of {res}")
+        pressure = spans.pressure()
+        check(pressure["evicted"] == 0, f"{dtype}: span ring evicted {pressure}")
+        orphans = replay.orphan_spans()
+        c = metrics.counters()
+        injected = {s: c.get(f"faults.injected.{s}", 0) for s in SITES20}
+        books = {k: c.get(k, 0) for k in ("soak.submitted", "soak.delivered",
+                                          "soak.typed_errors", "soak.refused",
+                                          "serve.requests", "serve.shed",
+                                          "serve.deadline_miss", "serve.worker_restarts",
+                                          "serve.integrity.fail", "serve.factor_cache.stale",
+                                          "serve.hedge.sent", "jit.compilations")}
+        metrics.dump(path)
+        # one profiled slice of 40 requests of the mix, same pacing
+        window = spec[100:140]
+        base = window[0]["t_offset"]
+        window = [dict(r, t_offset=r["t_offset"] - base) for r in window]
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CUDA if dev.type == "cuda" else act.CPU]
+                                    ) as prof:
+            t_p = time.perf_counter()
+            slice_res = replay.replay(svc, window, speed=speed, seed=0, cache=ops)
+            _idle(svc)
+            t_prof = time.perf_counter() - t_p
+        busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / 1e6
+        rt = _round_trip20(record, replay, svc, rt_spec, RT20 * R / (60 / SPAN20_S), ops, dev)
+    finally:
+        faults.reset()
+        svc.stop()
+    rep = _soak_report(path, "--p99-budget-ms", f"{budget_s * 1e3:.3f}",
+                       "--min-timeline-rows", "20", "--min-delivered", "180")
+    mod = _report_module().analyze(path, p99_budget_ms=budget_s * 1e3)
+    hists = {s: {"p50_ms": h["p50"] * 1e3, "p99_ms": h["p99"] * 1e3, "count": h["count"]}
+             for s, h in ((n[len("serve.latency."):-len(".total")], h)
+                          for n, h in mod["data"]["hists"].items()
+                          if n.startswith("serve.latency.") and n.endswith(".total")
+                          and not n.startswith(("serve.latency.tenant.",
+                                                "serve.latency.replica.")))}
+    intervals = [{"signal": iv["signal"], "t_start": iv["t_start"],
+                  "duration_s": iv["duration_s"], "recovered": iv["recovered"]}
+                 for iv in mod["intervals"]]
+    out.update({"main": res, "delivered_per_s": res["delivered_per_s"],
+                "buckets": hists, "intervals": intervals, "launches": launches,
+                "injected": injected, "books": books, "orphans": orphans,
+                "sampler_errors": sampler.errors, "timeline_rows": len(mod["data"]["timeline"]),
+                "report_rc": rep.returncode, "profiled": {
+                    "requests": len(window), "wall_s": t_prof, "busy_ms": busy * 1e3,
+                    "idle_share": max(0.0, 1 - busy / t_prof), "res": slice_res},
+                "round_trip": rt, "seconds": time.perf_counter() - t0})
+    print(f"  (c) {dtype}: {res['submitted']} submitted, {res['delivered']} delivered, "
+          f"{res['typed_errors']} typed, {res['refused']} refused, {res['bad_results']} bad; "
+          f"last submission {res['submit_wall_s']:.3f} s, last resolution "
+          f"{res['resolve_wall_s']:.3f} s (delivered {res['delivered_per_s']:.3f} requests/s), "
+          f"client checks done {res['wall_s']:.3f} s, largest residual "
+          f"{res['max_residual']:.3e}; injected "
+          f"{injected}; orphans {orphans}; sampler errors {sampler.errors}; books {books}",
+          flush=True)
+    for s, h in sorted(hists.items()):
+        print(f"    {s}: n {h['count']}, p50 {h['p50_ms']:.1f} ms, p99 {h['p99_ms']:.1f} ms",
+              flush=True)
+    print(f"    disruptions: {intervals or 'none'}; launches {launches}; profiled slice: "
+          f"{len(window)} requests, device busy {busy * 1e3:.1f} ms of {t_prof:.3f} s "
+          f"(idle share {out['profiled']['idle_share']:.4f})", flush=True)
+    print(f"    round trip: {rt['recorded']} recorded, replays {rt['replays'][0]['delivered']} "
+          f"/ {rt['replays'][1]['delivered']} delivered; soak_report.py (p99 budget "
+          f"{budget_s * 1e3:.1f} ms): " + " / ".join(rep.stdout.strip().splitlines()[-14:]),
+          flush=True)
+    check(set(out["lanes"]) == {str(dev)} and len(out["lanes"]) == 2, f"lanes {out['lanes']}")
+    check(rep.returncode == 0, f"{dtype}: soak_report exited {rep.returncode}")
+    check(res["bad_results"] == 0 and orphans == 0 and sampler.errors == 0,
+          f"{dtype}: bad {res['bad_results']}, orphans {orphans}, sampler {sampler.errors}")
+    check(all(v >= 1 for v in injected.values()), f"{dtype}: a fault site never fired {injected}")
+    check(launches.get("trsm_lower", 0) > 0 and launches.get("trsm_upper", 0) > 0,
+          f"{dtype}: the hits launched no trsm pair: {launches}")
+    check(all(warm_launches.get(k, 0) > 0 for k in ("chol_base", "syrk_diag", "gemm_sub",
+                                                    "panel_lu")),
+          f"{dtype}: the misses launched no factor kernel: {warm_launches}")
+    return out
+
+
+def soak_main(serve, metrics, pk, dev) -> dict:
+    """Phase 20: legs (a) and (b) in a checked child, then leg (c) in
+    f64 and f32 here."""
+    import tempfile
+
+    t20 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="slate_soak_") as tmp:
+        out["gate"] = soak_gate_legs(dev, tmp)
+        metrics.on()
+        for d in DTYPES:
+            out[d] = soak_width_leg(serve, metrics, pk, d, dev, tmp)
+            torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t20
+    print(f"  phase 20: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: band and indefinite
 # ---------------------------------------------------------------------------
 
@@ -4551,6 +5138,7 @@ def main() -> int:
     restore_only = "--restore" in sys.argv[1:]
     admission_only = "--admission" in sys.argv[1:]
     fabric_only = "--fabric" in sys.argv[1:]
+    soak_only = "--soak" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4621,6 +5209,13 @@ def main() -> int:
         print("phase 19: the factor fabric", flush=True)
         fbres = fabric_main(serve, pk, qf, metrics, gen, dev)
         print("main path: " + json.dumps({"serve_fabric": fbres}))
+        print(smi)
+        return 0
+    if soak_only:
+        metrics.on()
+        print("phase 20: the soak fabric", flush=True)
+        skres = soak_main(serve, metrics, pk, dev)
+        print("main path: " + json.dumps({"serve_soak": skres}))
         print(smi)
         return 0
     if profile_only:
@@ -4740,6 +5335,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 19: the factor fabric", flush=True)
     fbres = fabric_main(serve, pk, qf, metrics, gen, dev)
+    torch.cuda.empty_cache()
+    print("phase 20: the soak fabric", flush=True)
+    skres = soak_main(serve, metrics, pk, dev)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -4781,6 +5379,7 @@ def main() -> int:
                                       "serve": sres, "serve_restore": rsres,
                                       "serve_admission": adres,
                                       "serve_fabric": fbres,
+                                      "serve_soak": skres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

@@ -7,7 +7,8 @@ completed spans: the flight recorder, whose eviction pressure
 (:func:`pressure`, :func:`evicted`) the service's ``health()`` reports
 and whose Chrome trace-event export (:func:`export_chrome`, the JAX
 package's event schema) Perfetto and ``tools/trace_stitch.py`` read.
-The ring's capacity is the fixed :data:`RING`.
+The ring holds :data:`RING` spans unless ``on(ring=)`` resizes it (a
+soak replay sizes it above its span count, so no root is evicted).
 
 Zero overhead off: every entry point starts with one module-level bool
 check; OFF is the default.  A span lands on the ring when it ends; an
@@ -30,7 +31,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
-#: capacity of the ring of completed spans (oldest evicted)
+#: default capacity of the ring of completed spans (oldest evicted)
 RING = 4096
 
 _enabled = False
@@ -73,10 +74,14 @@ class Span:
         return f"Span({self.name!r}, sid={self.sid}, attrs={self.attrs})"
 
 
-def on() -> None:
-    """Enable span recording."""
-    global _enabled, _t0
+def on(ring: Optional[int] = None) -> None:
+    """Enable span recording; ``ring`` resizes the ring of completed
+    spans (kept in order, oldest evicted).  ``ring=None`` keeps the
+    current capacity: a bare re-enable never shrinks it."""
+    global _enabled, _ring, _t0
     with _lock:
+        if ring is not None and _ring.maxlen != int(ring):
+            _ring = deque(_ring, maxlen=max(1, int(ring)))
         if _t0 is None:
             _t0 = now()
         _enabled = True
@@ -92,7 +97,7 @@ def is_on() -> bool:
 
 
 def capacity() -> int:
-    return RING
+    return _ring.maxlen
 
 
 def clear() -> None:
@@ -120,7 +125,7 @@ def pressure() -> dict:
             newest = _ring[-1]
             window = ((newest.t_end if newest.t_end is not None else newest.t_start)
                       - _ring[0].t_start)
-        return {"capacity": RING, "size": size, "evicted": _evicted,
+        return {"capacity": _ring.maxlen, "size": size, "evicted": _evicted,
                 "window_s": round(max(window, 0.0), 6)}
 
 
@@ -132,7 +137,7 @@ def new_trace() -> str:
 def _push(sp: Span) -> None:
     global _evicted
     with _lock:
-        if len(_ring) == RING:
+        if len(_ring) == _ring.maxlen:
             _evicted += 1
         _ring.append(sp)
 

@@ -3,7 +3,7 @@ coalescing, a factor cache, deadlines, retries with backoff,
 circuit-breaker recovery, the artifact restore, the integrity plane and
 the admission plane and the device factor arena -- the JAX package's
 ``serve/service.py`` without the sharded lane (ROADMAP.md Queue 1 item
-8) and the elastic capacity plane (item 7c2).
+8) and the elastic capacity plane (item 7c2b).
 
 Execution model:
 
@@ -538,6 +538,7 @@ class SolverService:
             self._running = True
             self._stopped = False
             self._cond.notify_all()
+        _load_cuda_linalg([rep.device for rep in self._replicas])
         for rep in self._replicas:
             self._spawn_worker(rep)
         self._begin_restore()
@@ -606,8 +607,11 @@ class SolverService:
         t = threading.Thread(target=self._run_worker, args=(rep,),
                              name=f"slate-serve-worker-{rep.name}", daemon=True)
         with self._cond:
+            # started before the lock is released: stop() and
+            # remove_replica() join what they read here, and joining a
+            # thread that has not started raises
+            t.start()
             rep.thread = t
-        t.start()
 
     def stop(self, timeout: float = 10.0, drain: bool = False,
              drain_timeout: Optional[float] = None) -> None:
@@ -720,6 +724,7 @@ class SolverService:
             self.placement.set_replicas(idx + 1)
             device = self.placement.device_for(idx)
         rep = _Replica(name, device)
+        _load_cuda_linalg([device])
         warmed: Dict[str, int] = {}
         if warm:
             # outside _cond: priming runs the cores
@@ -2043,6 +2048,28 @@ def _cert_operand(req: _Request) -> np.ndarray:
         return req.A
     A = np.asarray(req.A)
     return np.tril(A) + np.conj(np.tril(A, -1)).T
+
+
+# -- CUDA linear algebra, loaded once ---------------------------------------
+
+_linalg_lock = sync.Lock(name="service._linalg_lock")
+_linalg_loaded = False
+
+
+def _load_cuda_linalg(devices) -> None:
+    """torch loads its CUDA linear-algebra library at the first linalg
+    call on a CUDA device, and that loader is not thread-safe: two lanes
+    making their first call at once fail with "lazy wrapper should be
+    called at most once".  Make that call here, once a process, before a
+    lane's worker starts.  No-op without a CUDA lane."""
+    global _linalg_loaded
+    dev = next((d for d in devices if d.type == "cuda"), None)
+    if dev is None or _linalg_loaded:
+        return
+    with _linalg_lock:
+        if not _linalg_loaded:
+            torch.linalg.cholesky_ex(torch.ones(1, 1, device=dev))
+            _linalg_loaded = True
 
 
 # -- delivery taps ----------------------------------------------------------

@@ -1796,3 +1796,54 @@ def test_fabric_on_the_card(dev):
     _update_r(Rd, torch.from_numpy(C.copy()).to(dev))
     assert np.abs(Rd.cpu().numpy() - R.numpy()).max() <= 100 * n * np.finfo(np.float64).eps * \
         np.abs(R.numpy()).max()
+
+
+@pytest.mark.cuda
+def test_soak_replay_on_the_card(dev):
+    """A 40-request open-loop replay on cuda:0 at n = 2048 (two lanes, the
+    factor cache and certification armed; the trsm pair takes hits from
+    n = 2048), recorded off the delivery tap: the books reconcile, the
+    recorder holds delivered + typed rows, no wrong X, no orphan trace,
+    and the hits ran the trsm pair on the card."""
+    from slate_tpu_torch.aux import metrics, spans
+    from slate_tpu_torch.serve import FactorCache, PlacementPolicy, SolverService
+    from slate_tpu_torch.soak import record, replay
+    from slate_tpu_torch.soak.timeline import TimelineSampler
+
+    was = metrics.is_on(), spans.is_on()
+    metrics.on()
+    metrics.reset()
+    spans.on(ring=16384)
+    spans.clear()
+    s = SolverService(placement=PlacementPolicy(replicas=2, devices=["cuda:0"]),
+                      factor_cache=FactorCache(max_entries=8), integrity="full", batch_max=4,
+                      batch_window_s=0.002)
+    try:
+        spec = replay.merge_specs(
+            replay.gen_repeated_a(28, seed=1, rate_rps=50, n=2048, nrhs=4, distinct=2),
+            replay.gen_multitenant(12, seed=2, rate_rps=25, n_small=2048, n_large=2048,
+                                   nrhs=4, distinct=2))
+        ops = {}
+        replay.replay(s, replay.warm_spec(spec), seed=0, cache=ops)
+        s.warmup()
+        metrics.reset()
+        pk.reset_launches()
+        rec = record.Recorder()
+        with rec, TimelineSampler(s, period_s=0.01) as sampler:
+            res = replay.replay(s, spec, seed=0, cache=ops)
+        assert res["submitted"] == 40 == res["delivered"] + res["typed_errors"] + res["refused"]
+        assert res["bad_results"] == 0 and sampler.errors == 0
+        assert len(rec) == res["delivered"] + res["typed_errors"]
+        assert {r["dtype"] for r in rec.rows()} == {"float64"}
+        c = metrics.counters()
+        assert c["serve.requests"] == c["soak.submitted"] - c.get("soak.refused", 0)
+        assert pk.LAUNCHES["trsm_lower"] > 0 and pk.LAUNCHES["trsm_upper"] > 0
+        assert spans.pressure()["evicted"] == 0 and replay.orphan_spans() == 0
+        assert [r["device"] for r in s.health()["replicas"]] == ["cuda:0", "cuda:0"]
+    finally:
+        s.stop()
+        spans.on(ring=spans.RING)
+        if not was[0]:
+            metrics.off()
+        if not was[1]:
+            spans.off()

@@ -75,6 +75,10 @@ import slate_tpu_torch.ops.stein
 import slate_tpu_torch.ops.jacobi
 import slate_tpu_torch.drivers.eig
 import slate_tpu_torch.drivers.svd
+import slate_tpu_torch.soak
+import slate_tpu_torch.soak.record
+import slate_tpu_torch.soak.replay
+import slate_tpu_torch.soak.timeline
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -115,6 +119,7 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "drivers/indefinite.py", "native/__init__.py", "parallel/band_gather.py",
             "ops/bulge.py", "ops/stedc.py", "ops/stein.py", "ops/jacobi.py",
             "drivers/eig.py", "drivers/svd.py"} <= names
+    assert {"soak/__init__.py", "soak/record.py", "soak/replay.py", "soak/timeline.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -31,8 +31,10 @@ def _env():
         m.reset()
     # the JAX package's ring is resizable and process-global: a file that
     # ran earlier in this process may have left it at another capacity
-    # (``spans.on(ring=1024)``); this file compares at the default one
+    # (``spans.on(ring=1024)``); this file compares at the default one.
+    # The port's ring resizes the same way (a soak test sizes it)
     jspans.on(ring=jspans.DEFAULT_RING)
+    spans.on(ring=spans.RING)
     for s in (spans, jspans):
         s.off()
         s.clear()
