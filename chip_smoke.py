@@ -9,6 +9,7 @@
     python3 chip_smoke.py --admission  # build + phase 18 alone
     python3 chip_smoke.py --fabric   # build + phase 19 alone
     python3 chip_smoke.py --soak     # build + phase 20 alone
+    python3 chip_smoke.py --scale    # build + phase 21 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -105,7 +106,7 @@ Phases, each for float64 and float32 unless stated:
      requests/s, p50 / p99 of the queued / execute / total latency, one
      hit dispatch against two ``solve_triangular``, the host time of
      ``matrix_fingerprint`` / ``residual_ok`` / the finiteness check a
-     request, the device's idle share over a profiled stream of 16 hits,
+     request, the device's idle share over a profiled stream of 8 hits,
      and ``result_corrupt`` and ``factor_stale`` fired once each (counted
      once, X still right); gels at (8192, 4096): one miss through
      ``gels_factor_pack`` (larft launches as ``geqrf_kernel_launches``),
@@ -272,8 +273,41 @@ Phases, each for float64 and float32 unless stated:
      at 4 x the calibration p99 (0 bad results, 0 orphans, 0 sampler
      errors); requests/s, each bucket's p50 / p99, the disruption
      intervals, the launches by kernel (the trsm pair on the hits), the
-     idle share of a profiled slice of 40 requests, and a 60-request
+     idle share of a profiled slice of 20 requests, and a 60-request
      multitenant round trip replayed twice.
+ 21. the elastic capacity plane (``slate_tpu_torch.scale``: the signal
+     aggregator, the hysteresis AutoScaler, the predictive warmup plan,
+     the gate's gauges), judged by ``tools/capacity_report.py``: (a) the
+     JAX burst drill as written (``run_tests.py:2220-2337``), f64, in a
+     fresh interpreter under ``SLATE_TPU_SYNC_CHECK=1``: ``gen_burst(500,
+     seed=9, base_rps=30, burst_rps=120, burst_start_s=1.0,
+     burst_len_s=2.0, n=12, nrhs=2, distinct=4)`` saved and loaded as a
+     spec, batch point 1, a factor cache of 16, an artifact store,
+     ``latency:every=1,ms=12``; the static leg (one lane) misses the 1 s
+     budget, the elastic leg (``min=1,max=3,up=1.0,down=0.2,
+     up_cooldown=0.25,down_cooldown=2.0,step=2,period=0.05``) holds it, the
+     peak <= 3 and the fleet back at 1, every up driven, no sync
+     violation, no swallowed step / add / remove error, every snapshot's
+     device-memory headroom a float in (0, 1]; every lane on cuda:0,
+     below the kernels' crossover (no launch).  (b) the same drill at the
+     serve tier's width: gesv repeated-A at n = 2048, nrhs = 16, tiles of
+     64, batch point 1, a factor cache of 16; the warm prelude factors the
+     4 pool matrices (panel_lu); one card's lane scaling (the closed-loop
+     rate R1, R2, R3 of 24 hits from 4 clients with 1, 2, 3 lanes and the
+     idle share over each); calibration (the pacer's ceiling P = 1 / the
+     submit time's p50, a tax T raised from 50 ms until 2 R1(T) <= P / 2;
+     f32 when f64's P cannot give s <= 4); the trace time-scaled by
+     s = 60 / R1(T) (rates 0.5 / 2 R1(T), burst start, budget 0.5 s and the
+     policy's period and cool-downs times s, a burst of s, the requests
+     cut to end s after it); static and elastic legs under the tax, the
+     report exit 0, every residual <= 3, the trsm pair's launches
+     ``trsm_kernel_launches(2048)`` a dispatch and panel_lu's the
+     prelude's mirror; the decision timeline, both p99s, the fleet, the
+     over-provision ratio and the requests/s delivered in the burst.
+     (c) the warmup plan of (b)'s recorded rows (costs from the cache's
+     captured rows or the ``phase_flops`` model; the 2048 gesv bucket and
+     its solve sibling, the 4 pool matrices preloaded) applied by
+     ``add_replica(plan=)`` and its ``scale.prime_*`` counts.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2172,11 +2206,11 @@ def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, de
               f"{t_hit:.3f} ms, two solve_triangular {t_lib:.3f} ms; host a request: "
               f"matrix_fingerprint {t_fp * 1e3:.1f} ms, residual_ok {t_res * 1e3:.1f} ms, "
               f"finiteness check {t_val * 1e3:.1f} ms", flush=True)
-        # the device's idle share over a second stream of 16 hits, in a
+        # the device's idle share over a second stream of 8 hits, in a
         # profiler trace (device time of every kernel and copy / wall)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for f in [svc.submit(routine, A_np, B_np[i % 8]) for i in range(16)]:
+            for f in [svc.submit(routine, A_np, B_np[i % 8]) for i in range(8)]:
                 f.result(timeout=600)
             t_prof = time.perf_counter() - t0
         busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
@@ -2883,7 +2917,7 @@ def integrity_leg(serve, faults, pk, ck, lk, metrics, dtype, gen, dev) -> dict:
     return out
 
 
-ABFT_ROUNDS = 15  # interleaved rounds of the ABFT and the plain b1 dispatch
+ABFT_ROUNDS = 9  # interleaved rounds of the ABFT and the plain b1 dispatch
 
 
 def _interleaved_ms(fa, fb, rounds: int = ABFT_ROUNDS):
@@ -3462,8 +3496,8 @@ def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
 
 SESSION19 = 20  # warmed pristine session solves, every one a factor-cache hit
 APPEND19 = 64  # rows of the streamed append
-ROUNDS19 = 5  # rounds of each hit-dispatch timing (medians)
-MISS_ROUNDS19 = 3  # rounds of the refactoring miss and of append / refactor
+ROUNDS19 = 3  # rounds of each hit-dispatch timing (medians)
+MISS_ROUNDS19 = 2  # rounds of the refactoring miss and of append / refactor
 
 
 def _event_ms(fn) -> float:
@@ -3937,15 +3971,16 @@ def _soak_report(path: str, *args) -> subprocess.CompletedProcess:
     return _tool("soak_report.py", path, *args)
 
 
-def _report_module():
-    """tools/soak_report.py as a module (stdlib only), for its disruption
-    intervals and bucket tails."""
+def _report_module(name: str = "soak_report"):
+    """One of tools/*_report.py as a module (stdlib only): the soak
+    report's disruption intervals and bucket tails, the capacity report's
+    over-provision ratio."""
     import importlib.util
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke_soak_report", os.path.join(here, "tools", "soak_report.py"))
+        f"chip_smoke_{name}", os.path.join(here, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4031,7 +4066,7 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
     240-request mix open loop at ``LOAD20`` R under latency / SDC /
     worker-death faults with the recorder and the timeline on, judged by
     tools/soak_report.py at 4 x the calibration p99; a profiled slice of
-    40 requests; the round trip of a 60-request multitenant stream."""
+    20 requests; the round trip of a 60-request multitenant stream."""
     import os
 
     from slate_tpu_torch.aux import faults, spans
@@ -4143,8 +4178,8 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
                                           "serve.integrity.fail", "serve.factor_cache.stale",
                                           "serve.hedge.sent", "jit.compilations")}
         metrics.dump(path)
-        # one profiled slice of 40 requests of the mix, same pacing
-        window = spec[100:140]
+        # one profiled slice of 20 requests of the mix, same pacing
+        window = spec[100:120]
         base = window[0]["t_offset"]
         window = [dict(r, t_offset=r["t_offset"] - base) for r in window]
         act = torch.profiler.ProfilerActivity
@@ -4226,6 +4261,701 @@ def soak_main(serve, metrics, pk, dev) -> dict:
             torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t20
     print(f"  phase 20: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the elastic capacity plane
+# ---------------------------------------------------------------------------
+
+#: leg (a): run_tests.py's _SCALE_DRIVER as written (its policy, budget, tax)
+POLICY21 = ("min=1,max=3,up=1.0,down=0.2,up_cooldown=0.25,down_cooldown=2.0,step=2,"
+            "period=0.05")
+BUDGET21_S = 1.0
+TAX21 = "latency:every=1,ms=12"
+#: leg (b): the serve tier's width, gesv repeated-A, batch point 1
+N21, NRHS21 = 2048, 16
+HITS21 = 24  # requests of each closed-loop measurement
+CLIENTS21 = 4  # closed-loop clients: one lane is never starved for work
+T21_MS = 50  # the first tax tried
+LANE21_RPS = 60.0  # the JAX drill's one lane at its 12 ms tax: the time scale s = 60 / R1(T)
+S21_MAX = 4.0  # past this time scale f64 yields to f32
+REQUESTS21 = 500  # the JAX drill's trace, cut below to end ~1.0 s after the burst
+
+
+def _lanes21(dev) -> list:
+    """Lane devices: cuda:0 for every lane on the card; in a CPU rehearsal
+    three CPU device ids, so a new lane's prime is a real first run."""
+    return [str(dev)] if dev.type == "cuda" else ["cpu", "cpu:1", "cpu:2"]
+
+
+def _watch21(svc, snaps: list) -> None:
+    """Append every snapshot the service's autoscaler folds to ``snaps``
+    (build the service paused, so its sampling thread misses none)."""
+    agg = svc._scaler.aggregator
+    fold = agg.update
+
+    def update(raw):
+        snap = fold(raw)
+        snaps.append(snap)
+        return snap
+
+    agg.update = update
+
+
+def _checks21(snaps, counters, dev, what: str) -> dict:
+    """The swallowed-error counters are 0, and every snapshot's
+    device-memory headroom is a float in (0, 1] on the card (a None there
+    is devmon failing quietly), None on a CPU lane."""
+    errs = {k: counters.get(k, 0) for k in ("scale.step_errors", "scale.add_failed",
+                                            "scale.remove_failed")}
+    check(not any(errs.values()), f"{what}: the autoscaler swallowed errors: {errs}")
+    hs = [s.hbm_headroom_frac for s in snaps]
+    check(bool(hs), f"{what}: the autoscaler took no snapshot")
+    if dev.type == "cuda":
+        check(all(isinstance(h, float) and 0 < h <= 1 for h in hs),
+              f"{what}: a snapshot's headroom is not a float in (0, 1]: {sorted(set(hs))[:5]}")
+    else:
+        check(all(h is None for h in hs), f"{what}: a CPU lane reported headroom")
+    return {"errors": errs, "snapshots": len(hs),
+            "headroom": [min(hs), max(hs)] if dev.type == "cuda" else None}
+
+
+class _Peak21:
+    """The fleet's high-water mark, sampled every 20 ms (the JAX drill's
+    watcher thread)."""
+
+    def __init__(self, svc):
+        import threading
+
+        self.svc, self.peak = svc, 1
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            with self.svc._cond:
+                n = len(self.svc._replicas)
+            self.peak = max(self.peak, n)
+            time.sleep(0.02)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(2)
+
+
+def _settle21(svc, timeout_s: float) -> int:
+    """Wait until the autoscaler has given the burst's lanes back (the
+    JAX drill's quiet tail); returns the fleet at the end."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with svc._cond:
+            n = len(svc._replicas)
+        if n == 1 or time.monotonic() >= deadline:
+            return n
+        time.sleep(0.05)
+
+
+def scale_drill(device: str, tmp: str) -> dict:
+    """Leg (a): ``run_tests.py``'s burst drill (``_SCALE_DRIVER``,
+    :2220-2337) on the port as written, f64: ``gen_burst(500, seed=9,
+    base_rps=30, burst_rps=120, burst_start_s=1.0, burst_len_s=2.0, n=12,
+    nrhs=2, distinct=4)`` saved and loaded as a spec, batch point 1,
+    floors 16 / 4, a factor cache of 16 and an artifact store, under
+    ``latency:every=1,ms=12``: a static leg (one lane, no scaler), then the
+    elastic leg under ``POLICY21``, the gate's gauges and
+    ``metrics.dump()`` ($SLATE_TPU_METRICS), which
+    ``tools/capacity_report.py`` judges.  Every lane on ``device`` (three
+    CPU ids in a CPU rehearsal)."""
+    import os
+
+    from slate_tpu_torch import serve
+    from slate_tpu_torch.aux import faults, metrics, spans
+    from slate_tpu_torch.scale import gate
+    from slate_tpu_torch.soak import record, replay
+
+    dev = torch.device(device)
+    art, trace = os.path.join(tmp, "artifacts"), os.path.join(tmp, "burst.jsonl")
+    metrics.on()
+    metrics.reset()
+    spans.on(ring=65536)
+    t0 = time.perf_counter()
+    spec = replay.gen_burst(500, seed=9, base_rps=30, burst_rps=120, burst_start_s=1.0,
+                            burst_len_s=2.0, n=12, nrhs=2, distinct=4)
+    record.save(spec, trace, source="gen_burst")
+    rows = record.load(trace)
+    snaps: list = []
+
+    def build():
+        svc = serve.SolverService(
+            cache=serve.ExecutableCache(manifest_path=None, artifact_dir=art), batch_max=1,
+            batch_window_s=0.0005, dim_floor=16, nrhs_floor=4,
+            placement=serve.PlacementPolicy(replicas=1, devices=_lanes21(dev)),
+            factor_cache=serve.FactorCache(max_entries=16), start=False)
+        if svc._scaler is not None:
+            _watch21(svc, snaps)
+        svc.start()
+        k = serve.bucket_for("gesv", 12, 12, 2, np.float64, floor=16, nrhs_floor=4)
+        svc.cache.ensure_manifest(k, (1,))
+        svc.cache.ensure_manifest(k.solve_sibling(), (1,))
+        svc.warmup()
+        # the factor pool warmed with the replay's seed: the legs hit
+        replay.replay(svc, replay.warm_spec(rows), speed=1.0, seed=0)
+        return svc
+
+    faults.configure(TAX21)
+    os.environ.pop("SLATE_TPU_SCALE", None)
+    svc = build()
+    try:
+        check(svc._scaler is None, "scaler armed without SLATE_TPU_SCALE")
+        faults.on()
+        res_static = replay.replay(svc, rows, speed=1.0, seed=0)
+        faults.off()  # off, not reset: the elastic leg re-arms the same tax
+        svc.stop(drain=True, drain_timeout=120)
+    finally:
+        svc.stop()
+    print(f"  (a) static leg: p99 {(res_static['p99_s'] or 0) * 1e3:.1f} ms over "
+          f"{res_static['submitted']} requests", flush=True)
+    os.environ["SLATE_TPU_SCALE"] = POLICY21
+    svc = build()
+    try:
+        check(svc._scaler is not None, "SLATE_TPU_SCALE failed to arm")
+        metrics.reset()  # the evidence window: the measured replay only
+        with _Peak21(svc) as peak:
+            faults.on()
+            res_elastic = replay.replay(svc, rows, speed=1.0, seed=0)
+            faults.reset()  # the tail drains untaxed
+            n_end = _settle21(svc, 30.0)
+        c = metrics.counters()
+        compiles = int(c.get("jit.compilations", 0))
+        # a new lane's prime inside add_replica is a counted first run
+        # (serve.device_primes, pre-traffic): steady state = total - primes
+        primes = int(c.get("serve.device_primes", 0))
+        gate.publish({
+            "static_p99_s": res_static["p99_s"] or 0.0,
+            "elastic_p99_s": res_elastic["p99_s"] or 0.0,
+            "budget_s": BUDGET21_S, "replica_peak": peak.peak, "replicas_end": n_end,
+            "min_replicas": 1, "max_replicas": 3, "up_threshold": 1.0,
+            "new_lane_compiles": compiles - primes, "device_primes": primes,
+        })
+        out = {"static": res_static, "elastic": res_elastic, "peak": peak.peak,
+               "end": n_end, "compiles": compiles, "device_primes": primes,
+               "counters": {k: v for k, v in c.items() if k.startswith("scale.")},
+               "timeline": [{k: r.get(k) for k in ("t_mono", "pressure", "action", "delta",
+                                                     "reason", "replicas")}
+                            for r in metrics.timeline() if r.get("kind") == "scale"],
+               "lanes": sorted({str(r["device"]) for r in svc.health()["replicas"]})}
+        out.update(_checks21(snaps, c, dev, "(a)"))
+        svc.stop(drain=True, drain_timeout=120)
+    finally:
+        svc.stop()
+        os.environ.pop("SLATE_TPU_SCALE", None)
+    metrics.dump()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (a) elastic leg: p99 {(res_elastic['p99_s'] or 0) * 1e3:.1f} ms, peak "
+          f"{peak.peak} lanes, end {n_end}, steady-state cold builds {compiles - primes} "
+          f"({primes} pre-traffic lane primes)", flush=True)
+    return out
+
+
+# The fresh interpreter of leg (a), the port alone, under the checked
+# runtime (SLATE_TPU_SYNC_CHECK in its env): argv dir, device.  One JSON
+# line out.
+_CHILD21 = r"""
+import json, sys
+import chip_smoke as cs
+print(json.dumps(cs.child21(sys.argv[1], sys.argv[2])))
+"""
+
+
+def child21(tmp: str, device: str) -> dict:
+    """Leg (a) in one interpreter, dumping to ``tmp``/scale.jsonl."""
+    import os
+
+    from slate_tpu_torch.aux import sync
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        pk._load()
+    out = {"armed": sync.is_on()}
+    os.environ["SLATE_TPU_METRICS"] = os.path.join(tmp, "scale.jsonl")
+    pk.reset_launches()
+    out["drill"] = scale_drill(device, tmp)
+    out["launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+    rep = sync.report()
+    out["violations"] = [{k: v[k] for k in ("kind", "detail")} for v in rep["violations"]]
+    out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "slate_tpu"))
+    return out
+
+
+def _capacity_lines(proc) -> str:
+    return " / ".join(line.strip() for line in proc.stdout.strip().splitlines() if line.strip())
+
+
+def scale_gate_leg(dev, tmp: str) -> dict:
+    """Leg (a) in a fresh interpreter armed by SLATE_TPU_SYNC_CHECK=1,
+    judged by tools/capacity_report.py (``run_tests.py`` ``scale_gate``)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here, "SLATE_TPU_SYNC_CHECK": "1"}
+    for var in ("SLATE_TPU_FAULTS", "SLATE_TPU_FACTOR_CACHE", "SLATE_TPU_TENANTS",
+                "SLATE_TPU_ADAPTIVE", "SLATE_TPU_INTEGRITY", "SLATE_TPU_WARMUP",
+                "SLATE_TPU_ARTIFACTS", "SLATE_TPU_SCALE", "SLATE_TPU_METRICS"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CHILD21, tmp, str(dev)], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip("\n").splitlines()[:-1]:
+        print(line, flush=True)
+    check(proc.returncode == 0, f"phase 21 child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    wall = time.perf_counter() - t0
+    check(got["armed"] and got["jax_modules"] == [],
+          f"scale child: armed {got['armed']}, imported {got['jax_modules']}")
+    check(got["violations"] == [], f"burst drill: sync violations {got['violations']}")
+    dr = got["drill"]
+    check(dr["lanes"] == sorted(set(_lanes21(dev))), f"drill lanes {dr['lanes']}")
+    rep = _tool("capacity_report.py", os.path.join(tmp, "scale.jsonl"))
+    print(f"  (a) timeline {dr['timeline']}", flush=True)
+    print(f"  (a) counters {dr['counters']}; snapshots {dr['snapshots']}, headroom "
+          f"{dr['headroom']}; sync violations {len(got['violations'])}; child {wall:.1f} s "
+          f"(drill {dr['seconds']:.1f} s)", flush=True)
+    print("  (a) tools/capacity_report.py: " + _capacity_lines(rep), flush=True)
+    check(rep.returncode == 0, f"capacity_report exited {rep.returncode} on the burst drill")
+    check(dr["peak"] <= 3 and dr["end"] == 1, f"drill fleet: peak {dr['peak']}, end {dr['end']}")
+    # n = 12 is below the kernels' crossover: the library routes, no launch
+    check(got["launches"] == {}, f"(a) launched kernels: {got['launches']}")
+    return {"drill": dr, "violations": got["violations"], "report_rc": rep.returncode,
+            "child_wall_s": wall}
+
+
+class _Keep21:
+    """A service proxy for ``replay``: keeps each request's A, B, future,
+    submit and resolution times, so that every delivered X is held to the
+    residual bound after the leg and the burst's deliveries counted."""
+
+    def __init__(self, svc):
+        self.svc, self.kept = svc, []
+
+    def submit(self, routine, A, B, **kw):
+        item = {"A": A, "B": B, "t_submit": time.monotonic(), "t_done": None}
+        item["f"] = f = self.svc.submit(routine, A, B, **kw)
+        f.add_done_callback(lambda _f: item.__setitem__("t_done", time.monotonic()))
+        self.kept.append(item)
+        return f
+
+
+def _residual21(kept, dev) -> float:
+    """The largest scaled residual ||AX - B||_1 / (||A||_1 ||X||_1 n eps)
+    of the delivered X (each distinct A moved to the card once)."""
+    worst, on_dev = 0.0, {}
+    for it in kept:
+        X = it["f"].result(timeout=600)
+        A = on_dev.get(id(it["A"]))
+        if A is None:
+            A = on_dev[id(it["A"])] = torch.from_numpy(it["A"]).to(dev)
+        worst = max(worst, scaled_residual(A, torch.from_numpy(X).to(dev),
+                                           torch.from_numpy(it["B"]).to(dev)))
+    return worst
+
+
+def _closed21(svc, rows, ops, clients: int = CLIENTS21):
+    """``clients`` threads in closed loop over ``rows`` (each submits its
+    next row when its last one resolves); returns (wall s, kept items)."""
+    import threading
+
+    from slate_tpu_torch.soak import replay
+
+    keep, errors = _Keep21(svc), []
+
+    def client(part):
+        try:
+            for row in part:
+                A, B = replay.materialize(row, seed=0, cache=ops)
+                keep.submit(row["routine"], A, B).result(timeout=600)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(rows[i::clients],))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors and len(keep.kept) == len(rows), f"closed loop: {errors}")
+    return wall, keep.kept
+
+
+def _busy_s(prof) -> float:
+    return sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e6
+
+
+def _submit_p50(serve, replay, rows, ops, dev) -> float:
+    """The client's submit time, p50 over HITS21 calls into a paused
+    service: the host work of a live submit (validation, bucketing, the
+    sha256 fingerprint of A); its inverse is the open-loop pacer's ceiling
+    P."""
+    svc = serve.SolverService(placement=serve.PlacementPolicy(devices=[str(dev)]),
+                              factor_cache=serve.FactorCache(max_entries=16), batch_max=1,
+                              start=False)
+    ts = []
+    try:
+        for row in rows[:HITS21]:
+            A, B = replay.materialize(row, seed=0, cache=ops)
+            t = time.perf_counter()
+            svc.submit(row["routine"], A, B)
+            ts.append(time.perf_counter() - t)
+    finally:
+        svc.stop()
+    return statistics.median(ts)
+
+
+def scale_width_leg(serve, metrics, pk, lk, dev, tmp: str) -> dict:
+    """Legs (b) and (c): the burst drill at the serve tier's width (gesv
+    repeated-A, n = 2048, nrhs = 16, tiles of 64, batch point 1, a factor
+    cache of 16, every lane on ``dev``).  (b1) one card's lane scaling:
+    the closed-loop rate R1..R3 of 24 hits with 1, 2, 3 lanes, no fault,
+    and the device's idle share over each.  (b2) calibration: the pacer's
+    ceiling P, a tax T raised until 2 R1(T) <= P / 2.  (b3) the JAX drill
+    time-scaled by s = 60 / R1(T): static leg, then elastic leg, judged by
+    tools/capacity_report.py.  (c) the warmup plan of the elastic leg's
+    recorded rows, applied by ``add_replica(plan=)``.  f64 unless its P
+    cannot give s <= 4, then f32."""
+    import math
+    import os
+
+    from slate_tpu_torch.aux import devmon, faults
+    from slate_tpu_torch.scale import gate
+    from slate_tpu_torch.scale import warmup_plan as wp
+    from slate_tpu_torch.soak import record, replay
+
+    t21 = time.perf_counter()
+    os.environ.pop("SLATE_TPU_SCALE", None)
+    out: dict = {}
+
+    def pool(dtype):
+        """The drill's four pool rows and 24 hit rows over them, at this
+        width and dtype; each A drawn once with the card's philox."""
+        rows = replay.gen_burst(HITS21 + 4, seed=9, n=N21, nrhs=NRHS21, distinct=4)
+        for r in rows:
+            r["dtype"] = dtype
+        ops: dict = {}
+        pools = replay.warm_spec(rows)
+        for row in pools:
+            replay.materialize(row, seed=0, cache=ops, device=dev)
+        return pools, rows[:HITS21], ops
+
+    # the dtype: f64 keeps 2 R1(T) <= P / 2 with s <= 4 only when its
+    # pacer's ceiling reaches 4 x 60 / 4 requests/s
+    need_p = 4 * LANE21_RPS / S21_MAX
+    pools, hits, ops = pool("float64")
+    p64 = 1 / _submit_p50(serve, replay, hits, ops, dev)
+    dtype = "float64" if p64 >= need_p else "float32"
+    out["pacer_ceiling_f64_rps"] = p64
+    if dtype == "float32":
+        pools, hits, ops = pool(dtype)
+        P = 1 / _submit_p50(serve, replay, hits, ops, dev)
+    else:
+        P = p64
+    out.update({"dtype": dtype, "pacer_ceiling_rps": P})
+    print(f"  (b) pacer ceiling P: f64 {p64:.2f} requests/s (s <= {S21_MAX:g} needs P >= "
+          f"{need_p:g}); (b) runs in {dtype}"
+          + ("" if dtype == "float64" else f", P {P:.2f} requests/s"), flush=True)
+
+    cache = serve.ExecutableCache(manifest_path=None)
+    g = lk.getrf_kernel_launches(N21, 256, 1)
+    sw = pk.trsm_kernel_launches(N21)
+    devmon.on()  # the cores' cost rows, captured at their first run, feed (c)
+
+    def build(replicas, paused=False):
+        return serve.SolverService(
+            cache=cache, placement=serve.PlacementPolicy(replicas=replicas, devices=[str(dev)]),
+            factor_cache=serve.FactorCache(max_entries=16), batch_max=1,
+            batch_window_s=0.0005, start=not paused)
+
+    def prelude(svc):
+        """The warm prelude: the four pool matrices factored on the card
+        (misses), then the solve bucket warmed; returns the launches."""
+        pk.reset_launches()
+        res = replay.replay(svc, pools, seed=0, cache=ops)
+        check(res["delivered"] == len(pools), f"(b) prelude: {res}")
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        svc.warmup()
+        return launches
+
+    def mirror(delivered, hit) -> dict:
+        """Every dispatch solves with the trsm pair; each one that found
+        no cached factor also factored (panel_lu)."""
+        want = {"trsm_lower": sw * delivered, "trsm_upper": sw * delivered,
+                "panel_lu": g * (delivered - hit)}
+        return {k: v for k, v in want.items() if v}
+
+    # (b1) one card's lane scaling, no fault
+    scaling = {}
+    svc1 = None
+    try:
+        for k in (1, 2, 3):
+            svc = build(k)
+            try:
+                pre = prelude(svc)
+                if dev.type == "cuda":
+                    check(pre == mirror(len(pools), 0),
+                          f"(b) prelude launches {pre} != {mirror(len(pools), 0)}")
+                metrics.reset()
+                act = torch.profiler.ProfilerActivity
+                with torch.profiler.profile(
+                        activities=[act.CUDA if dev.type == "cuda" else act.CPU]) as prof:
+                    wall, kept = _closed21(svc, hits, ops)
+                c = metrics.counters()
+                busy = _busy_s(prof)
+                res = _residual21(kept, dev)
+                lanes = [int(c.get(f"serve.replica.{i}.dispatched", 0)) for i in range(k)]
+                scaling[k] = {"R": HITS21 / wall, "idle_share": max(0.0, 1 - busy / wall),
+                              "busy_ms": busy * 1e3, "dispatched": lanes,
+                              "hits": c.get("serve.factor_cache.hit", 0),
+                              "cold": c.get("jit.compilations", 0), "residual": res,
+                              "prelude_launches": pre}
+                print(f"  (b1) {k} lane(s): R{k} {HITS21 / wall:.2f} requests/s ({HITS21} hits, "
+                      f"{CLIENTS21} closed-loop clients, profiled), dispatched {lanes}, idle "
+                      f"share {scaling[k]['idle_share']:.4f} (busy {busy * 1e3:.1f} ms of "
+                      f"{wall:.3f} s), largest residual {res:.3e}", flush=True)
+                check(scaling[k]["hits"] == HITS21 and scaling[k]["cold"] == 0,
+                      f"(b1) {k} lanes: {scaling[k]}")
+                check(res <= 3, f"(b1) {k} lanes: residual {res:.3f} > 3")
+            finally:
+                if k == 1:
+                    svc1 = svc
+                else:
+                    svc.stop()
+        out["lane_scaling"] = scaling
+
+        # (b2) calibration: one lane under latency:every=1,ms=T
+        T, cal = T21_MS, []
+        while True:
+            faults.configure(f"latency:every=1,ms={T}")
+            faults.on()
+            wall, kept = _closed21(svc1, hits, ops)
+            faults.reset()
+            R1T = HITS21 / wall
+            cal.append({"T_ms": T, "R1": R1T})
+            print(f"  (b2) tax {T} ms: R1(T) {R1T:.3f} requests/s; 2 R1(T) = {2 * R1T:.2f} "
+                  f"{'<=' if 2 * R1T <= 0.5 * P else '>'} P / 2 = {0.5 * P:.2f}", flush=True)
+            if 2 * R1T <= 0.5 * P or len(cal) == 5:
+                break
+            base = max(1 / R1T - T / 1e3, 0.0)  # a dispatch's untaxed time
+            T = int(math.ceil((4 / P - base) * 1e3 / 5.0)) * 5
+        check(2 * R1T <= 0.5 * P, f"(b2) no tax brought 2 R1(T) under P / 2: {cal}")
+    finally:
+        faults.reset()
+        if svc1 is not None:
+            svc1.stop()
+    s = LANE21_RPS / R1T
+    out.update({"calibration": cal, "tax_ms": T, "R1_T": R1T, "s": s})
+
+    # (b3) the JAX drill, time-scaled by s
+    bs, bl, tail = 1.0 * s, 1.0 * s, 1.0 * s
+    base_rps, burst_rps = 0.5 * R1T, 2.0 * R1T
+    requests = int(round(base_rps * bs + burst_rps * bl + base_rps * tail))
+    budget = 0.5 * s
+    policy = (f"min=1,max=3,up=1.0,down=0.2,up_cooldown={0.25 * s:.4f},"
+              f"down_cooldown={2.0 * s:.4f},step=2,period={0.05 * s:.4f}")
+    spec = replay.gen_burst(requests, seed=9, base_rps=base_rps, burst_rps=burst_rps,
+                            burst_start_s=bs, burst_len_s=bl, n=N21, nrhs=NRHS21, distinct=4)
+    for r in spec:
+        r["dtype"] = dtype
+    rows = record.load(record.save(spec, os.path.join(tmp, f"burst_{dtype}.jsonl"),
+                                   source="gen_burst"))
+    scaled = {"P_rps": P, "tax_ms": T, "R1_T_rps": R1T, "s": s, "base_rps": base_rps,
+              "burst_rps": burst_rps, "burst_start_s": bs, "burst_len_s": bl,
+              "budget_s": budget, "policy": policy, "requests": requests,
+              "trace_s": rows[-1]["t_offset"]}
+    out["scaled"] = scaled
+    print(f"  (b3) P {P:.2f} requests/s, T {T} ms, R1(T) {R1T:.3f} requests/s, s = 60 / R1(T) "
+          f"= {s:.3f}: base {base_rps:.3f} / burst {burst_rps:.3f} requests/s (0.5 / 2 R1(T)), "
+          f"burst at {bs:.2f} s for {bl:.2f} s (1.0 s), budget {budget:.3f} s (0.5 s), "
+          f"policy {policy}; {requests} requests (cut from {REQUESTS21}: the leg ends "
+          f"{tail:.2f} s after the burst), trace {scaled['trace_s']:.2f} s", flush=True)
+    tax = f"latency:every=1,ms={T}"
+
+    def burst_rate(kept):
+        """Deliveries inside the burst window, per second of it."""
+        t0 = kept[0]["t_submit"] - rows[0]["t_offset"]
+        lo, hi = t0 + bs, t0 + bs + bl
+        return sum(1 for it in kept if it["t_done"] is not None and lo <= it["t_done"] < hi) / bl
+
+    legs = {}
+    # static leg: one lane, no scaler
+    svc = build(1)
+    try:
+        check(svc._scaler is None, "(b) scaler armed without SLATE_TPU_SCALE")
+        prelude(svc)
+        metrics.reset()
+        pk.reset_launches()
+        keep = _Keep21(svc)
+        faults.configure(tax)
+        faults.on()
+        res = replay.replay(keep, rows, speed=1.0, seed=0, cache=ops, check_results=False)
+        faults.reset()
+        c = metrics.counters()
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        legs["static"] = {"res": res, "launches": launches,
+                          "hits": c.get("serve.factor_cache.hit", 0),
+                          "burst_rps": burst_rate(keep.kept),
+                          "residual": _residual21(keep.kept, dev)}
+        svc.stop(drain=True, drain_timeout=300)
+    finally:
+        faults.reset()
+        svc.stop()
+    st = legs["static"]
+    print(f"  (b3) static leg: p99 {(res['p99_s'] or 0) * 1e3:.1f} ms (budget "
+          f"{budget * 1e3:.1f} ms), {res['delivered']} of {res['submitted']} delivered, "
+          f"{st['burst_rps']:.3f} requests/s delivered in the burst, launches {launches}",
+          flush=True)
+    # elastic leg: the scaled policy, the same trace and tax
+    os.environ["SLATE_TPU_SCALE"] = policy
+    snaps: list = []
+    svc = build(1, paused=True)
+    path = os.path.join(tmp, f"width_{dtype}.jsonl")
+    try:
+        check(svc._scaler is not None, "(b) SLATE_TPU_SCALE failed to arm")
+        _watch21(svc, snaps)
+        svc.start()
+        prelude(svc)
+        metrics.reset()
+        pk.reset_launches()
+        keep = _Keep21(svc)
+        rec = record.Recorder()
+        with rec, _Peak21(svc) as peak:
+            faults.configure(tax)
+            faults.on()
+            res = replay.replay(keep, rows, speed=1.0, seed=0, cache=ops, check_results=False)
+            faults.reset()
+            n_end = _settle21(svc, 8.0 * s)
+        c = metrics.counters()
+        compiles = int(c.get("jit.compilations", 0))
+        primes = int(c.get("serve.device_primes", 0))
+        gate.publish({
+            "static_p99_s": st["res"]["p99_s"] or 0.0, "elastic_p99_s": res["p99_s"] or 0.0,
+            "budget_s": budget, "replica_peak": peak.peak, "replicas_end": n_end,
+            "min_replicas": 1, "max_replicas": 3, "up_threshold": 1.0,
+            "new_lane_compiles": compiles - primes, "device_primes": primes,
+        })
+        metrics.dump(path)
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        el = {"res": res, "launches": launches, "hits": c.get("serve.factor_cache.hit", 0),
+              "burst_rps": burst_rate(keep.kept), "peak": peak.peak, "end": n_end,
+              "compiles": compiles, "device_primes": primes,
+              "spills": c.get("scale.affinity_spills", 0),
+              "counters": {k: v for k, v in c.items() if k.startswith("scale.")},
+              "timeline": [{k: r.get(k) for k in ("t_mono", "pressure", "action", "delta",
+                                                    "reason", "replicas")}
+                           for r in metrics.timeline() if r.get("kind") == "scale"],
+              "residual": _residual21(keep.kept, dev)}
+        el.update(_checks21(snaps, c, dev, "(b)"))
+        legs["elastic"] = el
+        rep = _tool("capacity_report.py", path)
+        el["overprovision"] = _report_module("capacity_report").analyze(path)["overprovision"]
+        _print_elastic21(el, budget, rep)
+        # (c) the warmup plan of the recorded rows, costs from the cache's
+        # captured rows where it has them
+        plan = wp.plan_from_trace(rec.rows(), cache=svc.cache, batch_max=1)
+        legs["plan"] = _plan21(serve, svc, plan, dev, dtype)
+        svc.stop(drain=True, drain_timeout=300)
+    finally:
+        faults.reset()
+        svc.stop()
+        devmon.off()
+        os.environ.pop("SLATE_TPU_SCALE", None)
+    out["legs"] = legs
+    check(rep.returncode == 0, f"(b) capacity_report exited {rep.returncode}")
+    for name, leg in (("static", st), ("elastic", el)):
+        r = leg["res"]
+        check(r["delivered"] == r["submitted"], f"(b) {name}: {r}")
+        check(leg["residual"] <= 3, f"(b) {name}: residual {leg['residual']:.3f} > 3")
+        if dev.type == "cuda":
+            want = mirror(r["delivered"], leg["hits"])
+            check(leg["launches"] == want, f"(b) {name}: launches {leg['launches']} != {want}")
+    out["phase_s"] = time.perf_counter() - t21
+    return out
+
+
+def _print_elastic21(el: dict, budget: float, rep) -> None:
+    res, over = el["res"], el["overprovision"]
+    print(f"  (b3) elastic leg: p99 {(res['p99_s'] or 0) * 1e3:.1f} ms (budget "
+          f"{budget * 1e3:.1f} ms), {res['delivered']} of {res['submitted']} delivered, "
+          f"{el['burst_rps']:.3f} requests/s delivered in the burst, peak {el['peak']}, end "
+          f"{el['end']}, affinity spills {el['spills']}, over-provision "
+          f"{'n/a' if over is None else f'{over:.4f}'}, launches {el['launches']}; "
+          f"snapshots {el['snapshots']}, headroom {el['headroom']}", flush=True)
+    for row in el["timeline"]:
+        print(f"    t {row['t_mono']:.3f} pressure {row['pressure']} {row['action']} "
+              f"{row['delta']} (replicas {row['replicas']}): {row['reason']}", flush=True)
+    print("  (b3) tools/capacity_report.py: " + _capacity_lines(rep), flush=True)
+
+
+def _plan21(serve, svc, plan, dev, dtype: str) -> dict:
+    """Leg (c): print the plan's top entries (cost captured by the cache's
+    devmon rows, or the phase_flops model) and its preload, check that the
+    full bucket and its solve sibling are planned, and bring a lane live
+    through ``add_replica(plan=)``: an entry already live on the lane's
+    device is skipped (on one card, every entry that ran), one never
+    dispatched is built (the full bucket: misses factor on the direct
+    path)."""
+    from slate_tpu_torch.aux import metrics
+
+    top = []
+    for e in plan.entries[:4]:
+        top.append({"label": e.key.label, "batch": e.batch, "rows": e.rows, "share": e.share,
+                    "cost": e.cost, "score": e.score,
+                    "source": "captured" if svc.cache.cost(e.key, e.batch) else "phase_flops"})
+    full = serve.bucket_for("gesv", N21, N21, NRHS21, np.dtype(dtype))
+    labels = {(e.key.label, e.batch) for e in plan.entries}
+    check((full.label, 1) in labels and (full.solve_sibling().label, 1) in labels,
+          f"(c) the plan misses the {N21} gesv bucket or its solve sibling: {sorted(labels)}")
+    preload = [p.to_json() for p in plan.preload]
+    check(len(preload) == 4, f"(c) preload {preload}")
+    live = sum(svc.cache.is_live(e.key, e.batch) for e in plan.entries)
+    with metrics.deltas() as d:
+        name = svc.add_replica(plan=plan)
+        primes = {k: d.get(f"scale.prime_{k}") or 0
+                  for k in ("restored", "compiled", "failed", "skipped")}
+    print(f"  (c) plan of {plan.total_rows} recorded rows: " + "; ".join(
+        f"{t['label']} b{t['batch']} rows {t['rows']} share {t['share']} cost {t['cost']:.4g} "
+        f"({t['source']}) score {t['score']:.4g}" for t in top), flush=True)
+    print("  (c) preload: " + "; ".join(f"{p['repeat_fp'][:12]} rows {p['rows']} n {p['n']} "
+                                        f"score {p['score']:.4g}" for p in preload), flush=True)
+    print(f"  (c) add_replica(plan=) -> lane {name}: scale.prime_* {primes} ({live} of "
+          f"{len(plan.entries)} entries already live on {dev}: skipped)", flush=True)
+    check(primes == {"restored": 0, "compiled": len(plan.entries) - live, "failed": 0,
+                     "skipped": live}, f"(c) add_replica(plan=): {primes}, {live} live")
+    return {"top": top, "preload": preload, "entries": len(plan.entries), "lane": name,
+            "primes": primes}
+
+
+def scale_main(serve, metrics, pk, lk, dev) -> dict:
+    """Phase 21: leg (a) in a checked child, then legs (b) and (c) here."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="slate_scale_") as tmp:
+        out["gate"] = scale_gate_leg(dev, tmp)
+        metrics.on()
+        out["width"] = scale_width_leg(serve, metrics, pk, lk, dev, tmp)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 21: {out['phase_s']:.1f} s (legs (b) + (c) {out['width']['phase_s']:.1f} s)",
+          flush=True)
     return out
 
 
@@ -5139,6 +5869,7 @@ def main() -> int:
     admission_only = "--admission" in sys.argv[1:]
     fabric_only = "--fabric" in sys.argv[1:]
     soak_only = "--soak" in sys.argv[1:]
+    scale_only = "--scale" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5216,6 +5947,13 @@ def main() -> int:
         print("phase 20: the soak fabric", flush=True)
         skres = soak_main(serve, metrics, pk, dev)
         print("main path: " + json.dumps({"serve_soak": skres}))
+        print(smi)
+        return 0
+    if scale_only:
+        metrics.on()
+        print("phase 21: the elastic capacity plane", flush=True)
+        scres = scale_main(serve, metrics, pk, lk, dev)
+        print("main path: " + json.dumps({"serve_scale": scres}))
         print(smi)
         return 0
     if profile_only:
@@ -5338,6 +6076,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 20: the soak fabric", flush=True)
     skres = soak_main(serve, metrics, pk, dev)
+    torch.cuda.empty_cache()
+    print("phase 21: the elastic capacity plane", flush=True)
+    scres = scale_main(serve, metrics, pk, lk, dev)
+    print(f"  phases 2-21: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -5380,6 +6122,7 @@ def main() -> int:
                                       "serve_admission": adres,
                                       "serve_fabric": fbres,
                                       "serve_soak": skres,
+                                      "serve_scale": scres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

@@ -17,10 +17,12 @@ sync wrappers (`api`): ``serve.gesv/posv/gels``, ``serve.submit``,
 ``serve.health``, and the factor fabric's ``serve.get_arena`` (the
 device factor arena, ``SLATE_TPU_FACTOR_ARENA``) and ``serve.session``
 (streaming least-squares sessions).  The soak fabric that records,
-replays and watches this tier is ``slate_tpu_torch.soak`` (item 7c2a).
+replays and watches this tier is ``slate_tpu_torch.soak`` (item 7c2a);
+the elastic capacity plane that sizes its replica pool is
+``slate_tpu_torch.scale`` (item 7c2b, ``SLATE_TPU_SCALE``).
 
-Not ported yet (ROADMAP.md Queue 1 items 7c2b, 7c3 and 8): the elastic
-capacity plane, ``get_fleet`` and the sharded lane.
+Not ported yet (ROADMAP.md Queue 1 items 7c3 and 8): ``get_fleet`` and
+the sharded lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.

@@ -591,23 +591,22 @@ class ExecutableCache:
         metrics.inc("serve.warmup_compiles", compiled)
         return compiled
 
-    def _summary(self, todo, failed_counter: str, tag: str, **kw) -> Dict[str, int]:
+    def _summary(self, todo, failed_counter: str, phase: str, **kw) -> Dict[str, int]:
         """One counting pass of :meth:`_bring_live` that never raises:
         ``{"entries", "restored", "compiled", "failed", "skipped"}`` with
         ``entries == restored + compiled + failed + skipped``; a failed
         entry counts ``failed_counter``.  The pass lands in the
-        ``serve.<tag>`` timer and the ``serve.<tag>_s`` gauge."""
+        ``serve.<phase>`` timer and the ``serve.<phase>_s`` gauge."""
         out = {"entries": 0, "restored": 0, "compiled": 0, "failed": 0, "skipped": 0}
 
         def on_error(key, batch, exc):
             metrics.inc(failed_counter)
 
-        with metrics.phase(f"serve.{tag}", always=True) as ph:
-            for _k, _b, outcome, _o in self._bring_live(todo, on_error=on_error, tag=tag,
-                                                         **kw):
+        with metrics.phase(f"serve.{phase}", always=True) as ph:
+            for _k, _b, outcome, _o in self._bring_live(todo, on_error=on_error, **kw):
                 out["entries"] += 1
                 out[outcome] += 1
-        metrics.gauge(f"serve.{tag}_s", ph.seconds)
+        metrics.gauge(f"serve.{phase}_s", ph.seconds)
         return out
 
     def restore(self, batch_max: Optional[int] = None, verbose: bool = False,
@@ -621,19 +620,40 @@ class ExecutableCache:
         polled between entries."""
         todo, unfit = self._live_todo(batch_max=batch_max)
         out = self._summary(todo, "serve.restore_failed", "restore", devices=devices,
-                            stop_check=stop_check, verbose=verbose)
+                            stop_check=stop_check, verbose=verbose, tag="restore")
         if unfit:
             out["mesh_unfit"] = unfit
         metrics.inc("serve.restore_restored", out["restored"])
         metrics.inc("serve.restore_compiled", out["compiled"])
         return out
 
-    def prime(self, devices=None, batch_max: Optional[int] = None, verbose: bool = False,
-              stop_check: Optional[Callable[[], bool]] = None) -> Dict[str, int]:
-        """Bring the manifest live, artifact-first, on ``devices``: the
-        warm path of a joining replica (``SolverService.add_replica``).
-        Failures are counted (``serve.prime_failed``) and skipped.
-        Returns the :meth:`_summary`."""
-        todo, _unfit = self._live_todo(batch_max=batch_max)
+    def prime(self, entries=None, devices=None, batch_max: Optional[int] = None,
+              verbose: bool = False, stop_check: Optional[Callable[[], bool]] = None,
+              tag: str = "prime") -> Dict[str, int]:
+        """Bring a caller-ordered ``(key, batch)`` subset live,
+        artifact-first, on ``devices``: the warm path of a joining replica
+        (``SolverService.add_replica``) and the applicator of a predictive
+        :class:`~slate_tpu_torch.scale.warmup_plan.WarmupPlan`.  The
+        caller's order is the priming order, so a deadline truncates from
+        the plan's bottom.  ``entries=None`` walks the whole live manifest;
+        explicit entries are registered in the manifest first (a planned
+        bucket this process never dispatched still warms, and a later
+        restore inherits it), minus batch points past ``batch_max`` and
+        mesh entries (``serve.mesh_unfit_skipped``).  ``tag`` names the
+        pass's spans.  Failures are counted (``serve.prime_failed``) and
+        skipped, never raised.  Returns the :meth:`_summary`."""
+        if entries is None:
+            todo, _unfit = self._live_todo(batch_max=batch_max)
+        else:
+            todo = []
+            for key, batch in entries:
+                batch = int(batch)
+                if key.mesh:
+                    metrics.inc("serve.mesh_unfit_skipped")
+                    continue
+                if batch_max is not None and batch > batch_max:
+                    continue
+                self.ensure_manifest(key, (batch,))
+                todo.append((key, batch))
         return self._summary(todo, "serve.prime_failed", "prime", devices=devices,
-                             stop_check=stop_check, verbose=verbose)
+                             stop_check=stop_check, verbose=verbose, tag=tag)

@@ -1,9 +1,10 @@
 """SolverService: bounded admission, a replica pool, same-bucket batch
 coalescing, a factor cache, deadlines, retries with backoff,
 circuit-breaker recovery, the artifact restore, the integrity plane and
-the admission plane and the device factor arena -- the JAX package's
-``serve/service.py`` without the sharded lane (ROADMAP.md Queue 1 item
-8) and the elastic capacity plane (item 7c2b).
+the admission plane, the device factor arena and, when armed, the
+elastic capacity plane's autoscaler (``slate_tpu_torch.scale``) -- the
+JAX package's ``serve/service.py`` without the sharded lane (ROADMAP.md
+Queue 1 item 8).
 
 Execution model:
 
@@ -131,7 +132,9 @@ cap), ``serve.overload.{level,enter,exit}`` and
 ``serve.adaptive.changes``, the device monitor's
 ``serve.device.<i>.bytes_in_use[_peak]``, ``scale.replicas_added`` /
 ``scale.replicas_removed`` / ``scale.requests_rehomed`` /
-``scale.prime_*``, the ``serve.latency.<bucket>.{queued,execute,total}``
+``scale.prime_*`` (and, with the autoscaler armed,
+``scale.affinity_spills`` and its own ``scale.*`` family), the
+``serve.latency.<bucket>.{queued,execute,total}``
 and ``serve.latency.replica.<i>.total`` histograms, and the
 ``serve.slo_burn.*`` tiers.  With ``aux/spans`` on, every request
 carries a trace id and a ``request`` -> ``admit``/``queued``/
@@ -212,6 +215,21 @@ PHASE_READY = "ready"
 LANE_LIVE = "live"
 LANE_DRAINING = "draining"
 LANE_REMOVED = "removed"
+
+
+def _scale_policy_armed() -> bool:
+    """Cheap pre-check for the elastic capacity plane: is a non-off
+    ``SLATE_TPU_SCALE`` / ``Option.ServeScale`` spec present?  Kept apart
+    from the real parser so the off path never imports the ``scale``
+    package (zero overhead off)."""
+    from ..enums import Option
+    from ..options import get_option
+
+    spec = os.environ.get("SLATE_TPU_SCALE")
+    if spec is None:
+        spec = str(get_option(None, Option.ServeScale) or "")
+    spec = spec.strip().lower()
+    return bool(spec) and spec not in ("0", "off", "false", "no")
 
 
 def decorrelated_backoff(rng: random.Random, prev_s: float, base_s: float,
@@ -501,6 +519,15 @@ class SolverService:
         # keep a terminal row
         self._next_replica = len(self._replicas)  # guarded by: _cond
         self._terminal: "OrderedDict[str, dict]" = OrderedDict()  # guarded by: _cond
+        # the elastic capacity plane's autoscaler: None unless armed, and
+        # then the only caller that imports the scale package
+        self._scaler = None
+        if _scale_policy_armed():
+            from ..scale.controller import AutoScaler, policy_from_options
+
+            policy = policy_from_options()
+            if policy is not None:
+                self._scaler = AutoScaler(self, policy)
         self._restarts = 0
         self._recent_fail: Deque[float] = deque(maxlen=256)
         self._seen_labels: set = set()  # labels health() reports latency for
@@ -542,6 +569,8 @@ class SolverService:
         for rep in self._replicas:
             self._spawn_worker(rep)
         self._begin_restore()
+        if self._scaler is not None:
+            self._scaler.start()
         return self
 
     def _begin_restore(self) -> None:
@@ -622,7 +651,11 @@ class SolverService:
         Rejected) but the worker runs on until every admitted request has
         resolved, bounded by ``drain_timeout`` (``Option.ServeDrainTimeout``
         when None); completed ones count ``serve.drained``, those still
-        pending at the bound ``serve.drain_abandoned``."""
+        pending at the bound ``serve.drain_abandoned``.  The autoscaler
+        stops first: a scale-up racing the teardown below would count
+        ``scale.add_failed``."""
+        if self._scaler is not None:
+            self._scaler.stop()
         if drain:
             if drain_timeout is None:
                 from ..enums import Option
@@ -700,21 +733,27 @@ class SolverService:
         self._cond.notify_all()
         return len(pending)
 
-    def _prime_lane(self, rep: _Replica) -> Dict[str, int]:
-        """Warm a joining lane's device before it takes traffic: the whole
-        manifest through ``ExecutableCache.prime``, artifact-first."""
-        counts = self.cache.prime(devices=[rep.device], batch_max=self.batch_max,
-                                  stop_check=lambda: self._stopped)
+    def _prime_lane(self, rep: _Replica, plan=None) -> Dict[str, int]:
+        """Warm a joining lane's device before it takes traffic, through
+        ``ExecutableCache.prime``, artifact-first: ``plan`` (a
+        :class:`~slate_tpu_torch.scale.warmup_plan.WarmupPlan` through its
+        ``pairs()``, or a raw ``(key, batch)`` iterable) in its order, or
+        the whole live manifest when None."""
+        entries = (plan.pairs() if hasattr(plan, "pairs")
+                   else list(plan) if plan is not None else None)
+        counts = self.cache.prime(entries, devices=[rep.device], batch_max=self.batch_max,
+                                  stop_check=lambda: self._stopped, tag="scale_warm")
         for k in ("restored", "compiled", "failed", "skipped"):
             if counts.get(k):
                 metrics.inc(f"scale.prime_{k}", counts[k])
         return counts
 
-    def add_replica(self, warm: bool = True) -> str:
-        """Bring one new lane live; ``warm`` primes its device through
-        the manifest first, so its first steady-state request makes no
-        cold build.  Returns the lane's name (a monotonic ordinal, never
-        reused).  Raises RuntimeError when the service is not running."""
+    def add_replica(self, warm: bool = True, plan=None) -> str:
+        """Bring one new lane live; ``warm`` primes its device first
+        (``plan`` narrows and orders the walk: :meth:`_prime_lane`), so
+        its first steady-state request makes no cold build.  Returns the
+        lane's name (a monotonic ordinal, never reused).  Raises
+        RuntimeError when the service is not running."""
         with self._cond:
             if self._stopped or not self._running:
                 raise RuntimeError("add_replica: service is not running")
@@ -728,7 +767,7 @@ class SolverService:
         warmed: Dict[str, int] = {}
         if warm:
             # outside _cond: priming runs the cores
-            warmed = self._prime_lane(rep)
+            warmed = self._prime_lane(rep, plan)
         with self._cond:
             if self._stopped or not self._running:
                 self.placement.set_replicas(len(self._replicas))
@@ -993,6 +1032,22 @@ class SolverService:
                             _fc_record("spill", fp=fp, label=full_key.label)
                             req.key = key = full_key
                             req.factor_miss = True
+                    elif (self._scaler is not None and own is not rep
+                          and (own_load := len(own.q) + len(own.inflight)) > 2 * self.batch_max
+                          and own_load >= 4 * (len(rep.q) + len(rep.inflight) + 1)):
+                        # the elastic affinity spill: affinity would funnel a
+                        # repeat-heavy burst onto the owning lane however many
+                        # lanes the scaler adds; a drowning owner (past the
+                        # batch window and 4 x the selected lane's load) hands
+                        # the request to the selected lane's direct factor
+                        # path, which finds the cached factor and solves from
+                        # it there (a counted hit; the factor stays homed on
+                        # its owner).  Armed only with the scaler: the plane
+                        # off routes as before
+                        _fc_record("spill", fp=fp, label=full_key.label)
+                        metrics.inc("scale.affinity_spills")
+                        req.key = key = full_key
+                        req.factor_miss = True
                     else:
                         rep = own
             if _root is not None:
@@ -1063,8 +1118,10 @@ class SolverService:
         span ring's eviction pressure (``trace_ring``); with the device
         monitor on, the cost rows by bucket (``cost``), each latency row's
         ``peak_bytes`` and a memory snapshot of each lane device
-        (``devices``; None byte fields on the CPU).  The top-level
-        ``breakers`` map merges the lanes' tables, worst state wins."""
+        (``devices``; None byte fields on the CPU).  With the autoscaler
+        armed, its policy and latest decision and the terminal lanes'
+        names (``capacity``, None when off).  The top-level ``breakers``
+        map merges the lanes' tables, worst state wins."""
         now = time.monotonic()
         window_s = 60.0
         rank = {_bk.BREAKER_OPEN: 2, _bk.BREAKER_HALF_OPEN: 1, _bk.BREAKER_CLOSED: 0}
@@ -1107,6 +1164,11 @@ class SolverService:
         for row in terminal:
             lanes.append({"queue_depth": 0, "inflight": 0, "oldest_queued_s": 0.0,
                           "worker_alive": False, "breakers": {}, **row})
+        # the elastic capacity plane (None when off; the key is always there)
+        capacity = None
+        if self._scaler is not None:
+            capacity = self._scaler.describe()
+            capacity["terminal_lanes"] = [r["name"] for r in terminal]
         restore_stuck_s = None
         if phase == PHASE_RESTORING and self._restore_started is not None:
             age = now - self._restore_started
@@ -1173,6 +1235,7 @@ class SolverService:
             "tenants": (adm.tenants_health(tenant_depths, now=now)
                         if adm is not None else None),
             "admission": adm.snapshot() if adm is not None else None,
+            "capacity": capacity,
             "failures_60s": len(recent),
             "failure_rate_60s": len(recent) / window_s,
             "uptime_s": now - self._t_started,

@@ -405,8 +405,8 @@ def gen_burst(requests: int = 300, seed: int = 0, *,
               n: int = 12, nrhs: int = 2, distinct: int = 4,
               routine: str = "gesv") -> List[dict]:
     """A quiet baseline stream with one hard traffic step in the
-    middle -- the elastic capacity plane's canonical input (ROADMAP.md
-    Queue 1 item 7c2b).  Arrivals run at ``base_rps`` until
+    middle -- the elastic capacity plane's canonical input
+    (:mod:`slate_tpu_torch.scale`).  Arrivals run at ``base_rps`` until
     ``burst_start_s``, jump to ``burst_rps`` for ``burst_len_s``, then
     fall back to ``base_rps`` until the request budget is spent.  A
     static fleet sized for the baseline builds queue (and misses its

@@ -1847,3 +1847,65 @@ def test_soak_replay_on_the_card(dev):
             metrics.off()
         if not was[1]:
             spans.off()
+
+
+@pytest.mark.cuda
+def test_stepped_scaler_on_the_card(dev, monkeypatch):
+    """The autoscaler stepped on its own clock over a service on cuda:0 at
+    n = 2048: a 200 ms tax a dispatch queues a burst of factor-cache hits
+    on one lane, two steps scale up to 3 lanes (all cuda:0, their primes
+    skipped), the drained fleet steps back down to 1; every snapshot reads
+    a float device-memory headroom in (0, 1], no step, add or remove
+    failed, every X meets the residual bound and the hits ran the trsm
+    pair."""
+    from slate_tpu_torch.aux import faults, metrics
+    from slate_tpu_torch.scale import controller as ctl
+    from slate_tpu_torch.serve import FactorCache, PlacementPolicy, SolverService
+
+    monkeypatch.setenv(ctl.SCALE_ENV, "min=1,max=3,up=1.0,down=0.2,up_cooldown=0.25,"
+                       "down_cooldown=2.0,step=2,period=3600")
+    was = metrics.is_on()
+    metrics.on()
+    metrics.reset()
+    n, nrhs = 2048, 4
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    Bs = [rng.standard_normal((n, nrhs)) for _ in range(12)]
+    s = SolverService(placement=PlacementPolicy(devices=["cuda:0"]), batch_max=1,
+                      factor_cache=FactorCache(max_entries=8))
+    try:
+        sc = s._scaler
+        assert sc is not None
+        s.submit("gesv", A, Bs[0]).result(timeout=600)  # the miss
+        s.warmup()
+        pk.reset_launches()
+        faults.configure("latency:every=1,ms=200")
+        faults.on()
+        futs = [s.submit("gesv", A, B) for B in Bs]
+        snaps = []
+        for now in (0.0, 0.3):
+            d = sc.step(now=now)
+            snaps.append(d.snapshot)
+            assert d.action == ctl.UP, d
+        assert [str(r.device) for r in s._replicas] == ["cuda:0"] * 3
+        for B, f in zip(Bs, futs):
+            assert _scaled_residual(A, f.result(timeout=600), B) <= 3
+        faults.reset()
+        now = 0.3
+        while len(s._replicas) > 1 and now < 30:
+            now += 0.5
+            snaps.append(sc.step(now=now).snapshot)
+        assert len(s._replicas) == 1
+        assert all(isinstance(x.hbm_headroom_frac, float) and 0 < x.hbm_headroom_frac <= 1
+                   for x in snaps), snaps
+        c = metrics.counters()
+        assert (c.get("scale.up"), c.get("scale.down")) == (2, 2)
+        assert all(c.get(k, 0) == 0 for k in ("scale.step_errors", "scale.add_failed",
+                                              "scale.remove_failed"))
+        assert c.get("scale.prime_skipped", 0) >= 2 and c.get("serve.device_primes", 0) == 0
+        assert pk.LAUNCHES["trsm_lower"] > 0 and pk.LAUNCHES["trsm_upper"] > 0
+    finally:
+        faults.reset()
+        s.stop()
+        if not was:
+            metrics.off()

@@ -79,6 +79,11 @@ import slate_tpu_torch.soak
 import slate_tpu_torch.soak.record
 import slate_tpu_torch.soak.replay
 import slate_tpu_torch.soak.timeline
+import slate_tpu_torch.scale
+import slate_tpu_torch.scale.signals
+import slate_tpu_torch.scale.controller
+import slate_tpu_torch.scale.gate
+import slate_tpu_torch.scale.warmup_plan
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -120,6 +125,8 @@ def test_no_source_file_imports_jax_or_slate_tpu():
             "ops/bulge.py", "ops/stedc.py", "ops/stein.py", "ops/jacobi.py",
             "drivers/eig.py", "drivers/svd.py"} <= names
     assert {"soak/__init__.py", "soak/record.py", "soak/replay.py", "soak/timeline.py"} <= names
+    assert {"scale/__init__.py", "scale/signals.py", "scale/controller.py", "scale/gate.py",
+            "scale/warmup_plan.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
