@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fabric   # build + phase 19 alone
     python3 chip_smoke.py --soak     # build + phase 20 alone
     python3 chip_smoke.py --scale    # build + phase 21 alone
+    python3 chip_smoke.py --fleet    # build + phase 22 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -100,8 +101,8 @@ Phases, each for float64 and float32 unless stated:
      (bucket 4096, tiles of 64) through ``SolverService(factor_cache=
      FactorCache(8), batch_max=8, batch_window_s=0.002)``: one miss
      (launches equal to ``chol_kernel_launches`` / ``getrf_kernel_launches``
-     plus one trsm sweep each), ``warmup()``, 40 requests of nrhs = 16
-     over 8 B (40 hits, no cold build, only the trsm pair launched,
+     plus one trsm sweep each), ``warmup()``, 24 requests of nrhs = 16
+     over 8 B (24 hits, no cold build, only the trsm pair launched,
      ``trsm_kernel_launches(4096)`` a dispatch each, residuals <= 3),
      requests/s, p50 / p99 of the queued / execute / total latency, one
      hit dispatch against two ``solve_triangular``, the host time of
@@ -220,7 +221,7 @@ Phases, each for float64 and float32 unless stated:
      request, the 24-request burst refused and counted,
      ``tools/chaos_report.py`` exit 0.  (c) a fresh interpreter with
      ``SLATE_TPU_SYNC_CHECK=1,seed=7,yield=0.2``: two lanes, tenants,
-     certification and hedging, 40 gesv / posv requests, a lane removed
+     certification and hedging, 20 gesv / posv requests, a lane removed
      half way: no lock-order or lockset violation, ``tools/race_report.py``
      exit 0, requests/s against the same stream unchecked here.  (d) the
      device monitor: the ``cuda:0`` row (bytes in use, the peak, the
@@ -263,17 +264,17 @@ Phases, each for float64 and float32 unless stated:
      (integrity and factor cache off, ``sdc_solve:every=7``): wrong X
      delivered and the report exits non-zero.  (c) the full-width drill,
      f64 and f32: tiles of 64, batch point 4, two lanes on cuda:0, the
-     five generators at n = 2048 / 4096, nrhs = 16 (240 requests: 120
-     repeated-A gesv, 36 posv, 44 multitenant, 20 deadline storm, 20
+     five generators at n = 2048 / 4096, nrhs = 16 (120 requests: 60
+     repeated-A gesv, 18 posv, 22 multitenant, 10 deadline storm, 10
      flood); calibration (the warm prelude, which runs the factor
      kernels on its misses, then 24 closed-loop requests: rate R, p50,
      p99), then the mix open loop at 0.7 R under ``latency:every=23,
-     ms=30;sdc_solve:every=53,seed=3;worker_death:every=157`` (each
+     ms=30;sdc_solve:every=53,seed=3;worker_death:every=61`` (each
      site fires), recorder rows = delivered + typed errors, the report
      at 4 x the calibration p99 (0 bad results, 0 orphans, 0 sampler
      errors); requests/s, each bucket's p50 / p99, the disruption
      intervals, the launches by kernel (the trsm pair on the hits), the
-     idle share of a profiled slice of 20 requests, and a 60-request
+     idle share of a profiled slice of 20 requests, and a 30-request
      multitenant round trip replayed twice.
  21. the elastic capacity plane (``slate_tpu_torch.scale``: the signal
      aggregator, the hysteresis AutoScaler, the predictive warmup plan,
@@ -308,6 +309,36 @@ Phases, each for float64 and float32 unless stated:
      captured rows or the ``phase_flops`` model; the 2048 gesv bucket and
      its solve sibling, the 4 pool matrices preloaded) applied by
      ``add_replica(plan=)`` and its ``scale.prime_*`` counts.
+ 22. the fleet tier (``slate_tpu_torch/fleet``: the wire, the worker, the
+     router), judged by ``tools/fleet_report.py``: (a) the JAX fleet drill
+     as written (``run_tests.py:2400-2578``) in a fresh interpreter under
+     ``SLATE_TPU_SYNC_CHECK=1``: the port's router and two spawned workers
+     on cuda:0 (host0 ``sdc_solve:every=2``, host1 ``latency:every=3,
+     ms=40``), N = 12, f32, tenants ``abuser:rate=4,burst=4;victim:
+     rate=500,burst=100``; SDC quarantine and probe recovery, fleet-wide
+     quota, a real SIGKILL (``host_death:once``) with respawn, rejoin and a
+     forced probe, ``rpc_timeout:every=4;host_partition:once``, the fan-in
+     (``dump_hosts``, ``tools/trace_stitch.py``, ``tools/metrics_merge.py
+     --tag``); the report with the gate's arguments exits 0, no sync
+     violation, no JAX module, no launch.  (b) the escape leg: one worker
+     under ``sdc_solve:every=2``, ``cert=off``: wrong X delivered and the
+     report exits non-zero.  The whole run starts (a) and (b)'s child
+     before phase 15 and waits for it before phase 17: the n = 12 drill
+     runs beside the eigensolvers and the SVD, which gate no latency;
+     ``--fleet`` runs it first.  (c) the serve tier's width: gesv at n = 2048,
+     nrhs = 16, f64 and f32 in turn over 4 pool matrices a dtype, no factor
+     cache, workers started here (``connect=``), ``cert=full``; requests/s
+     of an untaxed closed-loop stream (4 clients, 48 requests) in process
+     and through the router with 1 and 2 workers, the wire bytes and the
+     router's certificate ms a request, the card's idle share
+     (``nvidia-smi``); the drill (SDC until quarantine and probe recovery,
+     the abuser's quota, worker 1 killed with requests in flight and a
+     standby process taking its port, timeouts and a partition), every delivered X
+     held to the scaled residual (<= 3), the report at 4 x the in-process
+     p99; each drained worker's panel_lu launches equal the mirror of the
+     core items it ran (requests and the repeat pads of its batch points;
+     a full-phase gesv solves with the library: no trsm launch), no nvcc
+     run, no JAX module.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2119,11 +2150,14 @@ def _serve_faults(faults, svc, routine, A_np, B_np, A, B, residual, dtype) -> di
     return out
 
 
+HITS13 = 24  # requests of each hit stream
+
+
 def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, dev) -> dict:
-    """One factor-cache miss, warmup(), then 40 requests of nrhs = 16
+    """One factor-cache miss, warmup(), then ``HITS13`` requests of nrhs = 16
     over 8 distinct B through SolverService on cuda:0 (posv on X X^T + n I,
     gesv on a normal A + 2 sqrt(n) I, n = 4096: bucket 4096, tiles of
-    64): the miss launches the factor's mirror, the window is 40 hits
+    64): the miss launches the factor's mirror, the window is all hits
     with no cold build and launches only the trsm pair, one sweep a
     dispatch each."""
     dt = getattr(torch, dtype)
@@ -2157,7 +2191,7 @@ def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, de
         pk.reset_launches()  # counts of the hit stream only
         with metrics.deltas() as d:
             t0 = time.perf_counter()
-            futs = [svc.submit(routine, A_np, B_np[i % 8]) for i in range(40)]
+            futs = [svc.submit(routine, A_np, B_np[i % 8]) for i in range(HITS13)]
             Xs = [f.result(timeout=600) for f in futs]
             t_stream = time.perf_counter() - t0
             hits, cold = d.get("serve.factor_cache.hit"), d.get("jit.compilations")
@@ -2167,14 +2201,14 @@ def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, de
         dispatches = _serve_runs(metrics, skey.label) - runs0
         res = max(scaled_residual(A, torch.from_numpy(X).to(dev), Bs[i % 8])
                   for i, X in enumerate(Xs))
-        print(f"  {routine} {dtype} hit stream: 40 requests in {t_stream:.3f} s = "
-              f"{40 / t_stream:.1f} requests/s, hits {hits}, cold builds {cold} (warmup built "
+        print(f"  {routine} {dtype} hit stream: {HITS13} requests in {t_stream:.3f} s = "
+              f"{HITS13 / t_stream:.1f} requests/s, hits {hits}, cold builds {cold} (warmup built "
               f"{built} in {t_warm:.3f} s), {dispatches} dispatches ({batched} batched), "
               f"launches {launches}, max residual {res:.3e}", flush=True)
         print(f"  {routine} {dtype} latency (ms) {skey.label}: " + ", ".join(
             f"{p} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f}" for p, v in lat.items() if v),
             flush=True)
-        check(hits == 40, f"serve {routine} {dtype}: {hits} hits, expected 40")
+        check(hits == HITS13, f"serve {routine} {dtype}: {hits} hits, expected {HITS13}")
         check(cold == 0, f"serve {routine} {dtype}: {cold} cold builds after warmup()")
         check(launches == {"trsm_lower": sweep * dispatches, "trsm_upper": sweep * dispatches},
               f"serve {routine} {dtype}: hit launches {launches}, expected the trsm pair "
@@ -2917,7 +2951,7 @@ def integrity_leg(serve, faults, pk, ck, lk, metrics, dtype, gen, dev) -> dict:
     return out
 
 
-ABFT_ROUNDS = 9  # interleaved rounds of the ABFT and the plain b1 dispatch
+ABFT_ROUNDS = 5  # interleaved rounds of the ABFT and the plain b1 dispatch
 
 
 def _interleaved_ms(fa, fb, rounds: int = ABFT_ROUNDS):
@@ -2986,7 +3020,7 @@ def restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build) -> dict:
 N18_ABUSE = 2048  # the abuser's gesv bucket
 SERVE18_BATCH = 4
 FLOOD18, VICTIMS18 = 48, 8
-STREAM18 = 40  # requests of the checked-runtime stream
+STREAM18 = 20  # requests of the checked-runtime stream
 TENANTS18 = "good:weight=4;abuser:rate=10,burst=4,share=0.25"
 SYNC18 = "1,seed=7,yield=0.2"
 
@@ -3497,7 +3531,7 @@ def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
 SESSION19 = 20  # warmed pristine session solves, every one a factor-cache hit
 APPEND19 = 64  # rows of the streamed append
 ROUNDS19 = 3  # rounds of each hit-dispatch timing (medians)
-MISS_ROUNDS19 = 2  # rounds of the refactoring miss and of append / refactor
+MISS_ROUNDS19 = 1  # rounds of the refactoring miss and of append / refactor
 
 
 def _event_ms(fn) -> float:
@@ -3714,13 +3748,14 @@ TENANTS20 = ("gold:weight=4;good:weight=2;free:rate=300,share=0.5;"
 INTEGRITY20 = "full,hedge=1.5,cooldown=0.25"
 FAULTS20A = "latency:every=97,ms=30;sdc_solve:every=211,seed=3;worker_death:every=1501"
 FAULTS20B = "sdc_solve:every=7,seed=5"
-FAULTS20C = "latency:every=23,ms=30;sdc_solve:every=53,seed=3;worker_death:every=157"
+FAULTS20C = "latency:every=23,ms=30;sdc_solve:every=53,seed=3;worker_death:every=61"
 SITES20 = ("latency", "sdc_solve", "worker_death")
 N20, N20_LARGE, NRHS20, BATCH20 = 2048, 4096, 16, 4
 RING20 = 262144  # above every leg's span count: the orphan audit never meets an evicting ring
 SPAN20_S = 24.0  # the full-width generators' native span, seconds (speed rescales it)
 LOAD20 = 0.7  # offered rate over the calibrated closed-loop rate R
 RT20 = 1.5  # the round trip's offered rate over R (it checks mixes, not tails)
+RT20_N = 30  # leg (c)'s round-trip stream
 
 
 def _placement20(serve, dev, replicas: int = 2):
@@ -3869,6 +3904,10 @@ def soak_drill(dev) -> dict:
               f"mixes agree; determinism {rt['replays'][0]['delivered']} vs "
               f"{rt['replays'][1]['delivered']} delivered; replica {removed} drained and "
               f"removed (fleet 2)", flush=True)
+        # a hedged primary whose twin delivered may still run: its root
+        # closes when it resolves, so the audit waits for idle lanes, as
+        # leg (c)'s does
+        _idle(svc)
         out["pressure"] = spans.pressure()
         check(out["pressure"]["evicted"] == 0, f"span ring evicted: {out['pressure']}")
         out["orphans"] = replay.orphan_spans()
@@ -4035,19 +4074,19 @@ def soak_gate_legs(dev, tmp: str) -> dict:
 
 
 def _width_spec(replay, dtype: str, tight_s: float) -> list:
-    """Leg (c)'s mix: the five generators at the serve tier's width, 240
+    """Leg (c)'s mix: the five generators at the serve tier's width, 120
     requests in the JAX drill's proportions, each stream spread over
     ``SPAN20_S`` seconds of native time."""
     r = lambda k: k / SPAN20_S  # noqa: E731
     rows = replay.merge_specs(
-        replay.gen_repeated_a(120, seed=2, rate_rps=r(120), n=N20, nrhs=NRHS20, distinct=4),
-        replay.gen_repeated_a(36, seed=3, rate_rps=r(36), n=N20, nrhs=NRHS20, distinct=2,
+        replay.gen_repeated_a(60, seed=2, rate_rps=r(60), n=N20, nrhs=NRHS20, distinct=4),
+        replay.gen_repeated_a(18, seed=3, rate_rps=r(18), n=N20, nrhs=NRHS20, distinct=2,
                               routine="posv"),
-        replay.gen_multitenant(44, seed=1, rate_rps=r(44), n_small=N20, n_large=N20_LARGE,
+        replay.gen_multitenant(22, seed=1, rate_rps=r(22), n_small=N20, n_large=N20_LARGE,
                                nrhs=NRHS20, distinct=4),
-        replay.gen_deadline_storm(20, seed=4, rate_rps=r(20), n=N20, nrhs=NRHS20,
+        replay.gen_deadline_storm(10, seed=4, rate_rps=r(10), n=N20, nrhs=NRHS20,
                                   tight_s=tight_s, slack_s=60.0),
-        replay.gen_adversarial_flood(20, seed=5, rate_rps=r(20), n_flood=N20_LARGE,
+        replay.gen_adversarial_flood(10, seed=5, rate_rps=r(10), n_flood=N20_LARGE,
                                      n_victim=N20, nrhs=NRHS20, distinct=4),
     )
     for row in rows:
@@ -4063,11 +4102,12 @@ def _pct(xs, p: float) -> float:
 def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
     """Leg (c), one dtype: calibration (the warm prelude, then a
     closed-loop stream of 24 rows of the mix: rate R, p50, p99), then the
-    240-request mix open loop at ``LOAD20`` R under latency / SDC /
+    120-request mix open loop at ``LOAD20`` R under latency / SDC /
     worker-death faults with the recorder and the timeline on, judged by
     tools/soak_report.py at 4 x the calibration p99; a profiled slice of
-    20 requests; the round trip of a 60-request multitenant stream."""
+    20 requests; the round trip of a ``RT20_N``-request multitenant stream."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     from slate_tpu_torch.aux import faults, spans
     from slate_tpu_torch.integrity import policy as ipol
@@ -4087,7 +4127,7 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
                   batch_max=BATCH20, batch_window_s=0.002, tenants=TENANTS20,
                   integrity=ipol.parse_spec(INTEGRITY20), retry_backoff_s=0.002,
                   breaker_cooldown_s=0.02)
-    rt_spec = replay.gen_multitenant(60, seed=11, rate_rps=60 / SPAN20_S, n_small=N20,
+    rt_spec = replay.gen_multitenant(RT20_N, seed=11, rate_rps=RT20_N / SPAN20_S, n_small=N20,
                                      n_large=N20_LARGE, nrhs=NRHS20, distinct=4)
     for row in rt_spec:
         row["dtype"] = dtype
@@ -4107,11 +4147,13 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
         check(all(a.tobytes() == b.tobytes() for a, b in zip(on_card, on_host)),
               f"{dtype}: materialize on the card differs from the host's")
         # each pool's A, drawn once with the card's philox into the cache
-        # that every replay of this dtype reads
+        # that every replay of this dtype reads; four threads, since
+        # numpy's transform and products release the GIL
         t_g = time.perf_counter()
         pools = replay.warm_spec(spec0 + rt_spec)
-        for row in pools:
-            replay.materialize(row, seed=0, cache=ops, device=dev)
+        with ThreadPoolExecutor(4) as ex:
+            list(ex.map(lambda row: replay.materialize(row, seed=0, cache=ops, device=dev),
+                        pools))
         t_pools = time.perf_counter() - t_g
         pk.reset_launches()
         t_w = time.perf_counter()
@@ -4120,7 +4162,7 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
         warm_launches = {k: v for k, v in pk.LAUNCHES.items() if v}
         lat = []
         t_c = time.perf_counter()
-        for row in spec0[::10]:
+        for row in spec0[::5]:  # 24 rows of the mix
             A, B = replay.materialize(row, seed=0, cache=ops)
             ts = time.perf_counter()
             cal.submit(row["routine"], A, B, tenant=row["tenant"],
@@ -4179,7 +4221,7 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
                                           "serve.hedge.sent", "jit.compilations")}
         metrics.dump(path)
         # one profiled slice of 20 requests of the mix, same pacing
-        window = spec[100:120]
+        window = spec[50:70]
         base = window[0]["t_offset"]
         window = [dict(r, t_offset=r["t_offset"] - base) for r in window]
         act = torch.profiler.ProfilerActivity
@@ -4191,12 +4233,13 @@ def soak_width_leg(serve, metrics, pk, dtype: str, dev, tmp: str) -> dict:
             t_prof = time.perf_counter() - t_p
         busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")) / 1e6
-        rt = _round_trip20(record, replay, svc, rt_spec, RT20 * R / (60 / SPAN20_S), ops, dev)
+        rt = _round_trip20(record, replay, svc, rt_spec, RT20 * R / (RT20_N / SPAN20_S), ops,
+                           dev)
     finally:
         faults.reset()
         svc.stop()
     rep = _soak_report(path, "--p99-budget-ms", f"{budget_s * 1e3:.3f}",
-                       "--min-timeline-rows", "20", "--min-delivered", "180")
+                       "--min-timeline-rows", "20", "--min-delivered", "90")
     mod = _report_module().analyze(path, p99_budget_ms=budget_s * 1e3)
     hists = {s: {"p50_ms": h["p50"] * 1e3, "p99_ms": h["p99"] * 1e3, "count": h["count"]}
              for s, h in ((n[len("serve.latency."):-len(".total")], h)
@@ -4493,7 +4536,8 @@ def child21(tmp: str, device: str) -> dict:
     return out
 
 
-def _capacity_lines(proc) -> str:
+def _report_lines(proc) -> str:
+    """A report tool's verdict on one line."""
     return " / ".join(line.strip() for line in proc.stdout.strip().splitlines() if line.strip())
 
 
@@ -4527,7 +4571,7 @@ def scale_gate_leg(dev, tmp: str) -> dict:
     print(f"  (a) counters {dr['counters']}; snapshots {dr['snapshots']}, headroom "
           f"{dr['headroom']}; sync violations {len(got['violations'])}; child {wall:.1f} s "
           f"(drill {dr['seconds']:.1f} s)", flush=True)
-    print("  (a) tools/capacity_report.py: " + _capacity_lines(rep), flush=True)
+    print("  (a) tools/capacity_report.py: " + _report_lines(rep), flush=True)
     check(rep.returncode == 0, f"capacity_report exited {rep.returncode} on the burst drill")
     check(dr["peak"] <= 3 and dr["end"] == 1, f"drill fleet: peak {dr['peak']}, end {dr['end']}")
     # n = 12 is below the kernels' crossover: the library routes, no launch
@@ -4900,7 +4944,7 @@ def _print_elastic21(el: dict, budget: float, rep) -> None:
     for row in el["timeline"]:
         print(f"    t {row['t_mono']:.3f} pressure {row['pressure']} {row['action']} "
               f"{row['delta']} (replicas {row['replicas']}): {row['reason']}", flush=True)
-    print("  (b3) tools/capacity_report.py: " + _capacity_lines(rep), flush=True)
+    print("  (b3) tools/capacity_report.py: " + _report_lines(rep), flush=True)
 
 
 def _plan21(serve, svc, plan, dev, dtype: str) -> dict:
@@ -4955,6 +4999,1015 @@ def scale_main(serve, metrics, pk, lk, dev) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     print(f"  phase 21: {out['phase_s']:.1f} s (legs (b) + (c) {out['width']['phase_s']:.1f} s)",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the fleet tier (wire, worker, router)
+# ---------------------------------------------------------------------------
+
+#: leg (a): run_tests.py's _FLEET_DRIVER as written (N, tenants, faults, p99 budget)
+N22A = 12
+TENANTS22 = "abuser:rate=4,burst=4;victim:rate=500,burst=100"
+FAULTS22_HOST0 = "sdc_solve:every=2"
+FAULTS22_HOST1 = "latency:every=3,ms=40"
+RPC_FAULTS22 = "rpc_timeout:every=4;host_partition:once"
+BUDGET22A_S = 15.0
+#: leg (c): the serve tier's width, gesv, 4 pool matrices a dtype, no factor cache
+N22, NRHS22 = 2048, 16
+POOL22 = 4
+CLIENTS22, STREAM22 = 4, 48  # the untaxed closed-loop streams
+KILL22 = 8  # requests in flight when worker 1 is killed
+#: the workers' environment: every plane a worker could arm from the
+#: environment is off unless the leg sets it
+_ENV22_OFF = ("SLATE_TPU_FAULTS", "SLATE_TPU_FACTOR_CACHE", "SLATE_TPU_TENANTS",
+              "SLATE_TPU_ADAPTIVE", "SLATE_TPU_INTEGRITY", "SLATE_TPU_WARMUP",
+              "SLATE_TPU_ARTIFACTS", "SLATE_TPU_SCALE", "SLATE_TPU_FLEET",
+              "SLATE_TPU_FLEET_TENANTS", "SLATE_TPU_FLEET_DEVICE", "SLATE_TPU_METRICS",
+              "SLATE_TPU_TRACE_RING", "SLATE_TPU_SYNC_CHECK", "JAX_PLATFORMS")
+
+
+def _host_env22(device: str, **kw) -> dict:
+    """A spawned worker's environment overrides (None drops a variable):
+    the JAX drill's ``base`` without its ``JAX_PLATFORMS``, the device
+    variable only for a CPU worker (unset, a worker serves on cuda:0)."""
+    from slate_tpu_torch.fleet.worker import DEVICE_ENV
+
+    env = {"JAX_PLATFORMS": None, "SLATE_TPU_FAULTS": None,
+           DEVICE_ENV: "cpu" if torch.device(device).type == "cpu" else None}
+    env.update(kw)
+    return env
+
+
+def fleet_drill(outdir: str, device: str) -> dict:
+    """Leg (a): ``run_tests.py``'s fleet drill (``_FLEET_DRIVER``,
+    :2400-2578) on the port as written: a router here and two spawned
+    workers (host0 under ``sdc_solve:every=2``, host1 under
+    ``latency:every=3,ms=40``), N = 12, f32; SDC quarantine and probe
+    recovery, fleet-wide quota, a real SIGKILL (``host_death:once``) with
+    respawn, rejoin and a forced probe, ``rpc_timeout:every=4;
+    host_partition:once``, then the fan-in (``dump_hosts``,
+    ``tools/trace_stitch.py``).  Each worker's metrics also dump at its
+    exit into ``outdir`` (``host<i>.exit.jsonl``; the JAX drill names the
+    file ``1``).  Returns the phases' tallies."""
+    import os
+
+    from slate_tpu_torch.aux import faults, metrics, spans
+    from slate_tpu_torch.exceptions import SlateError
+    from slate_tpu_torch.fleet.router import FleetRouter, note_bad_result, note_trace_orphans
+    from slate_tpu_torch.serve.service import Rejected
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    metrics.on()
+    metrics.reset()
+    spans.on(ring=65536)
+    t0 = time.perf_counter()
+    N = N22A
+    rng = np.random.default_rng(3)
+    A = (rng.standard_normal((N, N)) + N * np.eye(N)).astype(np.float32)
+
+    def prob(seed):
+        return np.random.default_rng(seed).standard_normal((N, 2)).astype(np.float32)
+
+    base = _host_env22(device, SLATE_TPU_TRACE_RING="65536", SLATE_TPU_SYNC_CHECK="1")
+    host0 = dict(base, SLATE_TPU_FAULTS=FAULTS22_HOST0,
+                 SLATE_TPU_METRICS=os.path.join(outdir, "host0.exit.jsonl"))
+    host1 = dict(base, SLATE_TPU_FAULTS=FAULTS22_HOST1,
+                 SLATE_TPU_METRICS=os.path.join(outdir, "host1.exit.jsonl"))
+    r = FleetRouter(spawn=2, cert="full", tenants=TENANTS22, heartbeat_s=0.2,
+                    rpc_timeout_s=30.0, dead_after=2, redispatch_max=2, hedge_s=1.0,
+                    respawn=True, quarantine_cooldown_s=0.4, spawn_env=[host0, host1], seed=7)
+    r.start()
+    checked = [0]
+
+    def solve(tenant="victim", seed=0):
+        B = prob(seed)
+        try:
+            X = r.submit("gesv", A, B, deadline=60.0, tenant=tenant).result(timeout=120)
+        except Exception as e:  # noqa: BLE001 -- the caller types it
+            return e
+        # NaN-safe reference check: any non-finite or off-fence entry is a
+        # silent wrong answer the defenses let through
+        if not np.all(np.abs(A @ X - B) <= 1e-2):
+            note_bad_result()
+        checked[0] += 1
+        return None
+
+    out = {}
+    try:
+        # phase 1: SDC containment, quarantine + probe recovery
+        for i in range(120):
+            e = solve(seed=100 + i)
+            check(e is None,
+                  f"(a) victim solve {i} failed under SDC: {e!r}; {_why22(r, metrics)}")
+            c = metrics.counters()
+            if c.get("fleet.quarantined", 0) >= 1 and c.get("fleet.unquarantined", 0) >= 1:
+                break
+            time.sleep(0.01)
+        c = metrics.counters()
+        check(c.get("fleet.quarantined", 0) >= 1, "(a) the sdc host was never quarantined")
+        check(c.get("fleet.unquarantined", 0) >= 1, "(a) quarantine was never probed back")
+        out["sdc_solves"] = i + 1
+        # phase 2: fleet-wide quota (abuser refused, victim whole)
+        rejected = 0
+        for i in range(14):
+            e = solve(tenant="abuser", seed=200 + i)
+            if e is not None:
+                check(isinstance(e, Rejected), f"(a) abuser got {e!r}, not Rejected")
+                rejected += 1
+        check(rejected > 0, "(a) the abuser burst never hit the fleet-wide quota")
+        for i in range(6):
+            e = solve(seed=300 + i)
+            check(e is None, f"(a) victim starved during abuse: {e!r}; {_why22(r, metrics)}")
+        out["abuser_rejected"] = rejected
+        # phase 3: a real host death (SIGKILL) + fail-fast re-dispatch;
+        # every future resolves, as a right X or a typed error
+        faults.configure("host_death:once")
+        faults.on()
+        delivered3 = 0
+        for i in range(10):
+            e = solve(seed=400 + i)
+            if e is None:
+                delivered3 += 1
+            else:
+                check(isinstance(e, SlateError), f"(a) untyped failure: {e!r}")
+        # death is declared by the liveness plane (heartbeat misses up to
+        # dead_after), not by the request path: give it a few beats
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and metrics.counters().get("fleet.host_dead", 0) < 1:
+            time.sleep(0.05)
+        c = metrics.counters()
+        check(c.get("fleet.host_dead", 0) >= 1, "(a) the death was never declared")
+        check(c.get("fleet.redispatched", 0) >= 1, "(a) no re-dispatch recovered it")
+        check(delivered3 >= 1, "(a) no request survived the host death")
+        out["delivered_after_death"] = delivered3
+        # phase 4: respawn -> rejoin -> forced certification probe, with
+        # traffic flowing (the probe rides a routed solve)
+        t_rejoin = time.perf_counter()
+        deadline = time.monotonic() + 60
+        states = {}
+        while time.monotonic() < deadline:
+            states = {k: v["state"] for k, v in r.health()["hosts"].items()}
+            if all(s == "live" for s in states.values()):
+                break
+            e = solve(seed=510)
+            if e is not None:
+                check(isinstance(e, SlateError), f"(a) untyped failure: {e!r}")
+            time.sleep(0.05)
+        check(all(s == "live" for s in states.values()),
+              f"(a) the dead host never rejoined live (states={states})")
+        check(metrics.counters().get("fleet.host_respawned", 0) >= 1,
+              "(a) the death was absorbed without a respawn")
+        out["rejoin_s"] = time.perf_counter() - t_rejoin
+        for i in range(12):
+            e = solve(seed=500 + i)
+            check(e is None, f"(a) victim solve failed after rejoin: {e!r}; {_why22(r, metrics)}")
+        # phase 5: rpc timeouts + a partition, absorbed by retry
+        faults.configure(RPC_FAULTS22)
+        delivered5 = 0
+        for i in range(12):
+            e = solve(seed=600 + i)
+            if e is None:
+                delivered5 += 1
+            else:
+                check(isinstance(e, SlateError), f"(a) untyped failure: {e!r}")
+        faults.reset()
+        check(delivered5 >= 9, f"(a) timeouts / partition overwhelmed the fleet: {delivered5}/12")
+        out["delivered_under_timeouts"] = delivered5
+        # fan-in: per-host dumps, stitched trace, orphan gauge
+        replies = r.dump_hosts(outdir)
+        check(len(replies) == 2, f"(a) expected both hosts to dump, got {replies}")
+        out["stitch"] = _stitch22(here, outdir, spans, note_trace_orphans)
+    finally:
+        faults.reset()
+        r.stop(drain=True)
+    out["counters"] = {k: v for k, v in metrics.counters().items() if k.startswith("fleet.")}
+    out["checked"] = checked[0]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _why22(r, metrics) -> str:
+    """The router's host states and fleet counters (a failed check's
+    context)."""
+    hosts = {k: (v["state"], v["inflight"], v["score"]["state"])
+             for k, v in r.health()["hosts"].items()}
+    return f"hosts {hosts}, counters " + str(
+        {k: v for k, v in metrics.counters().items() if k.startswith(("fleet.", "faults."))})
+
+
+def _stitch22(here: str, outdir: str, spans, note_trace_orphans) -> str:
+    """Export the router's ring beside the hosts' traces, stitch them with
+    ``tools/trace_stitch.py --allow-orphans`` and record the orphan count
+    in the ``fleet.trace_orphans`` gauge; returns the summary line."""
+    import os
+
+    router_trace = os.path.join(outdir, "router.trace.json")
+    spans.export_chrome(router_trace, process_name="router")
+    traces = [router_trace] + sorted(
+        os.path.join(outdir, f) for f in os.listdir(outdir)
+        if f.endswith(".trace.json") and not f.startswith("router"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "trace_stitch.py"), "--allow-orphans",
+         "-o", os.path.join(outdir, "stitched.trace.json"), *traces],
+        capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"trace_stitch: {proc.stdout} {proc.stderr}")
+    line = proc.stdout.strip().splitlines()[-1]
+    note_trace_orphans(int(line.rpartition("orphans=")[2]))
+    return line
+
+
+def fleet_escape(device: str) -> dict:
+    """Leg (b): ``run_tests.py``'s ``_FLEET_ESCAPE_DRIVER`` (:2584-2618):
+    one worker under ``sdc_solve:every=2``, certification off; a wrong X
+    reaches the client and is counted (``fleet.bad_results``)."""
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.fleet.router import FleetRouter, note_bad_result
+
+    metrics.on()
+    metrics.reset()
+    t0 = time.perf_counter()
+    N = N22A
+    rng = np.random.default_rng(3)
+    A = (rng.standard_normal((N, N)) + N * np.eye(N)).astype(np.float32)
+    host0 = _host_env22(device, SLATE_TPU_FAULTS=FAULTS22_HOST0, SLATE_TPU_METRICS=None,
+                        SLATE_TPU_TRACE_RING=None)
+    r = FleetRouter(spawn=1, cert="off", heartbeat_s=0.25, rpc_timeout_s=30.0,
+                    spawn_env=[host0], seed=7)
+    r.start()
+    bad = 0
+    try:
+        for i in range(8):
+            B = np.random.default_rng(700 + i).standard_normal((N, 2)).astype(np.float32)
+            X = r.submit("gesv", A, B, deadline=60.0).result(timeout=120)
+            if not np.all(np.abs(A @ X - B) <= 1e-2):
+                note_bad_result()
+                bad += 1
+    finally:
+        r.stop(drain=True)
+    check(bad > 0, "(b) the sdc stream produced no corrupt delivery to flag")
+    return {"bad": bad, "seconds": time.perf_counter() - t0}
+
+
+# The fresh interpreter of legs (a) and (b), the port alone, under the
+# checked runtime (SLATE_TPU_SYNC_CHECK in its env): argv dir, device.
+# One JSON line out, with the child's own wall time from its first line.
+_CHILD22 = r"""
+import time
+t0 = time.perf_counter()
+import json, sys
+import chip_smoke as cs
+out = cs.child22(sys.argv[1], sys.argv[2])
+out["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def child22(tmp: str, device: str) -> dict:
+    """Legs (a) and (b) in one interpreter: the drill's router metrics to
+    ``tmp``/router.jsonl, its hosts' dumps to ``tmp``/dumps, the escape
+    leg's to ``tmp``/escape.jsonl."""
+    import os
+
+    from slate_tpu_torch.aux import metrics, sync
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+    outdir = os.path.join(tmp, "dumps")
+    os.makedirs(outdir, exist_ok=True)
+    out = {"armed": sync.is_on()}
+    pk.reset_launches()
+    out["drill"] = fleet_drill(outdir, device)
+    metrics.dump(os.path.join(tmp, "router.jsonl"))
+    out["escape"] = fleet_escape(device)
+    metrics.dump(os.path.join(tmp, "escape.jsonl"))
+    out["launches"] = {k: v for k, v in pk.LAUNCHES.items() if v}
+    rep = sync.report()
+    out["violations"] = [{k: v[k] for k in ("kind", "detail")} for v in rep["violations"]]
+    out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "slate_tpu"))
+    return out
+
+
+def _merge22(tmp: str, router_jsonl: str, dumps: str) -> str:
+    """``tools/metrics_merge.py`` of the router's JSONL and each host's
+    dump, tagged ``router`` / ``host<i>`` (the JAX gate's fan-in)."""
+    import os
+
+    host_dumps = sorted(os.path.join(dumps, f) for f in os.listdir(dumps)
+                        if f.endswith(".metrics.jsonl"))
+    merged = os.path.join(tmp, f"merged_{os.path.basename(router_jsonl)}")
+    tags = []
+    for tag in ["router"] + [os.path.basename(p).split(".")[0] for p in host_dumps]:
+        tags += ["--tag", tag]
+    proc = _tool("metrics_merge.py", "-o", merged, *tags, router_jsonl, *host_dumps)
+    check(proc.returncode == 0, f"metrics_merge: {proc.stdout} {proc.stderr}")
+    return merged
+
+
+class _Gate22:
+    """Legs (a) and (b) in a fresh interpreter armed by
+    SLATE_TPU_SYNC_CHECK=1, judged by tools/fleet_report.py with the JAX
+    gate's arguments (``run_tests.py`` ``fleet_gate``, :2621-2711).  The
+    child starts at construction; the whole run starts it before phase 15
+    and waits for it before phase 17, so that its n = 12 drill runs beside
+    the eigensolvers and the SVD (no timing gate) and never beside a phase
+    that gates a latency.  Its output goes to files in its own temporary
+    directory, which leg (c) shares; both go at exit."""
+
+    def __init__(self, dev):
+        import atexit
+        import os
+        import shutil
+        import tempfile
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.dev, self.tmp = dev, tempfile.mkdtemp(prefix="slate_fleet_")
+        env = {k: v for k, v in os.environ.items() if k not in _ENV22_OFF}
+        env.update(PYTHONPATH=here, SLATE_TPU_SYNC_CHECK="1")
+        self._out = open(os.path.join(self.tmp, "child22.out"), "w+")
+        self._err = open(os.path.join(self.tmp, "child22.err"), "w+")
+        self.t0 = time.perf_counter()
+        self.waited = None  # seconds from the start to the end of wait()
+        self.proc = subprocess.Popen([sys.executable, "-c", _CHILD22, self.tmp, str(dev)],
+                                     cwd=here, env=env, stdout=self._out, stderr=self._err,
+                                     text=True)
+        atexit.register(self.close)
+        self._rmtree = shutil.rmtree
+
+    def wait(self, timeout: float = 600.0) -> None:
+        """Wait for the child (it fails the run past ``timeout``)."""
+        if self.waited is not None:
+            return
+        try:
+            self.proc.wait(timeout=max(0.0, timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"phase 22 child still running after {timeout:.0f} s")
+        self.waited = time.perf_counter() - self.t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in (self._out, self._err):
+            f.close()
+        self._rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self) -> dict:
+        """The child's verdicts: its tallies, the fan-in and the reports."""
+        import os
+
+        self.wait()
+        tmp = self.tmp
+        self._out.seek(0)
+        self._err.seek(0)
+        stdout, stderr = self._out.read(), self._err.read()
+        for line in stdout.strip("\n").splitlines()[:-1]:
+            print(line, flush=True)
+        check(self.proc.returncode == 0, f"phase 22 child exited {self.proc.returncode}: "
+              f"{stdout[-2000:]} {stderr[-3000:]}")
+        got = json.loads(stdout.strip().splitlines()[-1])
+        check(got["armed"] and got["jax_modules"] == [],
+              f"fleet child: armed {got['armed']}, imported {got['jax_modules']}")
+        check(got["violations"] == [], f"fleet drill: sync violations {got['violations']}")
+        dr, es = got["drill"], got["escape"]
+        merged = _merge22(tmp, os.path.join(tmp, "router.jsonl"), os.path.join(tmp, "dumps"))
+        rep = _tool("fleet_report.py", merged, "--victim", "victim", "--p99-budget",
+                    f"{BUDGET22A_S:g}", "--require-stitch")
+        esc = _tool("fleet_report.py", os.path.join(tmp, "escape.jsonl"))
+        print(f"  (a) drill: quarantine + probe recovery after {dr['sdc_solves']} solves, abuser "
+              f"rejected {dr['abuser_rejected']}/14, {dr['delivered_after_death']}/10 delivered "
+              f"through the SIGKILL, rejoined live in {dr['rejoin_s']:.1f} s, "
+              f"{dr['delivered_under_timeouts']}/12 under timeouts; {dr['stitch']}; "
+              f"{dr['checked']} reference-checked deliveries; drill {dr['seconds']:.1f} s",
+              flush=True)
+        print(f"  (a) router counters {dr['counters']}", flush=True)
+        print("  (a) tools/fleet_report.py (the gate's arguments): " + _report_lines(rep),
+              flush=True)
+        print(f"  (b) escape: {es['bad']} wrong X delivered of 8 (cert off, {FAULTS22_HOST0}); "
+              f"fleet_report.py exit {esc.returncode}; (a)+(b) sync violations "
+              f"{len(got['violations'])}, router launches {got['launches']}, child "
+              f"{got['wall_s']:.1f} s", flush=True)
+        check(rep.returncode == 0, f"fleet_report exited {rep.returncode} on the drill")
+        check(esc.returncode != 0, "fleet_report passed the undefended escape leg")
+        # n = 12 is below the kernels' crossover: no launch in the router either
+        check(got["launches"] == {}, f"(a) launched kernels: {got['launches']}")
+        return {"drill": dr, "escape": es, "violations": got["violations"],
+                "drill_report_rc": rep.returncode, "escape_report_rc": esc.returncode,
+                "child_wall_s": got["wall_s"], "waited_s": self.waited}
+
+
+# A worker process of leg (c): serve until drained (the port's worker on
+# the port given), then write what it ran to the stats file.  argv: stats
+# path, port[, a file whose appearance lets a standby process bind].
+_WORKER22 = r"""
+import sys
+import chip_smoke as cs
+sys.exit(cs.worker22(sys.argv[1], int(sys.argv[2]), *sys.argv[3:]))
+"""
+
+
+def worker22(stats: str, port: int, gate=None) -> int:
+    """Serve as a fleet worker until drained, then dump this process's
+    kernel launches, nvcc runs, requests served, lane devices and the JAX
+    modules it imported (none) to ``stats``.  With ``gate``, wait (imported,
+    the card untouched) until that file exists before binding: a standby
+    that takes a killed worker's port."""
+    import os
+
+    from slate_tpu_torch.aux import metrics
+    from slate_tpu_torch.fleet import worker as fw
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+
+    while gate is not None and not os.path.exists(gate):
+        time.sleep(0.02)
+    w = fw.FleetWorker(port=port, device=fw.device_from_env())
+    w.bind()
+    w.serve_forever()
+    c = metrics.counters()
+    svc = w._service
+    out = {"pid": os.getpid(), "launches": {k: v for k, v in pk.LAUNCHES.items() if v},
+           "nvcc_runs": pk.NVCC_RUNS,
+           "loaded_from": None if pk.LOADED_FROM is None else str(pk.LOADED_FROM),
+           "requests": int(c.get("serve.requests", 0)),
+           "batch_pad": int(c.get("serve.batch_pad", 0)),
+           "redone": {k: int(c.get(k, 0)) for k in ("serve.fallbacks", "serve.retries",
+                                                    "serve.corrupt_result")},
+           "solved": int(c.get("fleet.worker.solved", 0)),
+           "typed_errors": int(c.get("fleet.worker.typed_errors", 0)),
+           "sdc": int(c.get("faults.injected.sdc_solve", 0)),
+           "lanes": [] if svc is None else [str(r["device"]) for r in svc.health()["replicas"]],
+           "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "slate_tpu"))}
+    with open(stats, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class _Proc22:
+    """One worker process of leg (c), started here (``connect=`` mode):
+    its announced port, its stdout drained by a thread.  ``env`` adds to
+    its environment; ``gate`` makes it a standby (:func:`worker22`)."""
+
+    def __init__(self, name: str, tmp: str, dev, faults_spec=None, port: int = 0,
+                 env=None, gate=None):
+        import os
+        import queue
+        import threading
+
+        from slate_tpu_torch.fleet.worker import ANNOUNCE, DEVICE_ENV
+
+        here, extra = os.path.dirname(os.path.abspath(__file__)), env
+        env = {k: v for k, v in os.environ.items() if k not in _ENV22_OFF}
+        env.update(PYTHONPATH=here, SLATE_TPU_TRACE_RING="65536",
+                   SLATE_TPU_METRICS=os.path.join(tmp, f"{name}.exit.jsonl"))
+        if faults_spec:
+            env["SLATE_TPU_FAULTS"] = faults_spec
+        if dev.type == "cpu":
+            env[DEVICE_ENV] = "cpu"
+        env.update(extra or {})
+        self.name, self.stats = name, os.path.join(tmp, f"{name}.stats.json")
+        self.t0 = time.perf_counter()
+        argv = [sys.executable, "-c", _WORKER22, self.stats, str(port)]
+        self.proc = subprocess.Popen(argv + ([gate] if gate else []), cwd=here, env=env,
+                                     stdout=subprocess.PIPE, text=True)
+        self._lines: "queue.Queue" = queue.Queue()
+        self._announce = ANNOUNCE
+        self.port = None
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def wait_port(self, timeout: float = 120.0) -> int:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while self.port is None:
+            try:
+                line = self._lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            check(line is not None, f"(c) worker {self.name} never announced its port "
+                  f"(rc={self.proc.poll()})")
+            if line.startswith(self._announce):
+                self.port = int(line[len(self._announce):].strip())
+                self.announce_s = time.perf_counter() - self.t0
+        return self.port
+
+    def read_stats(self, timeout: float = 60.0) -> dict:
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"(c) worker {self.name} did not exit after its drain")
+        check(self.proc.returncode == 0, f"(c) worker {self.name} exited {self.proc.returncode}")
+        with open(self.stats) as f:
+            return json.load(f)
+
+    def reap(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _rpc22(port: int, header: dict, arrays=None, timeout: float = 600.0):
+    """One RPC straight to a worker over the port's wire (the warm-ups,
+    the drain of a worker no router holds)."""
+    import socket
+
+    from slate_tpu_torch.fleet import wire
+
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        s.settimeout(timeout)
+        wire.send_msg(s, header, arrays)
+        return wire.recv_msg(s)
+
+
+def _warm22(ports, reqs) -> None:
+    """Each worker's first requests, one a dtype, straight over the wire and
+    the workers in parallel: its service, kernels and cores come up cold
+    here, not in a measured stream."""
+    import threading
+
+    replies = []
+
+    def warm(port):
+        for A, B in reqs:
+            replies.append(_rpc22(port, {"op": "solve", "routine": "gesv"}, {"A": A, "B": B})[0])
+
+    threads = [threading.Thread(target=warm, args=(p,)) for p in ports]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    check(len(replies) == len(ports) * len(reqs) and all(r.get("ok") for r in replies),
+          f"(c) warm-up replies {replies}")
+
+
+class _Wire22:
+    """Counts the bytes of every solve frame the router sends and
+    receives (header length prefix, JSON header and arrays)."""
+
+    def __init__(self):
+        self.sent = self.received = self.solves = 0
+
+    def __enter__(self):
+        from slate_tpu_torch.fleet import wire
+
+        self._wire = wire
+        self._send, self._recv = wire.send_msg, wire.recv_msg
+
+        def frame(header, arrays):
+            return 4 + len(json.dumps({**header, "arrays": [
+                [k, np.asarray(a).dtype.str, list(np.shape(a))] for k, a in (arrays or {}).items()
+            ]}).encode()) + sum(np.asarray(a).nbytes for a in (arrays or {}).values())
+
+        def send(sock, header, arrays=None):
+            if header.get("op") == "solve":
+                self.solves += 1
+                self.sent += frame(header, arrays)
+            return self._send(sock, header, arrays)
+
+        def recv(sock):
+            header, arrays = self._recv(sock)
+            if "X" in arrays:
+                self.received += frame(header, arrays)
+            return header, arrays
+
+        wire.send_msg, wire.recv_msg = send, recv
+        return self
+
+    def __exit__(self, *exc):
+        self._wire.send_msg, self._wire.recv_msg = self._send, self._recv
+
+
+class _Cert22:
+    """Times the router's ``residual_certificate`` (host numpy, at the
+    served precision) for every delivery it certifies."""
+
+    def __enter__(self):
+        from slate_tpu_torch.integrity import policy
+
+        self._pol, self._fn, self.ms = policy, policy.residual_certificate, []
+
+        def timed(routine, A, X, B):
+            t = time.perf_counter()
+            try:
+                return self._fn(routine, A, X, B)
+            finally:
+                self.ms.append((time.perf_counter() - t) * 1e3)
+
+        policy.residual_certificate = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._pol.residual_certificate = self._fn
+
+
+class _Smi22:
+    """The card's busy share over a window, from ``nvidia-smi``'s
+    ``utilization.gpu`` sampled every 100 ms (every process's kernels: the
+    workers are other processes, which a profiler here cannot see)."""
+
+    def __init__(self, dev):
+        self.dev, self.samples, self.proc = dev, [], None
+
+    def __enter__(self):
+        if self.dev.type == "cuda":
+            try:
+                self.proc = subprocess.Popen(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                     "-lms", "100", "-i", "0"], stdout=subprocess.PIPE, text=True)
+            except OSError:
+                self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            out, _ = self.proc.communicate(timeout=30)
+            self.samples = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+
+    def idle_share(self):
+        return None if not self.samples else 1 - statistics.mean(self.samples) / 100
+
+
+def _pool22(n: int, nrhs: int, count: int) -> list:
+    """The drill's requests: (A, B) in f64 and f32 in turn over 4 pool
+    matrices a dtype, A = G + 2 sqrt(n) I and B normal, made from one
+    seed."""
+    rng = np.random.default_rng(22)
+    pools = {d: [] for d in DTYPES}
+    for d in DTYPES:
+        for _ in range(POOL22):
+            A = rng.standard_normal((n, n))
+            A[np.diag_indices(n)] += 2 * n**0.5
+            pools[d].append(A.astype(d))
+    reqs = []
+    for i in range(count):
+        d = DTYPES[i % 2]
+        reqs.append((pools[d][(i // 2) % POOL22], rng.standard_normal((n, nrhs)).astype(d)))
+    return reqs
+
+
+class _Check22:
+    """Holds every delivered X to the scaled residual of phases 20-21
+    (float64, <= 3) on ``dev``, each pool matrix moved there once."""
+
+    def __init__(self, dev):
+        self.dev, self.on_dev, self.worst, self.bad = dev, {}, 0.0, 0
+
+    def __call__(self, A, X, B) -> bool:
+        Ad = self.on_dev.get(id(A))
+        if Ad is None:
+            Ad = self.on_dev[id(A)] = torch.from_numpy(A).to(self.dev)
+        r = scaled_residual(Ad, torch.from_numpy(np.array(X, dtype=A.dtype)).to(self.dev),
+                            torch.from_numpy(B).to(self.dev))
+        self.worst = max(self.worst, r) if r == r else float("inf")
+        ok = np.isfinite(X).all() and r <= 3
+        self.bad += not ok
+        return bool(ok)
+
+
+def _closed22(target, reqs, clients: int = CLIENTS22, tenant=None):
+    """``clients`` threads in closed loop over ``reqs`` through ``target``
+    (a router or a service): (wall s, per-request latencies s, errors,
+    delivered (A, X, B))."""
+    import threading
+
+    lat, errors, got = [], [], []
+    lock = threading.Lock()
+
+    def client(part):
+        for A, B in part:
+            t = time.perf_counter()
+            try:
+                kw = {} if tenant is None else {"tenant": tenant}
+                X = target.submit("gesv", A, B, **kw).result(timeout=600)
+            except Exception as e:  # noqa: BLE001 -- reported by the caller
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                lat.append(time.perf_counter() - t)
+                got.append((A, X, B))
+
+    threads = [threading.Thread(target=client, args=(reqs[i::clients],)) for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return time.perf_counter() - t0, lat, errors, got
+
+
+def _procs22(tmp: str, dev) -> dict:
+    """Leg (c)'s worker processes: worker 0 carries the SDC stream, 1 and 2
+    are clean (the streams' pair)."""
+    return {"w0": _Proc22("w0", tmp, dev, FAULTS22_HOST0), "w1": _Proc22("w1", tmp, dev),
+            "w2": _Proc22("w2", tmp, dev)}
+
+
+def fleet_width_leg(serve, metrics, lk, dev, tmp: str, n: int = N22, procs=None) -> dict:
+    """Leg (c): the fleet at the serve tier's width: gesv at n = 2048,
+    nrhs = 16, tiles of 64, f64 and f32 in turn over 4 pool matrices a
+    dtype, no factor cache (every request a full-phase gesv in a worker),
+    workers started here and joined through ``connect=``, the router at
+    ``cert=full``.  (c1) the in-process calibration (phase 21's R1: the
+    process service, 4 closed-loop clients, 48 requests; its p99 x 4 is
+    the victim's budget), then requests/s through the router with 1 and 2
+    workers in the same untaxed stream, the wire bytes, the router's
+    certificate ms and the card's idle share.  (c2) the drill: worker 0
+    under ``sdc_solve:every=2`` until quarantine and probe recovery, the
+    abuser's quota, worker 1 killed mid-stream with requests in flight and
+    a standby process taking its port (rejoin, forced probe), ``rpc_timeout:every=4;
+    host_partition:once``; the fan-in judged by tools/fleet_report.py.
+    Each drained worker's launches against the mirror (panel_lu
+    ``getrf_kernel_launches(n)`` a core item: a request or a repeat pad
+    filling a batch point; the trsm pair none: a full-phase core solves
+    with the library), its nvcc runs (0) and its JAX modules (none)."""
+    import os
+
+    from slate_tpu_torch.aux import faults, spans
+    from slate_tpu_torch.fleet.router import FleetRouter, note_bad_result, note_trace_orphans
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t22 = time.perf_counter()
+    dumps = os.path.join(tmp, "width_dumps")
+    os.makedirs(dumps, exist_ok=True)
+    out: dict = {"n": n, "nrhs": NRHS22}
+    procs = _procs22(tmp, dev) if procs is None else procs
+    drained = []
+    routers = []
+    try:
+        reqs = _pool22(n, NRHS22, STREAM22)
+        # (c1) the in-process calibration, while the workers start
+        svc = serve.configure(placement=serve.PlacementPolicy(devices=[str(dev)]))
+        try:
+            for A, B in reqs[:2]:  # one warm request a dtype (the cores' first runs)
+                svc.submit("gesv", A, B).result(timeout=600)
+            wall, lat, errors, _ = _closed22(svc, reqs)
+        finally:
+            serve.shutdown()
+        check(not errors, f"(c1) in-process stream: {errors}")
+        R0, p99 = STREAM22 / wall, float(np.percentile(lat, 99))
+        budget = 4 * p99
+        out["inproc"] = {"R": R0, "p50_s": float(np.median(lat)), "p99_s": p99}
+        ports = {k: p.wait_port() for k, p in procs.items()}
+        out["announce_s"] = {k: p.announce_s for k, p in procs.items()}
+        addr = {k: ("127.0.0.1", v) for k, v in ports.items()}
+        _warm22([ports[k] for k in ("w0", "w1", "w2")], reqs[:2])
+        streams = {}
+        for label, hosts in (("1 worker", ("w1",)), ("2 workers", ("w1", "w2"))):
+            r = FleetRouter(connect=tuple(addr[h] for h in hosts), cert="full", heartbeat_s=0.5,
+                            rpc_timeout_s=600.0, seed=7)
+            routers.append(r)
+            metrics.reset()
+            with _Wire22() as wb, _Cert22() as cert, _Smi22(dev) as smi:
+                wall, lat, errors, got = _closed22(r.start(), reqs)
+            r.stop(drain=False)
+            check(not errors, f"(c1) {label}: {errors}")
+            chk = _Check22(dev)
+            for A, X, B in got:
+                chk(A, X, B)
+            c = metrics.counters()
+            streams[label] = {
+                "R": STREAM22 / wall, "p50_s": float(np.median(lat)),
+                "p99_s": float(np.percentile(lat, 99)),
+                "wire_bytes_a_request": (wb.sent + wb.received) / max(wb.solves, 1),
+                "wire_sent_a_request": wb.sent / max(wb.solves, 1),
+                "cert_ms_median": statistics.median(cert.ms) if cert.ms else None,
+                "cert_ms_max": max(cert.ms) if cert.ms else None, "certified": len(cert.ms),
+                "idle_share": smi.idle_share(), "smi_samples": len(smi.samples),
+                "residual": chk.worst, "bad": chk.bad,
+                "delivered": c.get("fleet.delivered", 0)}
+            s = streams[label]
+            print(f"  (c1) {label}: {s['R']:.2f} requests/s ({STREAM22} gesv f64 / f32 at n = {n}, "
+                  f"{CLIENTS22} closed-loop clients, cert=full; in-process {R0:.2f}), p50 "
+                  f"{s['p50_s'] * 1e3:.1f} ms, p99 {s['p99_s'] * 1e3:.1f} ms, wire "
+                  f"{s['wire_bytes_a_request'] / 1e6:.3f} MB a request, certificate "
+                  f"{s['cert_ms_median']:.2f} ms a request (median of {s['certified']}), "
+                  "idle share " + ("not measured" if s["idle_share"] is None else
+                                   f"{s['idle_share']:.4f} ({s['smi_samples']} nvidia-smi "
+                                   "samples)") + f", largest residual {chk.worst:.3e}",
+                  flush=True)
+            check(chk.bad == 0 and s["delivered"] == STREAM22 and s["certified"] == STREAM22,
+                  f"(c1) {label}: {s}")
+        out["streams"] = streams
+        print(f"  (c1) in-process: R {R0:.2f} requests/s, p50 {out['inproc']['p50_s'] * 1e3:.1f} "
+              f"ms, p99 {p99 * 1e3:.1f} ms: the victim's budget 4 x p99 = {budget:.3f} s; every "
+              f"worker is a CUDA context of its own on {dev} (the card time-slices them)",
+              flush=True)
+
+        # (c2) the drill: router over w0 (SDC) and w1; worker 1's successor
+        # waits as a standby (imported, not bound) to take its port
+        gate = os.path.join(tmp, "w1b.gate")
+        procs["w1b"] = _Proc22("w1b", tmp, dev, port=ports["w1"], gate=gate)
+        metrics.reset()
+        spans.on(ring=65536)
+        spans.clear()
+        chk = _Check22(dev)
+        r = FleetRouter(connect=(addr["w0"], addr["w1"]), cert="full", tenants=TENANTS22,
+                        heartbeat_s=0.2, rpc_timeout_s=600.0, dead_after=2, redispatch_max=2,
+                        hedge_s=budget, quarantine_cooldown_s=0.4, seed=7)
+        routers.append(r)
+        r.start()
+        seq = iter(range(10**6))
+
+        def solve(tenant="victim"):
+            A, B = reqs[next(seq) % len(reqs)]
+            try:
+                X = r.submit("gesv", A, B, deadline=600.0, tenant=tenant).result(timeout=900)
+            except Exception as e:  # noqa: BLE001 -- the caller types it
+                return e
+            if not chk(A, X, B):
+                note_bad_result()
+            return None
+
+        from slate_tpu_torch.exceptions import SlateError
+        from slate_tpu_torch.serve.service import Rejected
+
+        t = time.perf_counter()
+        for i in range(120):
+            e = solve()
+            check(e is None,
+                  f"(c2) victim solve {i} failed under SDC: {e!r}; {_why22(r, metrics)}")
+            c = metrics.counters()
+            if c.get("fleet.quarantined", 0) >= 1 and c.get("fleet.unquarantined", 0) >= 1:
+                break
+            time.sleep(0.01)
+        c = metrics.counters()
+        check(c.get("fleet.quarantined", 0) >= 1 and c.get("fleet.unquarantined", 0) >= 1,
+              f"(c2) no quarantine and probe recovery in 120 solves: {c}")
+        drill = {"sdc_solves": i + 1, "sdc_s": time.perf_counter() - t}
+        # the abuser's burst, submitted back to back (a request takes longer
+        # than its bucket's refill at this width, so a serial stream never
+        # runs dry): the quota refuses at submit
+        rejected, admitted = 0, []
+        for i in range(14):
+            A, B = reqs[next(seq) % len(reqs)]
+            try:
+                admitted.append((A, B, r.submit("gesv", A, B, deadline=600.0, tenant="abuser")))
+            except Rejected:
+                rejected += 1
+        for A, B, f in admitted:
+            try:
+                X = f.result(timeout=900)
+            except SlateError:
+                continue
+            if not chk(A, X, B):
+                note_bad_result()
+        check(rejected > 0, "(c2) the abuser never hit the fleet-wide quota")
+        drill["abuser_rejected"] = rejected
+        # worker 1 killed with requests in flight
+        t = time.perf_counter()
+        futs = []
+        for i in range(KILL22):
+            A, B = reqs[next(seq) % len(reqs)]
+            futs.append((A, B, r.submit("gesv", A, B, deadline=600.0, tenant="victim")))
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and r.health()["hosts"]["1"]["inflight"] < 1:
+            time.sleep(0.002)
+        inflight = r.health()["hosts"]["1"]["inflight"]
+        check(inflight >= 1, "(c2) nothing in flight on worker 1 to kill")
+        procs["w1"].proc.kill()
+        procs["w1"].proc.wait()
+        delivered = typed = 0
+        for A, B, f in futs:
+            try:
+                X = f.result(timeout=900)
+            except SlateError:
+                typed += 1
+                continue
+            delivered += 1
+            if not chk(A, X, B):
+                note_bad_result()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and metrics.counters().get("fleet.host_dead", 0) < 1:
+            time.sleep(0.05)
+        c = metrics.counters()
+        check(c.get("fleet.host_dead", 0) >= 1 and c.get("fleet.redispatched", 0) >= 1,
+              f"(c2) the kill: host_dead {c.get('fleet.host_dead')}, redispatched "
+              f"{c.get('fleet.redispatched')}")
+        drill.update({"killed_inflight": inflight, "kill_delivered": delivered,
+                      "kill_typed": typed, "kill_s": time.perf_counter() - t})
+        # the standby takes worker 1's port and is warmed before traffic
+        # resumes (its cores' first runs stay out of the victim's tail),
+        # then a routed solve is its forced probe
+        t = time.perf_counter()
+        open(gate, "w").close()
+        check(procs["w1b"].wait_port() == ports["w1"], "(c2) the restart took another port")
+        _warm22([ports["w1"]], reqs[:2])
+        deadline = time.monotonic() + 120
+        states = {}
+        while time.monotonic() < deadline:
+            states = {k: v["state"] for k, v in r.health()["hosts"].items()}
+            if all(s == "live" for s in states.values()):
+                break
+            e = solve()
+            check(e is None or isinstance(e, SlateError), f"(c2) untyped failure: {e!r}")
+            time.sleep(0.05)
+        check(all(s == "live" for s in states.values()), f"(c2) worker 1 never rejoined: {states}")
+        drill["rejoin_s"] = time.perf_counter() - t
+        # rpc timeouts and a partition, absorbed by retry
+        faults.configure(RPC_FAULTS22)
+        faults.on()
+        delivered5 = 0
+        try:
+            for i in range(12):
+                e = solve()
+                if e is None:
+                    delivered5 += 1
+                else:
+                    check(isinstance(e, SlateError), f"(c2) untyped failure: {e!r}")
+        finally:
+            faults.reset()
+        check(delivered5 >= 9, f"(c2) timeouts / partition overwhelmed the fleet: {delivered5}/12")
+        drill["delivered_under_timeouts"] = delivered5
+        replies = r.dump_hosts(dumps)
+        check(len(replies) == 2, f"(c2) expected both hosts to dump, got {replies}")
+        drill["stitch"] = _stitch22(here, dumps, spans, note_trace_orphans)
+        r.stop(drain=True)  # drains w0 and w1b
+        drill["counters"] = {k: v for k, v in metrics.counters().items()
+                             if k.startswith("fleet.")}
+        router_jsonl = os.path.join(tmp, "width_router.jsonl")
+        metrics.dump(router_jsonl)
+        merged = _merge22(tmp, router_jsonl, dumps)
+        rep = _tool("fleet_report.py", merged, "--victim", "victim", "--p99-budget",
+                    f"{budget:.6f}", "--require-stitch")
+        drill.update({"report_rc": rep.returncode, "residual": chk.worst, "bad": chk.bad,
+                      "budget_s": budget})
+        out["drill"] = drill
+        _rpc22(ports["w2"], {"op": "drain", "timeout": 5.0}, timeout=30)
+        stats = {k: procs[k].read_stats() for k in ("w0", "w1b", "w2")}
+        drained = list(stats)
+        print(f"  (c2) drill: quarantine + probe recovery after {drill['sdc_solves']} solves "
+              f"({drill['sdc_s']:.1f} s), abuser rejected {rejected}/14, worker 1 killed with "
+              f"{inflight} in flight: {delivered}/{KILL22} delivered, {typed} typed "
+              f"({drill['kill_s']:.1f} s), its standby bound and rejoined live in "
+              f"{drill['rejoin_s']:.1f} s, {delivered5}/12 under timeouts; {drill['stitch']}; "
+              f"largest residual {chk.worst:.3e}, wrong X {chk.bad}", flush=True)
+        print(f"  (c2) router counters {drill['counters']}", flush=True)
+        print(f"  (c2) tools/fleet_report.py --victim victim --p99-budget {budget:.3f} "
+              "--require-stitch: " + _report_lines(rep), flush=True)
+        check(rep.returncode == 0, f"(c2) fleet_report exited {rep.returncode}")
+        check(chk.bad == 0, f"(c2) {chk.bad} wrong X reached the client")
+        # each drained worker: the mirror of what its cores ran (every
+        # request, plus the repeat pads that fill a batch point; nothing
+        # re-run), no nvcc, no JAX
+        g = lk.getrf_kernel_launches(n)
+        for k, st in stats.items():
+            items = st["requests"] + st["batch_pad"]
+            want = {"panel_lu": g * items} if dev.type == "cuda" else {}
+            print(f"  (c) worker {k} (pid {st['pid']}): {st['requests']} requests + "
+                  f"{st['batch_pad']} repeat pads ({st['solved']} solved, {st['typed_errors']} "
+                  f"typed, {st['sdc']} sdc fired, re-run {st['redone']}), launches "
+                  f"{st['launches']} (mirror {want}), nvcc runs {st['nvcc_runs']}, lanes "
+                  f"{st['lanes']}, JAX modules {st['jax_modules']}", flush=True)
+            check(not any(st["redone"].values()), f"(c) worker {k} re-ran work: {st['redone']}")
+            check(st["launches"] == want, f"(c) worker {k}: launches {st['launches']} != {want}")
+            check(st["nvcc_runs"] == 0 and st["jax_modules"] == [],
+                  f"(c) worker {k}: nvcc {st['nvcc_runs']}, JAX {st['jax_modules']}")
+            check(st["lanes"] == [str(dev)], f"(c) worker {k}: lanes {st['lanes']}")
+        out["workers"] = stats
+    finally:
+        faults.reset()
+        for r in routers:
+            r.stop(drain=False)
+        for k, p in procs.items():
+            if k not in drained:
+                p.reap()
+    out["phase_s"] = time.perf_counter() - t22
+    return out
+
+
+def fleet_main(serve, metrics, lk, dev, gate=None) -> dict:
+    """Phase 22: legs (a) and (b) in a checked child (``gate``, started
+    here when the caller has not), then leg (c) here."""
+    t0 = time.perf_counter()
+    out = {}
+    gate = _Gate22(dev) if gate is None else gate
+    try:
+        # leg (c)'s workers import torch while the child ends; they touch
+        # the card only when leg (c) warms them
+        procs = _procs22(gate.tmp, dev)
+        try:
+            out["gate"] = gate.finish()
+        except BaseException:
+            for p in procs.values():
+                p.reap()
+            raise
+        metrics.on()
+        out["width"] = fleet_width_leg(serve, metrics, lk, dev, gate.tmp, procs=procs)
+    finally:
+        gate.close()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 22: {out['phase_s']:.1f} s (leg (c) {out['width']['phase_s']:.1f} s)",
           flush=True)
     return out
 
@@ -5870,6 +6923,7 @@ def main() -> int:
     fabric_only = "--fabric" in sys.argv[1:]
     soak_only = "--soak" in sys.argv[1:]
     scale_only = "--scale" in sys.argv[1:]
+    fleet_only = "--fleet" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5954,6 +7008,13 @@ def main() -> int:
         print("phase 21: the elastic capacity plane", flush=True)
         scres = scale_main(serve, metrics, pk, lk, dev)
         print("main path: " + json.dumps({"serve_scale": scres}))
+        print(smi)
+        return 0
+    if fleet_only:
+        metrics.on()
+        print("phase 22: the fleet tier", flush=True)
+        flres = fleet_main(serve, metrics, lk, dev)
+        print("main path: " + json.dumps({"serve_fleet": flres}))
         print(smi)
         return 0
     if profile_only:
@@ -6060,11 +7121,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     bres["complex128_2048"] = band_complex_phase(stt, pk, gen, dev)
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    # phase 22's legs (a) and (b) (a checked child at n = 12) run beside
+    # phases 15 and 16, which gate no latency
+    gate22 = _Gate22(dev)
     print("phase 15: the Hermitian eigensolvers", flush=True)
     eres = eig_main(stt, pk, ck, metrics, gen, dev)
     print("phase 16: the SVD", flush=True)
     svres = svd_main(stt, pk, qf, metrics, gen, dev)
     torch.cuda.empty_cache()
+    gate22.wait()
+    print(f"  phase 22's legs (a) and (b) ran beside phases 15-16 (their child, started "
+          f"{gate22.waited:.1f} s ago, is done)", flush=True)
     print("phase 17: restore, replicas and integrity", flush=True)
     rsres = restore_main(serve, faults, pk, ck, lk, metrics, gen, dev, t_build)
     torch.cuda.empty_cache()
@@ -6079,7 +7146,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 21: the elastic capacity plane", flush=True)
     scres = scale_main(serve, metrics, pk, lk, dev)
-    print(f"  phases 2-21: {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print("phase 22: the fleet tier", flush=True)
+    flres = fleet_main(serve, metrics, lk, dev, gate22)
+    print(f"  phases 2-22: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -6123,6 +7193,7 @@ def main() -> int:
                                       "serve_fabric": fbres,
                                       "serve_soak": skres,
                                       "serve_scale": scres,
+                                      "serve_fleet": flres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

@@ -1,7 +1,6 @@
 """Deterministic, seedable fault injection: the part of the JAX
-package's ``aux/faults.py`` that the drivers and the serve tier use.
-The fleet sites (``host_death``, ``host_partition``, ``rpc_timeout``)
-belong to the plane not ported yet (ROADMAP.md Queue 1 item 7c3).
+package's ``aux/faults.py`` that the drivers, the serve tier and the
+fleet tier use.
 
 Sites (:data:`SITES`) and where they are checked:
 
@@ -45,6 +44,20 @@ Sites (:data:`SITES`) and where they are checked:
                        request, injected at admission on a
                        tenancy-enabled service (``service._submit``):
                        quotas and shedding must refuse it
+    ``host_death``     one fleet worker process is SIGKILLed with
+                       requests in flight (``fleet/router.py``
+                       dispatch; connect-mode hosts get the router-side
+                       signature of the same event): the host lifecycle
+                       must fail the inflight members fast and
+                       re-dispatch them to a live host
+    ``host_partition`` fleet RPC blackhole: the bytes vanish and no RST
+                       returns (``fleet/router.py`` ``_rpc``, heartbeats
+                       included), indistinguishable from a timeout by
+                       design; drives the suspect -> dead ladder when
+                       sustained
+    ``rpc_timeout``    one fleet solve RPC times out transiently
+                       (``fleet/router.py`` ``_rpc``): absorbed by the
+                       decorrelated-jitter retry ladder
 
 Triggers (exactly one per site): probability ``p=0.2`` (seeded RNG per
 site, so the fire pattern is a pure function of ``seed`` and the call
@@ -90,7 +103,7 @@ class SiteSpec:
     """One fault site's contract: the counter families whose sum is its
     recovery signal (what absorbed the injection), and whether a zero
     recovery is legitimate (``informational``).  The JAX package's
-    registry, restricted to the sites ported."""
+    registry."""
 
     name: str
     recovery: Tuple[str, ...] = ()
@@ -128,6 +141,14 @@ SITE_SPECS: Tuple[SiteSpec, ...] = (
     # a flood is absorbed when the admission plane refused (some of) it
     SiteSpec("tenant_flood", recovery=("serve.shed", "serve.rejected_quota",
                                        "serve.rejected_share", "serve.rejected")),
+    # fleet-tier sites (fired in fleet/router.py): a dead host is absorbed
+    # when its inflight requests were failed fast and re-dispatched to a
+    # live host; a blackholed RPC by the bounded-timeout retry ladder and,
+    # past it, the same dead-host machinery
+    SiteSpec("host_death", recovery=("fleet.redispatched", "fleet.host_dead")),
+    SiteSpec("host_partition", recovery=("fleet.rpc_retries", "fleet.redispatched",
+                                         "fleet.host_dead")),
+    SiteSpec("rpc_timeout", recovery=("fleet.rpc_retries",)),
 )
 
 SITE_REGISTRY: Dict[str, SiteSpec] = {s.name: s for s in SITE_SPECS}

@@ -9,6 +9,8 @@ and whose Chrome trace-event export (:func:`export_chrome`, the JAX
 package's event schema) Perfetto and ``tools/trace_stitch.py`` read.
 The ring holds :data:`RING` spans unless ``on(ring=)`` resizes it (a
 soak replay sizes it above its span count, so no root is evicted).
+``SLATE_TPU_TRACE_RING=N`` in the environment turns recording on at
+import with a ring of N (how a fleet worker process traces).
 
 Zero overhead off: every entry point starts with one module-level bool
 check; OFF is the default.  A span lands on the ring when it ends; an
@@ -33,6 +35,8 @@ from typing import Dict, List, Optional
 
 #: default capacity of the ring of completed spans (oldest evicted)
 RING = 4096
+#: env activation: a positive integer turns recording on at import
+RING_ENV = "SLATE_TPU_TRACE_RING"
 
 _enabled = False
 _lock = threading.Lock()
@@ -315,3 +319,14 @@ def export_chrome(path: str, process_name: Optional[str] = None) -> str:
     with open(path, "w") as f:
         json.dump({"traceEvents": meta + evs, "displayTimeUnit": "ms"}, f)
     return path
+
+
+# env activation: SLATE_TPU_TRACE_RING=N turns recording on with a ring of N
+_env_ring = os.environ.get(RING_ENV)
+if _env_ring:
+    try:
+        _n = int(_env_ring)
+    except ValueError as e:
+        raise ValueError(f"{RING_ENV}={_env_ring!r}: expected an integer ring size") from e
+    if _n > 0:
+        on(ring=_n)

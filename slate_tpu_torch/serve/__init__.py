@@ -19,10 +19,11 @@ device factor arena, ``SLATE_TPU_FACTOR_ARENA``) and ``serve.session``
 (streaming least-squares sessions).  The soak fabric that records,
 replays and watches this tier is ``slate_tpu_torch.soak`` (item 7c2a);
 the elastic capacity plane that sizes its replica pool is
-``slate_tpu_torch.scale`` (item 7c2b, ``SLATE_TPU_SCALE``).
+``slate_tpu_torch.scale`` (item 7c2b, ``SLATE_TPU_SCALE``), and the
+fleet tier that fronts worker processes is ``slate_tpu_torch.fleet``
+(item 7c3, ``SLATE_TPU_FLEET``; ``serve.get_fleet``).
 
-Not ported yet (ROADMAP.md Queue 1 items 7c3 and 8): ``get_fleet`` and
-the sharded lane.
+Not ported yet (ROADMAP.md Queue 1 item 8): the sharded lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.
@@ -37,7 +38,7 @@ _API = (
     "shutdown",
     "get_service", "get_cache", "health", "InvalidInput",
     "get_factor_cache", "factor_fingerprint", "invalidate", "invalidate_all",
-    "update_factor", "get_arena", "session",
+    "update_factor", "get_arena", "session", "get_fleet",
 )
 _SERVICE = (
     "SolverService", "Rejected", "DeadlineExceeded", "Shed", "decorrelated_backoff",

@@ -797,6 +797,14 @@ class AdmissionControl:
                 return True
             return st.bucket.take(now)
 
+    def quota_remaining(self, tenant: str, now: float) -> Optional[float]:
+        """The tenant's tokens left at ``now`` (None: unknown or unlimited)."""
+        with self._lock:
+            st = self._states.get(tenant)
+            if st is None or st.bucket is None:
+                return None
+            return st.bucket.remaining(now)
+
     def share_limit(self, tenant: str, max_queue: int) -> int:
         """This tenant's queue-occupancy cap in requests."""
         share = self.config_for(tenant).share
@@ -934,6 +942,16 @@ class AdmissionControl:
                 "adaptive_window", trace=trace, lane=lane, bucket=label,
                 window_s=round(win, 6), direction=decision,
             )
+
+    def observe_burn(self, burn: float, now: float) -> None:
+        """Fold one externally measured burn ratio into the overload
+        controller (the fleet router aggregating its hosts' reported burn
+        EWMAs).  Same lock and transition emission as
+        :meth:`observe_finish`, without the per-tenant accounting a remote
+        sample has no identity for."""
+        with self._lock:
+            moved = self.overload.observe(float(burn), now)
+        self._emit_overload(moved)
 
     # -- health -------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Thin sync serving API over one process-wide :class:`SolverService`
-(the JAX package's ``serve/api.py`` without the fleet tier, ROADMAP.md
-Queue 1 item 7c3).
+(the JAX package's ``serve/api.py``), or over the process's fleet router
+when ``SLATE_TPU_FLEET`` is set.
 
 Usage::
 
@@ -24,6 +24,10 @@ admission plane (``SLATE_TPU_TENANTS`` / ``SLATE_TPU_ADAPTIVE``, or
 streaming least-squares session (``fabric/session.py``), and
 ``get_arena()`` returns the device factor arena (``fabric/arena.py``,
 ``SLATE_TPU_FACTOR_ARENA`` / ``Option.ServeFactorArena``), or None.
+With ``SLATE_TPU_FLEET`` set (``fleet/router.py``), ``submit``,
+``health`` and ``shutdown`` go through the router built at import
+(``get_fleet()``); unset, the fleet package is not imported and each of
+them pays one ``is None`` branch.
 
 The default service reads the Serve* Option defaults; ``configure()``
 overrides them per process (``configure(placement=PlacementPolicy(
@@ -32,6 +36,7 @@ devices=[torch.device("cpu")]))`` serves on the CPU).
 
 from __future__ import annotations
 
+import os
 import threading
 from concurrent.futures import Future
 from typing import Optional
@@ -47,6 +52,15 @@ from .service import DeadlineExceeded, Rejected, Shed, SolverService  # noqa: F4
 
 _lock = threading.Lock()
 _service: Optional[SolverService] = None
+
+# fleet tier (SLATE_TPU_FLEET): with the env unset this stays None and
+# every call below pays exactly one ``is None`` branch; the fleet package
+# is not even imported
+_fleet = None
+if os.environ.get("SLATE_TPU_FLEET"):
+    from ..fleet.router import FleetRouter
+
+    _fleet = FleetRouter.from_env()
 
 
 def get_service() -> SolverService:
@@ -116,8 +130,11 @@ def configure(opts: Optional[Options] = None, **kw) -> SolverService:
 
 
 def shutdown() -> None:
-    """Stop the process service (idempotent; a later call re-creates)."""
+    """Stop the process service (idempotent; a later call re-creates).
+    With the fleet tier on, drains the router (and its workers) too."""
     global _service
+    if _fleet is not None:
+        _fleet.stop(drain=True)
     with _lock:
         if _service is not None:
             _service.stop()
@@ -162,7 +179,16 @@ def submit(routine: str, A, B, deadline: Optional[float] = None, retries: int = 
            precision: Optional[str] = None, sharded: Optional[bool] = None,
            tenant: Optional[str] = None, priority=None) -> Future:
     """Async entry: enqueue and return the Future (see
-    :meth:`SolverService.submit`)."""
+    :meth:`SolverService.submit`).  With ``SLATE_TPU_FLEET`` set the
+    request routes through the process's
+    :class:`~slate_tpu_torch.fleet.FleetRouter`: the same Future contract
+    and typed taxonomy, plus the fabric's own
+    :class:`~slate_tpu_torch.fleet.HostDead` /
+    :class:`~slate_tpu_torch.fleet.FleetTimeout`."""
+    if _fleet is not None:
+        return _fleet.submit(routine, A, B, deadline=deadline, retries=retries,
+                             precision=precision, sharded=sharded, tenant=tenant,
+                             priority=priority)
     return get_service().submit(routine, A, B, deadline=deadline, retries=retries,
                                 precision=precision, sharded=sharded, tenant=tenant,
                                 priority=priority)
@@ -206,8 +232,18 @@ def health() -> dict:
     :meth:`SolverService.health`): with the admission plane on, its
     ``tenants`` and ``admission`` sections; with the device monitor on
     (``SLATE_TPU_DEVMON=1``), ``devices`` and ``cost``; with tracing on,
-    ``trace_ring``."""
+    ``trace_ring``.  With the fleet tier on, the router's snapshot
+    instead: per-host breaker states and integrity scores, the pending
+    count and the global admission plane (:meth:`FleetRouter.health`)."""
+    if _fleet is not None:
+        return _fleet.health()
     return get_service().health()
+
+
+def get_fleet():
+    """The process's :class:`~slate_tpu_torch.fleet.FleetRouter`, or None
+    without ``SLATE_TPU_FLEET`` (the single-process path)."""
+    return _fleet
 
 
 def get_cache() -> ExecutableCache:

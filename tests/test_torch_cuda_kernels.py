@@ -1909,3 +1909,44 @@ def test_stepped_scaler_on_the_card(dev, monkeypatch):
         s.stop()
         if not was:
             metrics.off()
+
+
+@pytest.mark.cuda
+def test_fleet_worker_on_the_card(dev, tmp_path):
+    """One worker process on cuda:0 (``chip_smoke.py``'s phase 22 worker,
+    the factor cache on) answers two gesv at n = 2048 with one A through a
+    ``cert=full`` router: the miss factors (panel_lu) and solves, the hit
+    solves (the trsm pair); the drained worker's own launch counts equal
+    the mirror, it ran no nvcc (the library was built here first) and
+    imported no JAX module."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from slate_tpu_torch.fleet import FleetRouter
+    from slate_tpu_torch.ops import lu_kernels as lk
+
+    pk._load()
+    n, nrhs = 2048, 16
+    rng = np.random.default_rng(25)
+    A = rng.standard_normal((n, n)) + 2 * np.sqrt(n) * np.eye(n)
+    Bs = [rng.standard_normal((n, nrhs)) for _ in range(2)]
+    w = cs._Proc22("w", str(tmp_path), dev, env={"SLATE_TPU_FACTOR_CACHE": "1"})
+    try:
+        port = w.wait_port()
+        r = FleetRouter(connect=(("127.0.0.1", port),), cert="full", heartbeat_s=0.5,
+                        rpc_timeout_s=600.0)
+        try:
+            Xs = [r.start().submit("gesv", A, B).result(timeout=600) for B in Bs]
+        finally:
+            r.stop(drain=True)
+        st = w.read_stats()
+    finally:
+        w.reap()
+    for B, X in zip(Bs, Xs):
+        assert _scaled_residual(A, X, B) <= 3
+    sw = pk.trsm_kernel_launches(n)
+    assert st["launches"] == {"panel_lu": lk.getrf_kernel_launches(n), "trsm_lower": 2 * sw,
+                              "trsm_upper": 2 * sw}, st
+    assert st["nvcc_runs"] == 0 and st["jax_modules"] == [] and st["lanes"] == ["cuda:0"], st

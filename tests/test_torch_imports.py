@@ -84,6 +84,12 @@ import slate_tpu_torch.scale.signals
 import slate_tpu_torch.scale.controller
 import slate_tpu_torch.scale.gate
 import slate_tpu_torch.scale.warmup_plan
+import slate_tpu_torch.fleet.wire
+import slate_tpu_torch.fleet.worker
+import slate_tpu_torch.fleet.router
+import slate_tpu_torch.fleet
+import torch
+assert not torch.cuda.is_initialized()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -95,6 +101,19 @@ def test_import_leaves_no_jax_or_slate_tpu_module():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_serve_api_without_fleet_imports_no_fleet_module():
+    """With SLATE_TPU_FLEET unset the serve api builds no router and the
+    fleet package is never imported (one ``is None`` branch a call)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "SLATE_TPU_FLEET"}
+    code = ("import sys; from slate_tpu_torch.serve import api; "
+            "print(api.get_fleet(), sorted(m for m in sys.modules if 'fleet' in m))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, check=True, env=env)
+    assert out.stdout.strip() == "None []", out.stdout
 
 
 def _imports(path: Path):
@@ -127,6 +146,7 @@ def test_no_source_file_imports_jax_or_slate_tpu():
     assert {"soak/__init__.py", "soak/record.py", "soak/replay.py", "soak/timeline.py"} <= names
     assert {"scale/__init__.py", "scale/signals.py", "scale/controller.py", "scale/gate.py",
             "scale/warmup_plan.py"} <= names
+    assert {"fleet/__init__.py", "fleet/wire.py", "fleet/worker.py", "fleet/router.py"} <= names
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

@@ -456,7 +456,9 @@ def test_factor_fault_exercises_fallback(site, spd):
 
 def test_fault_triggers_and_arming():
     with pytest.raises(ValueError):
-        faults.arm("host_death", once=True)  # a fleet site, not ported (item 7c)
+        faults.arm("no_such_site", once=True)
+    faults.arm("host_death", once=True)  # the fleet sites are the JAX package's too
+    faults.disarm("host_death")
     with pytest.raises(ValueError):
         faults.arm("info_nonzero", p=0.5, every=2)
     t = torch.arange(4.0)

@@ -677,11 +677,16 @@ def test_cross_package_repeated_A_stream():
 def test_fault_spec_grammar_and_triggers():
     faults.configure("execute:p=0.5,seed=3; latency:once,after=4,ms=2.5 ;worker_death:every=4")
     assert set(faults.stats()) == {"execute", "latency", "worker_death"}
-    # the admission plane's site takes the burst= key; a fleet site of
-    # the plane not ported (item 7c3) is refused
-    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "host_death:once"):
+    # the admission plane's site takes the burst= key; the fleet sites
+    # arm like any other
+    for bad in ("nosite:p=0.1", "execute:bogus=1", "execute", "host_death:bogus=1"):
         with pytest.raises(ValueError):
             faults.configure(bad)
+    fleet = ("host_death", "host_partition", "rpc_timeout")
+    faults.configure("host_death:once;host_partition:every=2;rpc_timeout:p=0.5,seed=1")
+    assert set(fleet) <= set(faults.stats())
+    for site in fleet:
+        faults.disarm(site)
     faults.configure("tenant_flood:once,burst=5")
     assert faults._sites["tenant_flood"].burst == 5
     faults.disarm("tenant_flood")
