@@ -11,6 +11,7 @@
     python3 chip_smoke.py --soak     # build + phase 20 alone
     python3 chip_smoke.py --scale    # build + phase 21 alone
     python3 chip_smoke.py --fleet    # build + phase 22 alone
+    python3 chip_smoke.py --mesh     # build + phase 23 alone
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -101,8 +102,8 @@ Phases, each for float64 and float32 unless stated:
      (bucket 4096, tiles of 64) through ``SolverService(factor_cache=
      FactorCache(8), batch_max=8, batch_window_s=0.002)``: one miss
      (launches equal to ``chol_kernel_launches`` / ``getrf_kernel_launches``
-     plus one trsm sweep each), ``warmup()``, 24 requests of nrhs = 16
-     over 8 B (24 hits, no cold build, only the trsm pair launched,
+     plus one trsm sweep each), ``warmup()``, 16 requests of nrhs = 16
+     over 8 B (16 hits, no cold build, only the trsm pair launched,
      ``trsm_kernel_launches(4096)`` a dispatch each, residuals <= 3),
      requests/s, p50 / p99 of the queued / execute / total latency, one
      hit dispatch against two ``solve_triangular``, the host time of
@@ -234,7 +235,7 @@ Phases, each for float64 and float32 unless stated:
      gate's stream (``run_tests.py:600-640``) at the serve tier's gels
      width: A (8192, 4096), tiles of 64, nrhs = 16, one lane on cuda:0.
      The armed leg (``factor_arena=FactorArena()``): one miss (larft at
-     ``geqrf_kernel_launches``), ``warmup()``, 20 pristine
+     ``geqrf_kernel_launches``), ``warmup()``, 12 pristine
      ``FactorSession`` solves (every one a factor-cache hit, no cold
      build, no kernel launch, ``serve.arena.upload_avoided_bytes`` > 0),
      an append of 64 rows (the O(k n^2) fold on the card) and one
@@ -258,7 +259,11 @@ Phases, each for float64 and float32 unless stated:
      of 64, under ``latency:every=97,ms=30;sdc_solve:every=211,seed=3;
      worker_death:every=1501``; ``add_replica``, the record -> replay
      round trip and the two-run determinism check at the gate's
-     tolerances, ``remove_replica`` with nothing dropped; the report
+     tolerances (each pass from idle lanes and an overload plane
+     settled to level 0 through its own tick / observe_burn, replay 1 on
+     the recording's pools warmed as the recording's were; each pass
+     prints its refusals by tenant and reason and its factor-cache hits
+     and misses), ``remove_replica`` with nothing dropped; the report
      with the gate's arguments exits 0, no sync violation, the orphan
      audit on a ring that never evicted.  (b) the escape stream
      (integrity and factor cache off, ``sdc_solve:every=7``): wrong X
@@ -294,7 +299,7 @@ Phases, each for float64 and float32 unless stated:
      serve tier's width: gesv repeated-A at n = 2048, nrhs = 16, tiles of
      64, batch point 1, a factor cache of 16; the warm prelude factors the
      4 pool matrices (panel_lu); one card's lane scaling (the closed-loop
-     rate R1, R2, R3 of 24 hits from 4 clients with 1, 2, 3 lanes and the
+     rate R1, R2, R3 of 16 hits from 4 clients with 1, 2, 3 lanes and the
      idle share over each); calibration (the pacer's ceiling P = 1 / the
      submit time's p50, a tax T raised from 50 ms until 2 R1(T) <= P / 2;
      f32 when f64's P cannot give s <= 4); the trace time-scaled by
@@ -338,7 +343,21 @@ Phases, each for float64 and float32 unless stated:
      p99; each drained worker's panel_lu launches equal the mirror of the
      core items it ran (requests and the repeat pads of its batch points;
      a full-phase gesv solves with the library: no trsm launch), no nvcc
-     run, no JAX module.
+     run, no JAX module;
+ 23. the meshes: an NCCL world of one rank on cuda:0 (a file://
+     rendezvous, destroyed at the end) and the 1 x 1 mesh of
+     ``ProcessGrid.from_ranks``; the SPMD routines themselves (the
+     drivers send a 1 x 1 grid to the single-device path):
+     ``summa_gemm``, ``gemm_reduce_a``, ``spmd_herk`` (herk and her2k),
+     ``spmd_trmm`` and ``spmd_hemm`` (both sides) at n = 16384, k = 512,
+     tiles of 512, float64 and float32, and the complex128 her2k at
+     n = 2048, each against the single-device driver and torch.matmul of
+     the dense operands within elementwise_err's tolerance (a Hermitian
+     result's stored triangle); ``spmd_redistribute`` (tiles of 512 to
+     256, bitwise); the mesh norms (Max bitwise, One, Inf, Fro; five
+     tile_norms launches a dtype, counted alone and added to
+     tile_norms' launches in the kernels line); each routine's time beside
+     the single-device driver's, the mesh path's overhead.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -2150,7 +2169,7 @@ def _serve_faults(faults, svc, routine, A_np, B_np, A, B, residual, dtype) -> di
     return out
 
 
-HITS13 = 24  # requests of each hit stream
+HITS13 = 16  # requests of each hit stream
 
 
 def serve_hit_stream(serve, faults, pk, ck, lk, metrics, routine, dtype, gen, dev) -> dict:
@@ -2951,7 +2970,7 @@ def integrity_leg(serve, faults, pk, ck, lk, metrics, dtype, gen, dev) -> dict:
     return out
 
 
-ABFT_ROUNDS = 5  # interleaved rounds of the ABFT and the plain b1 dispatch
+ABFT_ROUNDS = 3  # interleaved rounds of the ABFT and the plain b1 dispatch
 
 
 def _interleaved_ms(fa, fb, rounds: int = ABFT_ROUNDS):
@@ -3528,9 +3547,9 @@ def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
 # phase 19: the factor fabric (device factor arena and streaming gels sessions)
 # ---------------------------------------------------------------------------
 
-SESSION19 = 20  # warmed pristine session solves, every one a factor-cache hit
+SESSION19 = 12  # warmed pristine session solves, every one a factor-cache hit
 APPEND19 = 64  # rows of the streamed append
-ROUNDS19 = 3  # rounds of each hit-dispatch timing (medians)
+ROUNDS19 = 2  # rounds of each hit-dispatch timing (medians)
 MISS_ROUNDS19 = 1  # rounds of the refactoring miss and of append / refactor
 
 
@@ -3772,14 +3791,89 @@ def _close20(a: dict, b: dict, what: str) -> None:
         check(abs(a[key] - b[key]) <= tol, f"{what}[{key}]: {a[key]} vs {b[key]}")
 
 
+TENANT_NAMES20 = ("gold", "good", "free", "abuser")
+
+
+def _settle20(svc, timeout_s: float = 30.0) -> None:
+    """Bring the service to the state each pass of the round trip starts
+    from: idle lanes, and the overload controller at level 0 with its
+    burn EWMA decayed, through the plane's own paths (the admission-time
+    ``tick`` over real dwell windows, then zero burns folded in by
+    ``observe_burn``, as an idle stretch would)."""
+    _idle(svc)
+    adm = svc._admission
+    if adm is None:
+        return
+    t0 = time.perf_counter()
+    while True:
+        adm.tick(time.monotonic())
+        snap = adm.snapshot()
+        if snap["overload_level"] == 0:
+            break
+        check(time.perf_counter() - t0 < timeout_s, f"overload level never recovered: {snap}")
+        time.sleep(adm.overload.dwell_s / 4)
+    while adm.snapshot()["burn_ewma"] > 1e-3:
+        adm.observe_burn(0.0, time.monotonic())
+
+
+def _plane20(svc) -> dict:
+    """The admission plane's state as ``health()`` reports it: overload
+    level, burn EWMA and the adaptive windows."""
+    adm = svc.health()["admission"] or {}
+    return {k: adm.get(k) for k in ("overload_level", "burn_ewma", "windows")}
+
+
+def _refusals20(c0: dict, c1: dict) -> dict:
+    """What one pass refused, per tenant and per reason, from the
+    counters before (``c0``) and after (``c1``): ``shed`` is the overload
+    controller's; ``rejected`` is a full queue, the tenant's queue share
+    or its token bucket (the totals split them service-wide)."""
+    d = lambda k: int(c1.get(k, 0) - c0.get(k, 0))  # noqa: E731
+    out = {t: {"shed": d(f"serve.tenant.{t}.shed"), "rejected": d(f"serve.tenant.{t}.rejected")}
+           for t in TENANT_NAMES20}
+    share, quota = d("serve.rejected_share"), d("serve.rejected_quota")
+    out["reasons"] = {"shed": d("serve.shed"), "share": share, "quota": quota,
+                      "queue_full": d("serve.rejected") - share - quota}
+    return out
+
+
+def _pass20(metrics, replay, svc, rows, speed, cache, what: str, log: dict) -> dict:
+    """One pass of the round trip from a settled plane: its tally, the
+    plane's state at its start and what it refused (printed)."""
+    _settle20(svc)
+    start = _plane20(svc)
+    c0 = metrics.counters()
+    res = replay.replay(svc, rows, speed=speed, seed=0, cache=cache)
+    c1 = metrics.counters()
+    ref = _refusals20(c0, c1)
+    fc = {k: int(c1.get(f"serve.factor_cache.{k}", 0) - c0.get(f"serve.factor_cache.{k}", 0))
+          for k in ("hit", "miss")}
+    log[what] = {"start": start, "refused": ref, "factor_cache": fc,
+                 "p50_s": res["p50_s"], "p99_s": res["p99_s"]}
+    print(f"  round trip {what}: plane at start {start}; factor cache {fc}; p50 "
+          f"{(res['p50_s'] or 0) * 1e3:.1f} ms, p99 {(res['p99_s'] or 0) * 1e3:.1f} ms; "
+          f"refused {res['refused']} "
+          f"(reasons {ref['reasons']}; by tenant "
+          + ", ".join(f"{t} {ref[t]['shed']} shed / {ref[t]['rejected']} rejected"
+                      for t in TENANT_NAMES20) + ")", flush=True)
+    return res
+
+
 def _round_trip20(record, replay, svc, rt_spec, speed, cache, device=None) -> dict:
     """The JAX gate's phase 2: record ``rt_spec`` off the delivery tap,
     replay the recording twice (same seed), hold the mix histograms, the
     repeat-group structure and the delivered counts to the gate's
     tolerances.  The recording's matrix seeds are new, so its pool
-    matrices are drawn into ``cache`` first (on ``device``, if given)."""
+    matrices are drawn into ``cache`` first (on ``device``, if given) and
+    factored by a warm pass, as the recording's were.  Each pass starts
+    from idle lanes and a settled overload plane (``_settle20``) and
+    prints what it refused, per tenant and per reason, and its factor
+    cache hits and misses."""
+    from slate_tpu_torch.aux import metrics
+
+    log: dict = {}
     rec = record.Recorder().attach()
-    rt_res = replay.replay(svc, rt_spec, speed=speed, seed=0, cache=cache)
+    rt_res = _pass20(metrics, replay, svc, rt_spec, speed, cache, "recording", log)
     rec.detach()
     recorded = rec.rows()
     check(len(recorded) == rt_res["delivered"] + rt_res["typed_errors"],
@@ -3787,10 +3881,15 @@ def _round_trip20(record, replay, svc, rt_spec, speed, cache, device=None) -> di
     mix_in = record.mix_histogram(recorded)
     for row in replay.warm_spec(recorded):
         replay.materialize(row, seed=0, cache=cache, device=device)
+    # the recording ran on pool-warm factors (the drill warms rt_spec's
+    # before its main leg), but the recorded rows draw new matrix bytes:
+    # warm them too, or replay 1 alone pays a factor-cache miss a pool
+    # matrix (a p99 6-7 x the other passes' on the card)
+    replay.replay(svc, replay.warm_spec(recorded), seed=0, cache=cache)
     runs = []
-    for _ in (0, 1):
+    for i in (0, 1):
         r2 = record.Recorder().attach()
-        got = replay.replay(svc, recorded, speed=1.0, seed=0, cache=cache)
+        got = _pass20(metrics, replay, svc, recorded, 1.0, cache, f"replay {i + 1}", log)
         rows2 = r2.detach().rows()
         check(len(rows2) == got["delivered"] + got["typed_errors"],
               f"replay recorder rows {len(rows2)} != delivered + typed of {got}")
@@ -3812,7 +3911,7 @@ def _round_trip20(record, replay, svc, rt_spec, speed, cache, device=None) -> di
     check(abs(ra["delivered"] - rb["delivered"]) <= tol, f"determinism: {ra} vs {rb}")
     return {"recorded": len(recorded), "recording": rt_res, "replays": [ra, rb],
             "mix_in": mix_in["tenants"], "mix_out": mix_out["tenants"],
-            "repeat_groups": [gs_in, gs_out]}
+            "repeat_groups": [gs_in, gs_out], "passes": log}
 
 
 def soak_drill(dev) -> dict:
@@ -4318,7 +4417,7 @@ BUDGET21_S = 1.0
 TAX21 = "latency:every=1,ms=12"
 #: leg (b): the serve tier's width, gesv repeated-A, batch point 1
 N21, NRHS21 = 2048, 16
-HITS21 = 24  # requests of each closed-loop measurement
+HITS21 = 16  # requests of each closed-loop measurement
 CLIENTS21 = 4  # closed-loop clients: one lane is never starved for work
 T21_MS = 50  # the first tax tried
 LANE21_RPS = 60.0  # the JAX drill's one lane at its 12 ms tax: the time scale s = 60 / R1(T)
@@ -4668,7 +4767,7 @@ def scale_width_leg(serve, metrics, pk, lk, dev, tmp: str) -> dict:
     """Legs (b) and (c): the burst drill at the serve tier's width (gesv
     repeated-A, n = 2048, nrhs = 16, tiles of 64, batch point 1, a factor
     cache of 16, every lane on ``dev``).  (b1) one card's lane scaling:
-    the closed-loop rate R1..R3 of 24 hits with 1, 2, 3 lanes, no fault,
+    the closed-loop rate R1..R3 of ``HITS21`` hits with 1, 2, 3 lanes, no fault,
     and the device's idle share over each.  (b2) calibration: the pacer's
     ceiling P, a tax T raised until 2 R1(T) <= P / 2.  (b3) the JAX drill
     time-scaled by s = 60 / R1(T): static leg, then elastic leg, judged by
@@ -4688,7 +4787,7 @@ def scale_width_leg(serve, metrics, pk, lk, dev, tmp: str) -> dict:
     out: dict = {}
 
     def pool(dtype):
-        """The drill's four pool rows and 24 hit rows over them, at this
+        """The drill's four pool rows and ``HITS21`` hit rows over them, at this
         width and dtype; each A drawn once with the card's philox."""
         rows = replay.gen_burst(HITS21 + 4, seed=9, n=N21, nrhs=NRHS21, distinct=4)
         for r in rows:
@@ -6900,6 +6999,219 @@ def profile(stt, gen, dev) -> None:
     eig_profile(stt, gen, dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the meshes (torch.distributed, SPMD BLAS3, redistribute, norms)
+# ---------------------------------------------------------------------------
+
+N23_C = 2048  # the complex128 her2k's n
+ROUNDS23 = 2  # timing rounds a routine (after its first, checked call)
+
+
+def _mesh_cases23(stt, grid, dtype, gen, dev):
+    """The phase's operands on the 1 x 1 mesh and on the single device:
+    (name, mesh call, single-device driver call, torch reference, its
+    elementwise scale, summation length, flops), each call giving the
+    (m, n) result to compare (a Hermitian result's stored triangle)."""
+    from slate_tpu_torch.parallel import spmd_blas
+    from slate_tpu_torch.parallel.layout import tiles_to_global
+
+    dt = getattr(torch, dtype)
+    cplx = dt.is_complex
+    n = N23_C if cplx else N_MAIN
+    k, nb = NRHS_MAIN, 512
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev, dtype=dt)  # noqa: E731
+    S, B, C, Bt, Ct = rnd(n, n), rnd(n, k), rnd(n, k), rnd(k, n), rnd(k, n)
+    single = stt.ProcessGrid.single(dev)
+    on = lambda cls, a, g, **kw: cls.from_global(a, nb, grid=g, **kw)  # noqa: E731
+    low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
+    if cplx:  # her2k alone, the JAX package's complex rank-2k update
+        alpha = 1.3 - 0.4j
+        S = (S + S.mH) / 2  # a Hermitian C: its diagonal is real
+        Hm, Bm, Cm = (on(stt.HermitianMatrix, S, grid), on(stt.Matrix, B, grid),
+                      on(stt.Matrix, C, grid))
+        Hs, Bs, Cs = (on(stt.HermitianMatrix, S, single), on(stt.Matrix, B, single),
+                      on(stt.Matrix, C, single))
+        Sf = S
+        ref = alpha * B @ C.mH + (alpha.conjugate()) * C @ B.mH + 0.5 * Sf
+        scale = abs(alpha) * 2 * (B.abs() @ C.abs().mT) + 0.5 * Sf.abs()
+        mesh = lambda: torch.where(low, tiles_to_global(spmd_blas.spmd_herk(  # noqa: E731
+            grid, alpha, Bm.data, Bm.layout, 0.5, Hm.data, Hm.layout, conj=True, trans=False,
+            alpha2=alpha.conjugate(), TB=Cm.data, layB=Cm.layout, lower=True), Hm.layout), 0)
+        drv = lambda: torch.where(low, stt.her2k(alpha, Bs, Cs, 0.5, Hs).to_global(), 0)  # noqa: E731
+        return [("her2k", mesh, drv, torch.where(low, ref, 0), scale, 2 * k, 8 * n * n * k)], \
+            None, None, S
+    Sf = torch.tril(S) + torch.tril(S, -1).mT
+    Lt = torch.tril(S)
+    m = {name: on(cls, a, grid, **kw) for name, cls, a, kw in (
+        ("A", stt.Matrix, S, {}), ("H", stt.HermitianMatrix, S, {}),
+        ("T", stt.TriangularMatrix, S, {}), ("B", stt.Matrix, B, {}), ("C", stt.Matrix, C, {}),
+        ("Bt", stt.Matrix, Bt, {}), ("Ct", stt.Matrix, Ct, {}))}
+    sm = {name: on(cls, a, single, **kw) for name, cls, a, kw in (
+        ("A", stt.Matrix, S, {}), ("H", stt.HermitianMatrix, S, {}),
+        ("T", stt.TriangularMatrix, S, {}), ("B", stt.Matrix, B, {}), ("C", stt.Matrix, C, {}),
+        ("Bt", stt.Matrix, Bt, {}), ("Ct", stt.Matrix, Ct, {}))}
+    g = lambda T, M: tiles_to_global(T, M.layout)  # noqa: E731
+    L, R = stt.Side.Left, stt.Side.Right
+    cases = []
+    for name, fn in (("summa_gemm", spmd_blas.summa_gemm), ("gemm_reduce_a", spmd_blas.gemm_reduce_a)):
+        cases.append((name, lambda fn=fn: g(fn(grid, 1.5, m["A"].data, m["A"].layout, m["B"].data,
+                                               m["B"].layout, 0.5, m["C"].data, m["C"].layout),
+                                            m["C"]),
+                      lambda: stt.gemm(1.5, sm["A"], sm["B"], 0.5, sm["C"]).to_global(),
+                      1.5 * (S @ B) + 0.5 * C, 1.5 * (S.abs() @ B.abs()) + 0.5 * C.abs(), n,
+                      2 * n * n * k))
+    cases.append(("herk", lambda: torch.where(low, g(spmd_blas.spmd_herk(
+        grid, 1.0, m["B"].data, m["B"].layout, 0.5, m["H"].data, m["H"].layout, conj=True,
+        trans=False, lower=True), m["H"]), 0),
+        lambda: torch.where(low, stt.herk(1.0, sm["B"], 0.5, sm["H"]).to_global(), 0),
+        torch.where(low, B @ B.mT + 0.5 * Sf, 0), B.abs() @ B.abs().mT + 0.5 * Sf.abs(), k,
+        n * n * k))
+    cases.append(("her2k", lambda: torch.where(low, g(spmd_blas.spmd_herk(
+        grid, 2.0, m["B"].data, m["B"].layout, 0.5, m["H"].data, m["H"].layout, conj=True,
+        trans=False, alpha2=2.0, TB=m["C"].data, layB=m["C"].layout, lower=True), m["H"]), 0),
+        lambda: torch.where(low, stt.her2k(2.0, sm["B"], sm["C"], 0.5, sm["H"]).to_global(), 0),
+        torch.where(low, 2.0 * (B @ C.mT + C @ B.mT) + 0.5 * Sf, 0),
+        2.0 * (B.abs() @ C.abs().mT + C.abs() @ B.abs().mT) + 0.5 * Sf.abs(), 2 * k,
+        2 * n * n * k))
+    for side, left in (("Left", True), ("Right", False)):
+        X, Xs, ref = ("B", "B", 2.0 * (Lt @ B)) if left else ("Bt", "Bt", 2.0 * (Bt @ Lt))
+        scl = 2.0 * (Lt.abs() @ B.abs()) if left else 2.0 * (Bt.abs() @ Lt.abs())
+        cases.append((f"trmm.{side}", lambda left=left, X=X: g(spmd_blas.spmd_trmm(
+            grid, left, 2.0, m["T"].data, m["T"].layout, True, False, False, False,
+            m[X].data, m[X].layout), m[X]),
+            lambda side=side, Xs=Xs: stt.trmm(stt.Side[side], 2.0, sm["T"], sm[Xs]).to_global(),
+            ref, scl, n, n * n * k))
+    for side, left in (("Left", True), ("Right", False)):
+        X, Y = ("B", "C") if left else ("Bt", "Ct")
+        ref = 2.0 * (Sf @ B) + 0.5 * C if left else 2.0 * (Bt @ Sf) + 0.5 * Ct
+        scl = (2.0 * (Sf.abs() @ B.abs()) + 0.5 * C.abs() if left
+               else 2.0 * (Bt.abs() @ Sf.abs()) + 0.5 * Ct.abs())
+        cases.append((f"hemm.{side}", lambda left=left, X=X, Y=Y: g(spmd_blas.spmd_hemm(
+            grid, left, 2.0, m["H"].data, m["H"].layout, True, m[X].data, m[X].layout, 0.5,
+            m[Y].data, m[Y].layout), m[Y]),
+            lambda side=side, X=X, Y=Y: stt.hemm(stt.Side[side], 2.0, sm["H"], sm[X], 0.5,
+                                                 sm[Y]).to_global(),
+            ref, scl, n, 2 * n * n * k))
+    return cases, m, sm, S
+
+
+def mesh_phase(stt, pk, metrics, dtype, grid, gen, dev) -> dict:
+    """One dtype of phase 23 on the 1 x 1 mesh: the SPMD routines called
+    directly (a 1 x 1 grid sends the drivers to the single-device path),
+    the mesh redistribute and the mesh norms, each held against the
+    single-device driver and a torch reference; the tile_norms launches
+    of the mesh norms counted alone."""
+    from slate_tpu_torch.internal import norms as tnorms
+    from slate_tpu_torch.parallel import spmd_redistribute
+    from slate_tpu_torch.parallel.layout import TileLayout, tiles_to_global
+
+    cases, m, sm, S = _mesh_cases23(stt, grid, dtype, gen, dev)
+    out = {}
+    cplx = getattr(torch, dtype).is_complex
+    kinds = (stt.Norm.Max, stt.Norm.One, stt.Norm.Inf, stt.Norm.Fro)
+    lay256 = TileLayout(S.shape[0], S.shape[1], 256, 256, 1, 1)
+    # the phase's own path: every count at 0 before it, read after
+    pk.reset_launches()
+    got = {name: mesh() for name, mesh, *_ in cases}
+    if not cplx:
+        got["redistribute"] = tiles_to_global(spmd_redistribute.spmd_redistribute(
+            grid, m["A"].data, m["A"].layout, lay256), lay256)
+        got.update({f"norm.{k.name}": tnorms.mesh_genorm(k, m["A"].data, m["A"].layout, grid)
+                    for k in kinds})
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+    check(set(launches) <= {"tile_norms"}, f"mesh {dtype}: unexpected launches {launches}")
+    if not cplx:
+        check(launches.get("tile_norms") == 5,
+              f"mesh {dtype}: tile_norms launched {launches} (one a norm, two for Fro)")
+    out["launches"] = {"tile_norms": launches.get("tile_norms", 0)}
+    for name, mesh, drv, ref, scale, kk, flops in cases:
+        ours, theirs = got.pop(name), drv()
+        torch.cuda.synchronize()
+        err, ratio = elementwise_err(ours, ref, scale, kk)
+        _, ratio_drv = elementwise_err(ours, theirs, scale, kk)
+        t_mesh, t_drv = cuda_ms(mesh, reps=ROUNDS23, warm=0), cuda_ms(drv, reps=ROUNDS23, warm=0)
+        print(f"  {name} {dtype}: max |err| {err:.3e} ({ratio:.3f} of tol; against the "
+              f"single-device driver {ratio_drv:.3f}), mesh {t_mesh:.2f} ms, single-device "
+              f"driver {t_drv:.2f} ms ({t_mesh / t_drv:.2f} x), {flops / t_mesh / 1e9:.1f} "
+              f"TFLOP/s", flush=True)
+        check(ratio <= 1 and ratio_drv <= 1,
+              f"mesh {name} {dtype}: error {ratio:.3f} / {ratio_drv:.3f} of the tolerance")
+        out[name] = {"max_abs_err": err, "tol_ratio": ratio, "driver_ratio": ratio_drv,
+                     "ms": t_mesh, "driver_ms": t_drv}
+        del ours, theirs
+    if not cplx:
+        red = got.pop("redistribute")
+        check(torch.equal(red, S), f"mesh redistribute {dtype}: the elements moved")
+        t_red = cuda_ms(lambda: spmd_redistribute.spmd_redistribute(
+            grid, m["A"].data, m["A"].layout, lay256), reps=ROUNDS23, warm=0)
+        t_drv = cuda_ms(lambda: stt.redistribute(
+            sm["A"], stt.Matrix.zeros(*S.shape, 256, dtype=S.dtype, grid=sm["A"].grid)),
+            reps=ROUNDS23, warm=1)
+        print(f"  redistribute {dtype} (tiles 512 -> 256): bitwise, mesh {t_red:.2f} ms, "
+              f"single-device driver {t_drv:.2f} ms", flush=True)
+        out["redistribute"] = {"ms": t_red, "driver_ms": t_drv}
+        for k in kinds:
+            ours = got.pop(f"norm.{k.name}")
+            theirs = stt.norm(k, sm["A"])
+            lib = torch.linalg.matrix_norm(S, {"Max": float("inf"), "One": 1, "Inf": float("inf"),
+                                               "Fro": "fro"}[k.name]) if k.name != "Max" \
+                else S.abs().amax()
+            if k == stt.Norm.Inf:
+                lib = S.abs().sum(1).amax()
+            if k == stt.Norm.Max:
+                check(torch.equal(ours, theirs) and torch.equal(ours, lib),
+                      f"mesh norm Max {dtype}: not bitwise ({ours} / {theirs} / {lib})")
+            else:
+                rel = float(((ours - theirs).abs() / theirs).item())
+                rel_lib = float(((ours - lib).abs() / lib).item())
+                tol = TOL_C * S.shape[0] ** 0.5 * torch.finfo(S.dtype).eps
+                check(rel <= tol and rel_lib <= tol,
+                      f"mesh norm {k.name} {dtype}: {rel:.3e} / {rel_lib:.3e} (tol {tol:.3e})")
+            t_mesh = cuda_ms(lambda k=k: tnorms.mesh_genorm(k, m["A"].data, m["A"].layout, grid),
+                             reps=ROUNDS23, warm=0)
+            t_drv = cuda_ms(lambda k=k: stt.norm(k, sm["A"]), reps=ROUNDS23, warm=0)
+            print(f"  norm {k.name} {dtype}: mesh {t_mesh:.3f} ms, single-device driver "
+                  f"{t_drv:.3f} ms", flush=True)
+            out[f"norm.{k.name}"] = {"ms": t_mesh, "driver_ms": t_drv}
+    print(f"  mesh {dtype}: launches {out['launches']}", flush=True)
+    return out
+
+
+def mesh_main(stt, pk, metrics, gen, dev) -> dict:
+    """Phase 23: an NCCL world of one rank on cuda:0 (a file:// rendezvous;
+    NCCL refuses two ranks on one GPU), the 1 x 1 mesh through
+    ``ProcessGrid.from_ranks``, then ``mesh_phase`` for float64, float32
+    and complex128 (her2k at n = 2048)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    t23 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.setdefault("LOCAL_RANK", "0")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            grid = stt.ProcessGrid.from_ranks(p=1, q=1)
+            check(grid.is_mesh and grid.device == dev and (grid.p, grid.q) == (1, 1),
+                  f"mesh: the grid is {grid}")
+            print(f"  the 1 x 1 mesh: {grid.device}, backend {dist.get_backend()}, "
+                  f"ranks {grid.ranks}", flush=True)
+            for d in DTYPES + ("complex128",):
+                out[d] = mesh_phase(stt, pk, metrics, d, grid, gen, dev)
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = {d: out[d]["launches"] for d in DTYPES}
+    out["phase_s"] = time.perf_counter() - t23
+    print(f"  phase 23: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6924,6 +7236,7 @@ def main() -> int:
     soak_only = "--soak" in sys.argv[1:]
     scale_only = "--scale" in sys.argv[1:]
     fleet_only = "--fleet" in sys.argv[1:]
+    mesh_only = "--mesh" in sys.argv[1:]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7015,6 +7328,12 @@ def main() -> int:
         print("phase 22: the fleet tier", flush=True)
         flres = fleet_main(serve, metrics, lk, dev)
         print("main path: " + json.dumps({"serve_fleet": flres}))
+        print(smi)
+        return 0
+    if mesh_only:
+        print("phase 23: the meshes", flush=True)
+        msres = mesh_main(stt, pk, metrics, gen, dev)
+        print("main path: " + json.dumps({"mesh": msres}))
         print(smi)
         return 0
     if profile_only:
@@ -7149,7 +7468,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 22: the fleet tier", flush=True)
     flres = fleet_main(serve, metrics, lk, dev, gate22)
-    print(f"  phases 2-22: {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print("phase 23: the meshes", flush=True)
+    msres = mesh_main(stt, pk, metrics, gen, dev)
+    print(f"  phases 2-23: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
     # Cholesky kernels and the trsm pair of potrs_from_global, gesv for
@@ -7176,7 +7498,10 @@ def main() -> int:
             entries.append({
                 "name": f"{name}.{suf}", "route": "cuda",
                 "source": f"slate_tpu_torch/csrc/{src}",
-                "replaces": k["replaces"], "launches": runs[d]["launches"][name],
+                "replaces": k["replaces"],
+                # tile_norms: the norm phase's path and phase 23's mesh norms
+                "launches": runs[d]["launches"][name] + (
+                    msres["launches"][d]["tile_norms"] if name == "tile_norms" else 0),
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -7193,7 +7518,7 @@ def main() -> int:
                                       "serve_fabric": fbres,
                                       "serve_soak": skres,
                                       "serve_scale": scres,
-                                      "serve_fleet": flres,
+                                      "serve_fleet": flres, "mesh": msres,
                                       "band_indefinite": bres,
                                       "eig": eres, "svd": svres,
                                       "norm": strip(nres), "trsm_lu_modes": lu_modes,

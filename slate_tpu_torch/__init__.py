@@ -1,38 +1,39 @@
 """slate_tpu_torch — the PyTorch / CUDA port of slate_tpu for NVIDIA Hopper.
 
 The JAX package ``slate_tpu`` stays beside it as the reference; this
-package imports neither JAX nor anything of it.  It carries the
-single-device Cholesky, LU and QR / least-squares solve paths: the tile
-layout and matrix classes, the recursive-schedule factorizations
-(``potrf``/``posv``, ``getrf``/``gesv`` with partial pivoting, no
-pivoting, tournament pivoting or the random butterfly transform,
-``getri``, ``geqrf``, ``gelqf``, ``cholqr``, ``gels``), the solve phases
-(``potrs``, ``getrs``, ``unmqr``/``unmlq``, ``potrs_from_global``,
-``getrs_from_global``, ``gels_solve_from_global``), the inverses
-(``trtri``, ``trtrm``, ``potri``) and condition estimators
-(``gecondest``, ``pocondest``, ``trcondest``), the level-3 BLAS
-(``gemm``, ``hemm``/``symm``, ``herk``/``syrk``, ``her2k``/``syr2k``,
-``trmm``, ``trsm``), the norm and elementwise drivers (``norm``,
-``colNorms``, ``add``, ``copy``, ``scale``, ``scale_row_col``, ``set``,
-``set_lambdas``), the tile distribution functions (``func``), the
-matrix generator (``matgen``: ``generate_matrix``, ``cond_matrix``),
-the mixed-precision solvers (``gesv_mixed``, ``posv_mixed`` and their
-GMRES-IR variants, over the ``refine`` subsystem), the band kinds and
-solvers (``BandMatrix``, ``TriangularBandMatrix``,
-``HermitianBandMatrix``; ``gbmm``, ``hbmm``, ``tbsm``, ``gbtrf``/``gbtrs``/
-``gbsv``, ``pbtrf``/``pbtrs``/``pbsv`` on windowed band kernels), the
-Hermitian-indefinite solvers (``hetrf``/``hetrs``/``hesv``: pivot-free
-LDL^H, Aasen's LTL^H on the host, the random butterfly), the Hermitian
-eigensolvers (``heev`` two-stage through ``he2hb``, the bulge chase and
-divide and conquer; ``sterf``/``steqr``/``stedc``, ``unmtr_he2hb``,
-``hegst``/``hegv``/``sygv``), the verb API of those slices (``simplified``) and the serving tier above them
-(``serve``: buckets, the executable and factor caches, a one-lane
-``SolverService`` and ``serve.gesv/posv/gels``).  Every Pallas kernel of the
-JAX package is rewritten by hand in CUDA C++ for Hopper
-(``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
+package imports neither JAX nor anything of it.  What it carries:
 
+- the tile layout and matrix classes, dense and band, and the process
+  grids: ``ProcessGrid.single`` (one device) and ``ProcessGrid.from_ranks``,
+  a p x q mesh over ``torch.distributed`` (NCCL on GPUs, gloo on the
+  CPU; one rank a device), each rank holding its block of the tiles;
+- the level-3 BLAS (``gemm``, ``hemm``/``symm``, ``herk``/``syrk``,
+  ``her2k``/``syr2k``, ``trmm``, ``trsm``) with their mesh paths (SUMMA,
+  stationary-A, the triangle-aware kernels of ``parallel/spmd_blas.py``;
+  ``trsm`` on a mesh raises until its pipeline is ported), the norm and
+  elementwise drivers (``norm`` and ``colNorms``, on a mesh too,
+  ``redistribute``, ``print_matrix``, ``add``, ``copy``, ``scale``,
+  ``scale_row_col``, ``set``, ``set_lambdas``) and the gather-fallback
+  accounting (``internal/fallbacks.py``);
+- on one device: the Cholesky, LU (partial, none, tournament pivoting,
+  the random butterfly; ``getri``) and QR / least-squares solvers with
+  their solve phases, the inverses and condition estimators, the
+  mixed-precision solvers (``refine``), the band and Hermitian-indefinite
+  solvers, the Hermitian eigensolvers (``heev``, ``hegv``, the tridiagonal
+  solvers) and the SVD (``svd``, ``ge2tb``, ``tb2bd``, ``bdsqr``); a
+  distributed operand raises ``DistributedException``;
+- the matrix generator (``matgen``), the tile distribution functions
+  (``func``) and the verb API (``simplified``);
+- the serving tier (``serve``: buckets, the executable and factor
+  caches, the artifact store, a ``SolverService`` of replica lanes with
+  the integrity and admission planes) and its planes: the factor fabric
+  (``fabric``), the soak fabric (``soak``), the elastic capacity plane
+  (``scale``) and the fleet tier (``fleet``).
+
+Every Pallas kernel of the JAX package is rewritten by hand in CUDA C++
+for Hopper (``ops/hopper/panel_kernels.py``, sources in ``csrc/``).
 Entry points run on ``cuda:0`` unless the caller asks for another
-device (``ProcessGrid.single("cpu")``).
+device (``ProcessGrid.single("cpu")``, or ``device="cpu"`` for a mesh).
 """
 
 from . import func
@@ -81,7 +82,18 @@ from .matrix.matrix import (
     TriangularBandMatrix,
     TriangularMatrix,
 )
-from .drivers.aux import add, colNorms, copy, norm, scale, scale_row_col, set, set_lambdas
+from .drivers.aux import (
+    add,
+    colNorms,
+    copy,
+    norm,
+    print_matrix,
+    redistribute,
+    scale,
+    scale_row_col,
+    set,
+    set_lambdas,
+)
 from .drivers.blas3 import gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm, trsm
 from .drivers.chol import pocondest, posv, potrf, potri, potrs, potrs_from_global, trtri, trtrm
 from .drivers.lu import (

@@ -17,11 +17,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..aux import metrics
 from ..aux.metrics import instrumented
 from ..enums import Diag, Op, Side, Uplo
 from ..exceptions import slate_assert
-from ..matrix.base import is_distributed
+from ..internal import fallbacks
+from ..matrix.base import single_device
 from ..matrix.matrix import (
     BandMatrix,
     HermitianBandMatrix,
@@ -37,6 +37,13 @@ from ..parallel.layout import tiles_from_global
 from ..types import Pivots
 from . import blas3, chol, lu
 
+
+
+def _on_grid(M) -> bool:
+    """M is laid out for a p x q grid: a logical grid on one process (a
+    mesh's operands raise at the drivers' entry), routed as the JAX
+    package routes its distributed operands."""
+    return M.grid is not None and M.grid.size > 1
 
 @instrumented("gbmm")
 def gbmm(alpha, A: BandMatrix, B: Matrix, beta, C: Matrix, opts=None) -> Matrix:
@@ -87,6 +94,7 @@ def _apply_pivots(B2: torch.Tensor, pivots: Optional[Pivots], m: int) -> torch.T
 
 
 @instrumented("tbsm")
+@single_device("8b")
 def tbsm(side: Side, alpha, A: TriangularBandMatrix, B: Matrix,
          pivots: Optional[Pivots] = None, opts=None) -> Matrix:
     """Triangular band solve, optionally applying pivots first
@@ -105,7 +113,7 @@ def tbsm(side: Side, alpha, A: TriangularBandMatrix, B: Matrix,
     )
     kd, n = A.kd, A.n
     eff_lower = (A.uplo == Uplo.Lower) != (A.op != Op.NoTrans)
-    if not is_distributed(B) and _band_narrow(kd, n) and A.m == A.n:
+    if not _on_grid(B) and _band_narrow(kd, n) and A.m == A.n:
         B2 = _apply_pivots(B.to_global(), pivots, B.m)
         T2 = A._with(op=Op.NoTrans).to_global()
         E = T2.mH if A.op == Op.ConjTrans else (T2.T if A.op == Op.Trans else T2)
@@ -131,6 +139,7 @@ def tbsm(side: Side, alpha, A: TriangularBandMatrix, B: Matrix,
 
 
 @instrumented("gbtrf")
+@single_device("8b")
 def gbtrf(A: BandMatrix, opts: Optional[Options] = None
           ) -> Tuple[BandMatrix, Pivots, torch.Tensor]:
     """Band LU with partial pivoting (reference: src/gbtrf.cc).  Dense-
@@ -142,7 +151,7 @@ def gbtrf(A: BandMatrix, opts: Optional[Options] = None
     the Hopper panel_lu kernel a window on a CUDA device) and return
     pivots carrying ``band_lperms``/``band_w``; wide bands and matrices
     on a p x q grid run the dense getrf."""
-    if (not is_distributed(A) and A.m == A.n and _band_narrow(A.kl + A.ku, A.n)
+    if (not _on_grid(A) and A.m == A.n and _band_narrow(A.kl + A.ku, A.n)
             and A.op == Op.NoTrans):
         lu2d, lperms, perm, w = band_kernels.band_getrf(A.to_global(), A.kl, A.ku)
         LUb = BandMatrix(tiles_from_global(lu2d.to(A.dtype), A.layout), A.layout,
@@ -158,6 +167,7 @@ def gbtrf(A: BandMatrix, opts: Optional[Options] = None
 
 
 @instrumented("gbtrs")
+@single_device("8b")
 def gbtrs(LU: BandMatrix, pivots: Pivots, B: Matrix, opts=None) -> Matrix:
     """(reference: src/gbtrs.cc).
 
@@ -166,13 +176,8 @@ def gbtrs(LU: BandMatrix, pivots: Pivots, B: Matrix, opts=None) -> Matrix:
     perm alone does not reproduce it, so this route is taken whatever
     B's grid; fully-swapped dense factorizations go through getrs."""
     if pivots is not None and pivots.band_lperms is not None:
-        if is_distributed(B):
-            # B is gathered from its grid.  The JAX package records this
-            # through internal/fallbacks.py (a process-wide tally, and a
-            # raise under Option.RequireSpmd), which comes with ROADMAP.md
-            # Queue 1 item 8; the metrics counters it mirrors are kept.
-            metrics.inc("fallbacks.gathered")
-            metrics.inc("fallbacks.gbtrs")
+        if _on_grid(B):
+            fallbacks.record("gbtrs", opts, "windowed band solve gathers distributed B")
         kl = LU.kl
         ku_orig = LU.ku - kl  # gbtrf stored ku = original ku + kl
         G = LU._with(op=Op.NoTrans).to_global()
@@ -183,6 +188,7 @@ def gbtrs(LU: BandMatrix, pivots: Pivots, B: Matrix, opts=None) -> Matrix:
 
 
 @instrumented("gbsv")
+@single_device("8b")
 def gbsv(A: BandMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, BandMatrix, Pivots, torch.Tensor]:
     """Band solve (reference: src/gbsv.cc = gbtrf + gbtrs)."""
@@ -191,6 +197,7 @@ def gbsv(A: BandMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("pbtrf")
+@single_device("8b")
 def pbtrf(A: HermitianBandMatrix, opts: Optional[Options] = None
           ) -> Tuple[TriangularBandMatrix, torch.Tensor]:
     """Band Cholesky (reference: src/pbtrf.cc); no fill-in beyond kd.
@@ -201,7 +208,7 @@ def pbtrf(A: HermitianBandMatrix, opts: Optional[Options] = None
     the dense potrf (on a CUDA device at n >= 2048 the Hopper Cholesky
     kernels)."""
     Af = _hermitian_band_full(A)
-    if not is_distributed(A) and _band_narrow(A.kd, A.n):
+    if not _on_grid(A) and _band_narrow(A.kd, A.n):
         L2 = band_kernels.band_potrf_lower(Af, A.kd)
         info = torch.where(torch.isfinite(L2).all(), 0, 1).to(torch.int32)
         F2 = L2.mH if A.uplo == Uplo.Upper else L2
@@ -217,10 +224,11 @@ def pbtrf(A: HermitianBandMatrix, opts: Optional[Options] = None
 
 
 @instrumented("pbtrs")
+@single_device("8b")
 def pbtrs(L: TriangularBandMatrix, B: Matrix, opts=None) -> Matrix:
     """(reference: src/pbtrs.cc): two windowed band solves on narrow
     bands, dense trsm sweeps otherwise."""
-    if not is_distributed(B) and _band_narrow(L.kd, L.n):
+    if not _on_grid(B) and _band_narrow(L.kd, L.n):
         G = L._with(op=Op.NoTrans).to_global()
         if L.uplo == Uplo.Upper:
             G = G.mH  # A = U^H U: L_eff = U^H (lower band)
@@ -234,6 +242,7 @@ def pbtrs(L: TriangularBandMatrix, B: Matrix, opts=None) -> Matrix:
 
 
 @instrumented("pbsv")
+@single_device("8b")
 def pbsv(A: HermitianBandMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularBandMatrix, torch.Tensor]:
     """Band SPD solve (reference: src/pbsv.cc = pbtrf + pbtrs)."""

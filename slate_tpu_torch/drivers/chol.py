@@ -23,7 +23,7 @@ from ..enums import Diag, Op, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.norm1est import rcond
 from ..internal.precision import hdot
-from ..matrix.base import conj_transpose
+from ..matrix.base import conj_transpose, single_device
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import chol_kernels
 from ..ops.hopper import panel_kernels as pk
@@ -32,6 +32,7 @@ from . import blas3
 
 
 @instrumented("potrf")
+@single_device("8b")
 def potrf(A: HermitianMatrix, opts: Optional[Options] = None
           ) -> Tuple[TriangularMatrix, torch.Tensor]:
     """Cholesky: A = L L^H (uplo Lower) or U^H U (Upper)
@@ -63,6 +64,7 @@ def potrf(A: HermitianMatrix, opts: Optional[Options] = None
 
 
 @instrumented("potrs")
+@single_device("8b")
 def potrs(L: TriangularMatrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B given the Cholesky factor (reference: src/potrs.cc:
     two trsm sweeps)."""
@@ -105,6 +107,7 @@ def potrs_from_global(Lg: torch.Tensor, Bg: torch.Tensor,
 
 
 @instrumented("posv")
+@single_device("8b")
 def posv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor]:
     """Solve SPD A X = B (reference: src/posv.cc = potrf + potrs).
@@ -116,6 +119,7 @@ def posv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("trtri")
+@single_device("8b")
 def trtri(T: TriangularMatrix, opts: Optional[Options] = None) -> TriangularMatrix:
     """Triangular inverse (reference: src/trtri.cc) by
     ``chol_kernels.tri_inv_blocked``: the stored triangle (a unit
@@ -139,6 +143,7 @@ def trtri(T: TriangularMatrix, opts: Optional[Options] = None) -> TriangularMatr
                                         uplo=out_uplo, diag=T.diag)
 
 
+@single_device("8b")
 def trtrm(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
     """L^H L (Lower) or U U^H (Upper) of the stored triangle, the second
     half of potri (reference: src/trtrm.cc)."""
@@ -154,6 +159,7 @@ def trtrm(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatri
 
 
 @instrumented("potri")
+@single_device("8b")
 def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
     """SPD inverse from the Cholesky factor: A^-1 = L^-H L^-1
     (reference: src/potri.cc = trtri + trtrm)."""
@@ -166,6 +172,7 @@ def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatri
 from .mixed import posv_mixed, posv_mixed_gmres  # noqa: E402,F401
 
 
+@single_device("8b")
 def pocondest(L: TriangularMatrix, anorm, opts: Optional[Options] = None) -> torch.Tensor:
     """Reciprocal condition estimate from the Cholesky factor (reference:
     src/pocondest.cc, through the Hager/Higham estimator of

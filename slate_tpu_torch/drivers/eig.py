@@ -19,7 +19,8 @@ jits has no counterpart.  The hb2st route taken is counted in
 ``aux.metrics`` (``heev.hb2st.host`` / ``heev.hb2st.device``).
 
 Not ported yet: the mesh branches (``spmd_he2hb``, ``spmd_hegst``,
-``spmd_band_storage``; ROADMAP.md Queue 1 item 8).
+``spmd_band_storage``; ROADMAP.md Queue 1 item 8c): a distributed operand
+raises.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..aux.metrics import instrumented
 from ..enums import MethodEig, Op, Option, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.precision import check_f32_precision, hdot
-from ..matrix.base import conj_transpose
+from ..matrix.base import conj_transpose, single_device
 from ..matrix.matrix import HermitianBandMatrix, HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import blas2d, bulge
 from ..ops.householder import _geqrf_panel, larft, materialize_v
@@ -48,6 +49,7 @@ from . import blas3, chol
 
 
 @instrumented("he2hb")
+@single_device("8c")
 def he2hb(A: HermitianMatrix, opts: Optional[Options] = None
           ) -> Tuple[HermitianBandMatrix, Matrix, TriangularFactors]:
     """Reduce Hermitian A to band form with bandwidth nb (reference:
@@ -91,6 +93,7 @@ def he2hb(A: HermitianMatrix, opts: Optional[Options] = None
 
 
 @instrumented("unmtr_he2hb")
+@single_device("8c")
 def unmtr_he2hb(side: Side, op: Op, V: Matrix, T: TriangularFactors, C_mat: Matrix,
                 opts: Optional[Options] = None) -> Matrix:
     """Apply the he2hb back-transform Q (reference: src/unmtr_he2hb.cc):
@@ -176,6 +179,7 @@ class _stage(metrics.phase):
 
 
 @instrumented("heev_staged")
+@single_device("8c")
 def heev_staged(A: HermitianMatrix, opts: Optional[Options] = None, vectors: bool = True):
     """Two-stage heev timed stage by stage (reference staging:
     src/heev.cc:123-210): he2hb + band gather | hb2st | stedc +
@@ -217,6 +221,7 @@ def heev_staged(A: HermitianMatrix, opts: Optional[Options] = None, vectors: boo
 
 
 @instrumented("heev")
+@single_device("8c")
 def heev(A: HermitianMatrix, opts: Optional[Options] = None, vectors: bool = True
          ) -> Tuple[torch.Tensor, Optional[Matrix]]:
     """Hermitian eigendecomposition (reference: src/heev.cc two-stage:
@@ -288,6 +293,7 @@ def _lower_factor(L: TriangularMatrix) -> torch.Tensor:
 
 
 @instrumented("hegst")
+@single_device("8c")
 def hegst(itype: int, A: HermitianMatrix, L: TriangularMatrix,
           opts: Optional[Options] = None) -> HermitianMatrix:
     """Reduce the generalized problem to standard form (reference:
@@ -312,6 +318,7 @@ def hegst(itype: int, A: HermitianMatrix, L: TriangularMatrix,
 
 
 @instrumented("hegv")
+@single_device("8c")
 def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts: Optional[Options] = None,
          vectors: bool = True):
     """Generalized Hermitian-definite eigenproblem (reference:
@@ -336,6 +343,7 @@ def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts: Optional[Opti
     return w, X, info
 
 
+@single_device("8c")
 def sygv(itype, A, B, opts=None, vectors=True):
     """Real-symmetric alias of hegv (reference: hegv covers sygv)."""
     return hegv(itype, A, B, opts, vectors)

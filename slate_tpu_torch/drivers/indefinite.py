@@ -35,7 +35,7 @@ from ..enums import Op, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.precision import hdot
 from ..matgen.philox import random_torch
-from ..matrix.base import conj_transpose
+from ..matrix.base import conj_transpose, single_device
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops.aasen import aasen_ltl, aasen_solve
 from ..options import Options
@@ -73,6 +73,7 @@ def _ldl_nopiv(Af: torch.Tensor, mb: int, grid, opts):
 
 
 @instrumented("hetrf")
+@single_device("8b")
 def hetrf(A: HermitianMatrix, opts: Optional[Options] = None, method: str = "auto"
           ) -> Tuple[TriangularMatrix, torch.Tensor, torch.Tensor]:
     """Factor A = L D L^H, L unit lower, D real diagonal (reference
@@ -140,6 +141,7 @@ def _divide_d(Y: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 @instrumented("hetrs")
+@single_device("8b")
 def hetrs(L: TriangularMatrix, d: torch.Tensor, B: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B from the L D L^H factor (reference: src/hetrs.cc).
@@ -175,6 +177,7 @@ def hetrs(L: TriangularMatrix, d: torch.Tensor, B: Matrix,
 
 
 @instrumented("hesv")
+@single_device("8b")
 def hesv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor, torch.Tensor]:
     """Hermitian-indefinite solve (reference: src/hesv.cc = hetrf +

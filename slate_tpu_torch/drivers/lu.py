@@ -20,7 +20,7 @@ estimator (``internal/norm1est.py``).
 The mixed-precision solvers live in ``drivers/mixed.py`` and are
 re-exported here (``gesv_mixed``, ``gesv_mixed_gmres``, and the
 deprecated ``ir_refine_while``); the mesh paths come with ROADMAP.md's
-Queue 1 item 8.
+Queue 1 item 8b (a distributed operand raises until then).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from ..enums import Diag, MethodLU, Norm, Op, Option, Uplo
 from ..exceptions import slate_assert
 from ..internal.norm1est import rcond
 from ..internal.precision import hdot
-from ..matrix.base import BaseMatrix
+from ..matrix.base import BaseMatrix, single_device
 from ..matrix.matrix import Matrix, TriangularMatrix
 from ..matgen.philox import random_torch
 from ..ops import lu_kernels
@@ -82,6 +82,7 @@ def _method(opts: Optional[Options]) -> MethodLU:
 
 
 @instrumented("getrf")
+@single_device("8b")
 def getrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Pivots, torch.Tensor]:
     """LU with partial pivoting: P A = L U (reference: src/getrf.cc).
 
@@ -148,6 +149,7 @@ def _nopiv_blocked(G: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 @instrumented("getrf_nopiv")
+@single_device("8b")
 def getrf_nopiv(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, torch.Tensor]:
     """LU without pivoting (reference: src/getrf_nopiv.cc).  Returns (LU,
     info).  The recursive and pallas routes (``auto`` on a CUDA device at
@@ -169,6 +171,7 @@ def getrf_nopiv(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, torc
 
 
 @instrumented("getrs")
+@single_device("8b")
 def getrs(LU: Matrix, pivots: Optional[Pivots], B: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B from getrf factors (reference: src/getrs.cc: rows
@@ -183,6 +186,7 @@ def getrs(LU: Matrix, pivots: Optional[Pivots], B: Matrix,
     return B._with(data=tiles_from_global(X.to(B.dtype), B.layout))
 
 
+@single_device("8b")
 def getrs_nopiv(LU: Matrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """(reference: src/getrs_nopiv.cc)"""
     return getrs(LU, None, B, opts)
@@ -205,6 +209,7 @@ def getrs_from_global(LUg: torch.Tensor, Bg: torch.Tensor,
 
 
 @instrumented("gesv")
+@single_device("8b")
 def gesv(A: Matrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, Matrix, Pivots, torch.Tensor]:
     """Solve A X = B (reference: src/gesv.cc; MethodLU PartialPiv (the
@@ -220,6 +225,7 @@ def gesv(A: Matrix, B: Matrix, opts: Optional[Options] = None
     return getrs(LU, piv, B, opts), LU, piv, info
 
 
+@single_device("8b")
 def gesv_nopiv(A: Matrix, B: Matrix, opts: Optional[Options] = None):
     """(reference: src/gesv_nopiv.cc)"""
     return gesv(A, B, {**(dict(opts) if opts else {}), Option.MethodLU: MethodLU.NoPiv})
@@ -279,6 +285,7 @@ def _gerbt_full(A: Matrix, depth: int, seed: int):
     return Gp, du, dv, n2
 
 
+@single_device("8b")
 def gerbt(A: Matrix, depth: int = 2, seed: int = 42, opts: Optional[Options] = None):
     """Two-sided random butterfly transform A' = U^T A V (reference:
     src/gerbt.cc); returns (A', diags_U, diags_V)."""
@@ -288,6 +295,7 @@ def gerbt(A: Matrix, depth: int = 2, seed: int = 42, opts: Optional[Options] = N
 
 
 @instrumented("gesv_rbt")
+@single_device("8b")
 def gesv_rbt(A: Matrix, B: Matrix, opts: Optional[Options] = None
              ) -> Tuple[Matrix, Matrix, Pivots, torch.Tensor]:
     """RBT solve: butterfly-randomize, factor without pivoting, solve,
@@ -318,6 +326,7 @@ def gesv_rbt(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("getri")
+@single_device("8b")
 def getri(LU: Matrix, pivots: Pivots, opts: Optional[Options] = None) -> Matrix:
     """Matrix inverse from LU factors (reference: src/getri.cc /
     getriOOP.cc): A^-1 = U^-1 L^-1 P."""
@@ -336,6 +345,7 @@ from ..refine.ir import ir_refine_while  # noqa: E402,F401
 
 
 @instrumented("gecondest")
+@single_device("8b")
 def gecondest(LU: Matrix, pivots: Pivots, anorm, norm_type: Norm = Norm.One,
               opts=None) -> torch.Tensor:
     """Reciprocal condition estimate from LU factors (reference:
@@ -360,6 +370,7 @@ def gecondest(LU: Matrix, pivots: Pivots, anorm, norm_type: Norm = Norm.One,
     return rcond(anorm, solve, solve_h, n, LU.dtype, norm_type == Norm.Inf, device=G.device)
 
 
+@single_device("8b")
 def trcondest(T: TriangularMatrix, norm_type: Norm = Norm.One, opts=None) -> torch.Tensor:
     """Triangular reciprocal condition estimate (reference:
     src/trcondest.cc, through internal_norm1est.cc): Hager/Higham on

@@ -51,6 +51,7 @@ import torch
 from ..aux import faults, metrics, spans
 from ..aux.metrics import instrumented
 from ..enums import Option, RefineMethod
+from ..matrix.base import single_device
 from ..matrix.matrix import HermitianMatrix, Matrix
 from ..ops import chol_kernels, lu_kernels
 from ..options import Options, resolve_schedule_opts
@@ -281,6 +282,7 @@ def _posv_like(routine: str, A: HermitianMatrix, B: Matrix, opts: Optional[Optio
 
 
 @instrumented("gesv_mixed")
+@single_device("8b")
 def gesv_mixed(A: Matrix, B: Matrix, opts: Optional[Options] = None
                ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision LU solve with iterative refinement (reference:
@@ -291,6 +293,7 @@ def gesv_mixed(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("gesv_mixed_gmres")
+@single_device("8b")
 def gesv_mixed_gmres(A: Matrix, B: Matrix, opts: Optional[Options] = None
                      ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision solve with restarted GMRES-IR, LU preconditioner
@@ -301,6 +304,7 @@ def gesv_mixed_gmres(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("posv_mixed")
+@single_device("8b")
 def posv_mixed(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
                ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision SPD solve: low-precision Cholesky + working-
@@ -309,6 +313,7 @@ def posv_mixed(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("posv_mixed_gmres")
+@single_device("8b")
 def posv_mixed_gmres(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
                      ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision SPD solve with GMRES-IR, low-precision Cholesky

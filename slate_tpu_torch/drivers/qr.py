@@ -12,7 +12,8 @@ through the Hopper ``larft`` kernel.  ``gels_solve_from_global`` is the
 solve-only entry point of a factor cache hit over the serve tier's
 packed factor.
 
-Not ported yet: the mesh path (``spmd_qr``, ROADMAP.md Queue 1 item 8).
+Not ported yet: the mesh path (``spmd_qr``, ROADMAP.md Queue 1 item 8b);
+a distributed operand raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..aux.metrics import instrumented
 from ..enums import MethodGels, Op, Option, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.precision import hdot
-from ..matrix.base import BaseMatrix, conj_transpose
+from ..matrix.base import BaseMatrix, conj_transpose, single_device
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import qr_fast
 from ..ops.householder import apply_block_reflector, geqrf as _geqrf_kernel, larft, materialize_v
@@ -50,6 +51,7 @@ def _padded_global_splice(A: BaseMatrix) -> torch.Tensor:
 
 
 @instrumented("geqrf")
+@single_device("8b")
 def geqrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, TriangularFactors]:
     """Householder QR: A = Q R (reference: src/geqrf.cc).
 
@@ -98,6 +100,7 @@ def _vt_panels(fac: Matrix) -> Iterator[Tuple[int, torch.Tensor]]:
 
 
 @instrumented("unmqr")
+@single_device("8b")
 def unmqr(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Multiply by Q from geqrf (reference: src/unmqr.cc).
@@ -121,6 +124,7 @@ def unmqr(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
     return C._with(data=tiles_from_global(C2.to(C.dtype), C.layout))
 
 
+@single_device("8b")
 def ungqr(fac: Matrix, T: TriangularFactors, opts: Optional[Options] = None) -> Matrix:
     """The m x min(m, n) orthogonal factor Q (LAPACK orgqr analogue; the
     reference tester forms Q by unmqr on the identity, test_geqrf.cc)."""
@@ -135,6 +139,7 @@ def _as_matrix(M: BaseMatrix, grid) -> Matrix:
 
 
 @instrumented("gelqf")
+@single_device("8b")
 def gelqf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, TriangularFactors]:
     """LQ factorization A = L Q (reference: src/gelqf.cc), as the dual of
     QR on A^H: A^H = Qr R, so A = R^H Qr^H = L Q.
@@ -148,6 +153,7 @@ def gelqf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     return A._with(data=fac.data, layout=fac.layout), T
 
 
+@single_device("8b")
 def unmlq(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Multiply by Q from gelqf (reference: src/unmlq.cc).  In the dual
@@ -158,6 +164,7 @@ def unmlq(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
 
 
 @instrumented("cholqr")
+@single_device("8b")
 def cholqr(A: Matrix, opts: Optional[Options] = None
            ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor]:
     """Cholesky QR (reference: src/cholqr.cc): H = A^H A by herk, R the
@@ -197,6 +204,7 @@ def gels_solve_from_global(Fg: torch.Tensor, Bg: torch.Tensor, m: int, nb: int) 
 
 
 @instrumented("gels")
+@single_device("8b")
 def gels(A: Matrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """Least squares / minimum-norm solve (reference: src/gels.cc with
     MethodGels QR | CholQR; gels_qr.cc, gels_cholqr.cc).

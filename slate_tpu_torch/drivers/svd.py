@@ -26,7 +26,7 @@ JAX package's within rounding, not bitwise.
 
 Not ported yet: the mesh branches (``spmd_ge2tb``,
 ``spmd_unmbr_ge2tb_left`` / ``_right``, ``spmd_upper_band_diagonals``)
-and ``fallbacks.record`` (ROADMAP.md Queue 1 item 8).
+(ROADMAP.md Queue 1 item 8c): a distributed operand raises.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from torch.profiler import record_function
 from ..aux.metrics import instrumented
 from ..enums import Op, Side, Uplo
 from ..internal.precision import check_f32_precision, hdot
-from ..matrix.base import conj_transpose
+from ..matrix.base import conj_transpose, single_device
 from ..matrix.matrix import Matrix, TriangularBandMatrix
 from ..ops import bulge
 from ..ops.householder import _geqrf_panel, larft, materialize_v
@@ -63,6 +63,7 @@ def _panel_qr(P: torch.Tensor):
 
 
 @instrumented("ge2tb")
+@single_device("8c")
 def ge2tb(A: Matrix, opts: Optional[Options] = None
           ) -> Tuple[TriangularBandMatrix, Matrix, TriangularFactors, Matrix, TriangularFactors]:
     """Reduce general A to upper triangular band form with bandwidth nb
@@ -218,6 +219,7 @@ def bdsqr(d, e, vectors: bool = False):
 
 
 @instrumented("svd")
+@single_device("8c")
 def svd(A: Matrix, opts: Optional[Options] = None, vectors: bool = False
         ) -> Tuple[torch.Tensor, Optional[Matrix], Optional[Matrix]]:
     """Singular value decomposition (reference: src/svd.cc two-stage:
@@ -283,6 +285,7 @@ def _operand(C2, V: torch.Tensor) -> torch.Tensor:
 
 
 @instrumented("unmbr_ge2tb_left")
+@single_device("8c")
 def unmbr_ge2tb_left(UVm: Matrix, UT: TriangularFactors, C2, A: Matrix,
                      opts: Optional[Options] = None) -> Matrix:
     """Apply the left (QR-side) ge2tb reflectors: C <- Q_U C (reference:
@@ -304,6 +307,7 @@ def unmbr_ge2tb_left(UVm: Matrix, UT: TriangularFactors, C2, A: Matrix,
 
 
 @instrumented("unmbr_ge2tb_right")
+@single_device("8c")
 def unmbr_ge2tb_right(VVm: Matrix, VT: TriangularFactors, C2, A: Matrix,
                       opts: Optional[Options] = None) -> Matrix:
     """Apply the right (LQ-side) reflectors: C <- C Q_V^H, panels last

@@ -355,7 +355,7 @@ class Option(enum.Enum):
     Schedule = "schedule"  # factorization schedule: flat|recursive|auto
     RefineMethod = "refine_method"  # mixed-precision refinement: ir|gmres|auto
     MaxUnrolledTiles = "max_unrolled_tiles"  # unroll k-loop below this nt
-    UseShardMap = "use_shard_map"  # explicit SPMD fast path vs GSPMD
+    UseShardMap = "use_shard_map"  # explicit SPMD fast path vs GSPMD (the port has no GSPMD and does not read it)
     RequireSpmd = "require_spmd"  # error instead of gathered fallback
     # serving layer (serve/)
     ServeQueueLimit = "serve_queue_limit"  # admission bound (-> Rejected)

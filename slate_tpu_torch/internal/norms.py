@@ -28,6 +28,7 @@ import torch
 from ..enums import Diag, Norm, NormScope, Uplo
 from ..exceptions import SlateError
 from ..ops.hopper import panel_kernels as pk
+from ..parallel import collectives as coll
 from ..parallel.layout import TileLayout
 from .tile_ops import diag_mask, tri_mask
 
@@ -205,3 +206,134 @@ def henorm(norm: Norm, T: torch.Tensor, layout: TileLayout, uplo: Uplo) -> torch
     """Hermitian norm (reference: internal_henorm.cc, device_henorm.cu):
     synorm's structure with |.| of the complex entries."""
     return synorm(norm, T, layout, uplo)
+
+
+# -- on a mesh ---------------------------------------------------------------
+# Each rank holds its (mtl, ntl, mb, nb) block of the tiles.  The JAX
+# package leaves the reduction across processes to GSPMD, which turns its
+# masked reductions into ICI psum / pmax; here that reduction is written
+# out: per-tile statistics of the local block (tile_norms for a general
+# matrix, with this rank's slice of the layout's counts), then a pmax for
+# Max, a psum of the column sums along 'p' and a pmax along 'q' for One
+# (the transpose for Inf), and psums of the scaled sums of squares for Fro.
+
+
+def _local_counts(layout: TileLayout, grid, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    rows, cols = _layout_tensors(layout, device)[:2]
+    r, c = grid.position
+    return (rows[r * layout.mtl:(r + 1) * layout.mtl],
+            cols[c * layout.ntl:(c + 1) * layout.ntl])
+
+
+def _natural(local: torch.Tensor, grid, axis: str, scatter: torch.Tensor,
+             length: int) -> torch.Tensor:
+    """Per-slot sums of this rank's slots along ``axis`` (ntl or mtl,
+    nb) -> the natural-order (length,) vector on every rank."""
+    full = coll.all_gather(local, grid, axis)
+    return full.reshape(-1, full.shape[-1])[scatter].reshape(-1)[:length]
+
+
+def _mesh_sums(absA: torch.Tensor, layout: TileLayout, grid, which: str,
+               natural: bool = False) -> torch.Tensor:
+    """Column ('one') or row ('inf') sums of |A| from the per-tile sums of
+    the local block: the full sums of this rank's slots (psum along the
+    other axis), or with ``natural`` the (n,) / (m,) vector."""
+    mtl, ntl, mb, nb = absA.shape
+    if which == "one":
+        part = coll.psum(absA.sum(dim=(0, 2)), grid, coll.ROW_AXIS)  # (ntl, nb)
+        if natural:
+            return _natural(part, grid, coll.COL_AXIS,
+                            _layout_tensors(layout, absA.device)[3], layout.n)
+        return part
+    part = coll.psum(absA.sum(dim=(1, 3)), grid, coll.COL_AXIS)  # (mtl, mb)
+    if natural:
+        return _natural(part, grid, coll.ROW_AXIS,
+                        _layout_tensors(layout, absA.device)[2], layout.m)
+    return part
+
+
+def mesh_genorm(norm: Norm, T: torch.Tensor, layout: TileLayout, grid,
+                scope: NormScope = NormScope.Matrix) -> torch.Tensor:
+    """``genorm`` of a matrix whose block on this rank is T: tile_norms
+    on the local tiles (|T| for a complex T), then the explicit
+    reduction over the mesh.  The Max norm is the single-device one bit
+    for bit; the sums differ from it by rounding only."""
+    A = T.abs() if T.is_complex() else T
+    if A.stride(-1) != 1:  # a resolved transposed view
+        A = A.contiguous()
+    mtl, ntl, mb, nb = A.shape
+    rows, cols = _local_counts(layout, grid, A.device)
+    stack = A.reshape(mtl * ntl, mb, nb)
+
+    def stats(kind, **fro):
+        return pk.tile_norms(stack, kind, rows=rows, cols=cols, **fro)
+
+    def col_sums():  # this rank's column slots, summed over the whole grid column
+        return coll.psum(stats("one").view(mtl, ntl, nb).sum(dim=0), grid, coll.ROW_AXIS)
+
+    def row_sums():
+        return coll.psum(stats("inf").view(mtl, ntl, mb).sum(dim=1), grid, coll.COL_AXIS)
+
+    if scope == NormScope.Columns:
+        if norm != Norm.One:
+            raise SlateError("column-scope norm supports Norm.One (colNorms)")
+        return _natural(col_sums(), grid, coll.COL_AXIS,
+                        _layout_tensors(layout, A.device)[3], layout.n)
+    if scope == NormScope.Rows:
+        if norm != Norm.Inf:
+            raise SlateError("row-scope norm supports Norm.Inf")
+        return _natural(row_sums(), grid, coll.ROW_AXIS,
+                        _layout_tensors(layout, A.device)[2], layout.m)
+    if norm == Norm.Max:
+        return coll.pmax(stats("max").amax(), grid)
+    if norm == Norm.One:
+        return coll.pmax(col_sums().amax(), grid, coll.COL_AXIS)
+    if norm == Norm.Inf:
+        return coll.pmax(row_sums().amax(), grid, coll.ROW_AXIS)
+    if norm == Norm.Fro:
+        amax, s0 = stats("max_sumsq").unbind(1)
+        amax = coll.pmax(amax.amax(), grid)
+        s0 = coll.psum(s0.sum(), grid)
+        fi = torch.finfo(A.dtype)
+        ok = amax.clamp(fi.tiny ** 0.5 / fi.eps,
+                        (fi.max / max(layout.m * layout.n, 1)) ** 0.5) == amax
+        safe = torch.where(amax == 0, 1, amax)
+        s1 = coll.psum(stats("fro_sumsq", scale=safe, skip=ok).sum(), grid)
+        return torch.sqrt(torch.where(ok, s0, s1)) * torch.where(ok, 1, safe)
+    raise SlateError(f"unsupported norm {norm}")
+
+
+def mesh_masked_norm(kind: str, norm: Norm, T: torch.Tensor, layout: TileLayout, grid,
+                     uplo: Uplo, diag: Diag = Diag.NonUnit) -> torch.Tensor:
+    """``trnorm`` (kind 'tr') or ``synorm`` / ``henorm`` (kind 'sy') of a
+    matrix whose block on this rank is T: the masked reductions of the
+    single-device norms on the local block, reduced over the mesh."""
+    dev = T.device
+    if kind == "tr":
+        absA = _masked(T.abs(), tri_mask(layout, uplo, Diag.NonUnit, device=dev, grid=grid))
+        if diag == Diag.Unit:
+            absA = torch.where(diag_mask(layout, dev, grid), 1, absA)
+        parts = [(absA, 1)]
+    else:
+        absS = _masked(T.abs(), tri_mask(layout, uplo, Diag.Unit, device=dev, grid=grid))
+        absD = _masked(T.abs(), diag_mask(layout, dev, grid))
+        parts = [(absS, 2), (absD, 1)]
+    amax = coll.pmax(torch.stack([a.amax() for a, _ in parts]).amax(), grid)
+    if norm == Norm.Max:
+        return amax
+    if norm == Norm.Fro:
+        return _scaled_fro(amax, lambda safe: coll.psum(
+            sum(((a / safe) ** 2).sum() * w for a, w in parts), grid))
+    if kind == "tr":
+        which = "one" if norm == Norm.One else "inf" if norm == Norm.Inf else None
+        if which is None:
+            raise SlateError(f"unsupported norm {norm}")
+        axis = coll.COL_AXIS if which == "one" else coll.ROW_AXIS
+        return coll.pmax(_mesh_sums(absA, layout, grid, which).amax(), grid, axis)
+    if norm in (Norm.One, Norm.Inf):
+        # column sums of the strict triangle + its row sums (the mirror)
+        # + the diagonal, in natural order
+        return (_mesh_sums(absS, layout, grid, "one", natural=True)
+                + _mesh_sums(absS, layout, grid, "inf", natural=True)
+                + _mesh_sums(absD, layout, grid, "one", natural=True)).amax()
+    raise SlateError(f"unsupported norm {norm}")

@@ -6,7 +6,9 @@ tzadd,tzcopy,tzscale,tzset}.cu; include/slate/internal/device.hh:92-282).
 Every op is one elementwise tensor expression over the whole (P, Q, mb,
 nb) tile tensor; uniform padding makes the batch regular.  The tz*
 (trapezoid) ops take an element mask built from the layout's global
-index maps.  The JAX package routes none of these to a Pallas kernel (its
+index maps.  The ops that build masks or index maps take the matrix's
+``grid``: on a mesh of more than one process they build them for this
+process's (mtl, ntl, mb, nb) block only.  The JAX package routes none of these to a Pallas kernel (its
 ``tile_geadd_pallas`` and ``tile_transpose_pallas`` have no caller), so
 none of them goes to a Hopper kernel here either.
 """
@@ -18,23 +20,17 @@ from typing import Optional
 import torch
 
 from ..enums import Diag, Uplo
-from ..parallel.layout import TileLayout
-
-
-def _index_maps(layout: TileLayout, device):
-    gr = torch.as_tensor(layout.global_rows_np, device=device)[:, None, :, None]
-    gc = torch.as_tensor(layout.global_cols_np, device=device)[None, :, None, :]
-    return gr, gc
+from ..parallel.layout import TileLayout, index_maps
 
 
 # -- masks ------------------------------------------------------------------
 
 
 def tri_mask(layout: TileLayout, uplo: Uplo, diag: Diag = Diag.NonUnit,
-             include_valid_only: bool = True, device=None) -> torch.Tensor:
+             include_valid_only: bool = True, device=None, grid=None) -> torch.Tensor:
     """(P, Q, mb, nb) mask of the uplo triangle (Diag.Unit leaves the
     diagonal out), on ``device``."""
-    gr, gc = _index_maps(layout, device)
+    gr, gc, valid = index_maps(layout, device, grid)
     if uplo == Uplo.Lower:
         mask = gr >= gc if diag == Diag.NonUnit else gr > gc
     elif uplo == Uplo.Upper:
@@ -43,13 +39,13 @@ def tri_mask(layout: TileLayout, uplo: Uplo, diag: Diag = Diag.NonUnit,
         mask = torch.ones(torch.broadcast_shapes(gr.shape, gc.shape), dtype=torch.bool,
                           device=device)
     if include_valid_only:
-        mask = mask & layout.element_mask(device)
+        mask = mask & valid
     return mask
 
 
-def diag_mask(layout: TileLayout, device=None) -> torch.Tensor:
-    gr, gc = _index_maps(layout, device)
-    return (gr == gc) & layout.element_mask(device)
+def diag_mask(layout: TileLayout, device=None, grid=None) -> torch.Tensor:
+    gr, gc, valid = index_maps(layout, device, grid)
+    return (gr == gc) & valid
 
 
 # -- ge (general) ops -------------------------------------------------------
@@ -71,29 +67,27 @@ def gescale(numer, denom, A: torch.Tensor) -> torch.Tensor:
 
 
 def gescale_row_col(layout: TileLayout, R: Optional[torch.Tensor], C: Optional[torch.Tensor],
-                    A: torch.Tensor) -> torch.Tensor:
+                    A: torch.Tensor, grid=None) -> torch.Tensor:
     """A = diag(R) A diag(C) with global row and column scaling vectors
     (device_gescale_row_col.cu).  R has length >= m and C >= n; they are
     gathered through the layout's global index maps."""
     out = A
+    gr, gc, _ = index_maps(layout, A.device, grid)
     if R is not None:
-        gr = torch.as_tensor(layout.global_rows_np, dtype=torch.long, device=A.device)
-        Rt = R.to(A.device)[gr.clamp(0, R.shape[0] - 1)]
-        out = out * Rt[:, None, :, None].to(A.dtype)
+        out = out * R.to(A.device)[gr.long().clamp(0, R.shape[0] - 1)].to(A.dtype)
     if C is not None:
-        gc = torch.as_tensor(layout.global_cols_np, dtype=torch.long, device=A.device)
-        Ct = C.to(A.device)[gc.clamp(0, C.shape[0] - 1)]
-        out = out * Ct[None, :, None, :].to(A.dtype)
+        out = out * C.to(A.device)[gc.long().clamp(0, C.shape[0] - 1)].to(A.dtype)
     return out
 
 
-def geset(layout: TileLayout, offdiag_value, diag_value, A: torch.Tensor) -> torch.Tensor:
+def geset(layout: TileLayout, offdiag_value, diag_value, A: torch.Tensor,
+          grid=None) -> torch.Tensor:
     """Set the off-diagonal and the diagonal elements (device_geset.cu);
     the padding stays zero, so norms and products on padded tensors stay
     right."""
-    out = torch.where(layout.element_mask(A.device),
-                      torch.as_tensor(offdiag_value, dtype=A.dtype, device=A.device), 0)
-    return torch.where(diag_mask(layout, A.device),
+    gr, gc, valid = index_maps(layout, A.device, grid)
+    out = torch.where(valid, torch.as_tensor(offdiag_value, dtype=A.dtype, device=A.device), 0)
+    return torch.where((gr == gc) & valid,
                        torch.as_tensor(diag_value, dtype=A.dtype, device=A.device), out)
 
 
@@ -114,12 +108,12 @@ def tzscale(mask, numer, denom, A):
     return torch.where(mask, A * (numer / denom), A)
 
 
-def tzset(layout: TileLayout, uplo: Uplo, offdiag_value, diag_value, A):
+def tzset(layout: TileLayout, uplo: Uplo, offdiag_value, diag_value, A, grid=None):
     """Set the strict uplo triangle and the diagonal (device_tzset.cu)."""
     dev = A.device
-    out = torch.where(tri_mask(layout, uplo, Diag.Unit, device=dev),
+    out = torch.where(tri_mask(layout, uplo, Diag.Unit, device=dev, grid=grid),
                       torch.as_tensor(offdiag_value, dtype=A.dtype, device=dev), A)
-    return torch.where(diag_mask(layout, dev),
+    return torch.where(diag_mask(layout, dev, grid),
                        torch.as_tensor(diag_value, dtype=A.dtype, device=dev), out)
 
 

@@ -4,18 +4,29 @@ As in the JAX package: routines return new matrices, storage is ONE
 (P, Q, mb, nb) tile tensor in owner-major block-cyclic order (see
 parallel/layout.py), and transpose is an O(1) op flag that internals
 materialize with ``resolved()``.
+
+On a mesh (``ProcessGrid.from_ranks`` with more than one process) each
+rank holds only its block, (mtl, ntl, mb, nb) (``layout.local_block``):
+``from_global`` keeps it, ``to_global`` gathers the blocks collectively
+(every rank of the grid calls it), and ``resolved()`` of a transposed
+view transposes the block in place, so its tiles live on the transposed
+q x p grid; on a square mesh one exchange with the transposed partner
+brings them back to the matrix's own grid, where the JAX package's p x p
+sharding puts them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..enums import Diag, Op, Uplo
-from ..exceptions import slate_assert
+from ..exceptions import DistributedException, slate_assert
+from ..parallel import collectives
 from ..parallel.grid import ProcessGrid
-from ..parallel.layout import TileLayout, permute_tiles, tiles_to_global
+from ..parallel.layout import TileLayout, from_blocks, local_tiles, permute_tiles, tiles_to_global
 
 
 class BaseMatrix:
@@ -38,9 +49,11 @@ class BaseMatrix:
         grid: Optional[ProcessGrid] = None,
         op: Op = Op.NoTrans,
     ):
+        want = (layout.local_shape if grid is not None and grid.is_distributed
+                else layout.storage_shape)
         slate_assert(
-            tuple(data.shape) == layout.storage_shape,
-            f"data shape {tuple(data.shape)} != layout {layout.storage_shape}",
+            tuple(data.shape) == want,
+            f"data shape {tuple(data.shape)} != layout {want}",
         )
         self.data = data
         self.layout = layout
@@ -113,13 +126,28 @@ class BaseMatrix:
         if self.op == Op.NoTrans:
             return self
         lay = self.layout
-        T = permute_tiles(self.data, lay.row_scatter, lay.col_scatter)
-        T = T.permute(1, 0, 3, 2)
-        if self.op == Op.ConjTrans and T.is_complex():
-            T = T.conj()
         lay_t = lay.transposed()
-        T = permute_tiles(T, lay_t.row_gather, lay_t.col_gather).resolve_conj()
-        out = self._with(data=T, layout=lay_t, op=Op.NoTrans)
+        if is_distributed(self):
+            # rank (r, c)'s tiles of A are A^T's tiles of position (c, r)
+            # on the transposed grid, in the same local slots, transposed
+            T = self.data.permute(1, 0, 3, 2)
+            if self.op == Op.ConjTrans and T.is_complex():
+                T = T.conj()
+            T, grid = T.resolve_conj().contiguous(), self.grid.transposed()
+            if grid.p == grid.q:
+                # back on the matrix's own grid: swap with the rank at (c, r)
+                r, c = self.grid.position
+                if r != c:
+                    T = collectives.exchange(T, self.grid.ranks[c][r])
+                grid = self.grid
+            out = self._with(data=T, layout=lay_t, op=Op.NoTrans, grid=grid)
+        else:
+            T = permute_tiles(self.data, lay.row_scatter, lay.col_scatter)
+            T = T.permute(1, 0, 3, 2)
+            if self.op == Op.ConjTrans and T.is_complex():
+                T = T.conj()
+            T = permute_tiles(T, lay_t.row_gather, lay_t.col_gather).resolve_conj()
+            out = self._with(data=T, layout=lay_t, op=Op.NoTrans)
         if getattr(self, "uplo", Uplo.General) == Uplo.Lower:
             out.uplo = Uplo.Upper
         elif getattr(self, "uplo", Uplo.General) == Uplo.Upper:
@@ -128,14 +156,30 @@ class BaseMatrix:
 
     # -- conversions --------------------------------------------------------
 
+    def storage(self) -> torch.Tensor:
+        """The whole (P, Q, mb, nb) storage-order tile tensor: the data,
+        or on a mesh every rank's block gathered (collective)."""
+        if not is_distributed(self):
+            return self.data
+        return from_blocks(collectives.gather_blocks(self.data, self.grid))
+
     def to_global(self) -> torch.Tensor:
-        """Gather to the (m, n) global tensor, honoring the op flag."""
-        A = tiles_to_global(self.data, self.layout)
+        """Gather to the (m, n) global tensor, honoring the op flag (on a
+        mesh a collective: every rank of the grid gets it)."""
+        A = tiles_to_global(self.storage(), self.layout)
         if self.op == Op.Trans:
             A = A.T
         elif self.op == Op.ConjTrans:
             A = A.mH
         return A
+
+    def shard(self) -> "BaseMatrix":
+        """On a mesh, keep this rank's block of whole storage-order data
+        (the JAX package's placement with the cyclic sharding); data that
+        is already a block, or a grid that is not a mesh, is left as is."""
+        if not is_distributed(self) or tuple(self.data.shape) != self.layout.storage_shape:
+            return self
+        return self._with(data=local_tiles(self.data, self.layout, self.grid))
 
     def __repr__(self):
         return (
@@ -146,8 +190,21 @@ class BaseMatrix:
 
 
 def is_distributed(M: BaseMatrix) -> bool:
-    """True when M lives on a multi-process grid."""
-    return M.grid is not None and M.grid.size > 1
+    """True when M lives on a mesh of more than one process (its data is
+    this rank's block): the predicate of every driver's mesh branch.  A
+    logical p x q grid on one process is not distributed."""
+    return M.grid is not None and M.grid.is_distributed
+
+
+def refuse_distributed(routine: str, item: str, *mats) -> None:
+    """Raise ``DistributedException`` when one of ``mats`` is distributed
+    and ``routine``'s mesh path is not ported yet (ROADMAP.md Queue 1
+    ``item``): no driver gathers a distributed operand where the JAX
+    package runs its SPMD path."""
+    if any(isinstance(M, BaseMatrix) and is_distributed(M) for M in mats):
+        raise DistributedException(
+            f"{routine}: distributed operands need its mesh path, which is not "
+            f"ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 def transpose(A: BaseMatrix) -> BaseMatrix:
@@ -164,3 +221,15 @@ def conj_transpose(A: BaseMatrix) -> BaseMatrix:
     if A.op == Op.Trans and A.is_complex:
         return A._with(data=A.data.conj().resolve_conj(), op=Op.NoTrans)
     return A._with(op=new_op)
+
+
+def single_device(item: str):
+    """Decorator of a driver whose mesh path is ROADMAP.md Queue 1
+    ``item``: a distributed matrix argument raises (``refuse_distributed``)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            refuse_distributed(fn.__name__, item, *args, *kw.values())
+            return fn(*args, **kw)
+        return wrapped
+    return deco

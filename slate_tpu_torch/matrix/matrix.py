@@ -21,7 +21,7 @@ from ..enums import Diag, Op, Uplo
 from ..exceptions import slate_assert
 from ..internal import tile_ops
 from ..parallel.grid import ProcessGrid, default_grid
-from ..parallel.layout import TileLayout, tiles_from_global
+from ..parallel.layout import TileLayout, index_maps, local_tiles, tiles_from_global
 from .base import BaseMatrix, conj_transpose, transpose  # noqa: F401 (re-export)
 
 
@@ -42,22 +42,24 @@ class Matrix(BaseMatrix):
     def from_global(
         A, mb: int, nb: Optional[int] = None, grid: Optional[ProcessGrid] = None
     ) -> "Matrix":
-        """Build from an (m, n) array (reference: Matrix::fromLAPACK)."""
+        """Build from an (m, n) array (reference: Matrix::fromLAPACK); on
+        a mesh every rank passes the same A and keeps its block."""
         nb = nb if nb is not None else mb
         A, grid = _place(A, grid)
         m, n = A.shape
         layout = _make_layout(m, n, mb, nb, grid)
-        return Matrix(tiles_from_global(A, layout), layout, grid=grid)
+        return Matrix(local_tiles(tiles_from_global(A, layout), layout, grid), layout, grid=grid)
 
     @staticmethod
     def zeros(m: int, n: int, mb: int, nb: Optional[int] = None, dtype=torch.float32,
               grid: Optional[ProcessGrid] = None) -> "Matrix":
-        """An m x n zero matrix on the grid's device."""
+        """An m x n zero matrix on the grid's device (this rank's block
+        on a mesh)."""
         nb = nb if nb is not None else mb
         grid = grid if grid is not None else default_grid()
         layout = _make_layout(m, n, mb, nb, grid)
-        return Matrix(torch.zeros(layout.storage_shape, dtype=dtype, device=grid.device),
-                      layout, grid=grid)
+        shape = layout.local_shape if grid.is_distributed else layout.storage_shape
+        return Matrix(torch.zeros(shape, dtype=dtype, device=grid.device), layout, grid=grid)
 
 
 class BaseTrapezoidMatrix(BaseMatrix):
@@ -77,13 +79,15 @@ class BaseTrapezoidMatrix(BaseMatrix):
         A, grid = _place(A, grid)
         m, n = A.shape
         layout = _make_layout(m, n, mb, nb, grid)
-        return cls(tiles_from_global(A, layout), layout, grid=grid,
+        return cls(local_tiles(tiles_from_global(A, layout), layout, grid), layout, grid=grid,
                    uplo=uplo, diag=diag)
 
     def tri_mask(self) -> torch.Tensor:
         """(P, Q, mb, nb) bool mask of the referenced triangle's elements
-        (valid region only), the diagonal left out for Diag.Unit."""
-        return tile_ops.tri_mask(self.layout, self.uplo, self.diag, device=self.data.device)
+        (valid region only), the diagonal left out for Diag.Unit; this
+        rank's block of it on a mesh."""
+        return tile_ops.tri_mask(self.layout, self.uplo, self.diag, device=self.data.device,
+                                 grid=self.grid)
 
 
 class TrapezoidMatrix(BaseTrapezoidMatrix):
@@ -156,16 +160,14 @@ class BandMatrix(Matrix):
         # package's where does
         A = torch.triu(torch.tril(A, ku), -kl)
         layout = _make_layout(m, n, mb, nb, grid)
-        return BandMatrix(tiles_from_global(A, layout), layout, grid=grid, kl=kl, ku=ku)
+        return BandMatrix(local_tiles(tiles_from_global(A, layout), layout, grid), layout,
+                          grid=grid, kl=kl, ku=ku)
 
     def band_mask(self) -> torch.Tensor:
         """(P, Q, mb, nb) bool mask of the band's elements (valid region
         only)."""
-        lay, dev = self.layout, self.data.device
-        gr = torch.as_tensor(lay.global_rows_np, device=dev)[:, None, :, None]
-        gc = torch.as_tensor(lay.global_cols_np, device=dev)[None, :, None, :]
-        band = ((gc - gr) <= self.ku) & ((gr - gc) <= self.kl)
-        return band & lay.element_mask(device=dev)
+        gr, gc, valid = index_maps(self.layout, self.data.device, self.grid)
+        return ((gc - gr) <= self.ku) & ((gr - gc) <= self.kl) & valid
 
 
 class TriangularBandMatrix(BandMatrix):

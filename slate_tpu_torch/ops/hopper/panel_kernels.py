@@ -62,6 +62,15 @@ LAUNCHES: Dict[str, int] = {
 _launches_lock = threading.Lock()
 
 
+#: panel_lu's launch sets the kernel's dynamic shared memory limit to its
+#: own plan's size, then checks residency and launches: a process-wide
+#: attribute, so two lanes launching plans of different sizes at once
+#: could launch one under the other's smaller limit (cudaErrorInvalidValue,
+#: seen once on the card at phase 20 (c)).  The host-side sequence is
+#: serialised; the launches themselves stay asynchronous.
+_panel_lu_lock = threading.Lock()
+
+
 def reset_launches() -> None:
     with _launches_lock:
         for k in LAUNCHES:
@@ -937,10 +946,11 @@ def panel_lu(panel: torch.Tensor, pivot: bool = True,
     # candidates (2 x G x (position, row)), the rows' NaN marks (M), each
     # block's NaN marks of the columns (G x nb) and its strip's winners (G x 32)
     iscr = torch.empty(4 * G + M + G * (nb + PL_MAX_STRIP), dtype=torch.int32, device=dev)
-    _launch("panel_lu", _entry("panel_lu", panel.dtype),
-            panel.data_ptr(), _ld(panel), work.data_ptr(), out.data_ptr(), perm.data_ptr(),
-            cmag.data_ptr(), iscr.data_ptr(), M, nb, M if act is None else act,
-            int(pivot), G, plan.rows, plan.strip, _stream(panel))
+    with _panel_lu_lock:
+        _launch("panel_lu", _entry("panel_lu", panel.dtype),
+                panel.data_ptr(), _ld(panel), work.data_ptr(), out.data_ptr(), perm.data_ptr(),
+                cmag.data_ptr(), iscr.data_ptr(), M, nb, M if act is None else act,
+                int(pivot), G, plan.rows, plan.strip, _stream(panel))
     return out, perm
 
 

@@ -12,7 +12,7 @@ ge2tb's upper band for the SVD's Jordan-Wielandt stage (ge2tbGather,
 include/slate/TriangularBandMatrix.hh:327).
 
 Not ported yet: the mesh gathers (``spmd_band_storage``,
-``spmd_upper_band_diagonals``; ROADMAP.md Queue 1 item 8).
+``spmd_upper_band_diagonals``; ROADMAP.md Queue 1 item 8c).
 """
 
 from __future__ import annotations

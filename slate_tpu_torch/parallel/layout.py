@@ -76,6 +76,11 @@ class TileLayout:
     def storage_shape(self) -> Tuple[int, int, int, int]:
         return (self.P, self.Q, self.mb, self.nb)
 
+    @property
+    def local_shape(self) -> Tuple[int, int, int, int]:
+        """One process's block of the storage on a p x q mesh."""
+        return (self.mtl, self.ntl, self.mb, self.nb)
+
     # -- per-tile queries (reference: BaseMatrix.hh:211-223, func.hh) -------
 
     def tileMb(self, i: int) -> int:
@@ -88,6 +93,9 @@ class TileLayout:
     def tileRank(self, i: int, j: int) -> Tuple[int, int]:
         """Owning (process-row, process-col) of tile (i, j)."""
         return (i % self.p, j % self.q)
+
+    def tileIsLocal(self, i: int, j: int, r: int, c: int) -> bool:
+        return self.tileRank(i, j) == (r, c)
 
     # -- storage permutation -------------------------------------------------
 
@@ -183,6 +191,9 @@ class TileLayout:
         """Layout of A^T: dims, tiles and grid swap."""
         return TileLayout(self.n, self.m, self.nb, self.mb, self.q, self.p)
 
+    def with_grid(self, p: int, q: int) -> "TileLayout":
+        return TileLayout(self.m, self.n, self.mb, self.nb, p, q)
+
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.long, device=device)
@@ -222,6 +233,54 @@ def tiles_to_global(T: torch.Tensor, layout: TileLayout) -> torch.Tensor:
     )
     A = Tn.permute(0, 2, 1, 3).reshape(layout.P * layout.mb, layout.Q * layout.nb)
     return A[: layout.m, : layout.n]
+
+
+def zeros_tiles(layout: TileLayout, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(layout.storage_shape, dtype=dtype, device=device)
+
+
+def local_block(T: torch.Tensor, layout: TileLayout, r: int, c: int) -> torch.Tensor:
+    """Process (r, c)'s block of the storage-order tiles (or of anything
+    indexed like them in its first two dimensions): tile rows
+    [r mtl, (r+1) mtl), tile columns [c ntl, (c+1) ntl) -- the
+    block-cyclic tiles {i : i % p == r} x {j : j % q == c}."""
+    mtl, ntl = layout.mtl, layout.ntl
+    return T[r * mtl:(r + 1) * mtl, c * ntl:(c + 1) * ntl]
+
+
+def local_tiles(T: torch.Tensor, layout: TileLayout, grid) -> torch.Tensor:
+    """Whole storage-order tiles T as a matrix on ``grid`` holds them:
+    this process's block on a mesh of more than one process, T elsewhere
+    (``grid`` None included)."""
+    if grid is None or not grid.is_distributed:
+        return T
+    r, c = grid.position
+    return local_block(T, layout, r, c).contiguous()
+
+
+def index_maps(layout: TileLayout, device=None, grid=None):
+    """The global row index (S, 1, mb, 1) and column index (1, S', 1, nb)
+    of every element of the tiles held, and their valid (non-padding)
+    mask: the whole storage, or on a mesh of more than one process this
+    process's block (what :func:`local_tiles` keeps)."""
+    rows, cols = layout.global_rows_np, layout.global_cols_np
+    rmask, cmask = layout.row_mask_np, layout.col_mask_np
+    if grid is not None and grid.is_distributed:
+        r, c = grid.position
+        rs = slice(r * layout.mtl, (r + 1) * layout.mtl)
+        cs = slice(c * layout.ntl, (c + 1) * layout.ntl)
+        rows, rmask, cols, cmask = rows[rs], rmask[rs], cols[cs], cmask[cs]
+    gr = torch.as_tensor(rows, device=device)[:, None, :, None]
+    gc = torch.as_tensor(cols, device=device)[None, :, None, :]
+    valid = (torch.as_tensor(rmask, device=device)[:, None, :, None]
+             & torch.as_tensor(cmask, device=device)[None, :, None, :])
+    return gr, gc, valid
+
+
+def from_blocks(blocks) -> torch.Tensor:
+    """The storage-order tiles from every process's block, ``blocks[r][c]``
+    (the inverse of :func:`local_block` over the grid)."""
+    return torch.cat([torch.cat(list(row), dim=1) for row in blocks], dim=0)
 
 
 def eye_splice(layout: TileLayout, T: torch.Tensor, scale=1.0) -> torch.Tensor:

@@ -6,7 +6,9 @@ A thin overload layer over the drivers, dispatching on matrix kind like
 the reference's C++ overload set.  Functional: outputs are returned.
 The band verbs dispatch on the band kinds (gbmm/hbmm, tbsm, gbsv/gbtrs,
 pbtrf/pbsv/pbtrs), the indefinite verbs call hetrf/hesv/hetrs, the
-eigenvalue verbs heev and the SVD verbs svd.
+eigenvalue verbs heev and the SVD verbs svd.  ``ProcessGrid`` (its
+``from_ranks`` builds a mesh) is re-exported for the grids the verbs'
+matrices live on; the multiply and rank-k verbs take meshes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .matrix.matrix import (
     TriangularBandMatrix,
     TriangularMatrix,
 )
+from .parallel.grid import ProcessGrid  # noqa: F401 (re-export: the mesh constructor)
 
 
 # ----- level 3 -------------------------------------------------------------

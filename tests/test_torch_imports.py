@@ -3,6 +3,7 @@ any module of the JAX package, no source file of it imports either, and
 its default grid is the CUDA card (never a silent CPU fall back)."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -88,8 +89,15 @@ import slate_tpu_torch.fleet.wire
 import slate_tpu_torch.fleet.worker
 import slate_tpu_torch.fleet.router
 import slate_tpu_torch.fleet
+import slate_tpu_torch.internal.fallbacks
+import slate_tpu_torch.parallel.grid
+import slate_tpu_torch.parallel.collectives
+import slate_tpu_torch.parallel.spmd_blas
+import slate_tpu_torch.parallel.spmd_redistribute
+import torch_mesh_pool
 import torch
 assert not torch.cuda.is_initialized()
+assert not torch.distributed.is_initialized()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "slate_tpu" or m.startswith("slate_tpu."))
@@ -98,16 +106,15 @@ print(",".join(bad))
 
 
 def test_import_leaves_no_jax_or_slate_tpu_module():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "tests")}
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
-                         text=True, timeout=120, check=True)
+                         text=True, timeout=120, check=True, env=env)
     assert out.stdout.strip() == "", out.stdout
 
 
 def test_serve_api_without_fleet_imports_no_fleet_module():
     """With SLATE_TPU_FLEET unset the serve api builds no router and the
     fleet package is never imported (one ``is None`` branch a call)."""
-    import os
-
     env = {k: v for k, v in os.environ.items() if k != "SLATE_TPU_FLEET"}
     code = ("import sys; from slate_tpu_torch.serve import api; "
             "print(api.get_fleet(), sorted(m for m in sys.modules if 'fleet' in m))")
@@ -147,6 +154,10 @@ def test_no_source_file_imports_jax_or_slate_tpu():
     assert {"scale/__init__.py", "scale/signals.py", "scale/controller.py", "scale/gate.py",
             "scale/warmup_plan.py"} <= names
     assert {"fleet/__init__.py", "fleet/wire.py", "fleet/worker.py", "fleet/router.py"} <= names
+    assert {"internal/fallbacks.py", "parallel/grid.py", "parallel/collectives.py",
+            "parallel/spmd_blas.py", "parallel/spmd_redistribute.py"} <= names
+    # the gloo ranks of the mesh tests import this helper and nothing of JAX
+    files.append(REPO / "tests" / "torch_mesh_pool.py")
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]

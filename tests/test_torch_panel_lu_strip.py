@@ -257,3 +257,26 @@ def test_panel_lu_plan_reaches_one_column_strips(itemsize, nb):
     assert plan.strip == 1 and plan.grid == 132
     with pytest.raises(ValueError):
         pk.panel_lu_plan(hi + 132 * 64, nb, itemsize, 132, pk._MAX_SMEM)
+
+
+def test_panel_lu_launch_holds_its_lock(monkeypatch):
+    """panel_lu's launch sets the kernel's dynamic shared memory limit to
+    its plan's size before launching: two lanes launching plans of other
+    sizes at once must not interleave (a launch under the other plan's
+    smaller limit fails with cudaErrorInvalidValue), so the wrapper holds
+    ``_panel_lu_lock`` across the call.  The CUDA route is rehearsed on
+    the CPU with the library call replaced."""
+    from slate_tpu_torch.ops.hopper import panel_kernels as pkm
+
+    seen = []
+
+    def launch(name, fn, *args):
+        seen.append((name, pkm._panel_lu_lock.locked()))
+
+    monkeypatch.setattr(pkm, "_on_cpu", lambda *a, **k: False)
+    monkeypatch.setattr(pkm, "_sms", lambda device: 132)
+    monkeypatch.setattr(pkm, "_stream", lambda t: 0)
+    monkeypatch.setattr(pkm, "_entry", lambda name, dtype: None)
+    monkeypatch.setattr(pkm, "_launch", launch)
+    pkm.panel_lu(torch.randn(300, 32, dtype=torch.float64))
+    assert seen == [("panel_lu", True)] and not pkm._panel_lu_lock.locked()

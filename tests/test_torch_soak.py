@@ -1150,3 +1150,99 @@ def test_recorder_records_a_hedged_pair_once_at_its_first_resolution():
     late = record.Recorder()
     late._tap(primary, "ok")  # resolved before this recorder attached
     assert len(late) == 0
+
+
+def _drill_service(shared_cache):
+    """The service of the soak drill's leg (a) on the CPU (two lanes, every
+    plane armed), its buckets warm."""
+    for rt, n in (("gesv", 12), ("posv", 12), ("gesv", 24)):
+        _ensure(shared_cache, rt, n)
+    svc = _service(shared_cache, replicas=2, retry_backoff_s=0.002, breaker_cooldown_s=0.02,
+                   factor_cache=FactorCache(max_entries=64), tenants=TENANTS, adaptive=True,
+                   latency_budget_s=0.5,
+                   integrity=ipol.parse_spec("full,hedge=1.5,cooldown=0.25"))
+    svc.warmup()
+    return svc
+
+
+def _rt_spec():
+    """The drill's round-trip mix (gen_multitenant seed 11, gen_repeated_a
+    seed 12, distinct 5) at n = 12 / 24, cut to 120 rows at a CPU pace."""
+    return replay.merge_specs(replay.gen_multitenant(70, seed=11, rate_rps=700),
+                              replay.gen_repeated_a(50, seed=12, rate_rps=600, distinct=5))
+
+
+def test_round_trip_passes_start_from_one_state(shared_cache):
+    """Phase 20 (a)'s round trip (chip_smoke.py ``_round_trip20``) missed
+    the gate's max(5, 5 %) on the gold tenant on a slow host.  Its two
+    causes, reproduced here at the drill's n = 12 / 24:
+
+    1. the faulted main leg leaves the overload plane raised: at level 2
+       a gold request of ``normal`` priority (every gen_repeated_a row)
+       is shed, so a pass that starts there refuses what a settled pass
+       admits; ``_settle20`` brings the plane to level 0 and its burn
+       EWMA to ~0 through ``tick`` and ``observe_burn``;
+    2. the recorded rows draw new matrix bytes, so a replay of them
+       misses the factor cache once a pool matrix where the recording
+       (pool-warm) hit: replay 1 alone pays the misses, and on the card
+       its p99 was 6-7 x the other passes'.  ``_round_trip20`` now warms
+       the recording's pools before replay 1.
+
+    With both, every pass starts at level 0, hits only, and refuses
+    nothing; the mixes agree."""
+    import chip_smoke as cs
+
+    svc = _drill_service(shared_cache)
+    try:
+        spec, cache = _rt_spec(), {}
+        replay.replay(svc, replay.warm_spec(spec), seed=0, cache=cache)
+        adm = svc._admission
+        for _ in range(8):  # the burn a faulted main leg leaves behind
+            adm.observe_burn(3.0, time.monotonic())
+        assert adm.snapshot()["overload_level"] == 2
+        gold = next(r for r in spec if r["priority"] == "normal")
+        A, B = replay.materialize(gold, seed=0, cache=cache)
+        with pytest.raises(serve_service.Shed):
+            svc.submit("gesv", A, B, tenant="gold", priority="normal")
+        cs._settle20(svc)
+        snap = adm.snapshot()
+        assert snap["overload_level"] == 0 and snap["burn_ewma"] <= 1e-3
+        svc.submit("gesv", A, B, tenant="gold", priority="normal").result(timeout=60)
+        for _ in range(8):  # raised again: the round trip settles it itself
+            adm.observe_burn(3.0, time.monotonic())
+        out = cs._round_trip20(record, replay, svc, spec, 1.0, cache)
+        assert set(out["passes"]) == {"recording", "replay 1", "replay 2"}
+        for what, p in out["passes"].items():
+            assert p["start"]["overload_level"] == 0, (what, p)
+            assert p["factor_cache"]["miss"] == 0, (what, p)
+            assert p["refused"]["reasons"] == {"shed": 0, "share": 0, "quota": 0,
+                                               "queue_full": 0}, (what, p)
+        assert out["mix_in"] == out["mix_out"]
+        assert out["recording"]["refused"] == 0 and out["recorded"] == len(spec)
+    finally:
+        svc.stop()
+
+
+def test_unwarmed_replay_of_a_recording_misses_once_a_pool(shared_cache):
+    """The recorded rows' matrices are new bytes (their seeds derive from
+    the recording's fingerprints): replaying a recording on the factors
+    that served it misses once for every repeat group."""
+    svc = _drill_service(shared_cache)
+    try:
+        spec, cache = _rt_spec(), {}
+        replay.replay(svc, replay.warm_spec(spec), seed=0, cache=cache)
+        c0 = metrics.counters()
+        with record.Recorder() as rec:
+            replay.replay(svc, spec, seed=0, cache=cache)
+        recorded = rec.rows()
+        c1 = metrics.counters()
+        assert c1.get("serve.factor_cache.miss", 0) == c0.get("serve.factor_cache.miss", 0)
+        groups = {r["repeat_fp"] for r in recorded}
+        assert not groups & {r["repeat_fp"] for r in spec}  # new fingerprints
+        replay.replay(svc, [dict(r, t_offset=i * 0.01) for i, r in enumerate(recorded)],
+                      seed=0, cache=cache)
+        misses = metrics.counters().get("serve.factor_cache.miss", 0) - c1.get(
+            "serve.factor_cache.miss", 0)
+        assert misses >= len(groups)
+    finally:
+        svc.stop()
