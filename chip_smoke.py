@@ -11,7 +11,7 @@
     python3 chip_smoke.py --soak     # build + phase 20 alone
     python3 chip_smoke.py --scale    # build + phase 21 alone
     python3 chip_smoke.py --fleet    # build + phase 22 alone
-    python3 chip_smoke.py --mesh     # build + phase 23 alone
+    python3 chip_smoke.py --mesh     # build + phase 23 alone, (a) and (b)
     python3 chip_smoke.py --profile  # build + profiles of one warm posv (with its chol_base,
                                      # gemm_sub and syrk_diag pieces), gesv and CALU gesv (with
                                      # their panel_lu pieces) and gels (with its larft piece),
@@ -246,9 +246,9 @@ Phases, each for float64 and float32 unless stated:
      ``serve.arena.*`` counter.  Timed (CUDA events, submit to result,
      medians): a resident hit, a hit after ``spill`` (the pack
      re-uploaded; devmon's bytes in use before and after the spill,
-     which must free the pack), an unarmed hit and a refactoring miss,
-     each with the bytes it moved host to device; an append of 64 rows
-     against a ``refactor``.
+     which must free the pack) and an unarmed hit, each with the bytes
+     it moved host to device; the armed leg's refactoring miss and its
+     append of 64 rows (host clock) against one ``refactor``.
  20. the soak fabric (``slate_tpu_torch/soak``: the delivery-tap
      recorder, open-loop replay, the health timeline), judged by
      ``tools/soak_report.py``: (a) the JAX soak drill as written
@@ -346,7 +346,7 @@ Phases, each for float64 and float32 unless stated:
      run, no JAX module;
  23. the meshes: an NCCL world of one rank on cuda:0 (a file://
      rendezvous, destroyed at the end) and the 1 x 1 mesh of
-     ``ProcessGrid.from_ranks``; the SPMD routines themselves (the
+     ``ProcessGrid.from_ranks``; (a) the SPMD BLAS3 themselves (their
      drivers send a 1 x 1 grid to the single-device path):
      ``summa_gemm``, ``gemm_reduce_a``, ``spmd_herk`` (herk and her2k),
      ``spmd_trmm`` and ``spmd_hemm`` (both sides) at n = 16384, k = 512,
@@ -357,7 +357,22 @@ Phases, each for float64 and float32 unless stated:
      256, bitwise); the mesh norms (Max bitwise, One, Inf, Fro; five
      tile_norms launches a dtype, counted alone and added to
      tile_norms' launches in the kernels line); each routine's time beside
-     the single-device driver's, the mesh path's overhead.
+     the single-device driver's, the mesh path's overhead; (b) trsm, the
+     factorizations and the solves through the public drivers on
+     distributed matrices of the same mesh (they take their SPMD paths on
+     any mesh): ``posv``, ``gesv`` and CALU ``gesv`` at n = 16384,
+     ``trsm`` left and right at (16384, 512), ``gels`` at (32768, 16384),
+     nrhs = 512, tiles of 512, float64 and float32, one cold and one warm
+     call each: scaled residual <= 3 (the normal equations' for gels),
+     info 0, no gather recorded, the cold call's launches equal to the
+     SPMD bodies' mirrors (chol_base 64, syrk_diag 32 and gemm_sub 0 a
+     posv, ``spmd_chol.potrf_kernel_launches``; panel_lu 32 a gesv and
+     ``spmd_lu.tntpiv_kernel_launches`` = 2080 a CALU gesv; larft 32 a
+     gels; none a trsm), added to the kernels line; panel_lu at (16384,
+     512) and larft at (32768, 512) held against their plain versions
+     once; each warm time beside the single-device driver's at the same
+     shape (its warm call; in the whole run the calls of phases 3, 4, 11
+     and 7), with the card's name and power limit.
 
 Phase 2 also holds chol_base at (256, 256) and (512, 512) (the upper
 triangle bit for bit, two calls and a strided view bitwise equal), and
@@ -3550,7 +3565,6 @@ def admission_main(serve, faults, pk, ck, lk, metrics, gen, dev) -> dict:
 SESSION19 = 12  # warmed pristine session solves, every one a factor-cache hit
 APPEND19 = 64  # rows of the streamed append
 ROUNDS19 = 2  # rounds of each hit-dispatch timing (medians)
-MISS_ROUNDS19 = 1  # rounds of the refactoring miss and of append / refactor
 
 
 def _event_ms(fn) -> float:
@@ -3706,17 +3720,9 @@ def fabric_main(serve, pk, qf, metrics, gen, dev) -> dict:
             check(up_res == 0 and up_up == pack, f"fabric {dtype}: uploads resident {up_res}, "
                   f"after spill {up_up} (pack {pack})")
             check(freed >= pack, f"fabric {dtype}: spill freed {freed} bytes < pack {pack}")
-
-            def invalidate():
-                svc.factor_cache.invalidate(fp)
-                svc.arena.drop(fp)
-
-            t_miss, _ = _dispatch_rounds(svc, metrics, A_np, B0_np, MISS_ROUNDS19, invalidate)
-            t_app, t_ref = [], []
-            for _ in range(MISS_ROUNDS19):
-                Cn = torch.randn(APPEND19, n, generator=gen, device=dev, dtype=dt).cpu().numpy()
-                t_app.append(_event_ms(lambda: sess.append(Cn)))
-                t_ref.append(_event_ms(sess.refactor))
+            # the miss and the append are the armed leg's own (host clock,
+            # synchronized); the refactor is timed once here
+            t_ref = _event_ms(sess.refactor)
         finally:
             svc.stop()
         del sess
@@ -3737,18 +3743,20 @@ def fabric_main(serve, pk, qf, metrics, gen, dev) -> dict:
             "resident_hit_ms": t_res, "resident_hit_h2d_bytes": up_res + b_bytes,
             "reupload_hit_ms": t_up, "reupload_hit_h2d_bytes": up_up + b_bytes,
             "unarmed_hit_ms": t_unarmed, "unarmed_hit_h2d_bytes": up_un + b_bytes,
-            "miss_ms": t_miss, "miss_h2d_bytes": A_np.nbytes + b_bytes,
-            "append_ms": statistics.median(t_app), "refactor_ms": statistics.median(t_ref),
+            "miss_ms": row["armed"]["miss_s"] * 1e3, "miss_h2d_bytes": A_np.nbytes + b_bytes,
+            "append_ms": row["armed"]["append_s"] * 1e3, "refactor_ms": t_ref,
             "spill_bytes_in_use": spill_mem[0], "byte_identical": same,
             "report_rc": rep.returncode})
         print(f"  fabric {dtype} dispatches (CUDA events, submit to result, medians): "
               f"resident hit {t_res:.3f} ms ({(up_res + b_bytes) / 1e6:.1f} MB host to device), "
               f"after spill {t_up:.3f} ms ({(up_up + b_bytes) / 1e6:.1f} MB), unarmed hit "
-              f"{t_unarmed:.3f} ms ({b_mb:.1f} MB), miss {t_miss:.3f} ms "
-              f"({(A_np.nbytes + b_bytes) / 1e6:.1f} MB); pack {pack / 1e6:.1f} MB; devmon "
+              f"{t_unarmed:.3f} ms ({b_mb:.1f} MB); the armed leg's miss {row['miss_ms']:.3f} "
+              f"ms ({(A_np.nbytes + b_bytes) / 1e6:.1f} MB, host clock); pack "
+              f"{pack / 1e6:.1f} MB; devmon "
               f"bytes in use before / after spill {spill_mem[0][0] / 1e9:.3f} / "
-              f"{spill_mem[0][1] / 1e9:.3f} GB; append of {APPEND19} rows "
-              f"{row['append_ms']:.1f} ms against refactor {row['refactor_ms']:.1f} ms; "
+              f"{spill_mem[0][1] / 1e9:.3f} GB; the armed leg's append of {APPEND19} rows "
+              f"{row['append_ms']:.1f} ms (host clock) against refactor "
+              f"{row['refactor_ms']:.1f} ms (CUDA events); "
               f"armed and unarmed X byte-identical {same}; factor_report.py exit "
               f"{rep.returncode}", flush=True)
         out[dtype] = row
@@ -7004,7 +7012,7 @@ def profile(stt, gen, dev) -> None:
 # ---------------------------------------------------------------------------
 
 N23_C = 2048  # the complex128 her2k's n
-ROUNDS23 = 2  # timing rounds a routine (after its first, checked call)
+ROUNDS23 = 1  # timing rounds a routine (after its first, checked call)
 
 
 def _mesh_cases23(stt, grid, dtype, gen, dev):
@@ -7178,11 +7186,164 @@ def mesh_phase(stt, pk, metrics, dtype, grid, gen, dev) -> dict:
     return out
 
 
-def mesh_main(stt, pk, metrics, gen, dev) -> dict:
+MESH_KERNELS23 = ("chol_base", "syrk_diag", "gemm_sub", "panel_lu", "larft")
+
+
+def _synced_s(fn):
+    """(fn(), host seconds), the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _mesh_kernel_holds23(pk, dtype, gen, dev) -> dict:
+    """panel_lu at the mesh LU's first panel, (16384, 512), and larft at
+    the mesh QR's first panel, (32768, 512), one launch each against the
+    plain version with phase 2's tolerances (panel_lu bitwise; larft's
+    T^-1: the diagonal bitwise, the lower triangle zero, the strict
+    upper within elementwise_err's bound)."""
+    from slate_tpu_torch.ops.householder import materialize_v
+
+    dt = getattr(torch, dtype)
+    P = torch.randn(N_MAIN, 512, generator=gen, device=dev, dtype=dt)
+    got, perm = pk.panel_lu(P)
+    ref, ref_perm = pk.panel_lu_plain(P)
+    torch.cuda.synchronize()
+    check(torch.equal(perm, ref_perm) and torch.equal(got, ref),
+          f"panel_lu {dtype} ({N_MAIN}, 512): not bitwise equal to panel_lu_plain")
+    del P, got, ref
+    fac, taus = torch.geqrf(torch.randn(M_QR, 512, generator=gen, device=dev, dtype=dt))
+    V = materialize_v(fac.contiguous())
+    del fac
+    got, ref = pk.larft_tinv(V, taus), pk.larft_tinv_plain(V, taus)
+    torch.cuda.synchronize()
+    check(torch.equal(got.diagonal(), ref.diagonal()) and not bool(torch.tril(got, -1).any()),
+          f"larft {dtype} ({M_QR}, 512): diagonal or lower triangle differs from the plain one")
+    scale = V.abs().T @ V.abs()
+    err, ratio = elementwise_err(got, ref, torch.where(scale == 0, torch.finfo(dt).tiny, scale),
+                                 V.shape[0])
+    check(ratio <= 1, f"larft {dtype} ({M_QR}, 512): max err/tol {ratio:.3e} > 1")
+    print(f"  panel_lu {dtype} ({N_MAIN}, 512): perm and LU bitwise equal to the plain version; "
+          f"larft {dtype} ({M_QR}, 512): diagonal bitwise, lower zero, strict upper err "
+          f"{err:.3e} (max err/tol {ratio:.3e})", flush=True)
+    return {"larft_max_abs_err": err, "larft_err_over_tol": ratio}
+
+
+def mesh_solvers(stt, pk, dtype, grid, gen, dev, smi, prior=None) -> dict:
+    """Phase 23 (b), one dtype: trsm, the factorizations and the solves
+    through the public drivers on distributed matrices of the 1 x 1 mesh
+    (which take their SPMD paths on any mesh): posv, gesv and CALU gesv at
+    n = 16384, trsm left and right at (16384, 512), gels at (32768, 16384),
+    nrhs = 512, tiles of 512, one cold call (launches, residual, info,
+    gathers counted) and one warm call each, beside the single-device
+    driver's warm call at the same shape, or in the whole run its call of
+    phase 3, 4, 11 or 7 (posv, gesv, CALU gesv, gels), which ``prior``
+    gives by routine.  Gates: scaled residual <= 3 (normal equations
+    for gels), info 0, no gather recorded, the kernel launches of the
+    cold call equal to the SPMD bodies' mirrors."""
+    from slate_tpu_torch.internal import fallbacks
+    from slate_tpu_torch.parallel import spmd_chol, spmd_lu
+    from slate_tpu_torch.parallel.layout import TileLayout
+
+    dt = getattr(torch, dtype)
+    n, nrhs, nb, L, R = N_MAIN, NRHS_MAIN, 512, stt.Side.Left, stt.Side.Right
+    single = stt.ProcessGrid.single(dev)
+    lay = TileLayout(n, n, nb, nb, 1, 1)
+    zero = dict.fromkeys(MESH_KERNELS23, 0)
+    calu = {stt.Option.MethodLU: stt.MethodLU.CALU}
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)  # noqa: E731
+    out = {"kernels": _mesh_kernel_holds23(pk, dtype, gen, dev)}
+    total = dict(zero)
+
+    earlier = {"posv": 3, "gesv": 4, "gesv_calu": 11, "gels": 7}
+
+    def run(name, operands, call, expect, residual):
+        single_s = (prior or {}).get(f"{name}_s")
+        mesh_ops = operands(grid)
+        fallbacks.reset()
+        pk.reset_launches()  # the counted run: every count 0 before it
+        res, t_cold = _synced_s(lambda: call(*mesh_ops))
+        launches = {k: v for k, v in pk.LAUNCHES.items() if v}
+        gathered = sum(fallbacks.counters().values())
+        r, info = residual(res)
+        del res
+        _, t_warm = _synced_s(lambda: call(*mesh_ops))
+        del mesh_ops
+        if single_s is None:
+            sops = operands(single)
+            _synced_s(lambda: call(*sops))
+            _, single_s = _synced_s(lambda: call(*sops))
+            del sops
+            how = "warm"
+        else:
+            how = f"phase {earlier[name]}'s call"
+        want = {k: v for k, v in expect.items() if v}
+        print(f"  {name} {dtype}: residual {r:.3e}, info {info}, gathered {gathered}, launches "
+              f"{launches} (expected {want}); mesh cold {t_cold:.3f} s, warm {t_warm:.3f} s, "
+              f"single-device driver {single_s:.3f} s ({how}; mesh {t_warm / single_s:.2f} x) "
+              f"[{smi}]", flush=True)
+        check(r <= 3, f"mesh {name} {dtype}: residual {r:.3f} > 3")
+        check(info == 0, f"mesh {name} {dtype}: info {info}")
+        check(gathered == 0, f"mesh {name} {dtype}: gathered {fallbacks.counters()}")
+        check(launches == want, f"mesh {name} {dtype}: launches {launches} != {want}")
+        for k in MESH_KERNELS23:
+            total[k] += launches.get(k, 0)
+        out[name] = {"residual": r, "launches": launches, "cold_s": t_cold, "warm_s": t_warm,
+                     "single_device_s": single_s}
+        torch.cuda.empty_cache()
+
+    # posv, gesv, CALU gesv at n = 16384
+    A = spd(n, dt, gen, dev)
+    B = rnd(n, nrhs)
+    info_of = lambda t: int(t)  # noqa: E731
+    run("posv", lambda g: (stt.HermitianMatrix.from_global(A, nb, grid=g),
+                           stt.Matrix.from_global(B, nb, grid=g)),
+        lambda Am, Bm: stt.posv(Am, Bm), {**zero, **spmd_chol.potrf_kernel_launches(lay)},
+        lambda res: (scaled_residual(A, res[0].to_global(), B), info_of(res[2])))
+    A = rnd(n, n)
+    for name, opts, expect in (
+            ("gesv", None, {**zero, "panel_lu": lay.nt}),
+            ("gesv_calu", calu, {**zero, "panel_lu": spmd_lu.tntpiv_kernel_launches(lay, 1)})):
+        run(name, lambda g: (stt.Matrix.from_global(A, nb, grid=g),
+                             stt.Matrix.from_global(B, nb, grid=g)),
+            lambda Am, Bm, opts=opts: stt.gesv(Am, Bm, opts), expect,
+            lambda res: (scaled_residual(A, res[0].to_global(), B), info_of(res[3])))
+    # trsm left and right at (16384, 512): a well-conditioned lower T
+    T = torch.tril(A) + n * torch.eye(n, device=dev, dtype=dt)
+    del A
+    Bt = rnd(nrhs, n)
+    run("trsm_left", lambda g: (stt.TriangularMatrix.from_global(T, nb, grid=g),
+                                stt.Matrix.from_global(B, nb, grid=g)),
+        lambda Tm, Bm: stt.trsm(L, 2.0, Tm, Bm), zero,
+        lambda res: (scaled_residual(T, res.to_global(), 2.0 * B), 0))
+    run("trsm_right", lambda g: (stt.TriangularMatrix.from_global(T, nb, grid=g),
+                                 stt.Matrix.from_global(Bt, nb, grid=g)),
+        lambda Tm, Bm: stt.trsm(R, 2.0, Tm, Bm), zero,
+        lambda res: (scaled_residual(T.T, res.to_global().T, 2.0 * Bt.T), 0))
+    del T, Bt, B
+    torch.cuda.empty_cache()
+    # gels at (32768, 16384)
+    A, B = rnd(M_QR, N_QR), rnd(M_QR, nrhs)
+    qlay = TileLayout(M_QR, N_QR, nb, nb, 1, 1)
+    run("gels", lambda g: (stt.Matrix.from_global(A, nb, grid=g),
+                           stt.Matrix.from_global(B, nb, grid=g)),
+        lambda Am, Bm: stt.gels(Am, Bm), {**zero, "larft": min(qlay.mt, qlay.nt)},
+        lambda res: (ls_residual(A, res.to_global(), B), 0))
+    del A, B
+    torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def mesh_main(stt, pk, metrics, gen, dev, smi, prior=None) -> dict:
     """Phase 23: an NCCL world of one rank on cuda:0 (a file:// rendezvous;
     NCCL refuses two ranks on one GPU), the 1 x 1 mesh through
-    ``ProcessGrid.from_ranks``, then ``mesh_phase`` for float64, float32
-    and complex128 (her2k at n = 2048)."""
+    ``ProcessGrid.from_ranks``; (a) ``mesh_phase`` for float64, float32
+    and complex128 (her2k at n = 2048); (b) ``mesh_solvers`` for float64
+    and float32 (``prior``: a dtype's single-device driver times of
+    phases 3, 4, 7 and 11)."""
     import datetime
     import os
     import tempfile
@@ -7204,11 +7365,18 @@ def mesh_main(stt, pk, metrics, gen, dev) -> dict:
             for d in DTYPES + ("complex128",):
                 out[d] = mesh_phase(stt, pk, metrics, d, grid, gen, dev)
                 torch.cuda.empty_cache()
+            out["phase_a_s"] = time.perf_counter() - t23
+            print(f"  phase 23 (a): {out['phase_a_s']:.1f} s", flush=True)
+            for d in DTYPES:
+                out[f"solvers.{d}"] = mesh_solvers(stt, pk, d, grid, gen, dev, smi,
+                                                   (prior or {}).get(d))
         finally:
             dist.destroy_process_group()
-    out["launches"] = {d: out[d]["launches"] for d in DTYPES}
+    out["launches"] = {d: {**out[f"solvers.{d}"]["launches"], **out[d]["launches"]}
+                       for d in DTYPES}
     out["phase_s"] = time.perf_counter() - t23
-    print(f"  phase 23: {out['phase_s']:.1f} s", flush=True)
+    print(f"  phase 23: {out['phase_s']:.1f} s ((b) {out['phase_s'] - out['phase_a_s']:.1f} s)",
+          flush=True)
     return out
 
 
@@ -7332,7 +7500,7 @@ def main() -> int:
         return 0
     if mesh_only:
         print("phase 23: the meshes", flush=True)
-        msres = mesh_main(stt, pk, metrics, gen, dev)
+        msres = mesh_main(stt, pk, metrics, gen, dev, smi)
         print("main path: " + json.dumps({"mesh": msres}))
         print(smi)
         return 0
@@ -7470,7 +7638,9 @@ def main() -> int:
     flres = fleet_main(serve, metrics, lk, dev, gate22)
     torch.cuda.empty_cache()
     print("phase 23: the meshes", flush=True)
-    msres = mesh_main(stt, pk, metrics, gen, dev)
+    msres = mesh_main(stt, pk, metrics, gen, dev, smi, {d: {
+        "posv_s": mres[d]["posv_s"], "gesv_s": lres[d]["gesv_s"],
+        "gesv_calu_s": xres[d]["calu"]["gesv_s"], "gels_s": qres[d]["gels_s"]} for d in DTYPES})
     print(f"  phases 2-23: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # launches: of the main path that runs each kernel (posv for the
@@ -7499,9 +7669,9 @@ def main() -> int:
                 "name": f"{name}.{suf}", "route": "cuda",
                 "source": f"slate_tpu_torch/csrc/{src}",
                 "replaces": k["replaces"],
-                # tile_norms: the norm phase's path and phase 23's mesh norms
-                "launches": runs[d]["launches"][name] + (
-                    msres["launches"][d]["tile_norms"] if name == "tile_norms" else 0),
+                # plus phase 23's: the mesh norms' tile_norms, and the mesh
+                # factorizations' chol_base, syrk_diag, gemm_sub, panel_lu, larft
+                "launches": runs[d]["launches"][name] + msres["launches"][d].get(name, 0),
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"],

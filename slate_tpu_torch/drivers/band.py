@@ -94,7 +94,7 @@ def _apply_pivots(B2: torch.Tensor, pivots: Optional[Pivots], m: int) -> torch.T
 
 
 @instrumented("tbsm")
-@single_device("8b")
+@single_device("8b2")
 def tbsm(side: Side, alpha, A: TriangularBandMatrix, B: Matrix,
          pivots: Optional[Pivots] = None, opts=None) -> Matrix:
     """Triangular band solve, optionally applying pivots first
@@ -139,7 +139,7 @@ def tbsm(side: Side, alpha, A: TriangularBandMatrix, B: Matrix,
 
 
 @instrumented("gbtrf")
-@single_device("8b")
+@single_device("8b2")
 def gbtrf(A: BandMatrix, opts: Optional[Options] = None
           ) -> Tuple[BandMatrix, Pivots, torch.Tensor]:
     """Band LU with partial pivoting (reference: src/gbtrf.cc).  Dense-
@@ -167,7 +167,7 @@ def gbtrf(A: BandMatrix, opts: Optional[Options] = None
 
 
 @instrumented("gbtrs")
-@single_device("8b")
+@single_device("8b2")
 def gbtrs(LU: BandMatrix, pivots: Pivots, B: Matrix, opts=None) -> Matrix:
     """(reference: src/gbtrs.cc).
 
@@ -188,7 +188,7 @@ def gbtrs(LU: BandMatrix, pivots: Pivots, B: Matrix, opts=None) -> Matrix:
 
 
 @instrumented("gbsv")
-@single_device("8b")
+@single_device("8b2")
 def gbsv(A: BandMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, BandMatrix, Pivots, torch.Tensor]:
     """Band solve (reference: src/gbsv.cc = gbtrf + gbtrs)."""
@@ -197,7 +197,7 @@ def gbsv(A: BandMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("pbtrf")
-@single_device("8b")
+@single_device("8b2")
 def pbtrf(A: HermitianBandMatrix, opts: Optional[Options] = None
           ) -> Tuple[TriangularBandMatrix, torch.Tensor]:
     """Band Cholesky (reference: src/pbtrf.cc); no fill-in beyond kd.
@@ -224,7 +224,7 @@ def pbtrf(A: HermitianBandMatrix, opts: Optional[Options] = None
 
 
 @instrumented("pbtrs")
-@single_device("8b")
+@single_device("8b2")
 def pbtrs(L: TriangularBandMatrix, B: Matrix, opts=None) -> Matrix:
     """(reference: src/pbtrs.cc): two windowed band solves on narrow
     bands, dense trsm sweeps otherwise."""
@@ -242,7 +242,7 @@ def pbtrs(L: TriangularBandMatrix, B: Matrix, opts=None) -> Matrix:
 
 
 @instrumented("pbsv")
-@single_device("8b")
+@single_device("8b2")
 def pbsv(A: HermitianBandMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularBandMatrix, torch.Tensor]:
     """Band SPD solve (reference: src/pbsv.cc = pbtrf + pbtrs)."""

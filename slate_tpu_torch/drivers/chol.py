@@ -9,6 +9,12 @@ is one product; ``pocondest`` estimates the reciprocal condition number
 with the Hager/Higham estimator (``internal/norm1est.py``).
 ``posv_mixed`` and ``posv_mixed_gmres`` (``drivers/mixed.py``) are
 re-exported here.
+
+On a mesh (``on_mesh``) ``potrf`` runs ``parallel/spmd_chol.py`` (each
+diagonal tile through the Hopper kernels on a CUDA device) and
+``potrs`` / ``posv`` solve through the mesh ``trsm``; the other drivers
+here gather a distributed operand in the JAX package and raise for one
+until ROADMAP.md Queue 1 item 8b2.
 """
 
 from __future__ import annotations
@@ -19,52 +25,71 @@ import torch
 
 from ..aux import metrics
 from ..aux.metrics import instrumented
-from ..enums import Diag, Op, Side, Uplo
+from ..enums import Diag, Op, Option, Side, Uplo
 from ..exceptions import slate_assert
+from ..internal import fallbacks
 from ..internal.norm1est import rcond
 from ..internal.precision import hdot
-from ..matrix.base import conj_transpose, single_device
+from ..matrix.base import conj_transpose, on_mesh, single_device
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import chol_kernels
 from ..ops.hopper import panel_kernels as pk
-from ..options import Options, resolve_schedule_opts
+from ..options import Options, get_option, resolve_schedule_opts
+from ..parallel import collectives, spmd_chol
+from ..parallel.layout import eye_splice, local_tiles_from_global
 from . import blas3
 
 
 @instrumented("potrf")
-@single_device("8b")
 def potrf(A: HermitianMatrix, opts: Optional[Options] = None
           ) -> Tuple[TriangularMatrix, torch.Tensor]:
     """Cholesky: A = L L^H (uplo Lower) or U^H U (Upper)
     (reference: src/potrf.cc:84-209).
 
     Returns (factor, info); info > 0 signals a non-SPD matrix, detected
-    from non-finite entries of the factor (an int32 tensor on A's device).
+    from non-finite entries of the factor (an int32 tensor on A's device;
+    on a mesh the maximum over its ranks, the same on each).  On a mesh
+    ``spmd_chol.spmd_potrf_lower`` reads the stored lower triangle; an
+    Upper or viewed A is mirrored first (recorded ``potrf.mirror``), and
+    with ``Option.UseShardMap`` off the call gathers (recorded ``potrf``).
     """
     slate_assert(A.m == A.n, "potrf requires square A")
     slate_assert(A.layout.mb == A.layout.nb, "potrf requires square tiles")
-    full = A.full_global()
-    n = A.n
     lay = A.layout
     sched, nb_switch, lookahead = resolve_schedule_opts(opts)
-    nb_kernel = 512 if n >= 2048 else min(lay.nb, 512)
-    if metrics.is_on():
-        route = chol_kernels.resolve_schedule(n, full.dtype, sched, full.device)
-        metrics.record_factor_flops(
-            "potrf",
-            chol_kernels.chol_schedule_flops(n, nb_kernel, route, nb_switch, lookahead),
-        )
-    L2 = chol_kernels.cholesky(full, nb_kernel, sched, nb_switch, lookahead)
-    L = TriangularMatrix.from_global(L2, lay.mb, lay.nb, grid=A.grid, uplo=Uplo.Lower)
+    if on_mesh(A) and get_option(opts, Option.UseShardMap):
+        if A.uplo == Uplo.Lower and A.op == Op.NoTrans:
+            T = A.data  # the stored lower triangle is all the mesh path reads
+        else:
+            fallbacks.record("potrf.mirror", opts, "upper/viewed Hermitian mirrors globally")
+            T = local_tiles_from_global(A.full_global().to(A.dtype), lay, A.grid)
+        T = eye_splice(lay, T, grid=A.grid)
+        Ld = spmd_chol.spmd_potrf_lower(A.grid, T, lay, sched, nb_switch, lookahead)
+        L = TriangularMatrix(Ld, lay, grid=A.grid, uplo=Uplo.Lower)
+    else:
+        if on_mesh(A):
+            fallbacks.record("potrf", opts, "UseShardMap disabled")
+        full = A.full_global()
+        n = A.n
+        nb_kernel = 512 if n >= 2048 else min(lay.nb, 512)
+        if metrics.is_on():
+            route = chol_kernels.resolve_schedule(n, full.dtype, sched, full.device)
+            metrics.record_factor_flops(
+                "potrf",
+                chol_kernels.chol_schedule_flops(n, nb_kernel, route, nb_switch, lookahead),
+            )
+        L2 = chol_kernels.cholesky(full, nb_kernel, sched, nb_switch, lookahead)
+        L = TriangularMatrix.from_global(L2, lay.mb, lay.nb, grid=A.grid, uplo=Uplo.Lower)
     info = torch.where(torch.isfinite(L.data).all(), 0, 1).to(torch.int32)
+    if on_mesh(A):
+        info = collectives.pmax(info, A.grid)
     if A.uplo == Uplo.Upper:
         U = conj_transpose(L).resolved()
-        return TriangularMatrix(U.data, U.layout, grid=A.grid, uplo=Uplo.Upper), info
+        return TriangularMatrix(U.data, U.layout, grid=U.grid, uplo=Uplo.Upper), info
     return L, info
 
 
 @instrumented("potrs")
-@single_device("8b")
 def potrs(L: TriangularMatrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B given the Cholesky factor (reference: src/potrs.cc:
     two trsm sweeps)."""
@@ -107,7 +132,6 @@ def potrs_from_global(Lg: torch.Tensor, Bg: torch.Tensor,
 
 
 @instrumented("posv")
-@single_device("8b")
 def posv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor]:
     """Solve SPD A X = B (reference: src/posv.cc = potrf + potrs).
@@ -119,7 +143,7 @@ def posv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("trtri")
-@single_device("8b")
+@single_device("8b2")
 def trtri(T: TriangularMatrix, opts: Optional[Options] = None) -> TriangularMatrix:
     """Triangular inverse (reference: src/trtri.cc) by
     ``chol_kernels.tri_inv_blocked``: the stored triangle (a unit
@@ -143,7 +167,7 @@ def trtri(T: TriangularMatrix, opts: Optional[Options] = None) -> TriangularMatr
                                         uplo=out_uplo, diag=T.diag)
 
 
-@single_device("8b")
+@single_device("8b2")
 def trtrm(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
     """L^H L (Lower) or U U^H (Upper) of the stored triangle, the second
     half of potri (reference: src/trtrm.cc)."""
@@ -159,7 +183,7 @@ def trtrm(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatri
 
 
 @instrumented("potri")
-@single_device("8b")
+@single_device("8b2")
 def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatrix:
     """SPD inverse from the Cholesky factor: A^-1 = L^-H L^-1
     (reference: src/potri.cc = trtri + trtrm)."""
@@ -172,7 +196,7 @@ def potri(L: TriangularMatrix, opts: Optional[Options] = None) -> HermitianMatri
 from .mixed import posv_mixed, posv_mixed_gmres  # noqa: E402,F401
 
 
-@single_device("8b")
+@single_device("8b2")
 def pocondest(L: TriangularMatrix, anorm, opts: Optional[Options] = None) -> torch.Tensor:
     """Reciprocal condition estimate from the Cholesky factor (reference:
     src/pocondest.cc, through the Hager/Higham estimator of

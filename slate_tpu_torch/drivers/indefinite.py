@@ -73,7 +73,7 @@ def _ldl_nopiv(Af: torch.Tensor, mb: int, grid, opts):
 
 
 @instrumented("hetrf")
-@single_device("8b")
+@single_device("8b2")
 def hetrf(A: HermitianMatrix, opts: Optional[Options] = None, method: str = "auto"
           ) -> Tuple[TriangularMatrix, torch.Tensor, torch.Tensor]:
     """Factor A = L D L^H, L unit lower, D real diagonal (reference
@@ -141,7 +141,7 @@ def _divide_d(Y: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 @instrumented("hetrs")
-@single_device("8b")
+@single_device("8b2")
 def hetrs(L: TriangularMatrix, d: torch.Tensor, B: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B from the L D L^H factor (reference: src/hetrs.cc).
@@ -177,7 +177,7 @@ def hetrs(L: TriangularMatrix, d: torch.Tensor, B: Matrix,
 
 
 @instrumented("hesv")
-@single_device("8b")
+@single_device("8b2")
 def hesv(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor, torch.Tensor]:
     """Hermitian-indefinite solve (reference: src/hesv.cc = hetrf +

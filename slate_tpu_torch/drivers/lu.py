@@ -17,15 +17,23 @@ run the ``panel_lu`` kernel on a CUDA device.  ``gecondest`` and
 ``trcondest`` estimate reciprocal condition numbers with the Hager/Higham
 estimator (``internal/norm1est.py``).
 
-The mixed-precision solvers live in ``drivers/mixed.py`` and are
-re-exported here (``gesv_mixed``, ``gesv_mixed_gmres``, and the
-deprecated ``ir_refine_while``); the mesh paths come with ROADMAP.md's
-Queue 1 item 8b (a distributed operand raises until then).
+On a mesh (``on_mesh``) ``getrf`` runs ``parallel/spmd_lu.py`` (partial
+pivoting, or the mesh tournament for CALU / BEAM; the panels through
+``panel_lu``), ``getrs`` permutes B's rows and runs the two
+``spmd_trsm`` pipelines, and ``gesv`` / ``getri`` go through them; what
+does not conform (other tiles, ``Option.UseShardMap`` off, views) is
+gathered and recorded as in the JAX package.  The mixed-precision
+solvers live in ``drivers/mixed.py`` and are re-exported here
+(``gesv_mixed``, ``gesv_mixed_gmres``, and the deprecated
+``ir_refine_while``).  The other drivers here gather a distributed
+operand in the JAX package and raise for one until ROADMAP.md Queue 1
+item 8b2.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -34,15 +42,18 @@ from ..aux import metrics
 from ..aux.metrics import instrumented
 from ..enums import Diag, MethodLU, Norm, Op, Option, Uplo
 from ..exceptions import slate_assert
+from ..internal import fallbacks
 from ..internal.norm1est import rcond
 from ..internal.precision import hdot
-from ..matrix.base import BaseMatrix, single_device
+from ..matrix.base import BaseMatrix, on_mesh, single_device
 from ..matrix.matrix import Matrix, TriangularMatrix
 from ..matgen.philox import random_torch
 from ..ops import lu_kernels
 from ..ops.hopper import panel_kernels as pk
 from ..options import Options, get_option, resolve_schedule_opts
-from ..parallel.layout import TileLayout, tiles_from_global
+from ..parallel import collectives, spmd_lu, spmd_trsm
+from ..parallel.layout import (TileLayout, eye_splice, index_maps, local_tiles_from_global,
+                               tiles_from_global)
 from ..types import Pivots
 from .aux import norm as _norm
 from .chol import _solve_trsm_route
@@ -65,15 +76,14 @@ def _padded_global(A: BaseMatrix, splice_diag: bool = True) -> torch.Tensor:
 def _udiag_info(LU: Matrix, lay: TileLayout) -> torch.Tensor:
     """info: 1 when U's diagonal holds an exact zero or a non-finite
     value, else 0 (int32 on LU's device), by a masked reduction over the
-    tile storage."""
-    dmin = min(lay.m, lay.n)
-    dev = LU.data.device
-    gr = torch.as_tensor(lay.global_rows_np, device=dev)[:, None, :, None]
-    gc = torch.as_tensor(lay.global_cols_np, device=dev)[None, :, None, :]
-    dmask = (gr == gc) & (gr < dmin)
+    tile storage (on a mesh over each block, then the maximum over the
+    ranks: every rank returns the same info)."""
+    gr, gc, _ = index_maps(lay, LU.device, LU.grid)
+    dmask = (gr == gc) & (gr < min(lay.m, lay.n))
     T = LU.data
     bad = (T == 0) | ~torch.isfinite(T)
-    return torch.where((bad & dmask).any(), 1, 0).to(torch.int32)
+    info = torch.where((bad & dmask).any(), 1, 0).to(torch.int32)
+    return collectives.pmax(info, LU.grid) if on_mesh(LU) else info
 
 
 def _method(opts: Optional[Options]) -> MethodLU:
@@ -82,25 +92,41 @@ def _method(opts: Optional[Options]) -> MethodLU:
 
 
 @instrumented("getrf")
-@single_device("8b")
 def getrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Pivots, torch.Tensor]:
     """LU with partial pivoting: P A = L U (reference: src/getrf.cc).
 
     Returns (LU, pivots, info): LU holds unit-lower L below the diagonal
     and U on/above (LAPACK layout); pivots is the net forward row
     permutation over the padded rows; info > 0 flags an exactly singular
-    U diagonal."""
+    U diagonal.  On a mesh with square tiles: ``spmd_lu.spmd_getrf`` or,
+    for CALU / BEAM, ``spmd_lu.spmd_getrf_tntpiv``; other tiles or
+    ``Option.UseShardMap`` off gather (recorded ``getrf`` /
+    ``getrf_tntpiv``, the latter with a warning), as in the JAX package."""
     slate_assert(A.op == Op.NoTrans, "getrf expects a non-transposed view")
     lay = A.layout
+    calu = _method(opts) in (MethodLU.CALU, MethodLU.BEAM)
+    if on_mesh(A):
+        if get_option(opts, Option.UseShardMap) and lay.mb == lay.nb:
+            T = eye_splice(lay, A.data, grid=A.grid)
+            fn = spmd_lu.spmd_getrf_tntpiv if calu else spmd_lu.spmd_getrf
+            Td, perm = fn(A.grid, T, lay)
+            LU = A._with(data=Td)
+            return LU, Pivots(perm), _udiag_info(LU, lay)
+        if calu:
+            warnings.warn("getrf(MethodLU.CALU) on a distributed matrix gathers to a global "
+                          "array (non-square tiles or UseShardMap disabled)", stacklevel=2)
+            fallbacks.record("getrf_tntpiv", opts, "tournament gathers")
+        else:
+            fallbacks.record("getrf", opts, "non-square tiles")
     Gp = _padded_global(A)
-    if _method(opts) in (MethodLU.CALU, MethodLU.BEAM):
+    if calu:
         # tournament pivoting (reference: getrf_tntpiv.cc); BEAM maps to
         # the tournament too
         if metrics.is_on():
             metrics.record_factor_flops("getrf", lu_kernels.tntpiv_schedule_flops(
                 *Gp.shape, lay.nb, m_true=lay.m, n_true=lay.n))
         lu2d, perm = lu_kernels.blocked_getrf_tntpiv(Gp, lay.nb)
-        LU = A._with(data=tiles_from_global(lu2d[: lay.m, : lay.n], lay))
+        LU = A._with(data=local_tiles_from_global(lu2d[: lay.m, : lay.n], lay, A.grid))
         return LU, Pivots(perm), _udiag_info(LU, lay)
     sched, nb_switch, lookahead = resolve_schedule_opts(opts)
     mp, np_ = Gp.shape
@@ -109,7 +135,7 @@ def getrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Pivots, to
         metrics.record_factor_flops("getrf", lu_kernels.getrf_schedule_flops(
             mp, np_, lay.nb, route, nb_switch, lookahead, m_true=lay.m, n_true=lay.n))
     lu2d, perm = lu_kernels.lu_global(Gp, lay.nb, sched, nb_switch, lookahead)
-    LU = A._with(data=tiles_from_global(lu2d[: lay.m, : lay.n], lay))
+    LU = A._with(data=local_tiles_from_global(lu2d[: lay.m, : lay.n], lay, A.grid))
     return LU, Pivots(perm), _udiag_info(LU, lay)
 
 
@@ -149,7 +175,7 @@ def _nopiv_blocked(G: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 @instrumented("getrf_nopiv")
-@single_device("8b")
+@single_device("8b2")
 def getrf_nopiv(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, torch.Tensor]:
     """LU without pivoting (reference: src/getrf_nopiv.cc).  Returns (LU,
     info).  The recursive and pallas routes (``auto`` on a CUDA device at
@@ -170,12 +196,38 @@ def getrf_nopiv(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, torc
     return LU, _udiag_info(LU, lay)
 
 
+def _getrs_spmd_ok(LU: Matrix, pivots: Optional[Pivots], B: Matrix) -> bool:
+    lay, layB = LU.layout, B.layout
+    return (lay.mb == lay.nb == layB.mb
+            and (lay.p, lay.q) == (layB.p, layB.q)
+            and layB.mt == lay.mt
+            and LU.op == Op.NoTrans and B.op == Op.NoTrans
+            and LU.grid == B.grid
+            and (pivots is None or pivots.perm.shape[0] == lay.P * lay.mb))
+
+
 @instrumented("getrs")
-@single_device("8b")
 def getrs(LU: Matrix, pivots: Optional[Pivots], B: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Solve A X = B from getrf factors (reference: src/getrs.cc: rows
-    permuted forward, then the unit-lower and the upper solve)."""
+    permuted forward, then the unit-lower and the upper solve).  On a
+    mesh: ``spmd_trsm.spmd_permute_rows`` and the two ``spmd_trsm_left``
+    pipelines over the LU-packed tiles, no gather; a layout or view that
+    does not conform (or ``Option.UseShardMap`` off) gathers, recorded
+    ``getrs``."""
+    if on_mesh(B) and get_option(opts, Option.UseShardMap) and _getrs_spmd_ok(LU, pivots, B):
+        lay = LU.layout
+        TB = B.data
+        if pivots is not None:
+            TB = spmd_trsm.spmd_permute_rows(B.grid, TB, B.layout, pivots.perm)
+        TT = eye_splice(lay, LU.data, grid=LU.grid)
+        Y = spmd_trsm.spmd_trsm_left(B.grid, TT, lay, TB, B.layout, lower=True, trans=False,
+                                     conj=False, unit_diag=True)
+        X = spmd_trsm.spmd_trsm_left(B.grid, TT, lay, Y, B.layout, lower=False, trans=False,
+                                     conj=False, unit_diag=False)
+        return B._with(data=X)
+    if on_mesh(B):
+        fallbacks.record("getrs", opts, "layout/view not spmd-conformable")
     G = LU.to_global()
     B2 = B.to_global()
     if pivots is not None:
@@ -183,10 +235,10 @@ def getrs(LU: Matrix, pivots: Optional[Pivots], B: Matrix,
         B2 = pivots.apply(B2)[: B.m]
     Y = torch.linalg.solve_triangular(G, B2, upper=False, unitriangular=True)
     X = torch.linalg.solve_triangular(G, Y, upper=True)
-    return B._with(data=tiles_from_global(X.to(B.dtype), B.layout))
+    return B._with(data=local_tiles_from_global(X.to(B.dtype), B.layout, B.grid))
 
 
-@single_device("8b")
+@single_device("8b2")
 def getrs_nopiv(LU: Matrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """(reference: src/getrs_nopiv.cc)"""
     return getrs(LU, None, B, opts)
@@ -209,7 +261,6 @@ def getrs_from_global(LUg: torch.Tensor, Bg: torch.Tensor,
 
 
 @instrumented("gesv")
-@single_device("8b")
 def gesv(A: Matrix, B: Matrix, opts: Optional[Options] = None
          ) -> Tuple[Matrix, Matrix, Pivots, torch.Tensor]:
     """Solve A X = B (reference: src/gesv.cc; MethodLU PartialPiv (the
@@ -225,7 +276,7 @@ def gesv(A: Matrix, B: Matrix, opts: Optional[Options] = None
     return getrs(LU, piv, B, opts), LU, piv, info
 
 
-@single_device("8b")
+@single_device("8b2")
 def gesv_nopiv(A: Matrix, B: Matrix, opts: Optional[Options] = None):
     """(reference: src/gesv_nopiv.cc)"""
     return gesv(A, B, {**(dict(opts) if opts else {}), Option.MethodLU: MethodLU.NoPiv})
@@ -285,7 +336,7 @@ def _gerbt_full(A: Matrix, depth: int, seed: int):
     return Gp, du, dv, n2
 
 
-@single_device("8b")
+@single_device("8b2")
 def gerbt(A: Matrix, depth: int = 2, seed: int = 42, opts: Optional[Options] = None):
     """Two-sided random butterfly transform A' = U^T A V (reference:
     src/gerbt.cc); returns (A', diags_U, diags_V)."""
@@ -295,7 +346,7 @@ def gerbt(A: Matrix, depth: int = 2, seed: int = 42, opts: Optional[Options] = N
 
 
 @instrumented("gesv_rbt")
-@single_device("8b")
+@single_device("8b2")
 def gesv_rbt(A: Matrix, B: Matrix, opts: Optional[Options] = None
              ) -> Tuple[Matrix, Matrix, Pivots, torch.Tensor]:
     """RBT solve: butterfly-randomize, factor without pivoting, solve,
@@ -326,7 +377,6 @@ def gesv_rbt(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("getri")
-@single_device("8b")
 def getri(LU: Matrix, pivots: Pivots, opts: Optional[Options] = None) -> Matrix:
     """Matrix inverse from LU factors (reference: src/getri.cc /
     getriOOP.cc): A^-1 = U^-1 L^-1 P."""
@@ -345,7 +395,7 @@ from ..refine.ir import ir_refine_while  # noqa: E402,F401
 
 
 @instrumented("gecondest")
-@single_device("8b")
+@single_device("8b2")
 def gecondest(LU: Matrix, pivots: Pivots, anorm, norm_type: Norm = Norm.One,
               opts=None) -> torch.Tensor:
     """Reciprocal condition estimate from LU factors (reference:
@@ -370,7 +420,7 @@ def gecondest(LU: Matrix, pivots: Pivots, anorm, norm_type: Norm = Norm.One,
     return rcond(anorm, solve, solve_h, n, LU.dtype, norm_type == Norm.Inf, device=G.device)
 
 
-@single_device("8b")
+@single_device("8b2")
 def trcondest(T: TriangularMatrix, norm_type: Norm = Norm.One, opts=None) -> torch.Tensor:
     """Triangular reciprocal condition estimate (reference:
     src/trcondest.cc, through internal_norm1est.cc): Hager/Higham on

@@ -282,7 +282,7 @@ def _posv_like(routine: str, A: HermitianMatrix, B: Matrix, opts: Optional[Optio
 
 
 @instrumented("gesv_mixed")
-@single_device("8b")
+@single_device("8b2")
 def gesv_mixed(A: Matrix, B: Matrix, opts: Optional[Options] = None
                ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision LU solve with iterative refinement (reference:
@@ -293,7 +293,7 @@ def gesv_mixed(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("gesv_mixed_gmres")
-@single_device("8b")
+@single_device("8b2")
 def gesv_mixed_gmres(A: Matrix, B: Matrix, opts: Optional[Options] = None
                      ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision solve with restarted GMRES-IR, LU preconditioner
@@ -304,7 +304,7 @@ def gesv_mixed_gmres(A: Matrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("posv_mixed")
-@single_device("8b")
+@single_device("8b2")
 def posv_mixed(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
                ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision SPD solve: low-precision Cholesky + working-
@@ -313,7 +313,7 @@ def posv_mixed(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
 
 
 @instrumented("posv_mixed_gmres")
-@single_device("8b")
+@single_device("8b2")
 def posv_mixed_gmres(A: HermitianMatrix, B: Matrix, opts: Optional[Options] = None
                      ) -> Tuple[Matrix, torch.Tensor, int]:
     """Mixed-precision SPD solve with GMRES-IR, low-precision Cholesky

@@ -12,8 +12,12 @@ through the Hopper ``larft`` kernel.  ``gels_solve_from_global`` is the
 solve-only entry point of a factor cache hit over the serve tier's
 packed factor.
 
-Not ported yet: the mesh path (``spmd_qr``, ROADMAP.md Queue 1 item 8b);
-a distributed operand raises.
+On a mesh (``on_mesh``) ``geqrf`` runs ``parallel/spmd_qr.py`` (each
+panel's T through the Hopper ``larft`` kernel on a CUDA device); ``unmqr``
+and ``ungqr`` gather the factor as the JAX package does; ``gels`` solves
+a tall system by them and the mesh ``trsm``.  ``gelqf``, ``unmlq`` and
+``cholqr`` (and so ``gels``'s minimum-norm and CholQR branches) raise for
+a distributed operand until ROADMAP.md Queue 1 item 8b2.
 """
 
 from __future__ import annotations
@@ -27,12 +31,13 @@ from ..aux.metrics import instrumented
 from ..enums import MethodGels, Op, Option, Side, Uplo
 from ..exceptions import slate_assert
 from ..internal.precision import hdot
-from ..matrix.base import BaseMatrix, conj_transpose, single_device
+from ..matrix.base import BaseMatrix, conj_transpose, on_mesh, single_device
 from ..matrix.matrix import HermitianMatrix, Matrix, TriangularMatrix
 from ..ops import qr_fast
 from ..ops.householder import apply_block_reflector, geqrf as _geqrf_kernel, larft, materialize_v
 from ..options import Options, get_option, resolve_schedule_opts
-from ..parallel.layout import TileLayout, tiles_from_global
+from ..parallel import spmd_qr
+from ..parallel.layout import TileLayout, eye_splice, local_tiles_from_global
 from ..types import TriangularFactors
 from . import blas3, chol
 
@@ -51,18 +56,23 @@ def _padded_global_splice(A: BaseMatrix) -> torch.Tensor:
 
 
 @instrumented("geqrf")
-@single_device("8b")
 def geqrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, TriangularFactors]:
     """Householder QR: A = Q R (reference: src/geqrf.cc).
 
     Returns (factored, T): factored stores V below the diagonal and R on
     and above; T holds the per-tile-panel compact-WY factors.  A
-    transposed view factors op(A) (the JAX package raises)."""
+    transposed view factors op(A) (the JAX package raises).  On a mesh:
+    ``spmd_qr.spmd_geqrf``, its T factors the same on every rank, whatever
+    ``Option.UseShardMap`` says (the JAX package gathers without a record
+    when it is off; the port gathers nothing)."""
     A = A.resolved()
     slate_assert(A.layout.mb == A.layout.nb, "geqrf requires square tiles")
     lay = A.layout
     nb = lay.nb
     kt = min(lay.mt, lay.nt)
+    if on_mesh(A):
+        Td, Tstack = spmd_qr.spmd_geqrf(A.grid, eye_splice(lay, A.data, grid=A.grid), lay)
+        return A._with(data=Td), TriangularFactors(Tstack)
     Gp = _padded_global_splice(A)
     mp, npd = Gp.shape
     sched, nb_switch, _ = resolve_schedule_opts(opts)
@@ -84,7 +94,7 @@ def geqrf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     Ts = [larft(materialize_v(vr[:, k * nb:(k + 1) * nb], offset=k * nb),
                 taus[k * nb:(k + 1) * nb]) for k in range(kt)]
     Tstack = torch.stack(Ts) if Ts else vr.new_zeros((0, nb, nb))
-    fac = A._with(data=tiles_from_global(vr[: lay.m, : lay.n], lay))
+    fac = A._with(data=local_tiles_from_global(vr[: lay.m, : lay.n], lay, A.grid))
     return fac, TriangularFactors(Tstack)
 
 
@@ -100,7 +110,6 @@ def _vt_panels(fac: Matrix) -> Iterator[Tuple[int, torch.Tensor]]:
 
 
 @instrumented("unmqr")
-@single_device("8b")
 def unmqr(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Multiply by Q from geqrf (reference: src/unmqr.cc).
@@ -121,10 +130,9 @@ def unmqr(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
         else:
             Tm = Tk.mH if conj_T else Tk
             C2 = C2 - hdot(hdot(hdot(C2, Vk), Tm), Vk.mH)
-    return C._with(data=tiles_from_global(C2.to(C.dtype), C.layout))
+    return C._with(data=local_tiles_from_global(C2.to(C.dtype), C.layout, C.grid))
 
 
-@single_device("8b")
 def ungqr(fac: Matrix, T: TriangularFactors, opts: Optional[Options] = None) -> Matrix:
     """The m x min(m, n) orthogonal factor Q (LAPACK orgqr analogue; the
     reference tester forms Q by unmqr on the identity, test_geqrf.cc)."""
@@ -139,7 +147,7 @@ def _as_matrix(M: BaseMatrix, grid) -> Matrix:
 
 
 @instrumented("gelqf")
-@single_device("8b")
+@single_device("8b2")
 def gelqf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, TriangularFactors]:
     """LQ factorization A = L Q (reference: src/gelqf.cc), as the dual of
     QR on A^H: A^H = Qr R, so A = R^H Qr^H = L Q.
@@ -153,7 +161,7 @@ def gelqf(A: Matrix, opts: Optional[Options] = None) -> Tuple[Matrix, Triangular
     return A._with(data=fac.data, layout=fac.layout), T
 
 
-@single_device("8b")
+@single_device("8b2")
 def unmlq(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
           opts: Optional[Options] = None) -> Matrix:
     """Multiply by Q from gelqf (reference: src/unmlq.cc).  In the dual
@@ -164,7 +172,7 @@ def unmlq(side: Side, op: Op, fac: Matrix, T: TriangularFactors, C: Matrix,
 
 
 @instrumented("cholqr")
-@single_device("8b")
+@single_device("8b2")
 def cholqr(A: Matrix, opts: Optional[Options] = None
            ) -> Tuple[Matrix, TriangularMatrix, torch.Tensor]:
     """Cholesky QR (reference: src/cholqr.cc): H = A^H A by herk, R the
@@ -204,7 +212,6 @@ def gels_solve_from_global(Fg: torch.Tensor, Bg: torch.Tensor, m: int, nb: int) 
 
 
 @instrumented("gels")
-@single_device("8b")
 def gels(A: Matrix, B: Matrix, opts: Optional[Options] = None) -> Matrix:
     """Least squares / minimum-norm solve (reference: src/gels.cc with
     MethodGels QR | CholQR; gels_qr.cc, gels_cholqr.cc).

@@ -196,6 +196,15 @@ def is_distributed(M: BaseMatrix) -> bool:
     return M.grid is not None and M.grid.is_distributed
 
 
+def on_mesh(M: BaseMatrix) -> bool:
+    """True when M lives on a mesh of processes (``ProcessGrid.from_ranks``),
+    a one-process mesh included: the predicate of the mesh branches of
+    trsm, the factorizations and the solves (ROADMAP.md Queue 1 item
+    8b1), which take their SPMD path on every mesh.  (The JAX package and
+    the BLAS3 of item 8a route a one-device grid to the global path.)"""
+    return M.grid is not None and M.grid.is_mesh
+
+
 def refuse_distributed(routine: str, item: str, *mats) -> None:
     """Raise ``DistributedException`` when one of ``mats`` is distributed
     and ``routine``'s mesh path is not ported yet (ROADMAP.md Queue 1

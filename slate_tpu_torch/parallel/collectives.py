@@ -35,7 +35,8 @@ import torch
 from .grid import COL_AXIS, ROW_AXIS, ProcessGrid
 
 __all__ = ["ROW_AXIS", "COL_AXIS", "all_gather", "all_gather_async", "psum", "pmax",
-           "psum_scatter", "gather_blocks", "gather_to_root", "exchange"]
+           "psum_scatter", "owner_bcast", "tile_column", "gather_blocks", "gather_to_root",
+           "exchange"]
 
 
 def _dist():
@@ -117,6 +118,22 @@ def psum_scatter(x: torch.Tensor, grid: ProcessGrid, axis: str, dim: int) -> tor
     out = torch.empty_like(inp[0])
     _dist().reduce_scatter(out, inp, op=_dist().ReduceOp.SUM, group=grid.axis_group(axis))
     return _unwire(out, x.is_complex())
+
+
+def owner_bcast(x: torch.Tensor, own: bool, grid: ProcessGrid, axis: str) -> torch.Tensor:
+    """The owner's x on every rank along ``axis``: a psum of x masked to
+    the owner (``lax.psum(jnp.where(own, x, 0), axis)``)."""
+    return psum(x if own else torch.zeros_like(x), grid, axis)
+
+
+def tile_column(T: torch.Tensor, k: int, grid: ProcessGrid) -> torch.Tensor:
+    """Global tile column k of a storage-order block T on every rank of the
+    mesh: its owner column's tiles gathered along 'q', then every process
+    row's along 'p' (the JAX package's two ``lax.all_gather`` panel
+    gathers) -- (p mtl, mb, nb) in storage tile-row order."""
+    col = all_gather(T[:, k // grid.q], grid, COL_AXIS)[k % grid.q]
+    full = all_gather(col, grid, ROW_AXIS)
+    return full.reshape((-1,) + tuple(full.shape[2:]))
 
 
 def gather_blocks(x: torch.Tensor, grid: ProcessGrid) -> List[List[torch.Tensor]]:

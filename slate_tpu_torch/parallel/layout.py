@@ -258,6 +258,12 @@ def local_tiles(T: torch.Tensor, layout: TileLayout, grid) -> torch.Tensor:
     return local_block(T, layout, r, c).contiguous()
 
 
+def local_tiles_from_global(A: torch.Tensor, layout: TileLayout, grid) -> torch.Tensor:
+    """The (m, n) global A as a matrix on ``grid`` holds its tiles
+    (:func:`tiles_from_global`, then :func:`local_tiles`)."""
+    return local_tiles(tiles_from_global(A, layout), layout, grid)
+
+
 def index_maps(layout: TileLayout, device=None, grid=None):
     """The global row index (S, 1, mb, 1) and column index (1, S', 1, nb)
     of every element of the tiles held, and their valid (non-padding)
@@ -283,12 +289,20 @@ def from_blocks(blocks) -> torch.Tensor:
     return torch.cat([torch.cat(list(row), dim=1) for row in blocks], dim=0)
 
 
-def eye_splice(layout: TileLayout, T: torch.Tensor, scale=1.0) -> torch.Tensor:
+def eye_splice(layout: TileLayout, T: torch.Tensor, scale=1.0, grid=None) -> torch.Tensor:
     """Return T with ``scale`` written on the *padding* diagonal so that
-    factorizations of the padded matrix stay nonsingular."""
-    dev = T.device
-    mask = ~layout.element_mask(dev)
-    gr = torch.as_tensor(layout.global_rows_np, device=dev)[:, None, :, None]
-    gc = torch.as_tensor(layout.global_cols_np, device=dev)[None, :, None, :]
-    diag_pad = mask & (gr == gc)
-    return torch.where(diag_pad, torch.as_tensor(scale, dtype=T.dtype, device=dev), T)
+    factorizations of the padded matrix stay nonsingular.  T is the whole
+    storage, or on a mesh of more than one process ``grid``'s block of it
+    (what :func:`local_tiles` keeps)."""
+    gr, gc, valid = index_maps(layout, T.device, grid)
+    diag_pad = ~valid & (gr == gc)
+    return torch.where(diag_pad, torch.as_tensor(scale, dtype=T.dtype, device=T.device), T)
+
+
+def local_span(lo: int, hi: int, n_axis: int, pos: int, nloc: int) -> Tuple[int, int]:
+    """The local slots [a, b) of a process at ``pos`` along an axis of
+    ``n_axis`` processes whose global tile index l * n_axis + pos lies in
+    [lo, hi) (a contiguous run: the index grows with the slot)."""
+    a = max(0, -(-(lo - pos) // n_axis))
+    b = min(nloc, max(0, -(-(hi - pos) // n_axis)))
+    return a, max(a, b)

@@ -27,7 +27,8 @@ import torch
 from ..aux.metrics import instrumented
 from ..exceptions import DimensionError
 from ..internal.precision import check_f32_precision
-from .collectives import COL_AXIS, ROW_AXIS, all_gather, all_gather_async, psum, psum_scatter
+from .collectives import (COL_AXIS, ROW_AXIS, all_gather, all_gather_async, owner_bcast,
+                          psum_scatter)
 from .grid import ProcessGrid
 from .layout import TileLayout
 
@@ -124,12 +125,6 @@ class _Panels:
     def row(self, k: int) -> torch.Tensor:
         """Tile row k, natural tile-column order: (Q, mb, nb)."""
         return self.second(self.first(k, False), False)()
-
-
-def _owner_bcast(x: torch.Tensor, own: bool, grid: ProcessGrid, axis: str) -> torch.Tensor:
-    """The owner's x on every rank along ``axis``: a psum of x masked to
-    the owner (``lax.psum(jnp.where(own, x, 0), axis)``)."""
-    return psum(x if own else torch.zeros_like(x), grid, axis)
 
 
 @instrumented("spmd.summa_gemm")
@@ -303,11 +298,11 @@ def spmd_trmm(grid: ProcessGrid, side_left: bool, alpha, TA: torch.Tensor, layA:
     for k in range(nt):
         if side_left:  # acc(i, :) += op(A)(gi, k) B(k, :)
             pan = _take(opA_col(k), gi)
-            b_row = _owner_bcast(TB[k // p], r == k % p, grid, ROW_AXIS)
+            b_row = owner_bcast(TB[k // p], r == k % p, grid, ROW_AXIS)
             upd = _einsum("iab,jbc->ijac", pan, b_row, acc_t)
         else:  # acc(:, j) += B(:, k) op(A)(k, gj)
             pan = _take(opA_row(k), gj)
-            b_col = _owner_bcast(TB[:, k // q], c == k % q, grid, COL_AXIS)
+            b_col = owner_bcast(TB[:, k // q], c == k % q, grid, COL_AXIS)
             upd = _einsum("iab,jbc->ijac", b_col, pan, acc_t)
         acc = acc + upd
     return (alpha * acc).to(TB.dtype)
@@ -371,11 +366,11 @@ def spmd_hemm(grid: ProcessGrid, side_left: bool, alpha, TA: torch.Tensor, layA:
     for k in range(nt):
         if side_left:
             a_col = _take(herm_col(k), gi)
-            b_row = _owner_bcast(TB[k // p], r == k % p, grid, ROW_AXIS)
+            b_row = owner_bcast(TB[k // p], r == k % p, grid, ROW_AXIS)
             upd = _einsum("iab,jbc->ijac", a_col, b_row, acc_t)
         else:
             a_row = _take(herm_row(k), gj)
-            b_col = _owner_bcast(TB[:, k // q], c == k % q, grid, COL_AXIS)
+            b_col = owner_bcast(TB[:, k // q], c == k % q, grid, COL_AXIS)
             upd = _einsum("iab,jbc->ijac", b_col, a_row, acc_t)
         acc = acc + upd
     return (alpha * acc + beta * TC.to(acc_t)).to(TC.dtype)

@@ -23,7 +23,7 @@ the elastic capacity plane that sizes its replica pool is
 fleet tier that fronts worker processes is ``slate_tpu_torch.fleet``
 (item 7c3, ``SLATE_TPU_FLEET``; ``serve.get_fleet``).
 
-Not ported yet (ROADMAP.md Queue 1 item 8b): the sharded lane.
+Not ported yet (ROADMAP.md Queue 1 item 8b2): the sharded lane.
 
 Attribute access is lazy (PEP 562): importing ``slate_tpu_torch.serve``
 pulls in no driver until the first request.

@@ -117,7 +117,7 @@ def _build_core(key: BucketKey) -> Callable:
     if key.mesh:
         raise NotImplementedError(
             f"bucket {key.label}: sharded serving needs the distributed drivers "
-            "(ROADMAP.md Queue 1 item 8b)")
+            "(ROADMAP.md Queue 1 item 8b2)")
 
     if key.phase == "solve":
         # trsm-only bucket (the factor cache's hit family): the first

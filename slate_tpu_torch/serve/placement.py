@@ -12,7 +12,7 @@ caller passes it, and a policy with no CUDA device and no explicit
 device raises.  Replica ``i`` pins its dispatches to ``devices[i %
 len(devices)]``: on one H100 every lane pins ``cuda:0``.  A mesh raises
 (sharded serving needs the distributed drivers, ROADMAP.md Queue 1 item
-8b), and :meth:`mesh_for` is always ``""``.
+8b2), and :meth:`mesh_for` is always ``""``.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class PlacementPolicy:
     ----------
     replicas: replica worker count (default 1); with more replicas than
         devices the assignment wraps.
-    mesh: must be ``""`` (a sharded submesh raises: item 8b).
+    mesh: must be ``""`` (a sharded submesh raises: item 8b2).
     shard_threshold: kept for the JAX package's signature.
     strategy: ``"least_loaded"`` (default) or ``"round_robin"``.
     devices: the device pool; default ``[cuda:0]``.
@@ -50,7 +50,7 @@ class PlacementPolicy:
         if check_mesh(mesh):
             raise NotImplementedError(
                 f"serve mesh {mesh!r}: sharded serving needs the distributed "
-                "drivers (ROADMAP.md Queue 1 item 8b)")
+                "drivers (ROADMAP.md Queue 1 item 8b2)")
         if strategy not in (LEAST_LOADED, ROUND_ROBIN):
             raise ValueError(f"unknown placement strategy {strategy!r} "
                              f"({LEAST_LOADED}|{ROUND_ROBIN})")

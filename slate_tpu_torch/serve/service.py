@@ -4,7 +4,7 @@ circuit-breaker recovery, the artifact restore, the integrity plane and
 the admission plane, the device factor arena and, when armed, the
 elastic capacity plane's autoscaler (``slate_tpu_torch.scale``) -- the
 JAX package's ``serve/service.py`` without the sharded lane (ROADMAP.md
-Queue 1 item 8b).
+Queue 1 item 8b2).
 
 Execution model:
 

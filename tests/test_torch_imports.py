@@ -94,6 +94,10 @@ import slate_tpu_torch.parallel.grid
 import slate_tpu_torch.parallel.collectives
 import slate_tpu_torch.parallel.spmd_blas
 import slate_tpu_torch.parallel.spmd_redistribute
+import slate_tpu_torch.parallel.spmd_trsm
+import slate_tpu_torch.parallel.spmd_chol
+import slate_tpu_torch.parallel.spmd_lu
+import slate_tpu_torch.parallel.spmd_qr
 import torch_mesh_pool
 import torch
 assert not torch.cuda.is_initialized()
@@ -156,6 +160,8 @@ def test_no_source_file_imports_jax_or_slate_tpu():
     assert {"fleet/__init__.py", "fleet/wire.py", "fleet/worker.py", "fleet/router.py"} <= names
     assert {"internal/fallbacks.py", "parallel/grid.py", "parallel/collectives.py",
             "parallel/spmd_blas.py", "parallel/spmd_redistribute.py"} <= names
+    assert {"parallel/spmd_trsm.py", "parallel/spmd_chol.py", "parallel/spmd_lu.py",
+            "parallel/spmd_qr.py"} <= names
     # the gloo ranks of the mesh tests import this helper and nothing of JAX
     files.append(REPO / "tests" / "torch_mesh_pool.py")
     for f in files:

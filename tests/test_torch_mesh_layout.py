@@ -5,8 +5,9 @@
 
 The port's side of ``tests/test_layout.py`` (its six tests, with their
 parameters), the grid orders, the constructor's refusals and the
-distributed operands the drivers refuse (trsm and the factorizations,
-naming ROADMAP.md Queue 1 item 8b / 8c).  The same seeded numpy operands
+distributed operands the drivers refuse (the band, indefinite, mixed and
+remaining dense drivers, the eigensolvers and the SVD, naming ROADMAP.md
+Queue 1 item 8b2 / 8c).  The same seeded numpy operands
 go to the JAX package and to a pool of 8 gloo ranks
 (``torch_mesh_pool``); every rank's block must be the JAX package's
 shard of the same mesh position, bit for bit."""
@@ -205,21 +206,20 @@ def test_grid_constructor_refusals(pool, devices):
 
 
 @pytest.mark.parametrize("routine,item", [
-    ("blas3.trsm", "8b"), ("chol.potrf", "8b"), ("lu.getrf", "8b"), ("chol.posv", "8b"),
-    ("qr.gels", "8b"), ("eig.heev", "8c"), ("svd.svd", "8c"),
+    ("band.pbsv", "8b2"), ("indefinite.hesv", "8b2"), ("mixed.gesv_mixed", "8b2"),
+    ("lu.getrf_nopiv", "8b2"), ("qr.gelqf", "8b2"), ("eig.heev", "8c"), ("svd.svd", "8c"),
 ])
 def test_distributed_operands_raise_naming_the_item(pool, routine, item):
-    """trsm, the factorizations and the solves refuse a distributed
+    """The drivers whose mesh paths are not ported refuse a distributed
     operand with DistributedException naming the Queue 1 item; none
-    gathers it."""
+    gathers it (trsm, the factorizations and their solves take their mesh
+    paths: tests/test_torch_spmd_*.py)."""
     n = 32
     a = np.tril(np.random.default_rng(1).standard_normal((n, n))) + n * np.eye(n)
-    kind = {"blas3.trsm": "TriangularMatrix", "chol.potrf": "HermitianMatrix",
-            "chol.posv": "HermitianMatrix", "eig.heev": "HermitianMatrix"}.get(routine, "Matrix")
-    args = [("Matrix", a @ a.T, 8, None, {}) if kind == "Matrix" else (kind, a @ a.T, 8, None, {})]
-    if routine == "blas3.trsm":
-        args = ["Left", 1.0, (kind, a, 8, None, {}), ("Matrix", a[:, :4], 8, None, {})]
-    elif routine in ("chol.posv", "qr.gels"):
+    kind = {"band.pbsv": "HermitianMatrix", "indefinite.hesv": "HermitianMatrix",
+            "eig.heev": "HermitianMatrix"}.get(routine, "Matrix")
+    args = [(kind, a @ a.T, 8, None, {})]
+    if routine in ("band.pbsv", "indefinite.hesv", "mixed.gesv_mixed"):
         args.append(("Matrix", a[:, :4], 8, None, {}))
     got = [x for x in pool.run("raises", grid=(2, 2, "Col", 4), routine=routine, args=args)
            if x is not None]

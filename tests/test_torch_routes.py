@@ -156,3 +156,50 @@ def test_apply_butterfly_takes_the_wrapper_for_real_dtypes(monkeypatch):
     monkeypatch.setattr(pk, "butterfly_level", _raise)
     with pytest.raises(AssertionError, match="wrapper was called"):
         tlu._apply_butterfly(X, D, transpose=True)
+
+
+# -- the mesh factorizations' tile and panel routes (spmd_chol, spmd_lu,
+#    spmd_qr); their reach through the SPMD bodies is counted in
+#    tests/test_torch_spmd_factor.py::test_spmd_bodies_reach_the_kernel_routes
+
+
+@pytest.mark.parametrize("sched", ["auto", "flat", "recursive", "pallas"])
+@pytest.mark.parametrize("dtype", REAL + COMPLEX)
+def test_spmd_chol_tile_route(dtype, sched):
+    """The mesh Cholesky's diagonal tile: the hand-kernel family for a
+    float32/float64 tile on a CUDA device, the library on the CPU and for
+    complex tiles; a schedule family the caller names wins (``pallas``
+    of a complex tile runs as ``recursive`` inside ``cholesky``)."""
+    from slate_tpu_torch.parallel import spmd_chol
+
+    auto_cuda = "pallas" if dtype in REAL else "vendor"
+    want_cuda = auto_cuda if sched == "auto" else sched
+    assert spmd_chol.tile_route(dtype, "cuda", sched) == want_cuda
+    assert spmd_chol.tile_route(dtype, "cpu", sched) == ("vendor" if sched == "auto" else sched)
+
+
+@pytest.mark.parametrize("dtype", REAL + COMPLEX)
+def test_spmd_lu_and_qr_panel_routes(dtype):
+    """The mesh LU's panels go through ``lu_kernels._panel_route`` and the
+    mesh QR's T through ``spmd_qr.larft_route``: the ``panel_lu`` and
+    ``larft`` wrappers on a CUDA device for a dtype they take, the plain
+    versions for complex; on the CPU the wrappers, which run their plain
+    versions there."""
+    from slate_tpu_torch.parallel import spmd_qr
+    from slate_tpu_torch.ops import householder
+
+    real = dtype in REAL
+    assert tlk._panel_route(dtype, "cuda") is (pk.panel_lu if real else pk.panel_lu_plain)
+    assert spmd_qr.larft_route(dtype, "cuda") is (pk.larft if real else householder.larft)
+    assert tlk._panel_route(dtype, "cpu") is pk.panel_lu
+    assert spmd_qr.larft_route(dtype, "cpu") is pk.larft
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rows", [512, 16384, 32768])
+def test_panel_lu_plan_fits_the_mesh_panels(rows, itemsize):
+    """The mesh LU's widest panels, (m - k 512, 512) up to 16384 rows (and
+    32768), fit one cooperative panel_lu launch on an H100 (132 SMs, the
+    227 KiB a block may use): no split of the panel is needed."""
+    plan = pk.panel_lu_plan(rows, 512, itemsize, 132, pk._MAX_SMEM)
+    assert plan.grid * plan.rows >= rows and plan.strip >= 1

@@ -192,8 +192,13 @@ def _opts(opts):
         return None
     out = {}
     for k, v in opts.items():
+        if k not in stt.Option.__members__:  # a string key, as a user may give it
+            out[k] = v
+            continue
         key = stt.Option[k]
-        out[key] = stt.MethodGemm[v] if key == stt.Option.MethodGemm else v
+        enum = {stt.Option.MethodGemm: stt.MethodGemm, stt.Option.MethodLU: stt.MethodLU,
+                stt.Option.MethodGels: stt.MethodGels}.get(key)
+        out[key] = enum[v] if enum is not None else v
     return out
 
 
@@ -353,6 +358,158 @@ def case_print(grid, spec, verbose=4):
     from slate_tpu_torch.drivers import aux
 
     return aux.print_matrix("A", _mat(grid, spec), verbose=verbose)
+
+
+def _packed(x):
+    """A driver's output made numpy: a matrix gathered (collective) with
+    its layout and block shape, pivots as their perm, T factors as their
+    stack, tensors as arrays; tuples item by item."""
+    import torch
+
+    from slate_tpu_torch.matrix.base import BaseMatrix
+    from slate_tpu_torch.types import Pivots, TriangularFactors
+
+    if isinstance(x, tuple):
+        return tuple(_packed(v) for v in x)
+    if isinstance(x, BaseMatrix):
+        lay = x.layout
+        return {"global": x.to_global().resolve_conj().numpy(),
+                "layout": (lay.m, lay.n, lay.mb, lay.nb, lay.p, lay.q),
+                "local_shape": tuple(x.data.shape), "uplo": x.uplo.name}
+    if isinstance(x, Pivots):
+        return {"perm": x.perm.numpy()}
+    if isinstance(x, TriangularFactors):
+        return {"T": x.T.resolve_conj().numpy()}
+    if isinstance(x, torch.Tensor):
+        return x.resolve_conj().numpy()
+    return x
+
+
+def case_driver(grid, routine, args, opts=None, patch=(), calls=()):
+    """``routine`` (module.name of ``slate_tpu_torch.drivers``) on the mesh:
+    ``args`` mixes scalars, side names and matrix specs.  Returns its
+    packed output, the fallback tally, the texts of the warnings it gave
+    and how often each ``calls`` entry (module.name of
+    ``slate_tpu_torch.parallel``) ran; ``patch`` names methods made to
+    raise for the call (a gather the mesh path must not make)."""
+    import importlib
+    import warnings
+
+    from slate_tpu_torch.enums import Side
+    from slate_tpu_torch.internal import fallbacks
+    from slate_tpu_torch.matrix.base import BaseMatrix
+    from slate_tpu_torch.matrix.matrix import HermitianMatrix
+
+    mod, name = routine.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"slate_tpu_torch.drivers.{mod}"), name)
+    call = [(_mat(grid, a) if isinstance(a, tuple) and a and a[0] in _kinds()
+             else Side[a] if a in ("Left", "Right") else a) for a in args]
+    fallbacks.reset()
+    saved, counts = [], {c: 0 for c in calls}
+    for owner, attr in patch:
+        cls = {"BaseMatrix": BaseMatrix, "HermitianMatrix": HermitianMatrix}[owner]
+        saved.append((cls, attr, cls.__dict__[attr]))
+
+        def boom(self, *a, _name=attr, **kw):
+            raise AssertionError(f"{_name} called on the mesh path")
+
+        setattr(cls, attr, boom)
+    for c in calls:
+        m, f = c.rsplit(".", 1)
+        target = importlib.import_module(f"slate_tpu_torch.parallel.{m}")
+        orig = getattr(target, f)
+
+        def counting(*a, _c=c, _orig=orig, **kw):
+            counts[_c] += 1
+            return _orig(*a, **kw)
+
+        saved.append((target, f, orig))
+        setattr(target, f, counting)
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            out = fn(*call, opts=_opts(opts))
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+    return {"out": _packed(out), "fallbacks": fallbacks.counters(),
+            "warnings": [str(w.message) for w in got], "calls": counts}
+
+
+def case_factor_then(grid, spec, factor, then, opts=None):
+    """``then`` applied to the factors of ``factor`` (both module.name of
+    ``slate_tpu_torch.drivers``) of the matrix ``spec`` on the mesh, e.g.
+    ``lu.getri`` of ``lu.getrf``'s (LU, pivots) or ``qr.ungqr`` of
+    ``qr.geqrf``'s (factor, T); returns the packed result."""
+    import importlib
+
+    def fn(name):
+        mod, attr = name.rsplit(".", 1)
+        return getattr(importlib.import_module(f"slate_tpu_torch.drivers.{mod}"), attr)
+
+    out = fn(factor)(_mat(grid, spec), opts=_opts(opts))
+    n_args = {"lu.getri": 2, "qr.ungqr": 2}[then]
+    return _packed(fn(then)(*out[:n_args]))
+
+
+KERNELS = ("chol_base", "syrk_diag", "gemm_sub", "panel_lu", "larft")
+
+
+def case_kernel_reach(grid, a, spd, nb, opts=None):
+    """The calls of the kernel wrappers (``KERNELS``) that ``potrf`` (of
+    ``spd``), ``getrf``, CALU ``getrf`` and ``geqrf`` (of ``a``) make on the
+    mesh with the tile and panel resolvers answering as on a CUDA device
+    (the wrappers run their plain versions on the CPU)."""
+    from slate_tpu_torch import HermitianMatrix, Matrix, MethodLU, Option
+    from slate_tpu_torch.drivers import chol, lu, qr
+    from slate_tpu_torch.ops import lu_kernels
+    from slate_tpu_torch.ops.hopper import panel_kernels as pk
+    from slate_tpu_torch.parallel import spmd_chol, spmd_qr
+
+    counts = dict.fromkeys(KERNELS, 0)
+    saved = []
+    for k in KERNELS:
+        def counting(*args, _k=k, _orig=getattr(pk, k), **kw):
+            counts[_k] += 1
+            return _orig(*args, **kw)
+
+        saved.append((pk, k, getattr(pk, k)))
+        setattr(pk, k, counting)
+    for owner, name in ((spmd_chol, "tile_route"), (lu_kernels, "_panel_route"),
+                        (spmd_qr, "larft_route")):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, lambda dtype, device, *rest, _orig=getattr(owner, name):
+                _orig(dtype, "cuda", *rest))
+    opts = _opts(opts) or {}
+    calls = {
+        "potrf": lambda: chol.potrf(HermitianMatrix.from_global(spd, nb, grid=grid), opts),
+        "getrf": lambda: lu.getrf(Matrix.from_global(a, nb, grid=grid), opts),
+        "calu": lambda: lu.getrf(Matrix.from_global(a, nb, grid=grid),
+                                 {**opts, Option.MethodLU: MethodLU.CALU}),
+        "geqrf": lambda: qr.geqrf(Matrix.from_global(a, nb, grid=grid), opts),
+    }
+    out = {}
+    try:
+        for label, call in calls.items():
+            counts.update(dict.fromkeys(KERNELS, 0))
+            call()
+            out[label] = dict(counts)
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+    return out
+
+
+def case_permute_rows(grid, b, nb, perm):
+    """``spmd_trsm.spmd_permute_rows`` of B (``b`` tiled nb) by ``perm``."""
+    import torch
+
+    from slate_tpu_torch.parallel import spmd_trsm
+
+    B = _mat(grid, ("Matrix", b, nb, None, {}))
+    out = spmd_trsm.spmd_permute_rows(grid, B.data, B.layout,
+                                      torch.as_tensor(perm, dtype=torch.int32))
+    return B._with(data=out).to_global().numpy()
 
 
 CASES = {name[5:]: fn for name, fn in list(globals().items()) if name.startswith("case_")}
